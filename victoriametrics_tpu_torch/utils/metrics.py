@@ -1,0 +1,133 @@
+"""Minimal process-wide self-metrics registry.
+
+The port keeps the JAX package's metric names
+(``vm_device_bytes_{uploaded,downloaded}_total``,
+``vm_tpu_kernel_duration_seconds{kernel,phase}``, ``vm_device_window_*``,
+``vm_cache_*{type="tpu/tile_cache"}``) so dashboards read both engines the
+same way.  This is the small subset of ``victoriametrics_tpu/utils/
+metrics.py`` the device engine needs: counters, gauges with a callback,
+and histograms reduced to their ``_sum``/``_count`` pair.  Metrics are
+keyed by their full name including labels.
+"""
+
+from __future__ import annotations
+
+import threading
+
+
+def escape_label_value(v: str) -> str:
+    """Prometheus text-format label-value escaping (backslash, quote, LF)."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def format_name(base: str, labels: dict | None = None) -> str:
+    """``format_name("m", {"a": "b"})`` -> ``m{a="b"}`` with values
+    escaped; labels render in insertion order."""
+    if not labels:
+        return base
+    inner = ",".join(f'{k}="{escape_label_value(v)}"'
+                     for k, v in labels.items())
+    return f"{base}{{{inner}}}"
+
+
+class Counter:
+    """Monotonic counter."""
+
+    __slots__ = ("name", "_lock", "_v")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._v = 0
+
+    def inc(self, n=1) -> None:
+        with self._lock:
+            self._v += n
+
+    def get(self):
+        with self._lock:
+            return self._v
+
+
+class Gauge:
+    """Instantaneous value read from a callback at exposition time."""
+
+    __slots__ = ("name", "callback")
+
+    def __init__(self, name: str, callback):
+        self.name = name
+        self.callback = callback
+
+    def get(self) -> float:
+        return float(self.callback())
+
+
+class Histogram:
+    """Sum and count of observed values (NaN and negatives skipped)."""
+
+    __slots__ = ("name", "_lock", "_sum", "_count")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._sum = 0.0
+        self._count = 0
+
+    def update(self, v: float) -> None:
+        if not v >= 0:
+            return
+        with self._lock:
+            self._sum += v
+            self._count += 1
+
+    def get_count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def get_sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+
+class MetricsRegistry:
+    """Name -> metric map; creating an existing name returns the same
+    object, so modules may register at import time."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: dict[str, object] = {}
+
+    def _get_or_create(self, name: str, make):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = make()
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get_or_create(name, lambda: Counter(name))
+
+    def gauge(self, name: str, callback) -> Gauge:
+        return self._get_or_create(name, lambda: Gauge(name, callback))
+
+    def histogram(self, name: str) -> Histogram:
+        return self._get_or_create(name, lambda: Histogram(name))
+
+    def snapshot(self) -> dict[str, float]:
+        """{name: value} for counters and gauges; histograms contribute
+        ``<name>_sum`` and ``<name>_count``."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out: dict[str, float] = {}
+        for name, m in items:
+            if isinstance(m, Histogram):
+                base, brace, labels = name.partition("{")
+                out[f"{base}_sum{brace}{labels}"] = m.get_sum()
+                out[f"{base}_count{brace}{labels}"] = m.get_count()
+            else:
+                out[name] = m.get()
+        return out
+
+
+REGISTRY = MetricsRegistry()
