@@ -21,7 +21,11 @@ each printing one JSON line:
               a cold rebuild at rtol 1e-12
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
-              query, checked against the plain version in row chunks
+              query with its own launch counts; K1 and K2 are checked
+              against their plain versions in row chunks
+  uploads     (inside kernels and full_width) both host->device paths of
+              the tile cache, pinned-staged and direct, timed on a
+              refresh's new columns and on cold delta planes
 
 Then one JSON line summarising every kernel, the card's name and power
 limit as nvidia-smi reports them, and the last line
@@ -192,7 +196,8 @@ def counters(rng, S: int, N: int, t0: int):
 def ragged_series(rng):
     """Edge-case rows: single sample, two samples, everything before the
     range, sparse gaps, counter resets, a reset to a negative value, a NaN
-    sample, plus ordinary counters and gauges."""
+    sample, a counter starting at -0.0, plus ordinary counters and
+    gauges."""
     out = []
     for i in range(40):
         n = int(rng.integers(3, 200))
@@ -217,6 +222,9 @@ def ragged_series(rng):
     ts = T_START + np.arange(150, dtype=np.int64) * SCRAPE
     v = np.cumsum(rng.integers(0, 50, 150)).astype(np.float64)
     v[90] = np.nan
+    out.append((ts, v))
+    v = np.cumsum(rng.integers(0, 50, 150)).astype(np.float64)
+    v[:3] = -0.0
     out.append((ts, v))
     return out
 
@@ -339,6 +347,33 @@ class SynthStorage:
                 for i in range(self.ts.shape[0]) if b[i] > a[i]]
 
 
+def upload_paths(what: str, arrays, dev, reps: int = 5) -> dict:
+    """Host wall ms to put `arrays` on the card through each of the tile
+    cache's two paths, pinned-staged and direct: medians of `reps`
+    alternating rounds after one checked warm-up round each."""
+    paths = {"staged": tile_cache.staged_put, "direct": tile_cache.direct_put}
+
+    def put_all(put):
+        t0 = time.perf_counter()
+        out = [put(a, dev) for a in arrays]
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, out
+
+    for name, put in paths.items():
+        for a, t in zip(arrays, put_all(put)[1]):
+            if not torch.equal(t.cpu(), torch.from_numpy(a)):
+                raise AssertionError(f"{what}: {name} upload differs")
+    times = {name: [] for name in paths}
+    for _ in range(reps):
+        for name, put in paths.items():
+            times[name].append(put_all(put)[0])
+    return {"what": what, "arrays": len(arrays),
+            "bytes": int(sum(a.nbytes for a in arrays)),
+            "largest_array_bytes": int(max(a.nbytes for a in arrays)),
+            **{f"{name}_ms": float(np.median(t)) * 1e3
+               for name, t in times.items()}}
+
+
 # ---------------------------------------------------------------------------
 # Phases.
 # ---------------------------------------------------------------------------
@@ -393,6 +428,22 @@ def phase_kernels(rng, dev) -> dict:
     err2 = aggr_close("K2 dashboard", "sum", out, k2_plain())
     if not bool(torch.isfinite(out).all()):
         raise AssertionError("K2 dashboard: non-finite group rates")
+    # the same tile with a counter reset halfway along every 64th row and
+    # a -0.0 on row 1: those rows take K2's scratch path, the rest read
+    # the values directly
+    rows = torch.arange(0, DASH_SERIES, 64, device=dev)
+    mid = (counts[rows].long() // 2)[:, None]
+    cols = torch.arange(n_cap, device=dev)[None, :]
+    v_reset = v_t.clone()
+    v_reset[rows] = torch.where(cols >= mid, v_t[rows] - v_t[rows].gather(
+        1, mid), v_t[rows])
+    v_reset[1, 0] = -0.0
+    k2_resets = lambda: dr.rollup_aggregate_tile(  # noqa: E731
+        "rate", "sum", ts_t, v_reset, counts, groups, cfg)
+    err2 = max(err2, aggr_close(
+        "K2 dashboard with resets", "sum", k2_resets(),
+        dr.rollup_aggregate_tile_plain("rate", "sum", ts_t, v_reset, counts,
+                                       groups, cfg)))
     roll = (SCRAPE, -(WINDOW + LOOKBACK_DELTA))
     err2 = max(err2, aggr_close(
         "K2 dashboard rolling", "sum",
@@ -425,6 +476,7 @@ def phase_kernels(rng, dev) -> dict:
     n_valid = int(counts.sum())
     res["rollup_aggregate_tile"] = dict(
         max_abs_err=err2, ms=cuda_ms(k2), plain_ms=cuda_ms(k2_plain, reps=3),
+        ms_with_resets=cuda_ms(k2_resets),
         bytes=n_valid * 12 + DASH_SERIES * 12 + DASH_GROUPS * T * 8,
         ops=15 * DASH_SERIES * T)
 
@@ -468,13 +520,25 @@ def phase_kernels(rng, dev) -> dict:
     dr.append_tile_plain(*b, new_ts, new_vals, enc)
     for g, w, what in zip(a, b, ("ts", "values", "counts")):
         assert_equal(f"K3 edge {what}", g, w)
+    # bytes the function needs: each live new sample read and written
+    # (12 B each way), counts read and written, new_counts read; the padded
+    # columns past new_counts are never touched
+    n_new = int(new_counts.sum())
     res["append_tile"] = dict(
         max_abs_err=0.0, ms=cuda_ms(k3, setup=fresh),
         plain_ms=cuda_ms(lambda: dr.append_tile_plain(
             bufs["ts"], bufs["v"], bufs["c"], new_ts, new_vals, new_counts),
             setup=fresh),
-        bytes=DASH_SERIES * (K * 12 + 4 + 4) + DASH_SERIES * (12 + 4),
-        ops=DASH_SERIES * K)
+        bytes=n_new * 12 * 2 + DASH_SERIES * 12, ops=n_new)
+
+    uploads = [
+        upload_paths("refresh_columns", [new_ts.cpu().numpy(),
+                                         new_vals.cpu().numpy(),
+                                         new_counts.cpu().numpy()], dev),
+        upload_paths("dashboard_planes", [
+            getattr(planes, f) for f in ("ts_first", "ts_fdelta", "ts_d2",
+                                         "val_first", "val_fdelta", "val_d2",
+                                         "scale", "counts")], dev)]
 
     # K4: the resume refresh's slide (drops ~105 minutes of samples)
     cutoff = 420 * SCRAPE + 45_000
@@ -483,13 +547,20 @@ def phase_kernels(rng, dev) -> dict:
         w = dr.compact_tile_plain(ts_t, v_t, counts, c, c)
         for x, y, what in zip(g, w, ("ts", "values", "counts")):
             assert_equal(f"K4 {what} cutoff {c}", x, y)
+    # bytes the function needs: each survivor read (12 B), only the
+    # timestamp of each dropped sample (4 B), the whole [S, N] output
+    # written (12 B per column), counts read and written
+    survivors = int(dr.compact_tile_plain(ts_t, v_t, counts, cutoff,
+                                          cutoff)[2].sum())
+    dropped = n_valid - survivors
     res["compact_tile"] = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: dr.compact_tile(ts_t, v_t, counts, cutoff,
                                            cutoff)),
         plain_ms=cuda_ms(lambda: dr.compact_tile_plain(ts_t, v_t, counts,
                                                        cutoff, cutoff)),
-        bytes=n_valid * 12 + DASH_SERIES * 8 + DASH_SERIES * n_cap * 12,
+        bytes=survivors * 12 + dropped * 4 + DASH_SERIES * n_cap * 12 +
+        DASH_SERIES * 8,
         ops=DASH_SERIES * n_cap)
     for r in res.values():
         r["bound_ms"] = max(r["bytes"] / MEM_BYTES_PER_S,
@@ -499,10 +570,7 @@ def phase_kernels(rng, dev) -> dict:
     emit({"phase": "kernels", "ok": True,
           "shapes": {"series": DASH_SERIES, "tile_cols": n_cap,
                      "steps": T, "groups": DASH_GROUPS},
-          "kernels": {k: {"max_abs_err": v["max_abs_err"], "ms": v["ms"],
-                          "plain_ms": v["plain_ms"],
-                          "bound_ms": v["bound_ms"]}
-                      for k, v in res.items()}})
+          "kernels": res, "uploads": uploads})
     return res
 
 
@@ -657,18 +725,50 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     key = ("full_width",)
     up0 = tile_cache.bytes_uploaded()
     torch.cuda.reset_peak_memory_stats(dev)
+    # keep the planes the engine hands K1, to hold K1 against its plain
+    # version afterwards (the wrapper itself runs and counts as always)
+    planes = []
+    decode = dd.decode_tiles
+
+    def decode_tap(*a):
+        planes.append(a)
+        return decode(*a)
+
+    dd.decode_tiles = decode_tap
     snap = split_snapshot()
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    out = ce.try_aggr_rollup(engine, "sum", "rate", series, gids, G, cfg,
-                             cache_key=key)
+    try:
+        out = ce.try_aggr_rollup(engine, "sum", "rate", series, gids, G, cfg,
+                                 cache_key=key)
+    finally:
+        dd.decode_tiles = decode
     total = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES.get(name, 0) for name in SOURCES}
     split = split_ms(snap, split_snapshot(), total)
+    peak = torch.cuda.max_memory_allocated(dev)
     T = dr.num_steps(cfg)
     if out is None or out.shape != (G, T):
         raise AssertionError("full width: wrong result shape")
     if not np.isfinite(out[:, WINDOW // FULL_STEP + 1:]).all():
         raise AssertionError("full width: non-finite group rates")
+    if launches["decode_tiles"] < 1 or launches["rollup_aggregate_tile"] < 1:
+        raise AssertionError(f"full width: K1/K2 not launched: {launches}")
     ts_t, v_t, counts = engine.cache().get(key)
+    # K1 against its plain version, bit for bit, in row chunks
+    args, n_cap = planes[0][:8], planes[0][8]
+    chunk = 4096
+    for r0 in range(0, S, chunk):
+        w_ts, w_v = dd.decode_tiles_plain(
+            *(a[r0:r0 + chunk] for a in args), n_cap)
+        assert_equal(f"full width K1 ts rows {r0}+", ts_t[r0:r0 + chunk],
+                     w_ts)
+        assert_equal(f"full width K1 values rows {r0}+", v_t[r0:r0 + chunk],
+                     w_v)
+        del w_ts, w_v
+    uploads = upload_paths(
+        "full_width_planes", [a.cpu().numpy() for a in args], dev, reps=3)
+    del planes, args
     groups = dr.group_layout(gids, G, dev)
     ncfg = dr.normalized_cfg("rate", cfg)
     k2_ms = cuda_ms(lambda: dr.rollup_aggregate_tile(
@@ -676,7 +776,6 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     # plain version in row chunks: per-chunk rollup, summed by group
     cnt = torch.zeros((G, T), dtype=torch.float64, device=dev)
     s1 = torch.zeros_like(cnt)
-    chunk = 4096
     for r0 in range(0, S, chunk):
         sl = slice(r0, r0 + chunk)
         rolled = dr.rollup_tile("rate", ts_t[sl], v_t[sl], counts[sl], ncfg)
@@ -697,8 +796,9 @@ def phase_full_width(rng, dev, hours: float) -> dict:
            "k2_event_ms": k2_ms,
            "k2_bound_ms": (int(counts.sum()) * 12 + S * 12 + G * T * 8) /
            MEM_BYTES_PER_S * 1e3,
-           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
-           "max_abs_err_vs_plain": err}
+           "peak_device_bytes": peak, "launches": launches,
+           "k1_bitwise_vs_plain": True, "max_abs_err_vs_plain": err,
+           "uploads": uploads}
     emit(res)
     return res
 

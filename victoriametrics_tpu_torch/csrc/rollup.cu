@@ -9,11 +9,20 @@
 // Here each (series, step) finds its window by binary search on the
 // sorted row and reads the few samples it needs directly.
 //
-// Two launches:
-//  1. rollup_prep, one warp per row: the reset-corrected counter cv
-//     (device_rollup.py:_remove_counter_resets), its running maximum cmax,
-//     and the row's maxPrevInterval mpi (_max_prev_interval_tile).
-//  2. rollup_groups, one block per (group, 128-step tile), one thread per
+// Two or three launches:
+//  1. rollup_scan, one warp per row: the row's maxPrevInterval mpi
+//     (_max_prev_interval_tile), and whether the row is regular: no NaN,
+//     no -0.0 and no decrease on its valid prefix.  On a regular row the
+//     reset-corrected counter cv (_remove_counter_resets) and its running
+//     maximum cmax both equal the values themselves, so the group pass
+//     reads the tile's values directly.  Each irregular row takes a slot
+//     (an atomic counter; slots only address scratch, so their order does
+//     not reach the result).
+//  2. rollup_prep, only when some row is irregular: one warp per irregular
+//     row writes cv and cmax into its slot of an [irregular rows, N]
+//     scratch pair.  Clean counters need no scratch at all; a row with a
+//     reset or a NaN costs 16 B per column.
+//  3. rollup_groups, one block per (group, 128-step tile), one thread per
 //     step: loops over the group's member rows in ascending row order (a
 //     stable sort of the group ids, computed once per tile by the caller),
 //     evaluates the series value with the reference's formulas and
@@ -29,6 +38,8 @@
 //    window) is a loop over the window's samples.
 //  * jnp.max / jnp.min propagate NaN where CUDA's fmax / fmin drop it:
 //    nan_max / nan_min below propagate.
+//  * cv is values + (prefix sum of drops), which turns -0.0 into +0.0; a
+//    row holding -0.0 is therefore irregular and goes through the scratch.
 //  * mpi is float32 arithmetic in the reference: 0.6 * (n - 1) in float64
 //    cast to float32, a float32 quantile interpolation, truncation to
 //    int32, then the int32 jitter table.  The library is built with
@@ -38,12 +49,12 @@
 //    ts - shift.
 //
 // Bound: bytes.  The function must read each valid sample's timestamp and
-// value once (12 B/sample) and write [G, T] float64.  The prep pass reads
-// the tile once and writes cv and cmax (16 B/sample); the group pass reads
-// about 2 log2(N) + window timestamps and values per (series, step) from
-// L1/L2, since a block's 128 threads walk the same row.  The design keeps
-// every intermediate of the [S, T] rollup in registers; its distance from
-// the byte bound is recorded in PERF.md.
+// value once (12 B/sample) and write [G, T] float64.  The scan pass reads
+// the values once (8 B/sample) and writes nothing per sample on regular
+// rows; the group pass reads about 2 log2(N) + window timestamps and values
+// per (series, step) from L1/L2, since a block's 128 threads walk the same
+// row.  The design keeps every intermediate of the [S, T] rollup in
+// registers; its distance from the byte bound is recorded in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +65,8 @@ namespace {
 constexpr int kPrepThreads = 256;
 constexpr int kGroupThreads = 128;
 constexpr int32_t kI32Min = -2147483647 - 1;
+constexpr long long kNegZeroBits =
+    static_cast<long long>(0x8000000000000000ULL);
 
 enum Func { kRate = 0, kIncrease = 1, kIncreasePure = 2, kIrate = 3 };
 enum Aggr {
@@ -81,13 +94,22 @@ __device__ __forceinline__ int32_t shifted(int32_t t, int32_t shift) {
                               static_cast<uint32_t>(shift));
 }
 
-// One warp per row: cv, cmax over the row's valid prefix, and mpi.
+// True when a value breaks regularity: NaN, -0.0, or below its
+// predecessor (a counter reset).
+__device__ __forceinline__ bool irregular_at(const double* __restrict__ vrow,
+                                             int i) {
+  const double v = vrow[i];
+  if (v != v || __double_as_longlong(v) == kNegZeroBits) return true;
+  return i >= 1 && v < vrow[i - 1];
+}
+
+// One warp per row: regularity (slot -1, or a scratch slot) and mpi.
 __global__ void __launch_bounds__(kPrepThreads)
-rollup_prep(const int32_t* __restrict__ ts, const double* __restrict__ vals,
+rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
             const int32_t* __restrict__ counts, long long S, int N,
             int32_t shift, int32_t min_ts, int32_t step, int instant,
-            double* __restrict__ cv, double* __restrict__ cmax,
-            int32_t* __restrict__ mpi) {
+            int32_t* __restrict__ mpi, int32_t* __restrict__ slots,
+            int32_t* __restrict__ n_irregular) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
       (threadIdx.x >> 5);
@@ -98,38 +120,13 @@ rollup_prep(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   const long long off = row * static_cast<long long>(N);
   const int32_t* trow = ts + off;
   const double* vrow = vals + off;
-  double carry_sum = 0.0;
-  double carry_max = -INFINITY;
-  for (int base = 0; base < c; base += 32) {
+  bool irregular = false;
+  for (int base = 0; base < c && !irregular; base += 32) {
     const int i = base + lane;
-    double v = 0.0, drop = 0.0;
-    if (i < c) {
-      v = vrow[i];
-      if (i >= 1) {
-        const double prev = vrow[i - 1];
-        if (v < prev) drop = (prev - v) * 8.0 < prev ? prev - v : prev;
-      }
-    }
-    // left-to-right running sum of the drops (a serial scan's order)
-    double my_cum = 0.0;
-    for (int k = 0; k < 32; ++k) {
-      carry_sum += __shfl_sync(full, drop, k);
-      if (k == lane) my_cum = carry_sum;
-    }
-    const double cvv = v + my_cum;
-    double m = cvv;
-    for (int o = 1; o < 32; o <<= 1) {
-      const double y = __shfl_up_sync(full, m, o);
-      if (lane >= o) m = nan_max(m, y);
-    }
-    m = nan_max(m, carry_max);
-    if (i < c) {
-      cv[off + i] = cvv;
-      cmax[off + i] = m;
-    }
-    carry_max = __shfl_sync(full, m, 31);
+    irregular = __any_sync(full, i < c && irregular_at(vrow, i));
   }
   if (lane != 0) return;
+  slots[row] = irregular ? atomicAdd(n_irregular, 1) : -1;
   if (instant) {
     mpi[row] = step;
     return;
@@ -180,6 +177,57 @@ rollup_prep(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   else if (si <= 32000) r = si + si / 4;
   else r = si + si / 8;
   mpi[row] = r;
+}
+
+// One warp per irregular row: cv and cmax over the row's valid prefix,
+// into the row's scratch slot.
+__global__ void __launch_bounds__(kPrepThreads)
+rollup_prep(const double* __restrict__ vals,
+            const int32_t* __restrict__ counts,
+            const int32_t* __restrict__ slots, long long S, int N,
+            double* __restrict__ cv, double* __restrict__ cmax) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
+      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= S) return;  // uniform across the warp
+  const int slot = slots[row];
+  if (slot < 0) return;  // regular row: cv = cmax = values
+  const unsigned full = 0xffffffffu;
+  const int c = min(counts[row], N);
+  const double* vrow = vals + row * static_cast<long long>(N);
+  const long long soff = static_cast<long long>(slot) * N;
+  double carry_sum = 0.0;
+  double carry_max = -INFINITY;
+  for (int base = 0; base < c; base += 32) {
+    const int i = base + lane;
+    double v = 0.0, drop = 0.0;
+    if (i < c) {
+      v = vrow[i];
+      if (i >= 1) {
+        const double prev = vrow[i - 1];
+        if (v < prev) drop = (prev - v) * 8.0 < prev ? prev - v : prev;
+      }
+    }
+    // left-to-right running sum of the drops (a serial scan's order)
+    double my_cum = 0.0;
+    for (int k = 0; k < 32; ++k) {
+      carry_sum += __shfl_sync(full, drop, k);
+      if (k == lane) my_cum = carry_sum;
+    }
+    const double cvv = v + my_cum;
+    double m = cvv;
+    for (int o = 1; o < 32; o <<= 1) {
+      const double y = __shfl_up_sync(full, m, o);
+      if (lane >= o) m = nan_max(m, y);
+    }
+    m = nan_max(m, carry_max);
+    if (i < c) {
+      cv[soff + i] = cvv;
+      cmax[soff + i] = m;
+    }
+    carry_max = __shfl_sync(full, m, 31);
+  }
 }
 
 // #{i in [lo, hi) : ts[i] - shift <= x} + lo, on a sorted row.
@@ -254,8 +302,10 @@ __device__ double series_value(const int32_t* __restrict__ trow,
 }
 
 __global__ void __launch_bounds__(kGroupThreads)
-rollup_groups(const int32_t* __restrict__ ts, const double* __restrict__ cv,
+rollup_groups(const int32_t* __restrict__ ts,
+              const double* __restrict__ vals, const double* __restrict__ cv,
               const double* __restrict__ cmax,
+              const int32_t* __restrict__ slots,
               const int32_t* __restrict__ counts,
               const int32_t* __restrict__ mpi,
               const int32_t* __restrict__ order,
@@ -275,9 +325,12 @@ rollup_groups(const int32_t* __restrict__ ts, const double* __restrict__ cv,
   for (int k = starts[g]; k < k_end; ++k) {
     const long long r = order[k];
     const long long off = r * static_cast<long long>(N);
-    const double v = series_value(ts + off, cv + off, cmax + off,
-                                  min(counts[r], N), mpi[r], shift, min_ts,
-                                  grid, lo_t, func);
+    const int slot = slots[r];
+    const long long soff = static_cast<long long>(slot) * N;
+    const double* cvrow = slot < 0 ? vals + off : cv + soff;
+    const double* cmrow = slot < 0 ? vals + off : cmax + soff;
+    const double v = series_value(ts + off, cvrow, cmrow, min(counts[r], N),
+                                  mpi[r], shift, min_ts, grid, lo_t, func);
     if (v != v) continue;  // NaN: series absent at this step
     cnt += 1.0;
     s1 += v;
@@ -306,24 +359,40 @@ rollup_groups(const int32_t* __restrict__ ts, const double* __restrict__ cv,
 
 }  // namespace
 
-extern "C" int vm_rollup_prep(const void* ts, const void* vals,
+extern "C" int vm_rollup_scan(const void* ts, const void* vals,
                               const void* counts, long long S, int N,
                               int shift, int min_ts, int step, int instant,
-                              void* cv, void* cmax, void* mpi, void* stream) {
+                              void* mpi, void* slots, void* n_irregular,
+                              void* stream) {
+  if (S <= 0) return 0;
+  const long long per_block = kPrepThreads / 32;
+  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
+                                                per_block);
+  rollup_scan<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
+      static_cast<const int32_t*>(counts), S, N, shift, min_ts, step,
+      instant, static_cast<int32_t*>(mpi), static_cast<int32_t*>(slots),
+      static_cast<int32_t*>(n_irregular));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vm_rollup_prep(const void* vals, const void* counts,
+                              const void* slots, long long S, int N,
+                              void* cv, void* cmax, void* stream) {
   if (S <= 0) return 0;
   const long long per_block = kPrepThreads / 32;
   const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
                                                 per_block);
   rollup_prep<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
-      static_cast<const int32_t*>(counts), S, N, shift, min_ts, step,
-      instant, static_cast<double*>(cv), static_cast<double*>(cmax),
-      static_cast<int32_t*>(mpi));
+      static_cast<const double*>(vals), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(slots), S, N, static_cast<double*>(cv),
+      static_cast<double*>(cmax));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int vm_rollup_groups(const void* ts, const void* cv,
-                                const void* cmax, const void* counts,
+extern "C" int vm_rollup_groups(const void* ts, const void* vals,
+                                const void* cv, const void* cmax,
+                                const void* slots, const void* counts,
                                 const void* mpi, const void* order,
                                 const void* starts, long long G, int N, int T,
                                 int shift, int min_ts, int step, int lookback,
@@ -334,8 +403,9 @@ extern "C" int vm_rollup_groups(const void* ts, const void* cv,
                                         kGroupThreads));
   rollup_groups<<<grid, kGroupThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ts), static_cast<const double*>(cv),
-      static_cast<const double*>(cmax), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
+      static_cast<const double*>(cv), static_cast<const double*>(cmax),
+      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(mpi), static_cast<const int32_t*>(order),
       static_cast<const int32_t*>(starts), N, T, shift, min_ts, step,
       lookback, func, aggr, static_cast<double*>(out));

@@ -18,10 +18,12 @@
 // One 256-thread block per row: a block reduction counts the dropped
 // prefix, then the block copies the row.
 //
-// Bound: bytes.  K3 reads the K new columns (12 B each) and writes the
-// same bytes into the tile; K4 reads the valid samples and writes the
-// whole [S, N] output tile (12 B per column).  Both are single coalesced
-// passes with no arithmetic beyond an int32 rebase.
+// Bound: bytes.  K3 reads each row's live new samples (the first
+// new_counts[row] of its K columns, 12 B each) and writes the same bytes
+// into the tile, plus the counts; K4 reads the survivors (12 B each) and
+// the timestamps of the dropped prefix (4 B each) and writes the whole
+// [S, N] output tile (12 B per column).  Both are single coalesced passes
+// with no arithmetic beyond an int32 rebase.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -48,14 +48,16 @@ SIGNATURES = {
         "vm_decode_plane": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
     },
     "rollup": {
-        # ts, vals, counts, S, N, shift, min_ts, step, instant, cv, cmax,
-        # mpi, stream
-        "vm_rollup_prep": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P,
+        # ts, vals, counts, S, N, shift, min_ts, step, instant, mpi, slots,
+        # n_irregular, stream
+        "vm_rollup_scan": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P,
                            _P],
-        # ts, cv, cmax, counts, mpi, order, starts, G, N, T, shift, min_ts,
-        # step, lookback, func, aggr, out, stream
-        "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _P, _P],
+        # vals, counts, slots, S, N, cv, cmax, stream
+        "vm_rollup_prep": [_P, _P, _P, _LL, _I, _P, _P, _P],
+        # ts, vals, cv, cmax, slots, counts, mpi, order, starts, G, N, T,
+        # shift, min_ts, step, lookback, func, aggr, out, stream
+        "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "tile": {
         # ts, vals, counts, new_ts, new_vals, new_counts, S, N, K, stream

@@ -17,8 +17,10 @@ source stays alive until its copy is ordered.  The put ends with a stream
 synchronisation, so the span times the whole transfer.  Arrays of at most
 ``DIRECT_PUT_BYTES`` (a rolling refresh's new columns) skip the staging:
 PyTorch's own copy from pageable memory is cheaper there than allocating a
-pinned block (on an H100, a refresh's three columns: 0.12 ms direct vs
-0.24 ms staged).
+pinned block, while staging wins on large arrays.  ``chip_smoke.py``
+times both paths at a refresh's size and at cold-upload sizes (on one
+H100 80GB HBM3 at 700 W: a refresh's 0.82 MB of columns 0.16 ms direct vs
+0.36 ms staged; 2.17 GB of cold planes 98 ms staged vs 385 ms direct).
 """
 
 from __future__ import annotations
@@ -77,11 +79,22 @@ def chunked_device_put(x: np.ndarray, device) -> torch.Tensor:
 
 
 def _device_put(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    src = torch.from_numpy(x)
     if device.type != "cuda":
-        return src.clone()
+        return torch.from_numpy(x).clone()
     if x.nbytes <= DIRECT_PUT_BYTES:
-        return src.to(device)  # synchronous copy from pageable memory
+        return direct_put(x, device)
+    return staged_put(x, device)
+
+
+def direct_put(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One synchronous copy from pageable host memory."""
+    return torch.from_numpy(x).to(device)
+
+
+def staged_put(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy through pinned staging buffers of at most UPLOAD_CHUNK_BYTES,
+    each sent with non_blocking=True; ends with a stream synchronisation."""
+    src = torch.from_numpy(x)
     out = torch.empty(src.shape, dtype=src.dtype, device=device)
     rows = src.shape[0] if src.dim() else 1
     row_bytes = max(x.nbytes // max(rows, 1), 1)

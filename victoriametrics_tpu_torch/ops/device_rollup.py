@@ -344,21 +344,32 @@ def rollup_aggregate_tile(func: str, aggr: str, ts: torch.Tensor,
     kernels.require(groups.order, "order", torch.int32, (S,))
     kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
     h = kernels.lib("rollup")
-    cv = torch.empty((S, N), dtype=torch.float64, device=dev)
-    cmax = torch.empty((S, N), dtype=torch.float64, device=dev)
     mpi = torch.empty((S,), dtype=torch.int32, device=dev)
+    slots = torch.empty((S,), dtype=torch.int32, device=dev)
+    n_irregular = torch.zeros((1,), dtype=torch.int32, device=dev)
     out = torch.empty((G, T), dtype=torch.float64, device=dev)
     stream = kernels.stream_of(dev)
-    kernels.check(h, h.vm_rollup_prep(
+    kernels.check(h, h.vm_rollup_scan(
         ts.data_ptr(), values.data_ptr(), counts.data_ptr(), S, N,
         int(shift), int(min_ts), cfg.step, int(cfg.start >= cfg.end),
-        cv.data_ptr(), cmax.data_ptr(), mpi.data_ptr(), stream),
-        "rollup_aggregate_tile (row prep)")
+        mpi.data_ptr(), slots.data_ptr(), n_irregular.data_ptr(), stream),
+        "rollup_aggregate_tile (row scan)")
+    # scratch only for rows with a reset, a NaN or -0.0: on the others the
+    # reset-corrected counter and its running maximum are the values
+    n = int(n_irregular.item())
+    cv = torch.empty((n, N), dtype=torch.float64, device=dev)
+    cmax = torch.empty((n, N), dtype=torch.float64, device=dev)
+    if n:
+        kernels.check(h, h.vm_rollup_prep(
+            values.data_ptr(), counts.data_ptr(), slots.data_ptr(), S, N,
+            cv.data_ptr(), cmax.data_ptr(), stream),
+            "rollup_aggregate_tile (row prep)")
     kernels.check(h, h.vm_rollup_groups(
-        ts.data_ptr(), cv.data_ptr(), cmax.data_ptr(), counts.data_ptr(),
-        mpi.data_ptr(), groups.order.data_ptr(), groups.starts.data_ptr(),
-        G, N, T, int(shift), int(min_ts), cfg.step, cfg.lookback,
-        FUSED_FUNCS[func], AGGR_FUNCS[aggr], out.data_ptr(), stream),
+        ts.data_ptr(), values.data_ptr(), cv.data_ptr(), cmax.data_ptr(),
+        slots.data_ptr(), counts.data_ptr(), mpi.data_ptr(),
+        groups.order.data_ptr(), groups.starts.data_ptr(), G, N, T,
+        int(shift), int(min_ts), cfg.step, cfg.lookback, FUSED_FUNCS[func],
+        AGGR_FUNCS[aggr], out.data_ptr(), stream),
         "rollup_aggregate_tile (group pass)")
     kernels.LAUNCHES["rollup_aggregate_tile"] += 1
     return out
