@@ -8,21 +8,39 @@ each printing one JSON line:
 
   build       compile csrc/*.cu with nvcc for sm_90a, one process per
               source, all started together
-  kernels     K1 decode_tiles, K2 rollup_aggregate_tile, K3 append_tile
-              and K4 compact_tile against their plain PyTorch versions on
-              the card, at the dashboard shapes and on ragged edge-case
-              rows; times each with CUDA events
+  kernels     K1 decode_tiles, K2 rollup_aggregate_tile, K3 append_tile,
+              K4 compact_tile, B5 rollup_tile, B6 topk_select_tile and
+              take_rows, B7 rank_tile and B8 rollup_quantile_tile against
+              their plain PyTorch versions on the card: every rollup func
+              (K2 under every aggregate) on ragged edge-case rows and the
+              dashboard tile, shifted and not; the selections for k in
+              {1, 10, S}, every rank kind (and a tile wider than the
+              kernels' shared-memory staging), every quantile phi at
+              groups of 32 and of all rows, on rates and on a tile of
+              ties; times each with CUDA events beside its plain version
+              and, where one PyTorch call computes the same function, that
+              call
   dashboard   the main path: a cold ``sum by (instance)(rate(m[5m]))``
               over 8192 counters x 6 h at 15 s (256 instances, step 60 s),
-              then 6 rolling refreshes through advance_rolling and
+              then the other panels on its resident tile (per-series
+              rate, topk/bottomk(10), topk_avg/median/last(10),
+              quantile(0.9) by instance, median without by), each held
+              against the same entry point on a CPU engine; then 6
+              rolling refreshes through advance_rolling and
               run_fused_on_tiles with new scrapes ingested in between
               (one refresh resumes after a long pause and slides the
-              window with compact_window); every refresh is held against
-              a cold rebuild at rtol 1e-12
+              window with compact_window), each followed by the quantile
+              panel through run_quantile_on_tiles; every refresh is held
+              against a cold rebuild at rtol 1e-12
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
               query with its own launch counts; K1 and K2 are checked
-              against their plain versions in row chunks
+              against their plain versions in row chunks; then, on the
+              resident tile, topk(10, rate), topk_median(10, rate),
+              avg by (instance)(deriv) and an instant quantile(0.99, rate)
+              over every series, each with its launch counts and checked
+              against the plain versions; a range quantile at this width
+              is declined by the dense-budget gate, as in the reference
   uploads     (inside kernels and full_width) both host->device paths of
               the tile cache, pinned-staged and direct, timed on a
               refresh's new columns and on cold delta planes
@@ -84,7 +102,27 @@ SOURCES = {
                     "victoriametrics_tpu/ops/device_rollup.py:784"),
     "compact_tile": ("victoriametrics_tpu_torch/csrc/tile.cu",
                      "victoriametrics_tpu/ops/device_rollup.py:830"),
+    "rollup_tile": ("victoriametrics_tpu_torch/csrc/rollup.cu",
+                    "victoriametrics_tpu/ops/device_rollup.py:300"),
+    "topk_select_tile": ("victoriametrics_tpu_torch/csrc/select.cu",
+                         "victoriametrics_tpu/ops/device_rollup.py:887"),
+    "take_rows": ("victoriametrics_tpu_torch/csrc/select.cu",
+                  "victoriametrics_tpu/ops/device_rollup.py:939"),
+    "rank_tile": ("victoriametrics_tpu_torch/csrc/select.cu",
+                  "victoriametrics_tpu/ops/device_rollup.py:904"),
+    "rollup_quantile_tile": ("victoriametrics_tpu_torch/csrc/quantile.cu",
+                             "victoriametrics_tpu/ops/device_rollup.py:948"),
 }
+# the quantile probabilities every B8 check runs
+PHIS = (-0.5, 0.0, 0.25, 0.5, 0.9, 1.0, 1.5)
+# funcs whose kernel and plain version do the same operations with no sum
+# and no division: held bit for bit (NaN positions included).  The
+# time-valued funcs and lag divide by 1e3, which torch does for a CUDA
+# tensor through the reciprocal, an ulp away from the kernel's division.
+EXACT_FUNCS = frozenset({
+    "count_over_time", "present_over_time", "first_over_time",
+    "last_over_time", "default_rollup", "min_over_time", "max_over_time",
+    "changes"})
 
 
 def dashboard_grid() -> tuple[int, int]:
@@ -168,16 +206,70 @@ def assert_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return 0.0
 
 
-def aggr_close(what, aggr, got, want) -> float:
-    """The tolerance of the port's tests: rtol 1e-12 for the sums and
-    extrema; the variance to 1e-9, stddev through its square (see
-    tests/test_torch_device_rollup.py)."""
-    if aggr == "stddev":
-        assert_close(what, got * got, want * want, 1e-9, 1e-9)
-        return max_abs_err(got, want)
-    if aggr == "stdvar":
-        return assert_close(what, got, want, 1e-9, 1e-9)
+def assert_exact(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Same NaN positions and the same bits everywhere else."""
+    if got.shape != want.shape or not torch.equal(torch.isnan(got),
+                                                  torch.isnan(want)):
+        raise AssertionError(f"{what}: NaN positions differ")
+    live = ~torch.isnan(got)
+    if not torch.equal(got[live].view(torch.int64),
+                       want[live].view(torch.int64)):
+        raise AssertionError(f"{what}: not bit-identical")
+    return 0.0
+
+
+def _loose(func: str) -> tuple[float, float]:
+    """(rtol, atol) of a func whose moment formula cancels: deriv and
+    stdvar_over_time 1e-9; stddev_over_time the reference oracle's own
+    bound, rtol 1e-6, atol 1e-4 (tests/test_device_rollup.py:69-74): a
+    zero-variance window's stddev is the square root of a summation-order
+    residual."""
+    return (1e-6, 1e-4) if func == "stddev_over_time" else (1e-9, 1e-9)
+
+
+def func_close(what, func, got, want) -> float:
+    """Kernel vs plain per-series rollup: bit for bit for EXACT_FUNCS,
+    rtol 1e-12 where only the summation order can differ, _loose for the
+    cancelling moment formulas (see tests/test_torch_rollup_tile.py)."""
+    if func in EXACT_FUNCS:
+        return assert_exact(what, got, want)
+    if func in ("deriv", "stddev_over_time", "stdvar_over_time"):
+        return assert_close(what, got, want, *_loose(func))
     return assert_close(what, got, want, 1e-12, 0.0)
+
+
+def aggr_close(what, aggr, got, want, func="rate", mean=None) -> float:
+    """The tolerance of the port's tests: rtol 1e-12 for the sums and
+    extrema; the variance to rtol 1e-9, atol 1e-9, stddev through its
+    square, plus, for the funcs other than the counter funcs, 16 ulp of
+    the squared group mean (its cancellation); the cancelling funcs at
+    _loose (see tests/test_torch_device_rollup.py)."""
+    loose = func in ("deriv", "stddev_over_time", "stdvar_over_time")
+    rtol, atol = _loose(func) if loose else (1e-9, 1e-9)
+    if aggr in ("stddev", "stdvar"):
+        g, w = (got * got, want * want) if aggr == "stddev" else (got, want)
+        g, w = g.double().cpu(), w.double().cpu()
+        scale = atol
+        if mean is not None and func not in dr.COUNTER_FUNCS:
+            scale = atol + 16 * torch.finfo(torch.float64).eps * (
+                1 + torch.nan_to_num(mean.double().cpu()) ** 2)
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{what}: NaN positions differ")
+        bad = ((g - w).abs() > scale + rtol * w.abs()) & ~torch.isnan(w)
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: {g[bad][:5]} vs {w[bad][:5]}")
+        return max_abs_err(got, want)
+    if loose:
+        return assert_close(what, got, want, rtol, atol)
+    return assert_close(what, got, want, 1e-12, 0.0)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the scalar rate."""
+    b, o = nbytes / MEM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(b, o) * 1e3,
+            "bound_by": "bytes" if b >= o else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -378,6 +470,172 @@ def upload_paths(what: str, arrays, dev, reps: int = 5) -> dict:
 # Phases.
 # ---------------------------------------------------------------------------
 
+def check_ranks(what: str, rolled) -> None:
+    """B7 against its plain version: median and last bit for bit, avg at
+    rtol 1e-12 (the plain cumsum's order differs), max and min equal as
+    numbers (which zero torch.amax returns among -0.0 and 0.0 is not
+    specified)."""
+    for kind in dr.RANK_KINDS:
+        g, w = dr.rank_rows(rolled, kind), dr.rank_rows_plain(rolled, kind)
+        if kind in ("median", "last"):
+            assert_exact(f"B7 {what} {kind}", g, w)
+        else:
+            assert_close(f"B7 {what} {kind}", g, w,
+                         1e-12 if kind == "avg" else 0.0, 0.0)
+
+
+def check_selections(what: str, rolled, dev) -> None:
+    """B6, take_rows, B7 and B8 on one rolled tile against their plain
+    versions: every k in {1, 10, S} top and bottom, every rank kind, every
+    phi at groups of 32 and at one group of all rows."""
+    S, T = rolled.shape
+    for bottom in (False, True):
+        for k in sorted({1, min(10, S), S}):
+            gi, gn = dr.topk_select(rolled, k, bottom)
+            wi, wn = dr.topk_select_plain(rolled, k, bottom)
+            assert_equal(f"B6 {what} k={k} bottom={bottom} idx", gi, wi)
+            assert_equal(f"B6 {what} k={k} bottom={bottom} nan", gn, wn)
+    sel = torch.tensor([S - 1, -1, 0, S, S // 2], device=dev)
+    assert_exact(f"take_rows {what}", dr.take_rows(rolled, sel),
+                 dr.take_rows_plain(rolled, sel))
+    check_ranks(what, rolled)
+    for n_groups in (max(S // 32, 1), 1):
+        gids = (torch.arange(S, device=dev) % n_groups).to(torch.int32)
+        groups = dr.group_layout(gids, n_groups, dev)
+        for phi in PHIS:
+            assert_exact(f"B8 {what} M={groups.max_group} phi={phi}",
+                         dr.quantile_groups(rolled, groups, phi),
+                         dr.quantile_groups_plain(rolled, groups, phi))
+
+
+def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
+    """B5-B8 against their plain versions on the card (ragged rows, the
+    dashboard tile, tie-heavy and wide tiles), timed at the dashboard
+    shape."""
+    res = {}
+    S = DASH_SERIES
+    start, end = dashboard_grid()
+    cfg = dr.normalized_cfg("rate", RollupConfig(start, end, DASH_STEP,
+                                                 WINDOW))
+    T = dr.num_steps(cfg)
+    n_valid = int(counts.sum())
+    none = int(dr.MIN_TS_NONE)
+    roll = (SCRAPE, -(WINDOW + LOOKBACK_DELTA))  # a refresh's (shift, min_ts)
+    # B5: every func, on the ragged rows and the dashboard tile, with and
+    # without a shift and a fetch bound
+    rcfg0 = RollupConfig(T_START + 600_000, T_START + 1_800_000, 60_000,
+                         WINDOW)
+    err5 = 0.0
+    cases = []
+    for off, mt in ((0, none), (120_000, -420_000)):
+        tsr, vr, cr = (torch.from_numpy(a).to(dev) for a in dr.pack_series(
+            ragged, rcfg0.start - off))
+        cases.append(("ragged", tsr, vr, cr, rcfg0, off, mt))
+    dcfg0 = RollupConfig(start, end, DASH_STEP, WINDOW)
+    cases += [("dashboard", ts_t, v_t, counts, dcfg0, 0, none),
+              ("dashboard", ts_t, v_t, counts, dcfg0, *roll)]
+    for what, tsx, vx, cx, cfg0, off, mt in cases:
+        for func in dr.FUNC_CODES:
+            if off and func in dr.TIME_VALUED_FUNCS:
+                continue  # they refuse a shifted grid
+            c = dr.normalized_cfg(func, cfg0)
+            g = dr.rollup_tile(func, tsx, vx, cx, c, mt, off)
+            w = dr.rollup_tile_plain(func, tsx - off, vx, cx, c, mt)
+            e = func_close(f"B5 {func} {what} shift {off}", func, g, w)
+            if func not in dr.TIME_VALUED_FUNCS and \
+                    func not in ("deriv", "stddev_over_time",
+                                 "stdvar_over_time"):
+                err5 = max(err5, e)
+    b5 = lambda: dr.rollup_tile("rate", ts_t, v_t, counts, cfg)  # noqa: E731
+    rolled = b5()
+    if not bool(torch.isfinite(rolled[:, WINDOW // DASH_STEP + 1:]).all()):
+        raise AssertionError("B5 dashboard: non-finite rates")
+    res["rollup_tile"] = dict(
+        max_abs_err=err5, ms=cuda_ms(b5),
+        plain_ms=cuda_ms(lambda: dr.rollup_tile_plain(
+            "rate", ts_t, v_t, counts, cfg), reps=3),
+        ms_by_func={f: cuda_ms(lambda f=f: dr.rollup_tile(
+            f, ts_t, v_t, counts, dr.normalized_cfg(f, dcfg0)), reps=3)
+            for f in ("sum_over_time", "stddev_over_time", "deriv",
+                      "changes", "default_rollup")},
+        **bound(n_valid * 12 + S * 4 + S * T * 8, 15 * S * T))
+
+    # B6, take_rows, B7, B8 on the dashboard rates, the ragged rows'
+    # rates, a tile of ties (signed zeros, infinities, NaN rows) and, for
+    # B6 and B7, tiles taller or wider than the kernels' shared-memory
+    # staging
+    pool = torch.tensor([-0.0, 0.0, 1.0, -1.0, torch.inf, -torch.inf,
+                         torch.nan], dtype=torch.float64, device=dev)
+    ties = pool[torch.from_numpy(rng.integers(0, 7, (S, T))).to(dev)]
+    ties[::97] = torch.nan
+    wide = torch.from_numpy(rng.normal(0, 1, (64, 30_000))).to(dev)
+    wide[wide > 2.0] = torch.nan
+    wide[3] = torch.nan
+    tsr, vr, cr = cases[0][1:4]
+    rag_rolled = dr.rollup_tile("rate", tsr, vr, cr,
+                                dr.normalized_cfg("rate", rcfg0))
+    for what, r in (("dashboard", rolled), ("ragged", rag_rolled),
+                    ("ties", ties)):
+        check_selections(what, r, dev)
+    # B6's sort path (k > 16) on a tile taller than a block's shared memory
+    tall = pool[torch.from_numpy(rng.integers(0, 7, (30_000, 4))).to(dev)]
+    tall[1::3] = torch.from_numpy(rng.normal(0, 1, (10_000, 4))).to(dev)
+    for bottom in (False, True):
+        for k in (20, 30_000):
+            gi, gn = dr.topk_select(tall, k, bottom)
+            wi, wn = dr.topk_select_plain(tall, k, bottom)
+            assert_equal(f"B6 tall k={k} bottom={bottom} idx", gi, wi)
+            assert_equal(f"B6 tall k={k} bottom={bottom} nan", gn, wn)
+    check_ranks("wide", wide)
+
+    key = dr._topk_key(rolled, False).T.contiguous()
+    res["topk_select_tile"] = dict(
+        max_abs_err=0.0,  # picks identical, checked above
+        ms=cuda_ms(lambda: dr.topk_select(rolled, 10, False)),
+        plain_ms=cuda_ms(lambda: dr.topk_select_plain(rolled, 10, False),
+                         reps=3),
+        library_ms=cuda_ms(lambda: torch.topk(key, 10, dim=1)),
+        ms_k20=cuda_ms(lambda: dr.topk_select(rolled, 20, False)),
+        ms_k_all=cuda_ms(lambda: dr.topk_select(rolled, S, False), reps=3),
+        **bound(S * T * 8 + T * 10 * 5, S * T))
+    idx, _ = dr.topk_select(rolled, 10, False)
+    sel = torch.unique(idx.long())
+    M = int(sel.numel())
+    res["take_rows"] = dict(
+        max_abs_err=0.0, rows=M,
+        ms=cuda_ms(lambda: dr.take_rows(rolled, sel)),
+        plain_ms=cuda_ms(lambda: dr.take_rows_plain(rolled, sel)),
+        library_ms=cuda_ms(lambda: torch.index_select(rolled, 0, sel)),
+        **bound(M * T * 16 + M * 8, 0))
+    res["rank_tile"] = dict(
+        max_abs_err=float(max_abs_err(dr.rank_rows(rolled, "avg"),
+                                      dr.rank_rows_plain(rolled, "avg"))),
+        ms=cuda_ms(lambda: dr.rank_rows(rolled, "median")),
+        plain_ms=cuda_ms(lambda: dr.rank_rows_plain(rolled, "median")),
+        library_ms=cuda_ms(lambda: torch.nanquantile(rolled, 0.5, dim=1)),
+        ms_by_kind={k: cuda_ms(lambda k=k: dr.rank_rows(rolled, k))
+                    for k in dr.RANK_KINDS},
+        ms_wide_median=cuda_ms(lambda: dr.rank_rows(wide, "median"), reps=3),
+        **bound(S * T * 8 + S * 8, S * T))
+    gids = (torch.arange(S, device=dev) % DASH_GROUPS).to(torch.int32)
+    g32 = dr.group_layout(gids, DASH_GROUPS, dev)
+    g_all = dr.group_layout(torch.zeros(S, dtype=torch.int32, device=dev), 1,
+                            dev)
+    dense = dr.dense_by_group(rolled, g32)
+    res["rollup_quantile_tile"] = dict(
+        max_abs_err=0.0,  # identical, checked above
+        ms=cuda_ms(lambda: dr.quantile_groups(rolled, g32, 0.9)),
+        plain_ms=cuda_ms(lambda: dr.quantile_groups_plain(rolled, g32, 0.9)),
+        library_ms=cuda_ms(lambda: torch.nanquantile(dense, 0.9, dim=1)),
+        ms_one_group=cuda_ms(lambda: dr.quantile_groups(rolled, g_all, 0.5)),
+        library_ms_one_group=cuda_ms(lambda: torch.nanquantile(
+            dr.dense_by_group(rolled, g_all), 0.5, dim=1), reps=3),
+        **bound(S * T * 8 + DASH_GROUPS * T * 8 + S * 4 +
+                (DASH_GROUPS + 1) * 4, S * T))
+    return res
+
+
+
 def phase_kernels(rng, dev) -> dict:
     """Each kernel against its plain version on the card: the dashboard
     shapes (timed) and ragged edge-case rows."""
@@ -460,8 +718,12 @@ def phase_kernels(rng, dev) -> dict:
     for off, mt in ((0, int(dr.MIN_TS_NONE)), (120_000, -420_000)):
         tsr, vr, cr = (torch.from_numpy(a).to(dev) for a in dr.pack_series(
             ragged, rcfg0.start - off))
-        for func in dr.FUSED_FUNCS:
+        for func in dr.FUNC_CODES:
+            if off and func in dr.TIME_VALUED_FUNCS:
+                continue  # they refuse a shifted grid
             rcfg = dr.normalized_cfg(func, rcfg0)
+            mean = dr.rollup_aggregate_tile_plain(func, "avg", tsr, vr, cr,
+                                                  rgroups, rcfg, off, mt)
             for aggr in dr.AGGR_FUNCS:
                 g = dr.rollup_aggregate_tile(func, aggr, tsr, vr, cr,
                                              rgroups, rcfg, off, mt)
@@ -469,8 +731,10 @@ def phase_kernels(rng, dev) -> dict:
                                                    rgroups, rcfg, off, mt)
                 if not bool(torch.isnan(g[4]).all()):
                     raise AssertionError("K2: the empty group is not NaN")
-                e = aggr_close(f"K2 {func}/{aggr} shift {off}", aggr, g, w)
-                if aggr != "stddev":
+                e = aggr_close(f"K2 {func}/{aggr} shift {off}", aggr, g, w,
+                               func, mean)
+                if aggr not in ("stddev", "stdvar") and \
+                        func in dr.COUNTER_FUNCS:
                     err2 = max(err2, e)
     T = dr.num_steps(cfg)
     n_valid = int(counts.sum())
@@ -562,6 +826,7 @@ def phase_kernels(rng, dev) -> dict:
         bytes=survivors * 12 + dropped * 4 + DASH_SERIES * n_cap * 12 +
         DASH_SERIES * 8,
         ops=DASH_SERIES * n_cap)
+    res.update(kernels_slice2(rng, dev, ts_t, v_t, counts, ragged))
     for r in res.values():
         r["bound_ms"] = max(r["bytes"] / MEM_BYTES_PER_S,
                             r["ops"] / SCALAR_OPS_PER_S) * 1e3
@@ -610,6 +875,84 @@ def split_ms(before: dict, after: dict, wall_s: float,
     return out
 
 
+# the dashboard's other panels on the cold query's resident tile: (field,
+# entry point, arguments after the engine); each is held against the same
+# entry point on a CPU engine, which runs the plain versions
+# kernels each slice-2 query must launch on the card
+QUERY_KERNELS = {
+    "rate": ("rollup_tile",),
+    "topk": ("rollup_tile", "topk_select_tile", "take_rows"),
+    "bottomk": ("rollup_tile", "topk_select_tile", "take_rows"),
+    "topk_avg": ("rollup_tile", "rank_tile", "take_rows"),
+    "topk_median": ("rollup_tile", "rank_tile", "take_rows"),
+    "topk_last": ("rollup_tile", "rank_tile", "take_rows"),
+    "quantile_by_instance": ("rollup_tile", "rollup_quantile_tile"),
+    "median": ("rollup_tile", "rollup_quantile_tile"),
+    "avg_deriv_by_instance": ("rollup_aggregate_tile",),
+    "instant_quantile": ("rollup_tile", "rollup_quantile_tile"),
+}
+
+
+def check_launched(where: str, name: str, launches: dict) -> None:
+    missing = [k for k in QUERY_KERNELS[name] if launches.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{where} {name}: {missing} not launched")
+
+
+def dashboard_panels(engine, series, cfg, key, gids) -> dict:
+    """Per-series rates, top/bottom 10, the topk_<kind> rankings and the
+    quantile panels as cold queries on the resident tile: wall ms, launches
+    and the largest difference from the plain versions, per query."""
+    S, G = len(series), DASH_GROUPS
+    _, max_group = ce.group_slots(gids, G)
+    ones = np.zeros(S, np.int32)
+    queries = {
+        "rate": (ce.try_rollup, ("rate", series, cfg, ())),
+        "topk": (ce.try_topk_rollup, ("topk", 10, "rate", series, cfg)),
+        "bottomk": (ce.try_topk_rollup, ("bottomk", 10, "rate", series,
+                                         cfg)),
+        "topk_avg": (ce.try_topk_rollup, ("topk_avg", 10, "rate", series,
+                                          cfg)),
+        "topk_median": (ce.try_topk_rollup, ("topk_median", 10, "rate",
+                                             series, cfg)),
+        "topk_last": (ce.try_topk_rollup, ("topk_last", 10, "rate", series,
+                                           cfg)),
+        "quantile_by_instance": (ce.try_quantile_rollup, (
+            0.9, "rate", series, gids, G, cfg, max_group)),
+        "median": (ce.try_quantile_rollup, (0.5, "rate", series, ones, 1,
+                                            cfg, S)),
+    }
+    cpu = ce.CUDAEngine(device="cpu")
+    cpu.cache().put_device(key, tuple(t.cpu() for t in
+                                      engine.cache().get(key)))
+    out = {}
+    for name, (fn, args) in queries.items():
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        got = fn(engine, *args, cache_key=key)
+        wall = time.perf_counter() - t0
+        launches = {k: v - before.get(k, 0)
+                    for k, v in kernels.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        check_launched("dashboard", name, launches)
+        want = fn(cpu, *args, cache_key=key)
+        if got is None or want is None:
+            raise AssertionError(f"dashboard {name}: declined")
+        if fn is ce.try_topk_rollup:
+            if [i for i, _ in got] != [i for i, _ in want] or not got:
+                raise AssertionError(f"dashboard {name}: other series")
+            got = np.stack([r for _, r in got])
+            want = np.stack([r for _, r in want])
+        got, want = np.asarray(got), np.asarray(want)
+        if not np.isfinite(got).any():
+            raise AssertionError(f"dashboard {name}: no finite value")
+        err = assert_close(f"dashboard {name}", torch.from_numpy(got),
+                           torch.from_numpy(want), 1e-12, 0.0)
+        out[name] = {"ms": wall * 1e3, "shape": list(got.shape),
+                     "launches": launches, "max_abs_err_vs_plain": err}
+    return out
+
+
 def phase_dashboard(rng, dev) -> dict:
     """The main path: cold query, then rolling refreshes, each held
     against a cold rebuild."""
@@ -644,6 +987,10 @@ def phase_dashboard(rng, dev) -> dict:
     if out is None or out.shape != (G, T) or not np.isfinite(out).all():
         raise AssertionError("dashboard cold query: wrong or non-finite "
                              "result")
+    panels = dashboard_panels(engine, series,
+                              RollupConfig(start, end, DASH_STEP, WINDOW),
+                              key, gids)
+    _, max_group = ce.group_slots(gids, G)
     tiles = engine.cache().get(key)
     rt = ce.RollingTile(
         tiles=tiles, base_ms=start, n_cap=int(tiles[0].shape[1]),
@@ -656,6 +1003,7 @@ def phase_dashboard(rng, dev) -> dict:
     groups = dr.group_layout(gids, G, dev)
     engine.window_cache().put(("dashboard", "sum", "rate"), (rt, groups))
     refresh_ms, refresh_up, refresh_split, worst = [], [], [], 0.0
+    quantile_ms, worst_q = [], 0.0
     compactions0 = _metric_sum("vm_device_window_compactions_total")
     for k, adv in DASH_REFRESHES:
         store.ingest(k, end)
@@ -679,13 +1027,26 @@ def phase_dashboard(rng, dev) -> dict:
         refresh_split.append(split_ms(snap, split_snapshot(), wall,
                                       {"fetch": store.fetch_s - fetch0}))
         tile_cache.count_window_hit()
+        # the quantile panel on the same refreshed tile, timed on its own
+        t0 = time.perf_counter()
+        served_q = ce.run_quantile_on_tiles(engine, 0.9, "rate", rt.tiles,
+                                            groups, cfg, start - rt.base_ms,
+                                            fetch_lo - start)
+        quantile_ms.append((time.perf_counter() - t0) * 1e3)
         before = dict(kernels.LAUNCHES)
-        rebuilt, _ = cold(start, end, ce.CUDAEngine(device=dev))
+        eng2 = ce.CUDAEngine(device=dev)
+        rebuilt, series2 = cold(start, end, eng2)
+        rebuilt_q = ce.try_quantile_rollup(eng2, 0.9, "rate", series2, gids,
+                                           G, cfg, max_group)
         for name, n in kernels.LAUNCHES.items():
             rebuild_launches[name] = rebuild_launches.get(name, 0) + \
                 n - before.get(name, 0)
         worst = max(worst, assert_close("served == cold", served, rebuilt,
                                         1e-12, 0.0))
+        if not np.isfinite(served_q).all():
+            raise AssertionError("rolling quantile: non-finite result")
+        worst_q = max(worst_q, assert_close(
+            "served quantile == cold", served_q, rebuilt_q, 1e-12, 0.0))
     launches = {name: kernels.LAUNCHES.get(name, 0) -
                 rebuild_launches.get(name, 0) for name in SOURCES}
     compactions = _metric_sum("vm_device_window_compactions_total") - \
@@ -702,9 +1063,135 @@ def phase_dashboard(rng, dev) -> dict:
            "refresh_split": refresh_split,
            "refresh_scrapes": [k for k, _ in DASH_REFRESHES],
            "compactions": compactions, "appends": rt.appends,
-           "served_vs_cold_max_abs_err": worst, "launches": launches}
+           "served_vs_cold_max_abs_err": worst,
+           "quantile_refresh_ms": quantile_ms,
+           "quantile_served_vs_cold_max_abs_err": worst_q,
+           "panels": panels, "launches": launches}
     emit(res)
     return res
+
+
+def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
+    """The slice-2 queries on the resident full-width tile, each with its
+    own launch counts: topk(10, rate), topk_median(10, rate), avg by
+    (instance)(deriv), and an instant quantile(0.99, rate) over every
+    series at the range's end; then each held against the plain versions
+    (rows in chunks, steps in chunks)."""
+    S = len(series)
+    ts_t, v_t, counts = engine.cache().get(key)
+    ncfg = dr.normalized_cfg("rate", cfg)
+    T = dr.num_steps(ncfg)
+    t_end = cfg.end
+    icfg = RollupConfig(t_end, t_end, FULL_STEP, WINDOW)
+    shift, i_min_ts = t_end - cfg.start, -(WINDOW + LOOKBACK_DELTA)
+    one = dr.group_layout(np.zeros(S, np.int32), 1, dev)
+    queries = {
+        "topk": (ce.try_topk_rollup, ("topk", 10, "rate", series, cfg),
+                 {"cache_key": key}),
+        "topk_median": (ce.try_topk_rollup, ("topk_median", 10, "rate",
+                                             series, cfg),
+                        {"cache_key": key}),
+        "avg_deriv_by_instance": (ce.try_aggr_rollup, (
+            "avg", "deriv", series, gids, G, cfg), {"cache_key": key}),
+        "instant_quantile": (ce.run_quantile_on_tiles, (
+            0.99, "rate", (ts_t, v_t, counts), one, icfg, shift, i_min_ts),
+            {}),
+    }
+    out, got = {}, {}
+    for name, (fn, args, kw) in queries.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got[name] = fn(engine, *args, **kw)
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": dict(kernels.LAUNCHES)}
+        if got[name] is None:
+            raise AssertionError(f"full width {name}: declined")
+        check_launched("full width", name, out[name]["launches"])
+    # the gate declines a full-width range quantile, as the reference's does
+    if ce.quantile_dense_fits(engine, 1, S, cfg) or \
+            ce.quantile_dense_fits(engine, G, S // G, cfg) or \
+            ce.try_quantile_rollup(engine, 0.99, "rate", series,
+                                   np.zeros(S, np.int32), 1, cfg, S,
+                                   cache_key=key) is not None:
+        raise AssertionError("full width: a range quantile was admitted")
+
+    # checks, against the plain versions
+    rolled = dr.rollup_tile("rate", ts_t, v_t, counts, ncfg)
+    drv = torch.zeros((G, T), dtype=torch.float64, device=dev)
+    drv_n = torch.zeros_like(drv)
+    rank = dr.rank_rows(rolled, "median")
+    chunk = 4096
+    err5 = 0.0
+    for r0 in range(0, S, chunk):
+        sl = slice(r0, r0 + chunk)
+        w = dr.rollup_tile_plain("rate", ts_t[sl], v_t[sl], counts[sl], ncfg)
+        err5 = max(err5, func_close(f"full width B5 rows {r0}+", "rate",
+                                    rolled[sl], w))
+        assert_exact(f"full width B7 median rows {r0}+", rank[sl],
+                     dr.rank_rows_plain(rolled[sl], "median"))
+        d = dr.rollup_tile_plain("deriv", ts_t[sl], v_t[sl], counts[sl],
+                                 ncfg)
+        live = ~torch.isnan(d)
+        g = torch.from_numpy(gids[r0:r0 + chunk]).to(dev).long()
+        drv.index_add_(0, g, torch.where(live, d, 0.0))
+        drv_n.index_add_(0, g, live.double())
+        del w, d, live
+    aggr_close("full width K2 avg(deriv)", "avg",
+               torch.from_numpy(got["avg_deriv_by_instance"]),
+               (drv / drv_n).cpu(), "deriv")
+    idx, sel_nan = dr.topk_select(rolled, 10, False)
+    # k = 20 takes B6's sort path
+    idx20, nan20 = dr.topk_select(rolled, 20, False)
+    for t0 in range(0, T, 512):
+        wi, wn = dr.topk_select_plain(rolled[:, t0:t0 + 512].contiguous(),
+                                      20, False)
+        assert_equal(f"full width B6 steps {t0}+", idx[t0:t0 + 512],
+                     wi[:, :10])
+        assert_equal(f"full width B6 nan steps {t0}+",
+                     sel_nan[t0:t0 + 512], wn[:, :10])
+        assert_equal(f"full width B6 k=20 steps {t0}+", idx20[t0:t0 + 512],
+                     wi)
+        assert_equal(f"full width B6 k=20 nan steps {t0}+",
+                     nan20[t0:t0 + 512], wn)
+    del idx20, nan20
+    want_sel = np.unique(idx.cpu().numpy()[~sel_nan.cpu().numpy()])
+    if [i for i, _ in got["topk"]] != [int(i) for i in want_sel]:
+        raise AssertionError("full width topk: other series")
+    rank_h = rank.cpu().numpy()
+    order = np.argsort(np.where(np.isnan(rank_h), -np.inf, rank_h),
+                       kind="stable")
+    if [i for i, _ in got["topk_median"]] != [int(i) for i in order[-10:]]:
+        raise AssertionError("full width topk_median: other series")
+    events = {
+        "rollup_tile_ms": cuda_ms(lambda: dr.rollup_tile(
+            "rate", ts_t, v_t, counts, ncfg), reps=3),
+        "topk_select_ms": cuda_ms(lambda: dr.topk_select(rolled, 10, False),
+                                  reps=3),
+        "topk_select_k20_ms": cuda_ms(
+            lambda: dr.topk_select(rolled, 20, False), reps=3),
+        "rank_median_ms": cuda_ms(lambda: dr.rank_rows(rolled, "median"),
+                                  reps=3),
+        "k2_deriv_avg_ms": cuda_ms(lambda: dr.rollup_aggregate_tile(
+            "deriv", "avg", ts_t, v_t, counts,
+            dr.group_layout(gids, G, dev), ncfg), reps=3),
+    }
+    del rolled
+    inst = torch.cat([dr.rollup_tile_plain(
+        "rate", ts_t[r0:r0 + chunk] - shift, v_t[r0:r0 + chunk],
+        counts[r0:r0 + chunk], dr.normalized_cfg("rate", icfg), i_min_ts)
+        for r0 in range(0, S, chunk)])
+    q_plain = dr.quantile_groups_plain(inst, one, 0.99)
+    assert_exact("full width instant quantile", torch.from_numpy(
+        got["instant_quantile"]), q_plain.cpu())
+    if not np.isfinite(got["instant_quantile"]).all():
+        raise AssertionError("full width instant quantile: not finite")
+    inst_k = dr.rollup_tile("rate", ts_t, v_t, counts,
+                            dr.normalized_cfg("rate", icfg), i_min_ts, shift)
+    events["instant_quantile_ms"] = cuda_ms(
+        lambda: dr.quantile_groups(inst_k, one, 0.99), reps=3)
+    return {"queries": out, "event_ms": events,
+            "b5_max_abs_err_vs_plain": err5,
+            "instant_quantile": float(got["instant_quantile"][0, 0])}
 
 
 def phase_full_width(rng, dev, hours: float) -> dict:
@@ -778,7 +1265,8 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     s1 = torch.zeros_like(cnt)
     for r0 in range(0, S, chunk):
         sl = slice(r0, r0 + chunk)
-        rolled = dr.rollup_tile("rate", ts_t[sl], v_t[sl], counts[sl], ncfg)
+        rolled = dr.rollup_tile_plain("rate", ts_t[sl], v_t[sl], counts[sl],
+                                      ncfg)
         present = ~torch.isnan(rolled)
         g = groups.gids[sl].long()
         cnt.index_add_(0, g, present.double())
@@ -787,6 +1275,8 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     plain = torch.where(cnt > 0, s1, torch.nan)
     err = assert_close("full width K2 vs plain", torch.from_numpy(out),
                        plain.cpu(), 1e-12, 0.0)
+    del cnt, s1, plain
+    slice2 = full_width_queries(engine, series, cfg, key, gids, G, dev)
     res = {"phase": "full_width", "ok": True, "series": S, "groups": G,
            "samples_per_series": N, "hours": hours, "steps": T,
            "tile_cols": int(ts_t.shape[1]),
@@ -798,7 +1288,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
            MEM_BYTES_PER_S * 1e3,
            "peak_device_bytes": peak, "launches": launches,
            "k1_bitwise_vs_plain": True, "max_abs_err_vs_plain": err,
-           "uploads": uploads}
+           "uploads": uploads, "slice2": slice2}
     emit(res)
     return res
 
@@ -837,7 +1327,8 @@ def main(argv=None) -> int:
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound_ms"],
-         "bound_by": kres[name]["bound_by"], "library_ms": None}
+         "bound_by": kres[name]["bound_by"],
+         "library_ms": kres[name].get("library_ms")}
         for name in SOURCES]})
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

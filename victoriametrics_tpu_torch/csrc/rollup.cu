@@ -1,34 +1,39 @@
-// K2 rollup_aggregate_tile: fused aggr(rollup(m[window])) -> [G, T].
+// K2 rollup_aggregate_tile: fused aggr(rollup(m[window])) -> [G, T], and
+// B5 rollup_tile: the per-series rollup -> [S, T].
 //
-// Replaces victoriametrics_tpu/ops/device_rollup.py:rollup_aggregate_tile,
-// a jax.jit program of rollup_tile (the rate / increase / increase_pure /
-// irate branches over _masked_window_reduce, _remove_counter_resets and
-// _max_prev_interval_tile) followed by partial_group_moments and
-// finalize_group_moments.  On the TPU the window reduce is a dense
-// [S, 256-chunk, T] compare-and-reduce, because gathers are slow there.
-// Here each (series, step) finds its window by binary search on the
-// sorted row and reads the few samples it needs directly.
+// K2 replaces victoriametrics_tpu/ops/device_rollup.py:rollup_aggregate_tile
+// and B5 victoriametrics_tpu/ops/device_rollup.py:rollup_tile, jax.jit
+// programs of the 26 CORE_SUPPORTED rollup branches (_masked_window_reduce,
+// _remove_counter_resets, _max_prev_interval_tile) and, for K2,
+// partial_group_moments + finalize_group_moments.  On the TPU the window
+// reduce is a dense [S, 256-chunk, T] compare-and-reduce, because gathers
+// are slow there.  Here each (series, step) finds its window by binary
+// search on the sorted row and reads the samples it needs directly; one
+// device function, series_value, computes every func for both kernels.
 //
-// Two or three launches:
+// Launches:
 //  1. rollup_scan, one warp per row: the row's maxPrevInterval mpi
-//     (_max_prev_interval_tile), and whether the row is regular: no NaN,
-//     no -0.0 and no decrease on its valid prefix.  On a regular row the
-//     reset-corrected counter cv (_remove_counter_resets) and its running
-//     maximum cmax both equal the values themselves, so the group pass
-//     reads the tile's values directly.  Each irregular row takes a slot
-//     (an atomic counter; slots only address scratch, so their order does
-//     not reach the result).
+//     (_max_prev_interval_tile); for the counter funcs (rate, increase,
+//     increase_pure, irate) whether the row is regular: no NaN, no -0.0
+//     and no decrease on its valid prefix; for stddev/stdvar_over_time the
+//     mean of the row's valid samples, which those funcs centre by.  On a
+//     regular row the reset-corrected counter cv (_remove_counter_resets)
+//     and its running maximum cmax both equal the values themselves, so
+//     the later passes read the tile's values directly.  Each irregular
+//     row takes a slot (an atomic counter; slots only address scratch, so
+//     their order does not reach the result).
 //  2. rollup_prep, only when some row is irregular: one warp per irregular
 //     row writes cv and cmax into its slot of an [irregular rows, N]
 //     scratch pair.  Clean counters need no scratch at all; a row with a
 //     reset or a NaN costs 16 B per column.
-//  3. rollup_groups, one block per (group, 128-step tile), one thread per
-//     step: loops over the group's member rows in ascending row order (a
-//     stable sort of the group ids, computed once per tile by the caller),
-//     evaluates the series value with the reference's formulas and
-//     accumulates cnt/s1/s2/min/max in registers, then finalizes.  No
-//     [S, T] intermediate is written and no float atomics are used, so a
-//     result is the same on every run.
+//  3. K2: rollup_groups, one block per (group, 128-step tile), one thread
+//     per step: loops over the group's member rows in ascending row order
+//     (a stable sort of the group ids, computed once per tile by the
+//     caller), evaluates series_value and accumulates cnt/s1/s2/min/max in
+//     registers, then finalizes.  No [S, T] intermediate is written and no
+//     float atomics are used, so a result is the same on every run.
+//     B5: rollup_series, one block per (row, 128-step tile), writes
+//     series_value to [S, T].
 //
 // Faithfulness to the reference:
 //  * c_last and c_prev are max-reductions of cv over "ts <= bound" in the
@@ -37,7 +42,19 @@
 //    read from the running maximum cmax, and c_first (a min over the
 //    window) is a loop over the window's samples.
 //  * jnp.max / jnp.min propagate NaN where CUDA's fmax / fmin drop it:
-//    nan_max / nan_min below propagate.
+//    nan_max / nan_min below propagate (min/max_over_time, c_first, cmax).
+//  * changes counts a NaN as a change (NaN != anything) and drops the
+//    boundary transition chg[lo] when there is no eligible previous sample.
+//  * delta / increase count a series born inside the window from 0 when
+//    |first| < 10 (|second - first| + 1); increase_pure always does.
+//  * idelta, deriv_fast, rate and irate take the sample before the window
+//    only within maxPrevInterval of the window start.
+//  * deriv is the reference's t0-shifted moment formula, sums in ascending
+//    sample order; stddev/stdvar centre by the mean of the whole valid row.
+//  * the time-valued funcs add start_s (cfg.start / 1e3, float64) after
+//    dividing by 1e3; lifetime reads the row's first sample when the
+//    window has an eligible previous sample.
+//  * min_ts gates only previous-sample accesses (has_prev).
 //  * cv is values + (prefix sum of drops), which turns -0.0 into +0.0; a
 //    row holding -0.0 is therefore irregular and goes through the scratch.
 //  * mpi is float32 arithmetic in the reference: 0.6 * (n - 1) in float64
@@ -49,16 +66,19 @@
 //    ts - shift.
 //
 // Bound: bytes.  The function must read each valid sample's timestamp and
-// value once (12 B/sample) and write [G, T] float64.  The scan pass reads
-// the values once (8 B/sample) and writes nothing per sample on regular
-// rows; the group pass reads about 2 log2(N) + window timestamps and values
-// per (series, step) from L1/L2, since a block's 128 threads walk the same
-// row.  The design keeps every intermediate of the [S, T] rollup in
-// registers; its distance from the byte bound is recorded in PERF.md.
+// value once (12 B/sample) and write [G, T] (K2) or [S, T] (B5) float64.
+// The scan pass reads the values once (8 B/sample) for the counter funcs
+// and stddev/stdvar only; the series pass reads about 2 log2(N) + window
+// timestamps and values per (series, step) from L1/L2, since a block's 128
+// threads walk the same row.  The design keeps every intermediate of the
+// [S, T] rollup in registers; its distance from the byte bound is recorded
+// in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -68,10 +88,18 @@ constexpr int32_t kI32Min = -2147483647 - 1;
 constexpr long long kNegZeroBits =
     static_cast<long long>(0x8000000000000000ULL);
 
-enum Func { kRate = 0, kIncrease = 1, kIncreasePure = 2, kIrate = 3 };
+// Func codes, FUNC_CODES in ops/device_rollup.py.
+enum Func {
+  kRate = 0, kIncrease = 1, kIncreasePure = 2, kIrate = 3, kCount = 4,
+  kPresent = 5, kSum = 6, kAvg = 7, kStddev = 8, kStdvar = 9, kMin = 10,
+  kMax = 11, kTfirst = 12, kTlast = 13, kTimestamp = 14, kLag = 15,
+  kFirst = 16, kLast = 17, kDefault = 18, kChanges = 19, kDelta = 20,
+  kIdelta = 21, kDerivFast = 22, kDeriv = 23, kLifetime = 24,
+  kScrapeInterval = 25
+};
 enum Aggr {
-  kSum = 0, kCount = 1, kAvg = 2, kMin = 3, kMax = 4, kStddev = 5,
-  kStdvar = 6, kGroup = 7
+  aSum = 0, aCount = 1, aAvg = 2, aMin = 3, aMax = 4, aStddev = 5,
+  aStdvar = 6, aGroup = 7
 };
 
 __device__ __forceinline__ double qnan() {
@@ -94,6 +122,11 @@ __device__ __forceinline__ int32_t shifted(int32_t t, int32_t shift) {
                               static_cast<uint32_t>(shift));
 }
 
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) -
+                              static_cast<uint32_t>(b));
+}
+
 // True when a value breaks regularity: NaN, -0.0, or below its
 // predecessor (a counter reset).
 __device__ __forceinline__ bool irregular_at(const double* __restrict__ vrow,
@@ -103,13 +136,15 @@ __device__ __forceinline__ bool irregular_at(const double* __restrict__ vrow,
   return i >= 1 && v < vrow[i - 1];
 }
 
-// One warp per row: regularity (slot -1, or a scratch slot) and mpi.
+// One warp per row: regularity (slot -1, or a scratch slot) when
+// `counter`, the row mean when `mean` is given, and mpi.
 __global__ void __launch_bounds__(kPrepThreads)
 rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
             const int32_t* __restrict__ counts, long long S, int N,
             int32_t shift, int32_t min_ts, int32_t step, int instant,
-            int32_t* __restrict__ mpi, int32_t* __restrict__ slots,
-            int32_t* __restrict__ n_irregular) {
+            int counter, int32_t* __restrict__ mpi,
+            int32_t* __restrict__ slots, int32_t* __restrict__ n_irregular,
+            double* __restrict__ mean) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
       (threadIdx.x >> 5);
@@ -121,9 +156,17 @@ rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   const int32_t* trow = ts + off;
   const double* vrow = vals + off;
   bool irregular = false;
-  for (int base = 0; base < c && !irregular; base += 32) {
-    const int i = base + lane;
-    irregular = __any_sync(full, i < c && irregular_at(vrow, i));
+  if (counter) {
+    for (int base = 0; base < c && !irregular; base += 32) {
+      const int i = base + lane;
+      irregular = __any_sync(full, i < c && irregular_at(vrow, i));
+    }
+  }
+  if (mean != nullptr) {
+    double s = 0.0;
+    for (int i = lane; i < c; i += 32) s += vrow[i];
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(full, s, o);
+    if (lane == 0) mean[row] = s / static_cast<double>(c > 1 ? c : 1);
   }
   if (lane != 0) return;
   slots[row] = irregular ? atomicAdd(n_irregular, 1) : -1;
@@ -145,9 +188,7 @@ rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   int n = 0;
   for (int k = 0; k < 20; ++k) {
     if (ok[k] && ok[k + 1]) {
-      const int32_t dt = static_cast<int32_t>(
-          static_cast<uint32_t>(tv[k + 1]) - static_cast<uint32_t>(tv[k]));
-      const float x = static_cast<float>(dt);
+      const float x = static_cast<float>(wsub(tv[k + 1], tv[k]));
       int p = n++;
       while (p > 0 && d[p - 1] > x) {  // insertion sort, ascending
         d[p] = d[p - 1];
@@ -242,65 +283,200 @@ __device__ __forceinline__ int count_le(const int32_t* __restrict__ trow,
   return lo;
 }
 
-// min of cv over the window [lo, hi), NaN-propagating.
-__device__ __forceinline__ double window_min(const double* __restrict__ cvrow,
-                                             int lo, int hi) {
-  double m = INFINITY;
-  for (int i = lo; i < hi; ++i) m = nan_min(m, cvrow[i]);
-  return m;
+// One row of the tile as series_value reads it.
+struct Row {
+  const int32_t* ts;  // timestamps (unshifted)
+  const double* v;    // values
+  const double* cv;   // reset-corrected counter (values on a regular row)
+  const double* cm;   // running max of cv (values on a regular row)
+  int c;              // valid samples
+  int32_t mpi;        // maxPrevInterval
+  double mean;        // mean of the valid samples (stddev/stdvar only)
+};
+
+// The query grid, the same for every row.
+struct Grid {
+  int32_t shift, min_ts, step, lookback;
+  double start_s;  // cfg.start / 1e3, for the time-valued funcs
+};
+
+__device__ __forceinline__ Row row_at(long long r, int N,
+                                      const int32_t* __restrict__ ts,
+                                      const double* __restrict__ vals,
+                                      const double* __restrict__ cv,
+                                      const double* __restrict__ cmax,
+                                      const int32_t* __restrict__ slots,
+                                      const int32_t* __restrict__ counts,
+                                      const int32_t* __restrict__ mpi,
+                                      const double* __restrict__ mean) {
+  const long long off = r * static_cast<long long>(N);
+  const int slot = slots[r];
+  const long long soff = static_cast<long long>(slot) * N;
+  Row row;
+  row.ts = ts + off;
+  row.v = vals + off;
+  row.cv = slot < 0 ? vals + off : cv + soff;
+  row.cm = slot < 0 ? vals + off : cmax + soff;
+  row.c = min(counts[r], N);
+  row.mpi = mpi[r];
+  row.mean = mean != nullptr ? mean[r] : 0.0;
+  return row;
 }
 
-// The per-series rollup value at one step: the rate / increase /
-// increase_pure / irate branches of device_rollup.py:rollup_tile.  c_first
-// (the window loop) is read only on the branches that use it.
-__device__ double series_value(const int32_t* __restrict__ trow,
-                               const double* __restrict__ cvrow,
-                               const double* __restrict__ cmrow, int c,
-                               int32_t mpi, int32_t shift, int32_t min_ts,
-                               int32_t grid, int32_t lo_t, int func) {
-  const int hi = count_le(trow, 0, c, shift, grid);
-  const int lo = count_le(trow, 0, hi, shift, lo_t);
+// The per-series rollup value at step t: the branches of
+// device_rollup.py:rollup_tile, operation for operation.  NaN = no value.
+// The func is a template argument, so each kernel instance reads only the
+// samples its func needs.
+template <int F>
+__device__ __forceinline__ double series_value(const Row& r, const Grid& g,
+                                               int t) {
+  const int32_t grid = static_cast<int32_t>(static_cast<uint32_t>(t) *
+                                            static_cast<uint32_t>(g.step));
+  const int32_t lo_t = wsub(grid, g.lookback);
+  const int32_t sh = g.shift;
+  const int hi = count_le(r.ts, 0, r.c, sh, grid);
+  const int lo = count_le(r.ts, 0, hi, sh, lo_t);
   if (hi <= lo) return qnan();  // empty window
-  const int32_t t_prev_i = lo >= 1 ? shifted(trow[lo - 1], shift) : kI32Min;
-  const bool has_prev = lo >= 1 && t_prev_i >= min_ts;
-  const bool two = hi - lo >= 2;
-  const double c_last = cmrow[hi - 1];
-  const double c_prev = lo >= 1 ? cmrow[lo - 1] : -INFINITY;
-  if (func == kIncrease || func == kIncreasePure) {
+  const int n = hi - lo;
+  const int32_t t_prev_i = lo >= 1 ? shifted(r.ts[lo - 1], sh) : kI32Min;
+  const bool has_prev = lo >= 1 && t_prev_i >= g.min_ts;
+  const bool two = n >= 2;
+  const double nw = static_cast<double>(n);
+  const double t_last = static_cast<double>(shifted(r.ts[hi - 1], sh));
+  // read only on the branches that use it
+  const auto t_first = [&]() {
+    return static_cast<double>(shifted(r.ts[lo], sh));
+  };
+  const double t_prev = static_cast<double>(t_prev_i);
+  // prevValue only within maxPrevInterval of the window start
+  const bool has_gprev = has_prev && t_prev_i > wsub(lo_t, r.mpi);
+  switch (F) {
+    case kCount: return nw;
+    case kPresent: return 1.0;
+    case kSum:
+    case kAvg: {
+      double s = 0.0;
+      for (int i = lo; i < hi; ++i) s += r.v[i];
+      return F == kSum ? s : s / nw;
+    }
+    case kStddev:
+    case kStdvar: {
+      double s1 = 0.0, s2 = 0.0;
+      for (int i = lo; i < hi; ++i) {
+        const double x = r.v[i] - r.mean;
+        s1 += x;
+        s2 += x * x;
+      }
+      const double m1 = s1 / nw;
+      const double var = nan_max(s2 / nw - m1 * m1, 0.0);
+      return F == kStddev ? sqrt(var) : var;
+    }
+    case kMin:
+    case kMax: {
+      double m = F == kMin ? INFINITY : -INFINITY;
+      for (int i = lo; i < hi; ++i)
+        m = F == kMin ? nan_min(m, r.v[i]) : nan_max(m, r.v[i]);
+      return m;
+    }
+    case kTfirst: return t_first() / 1e3 + g.start_s;
+    case kTlast:
+    case kTimestamp: return t_last / 1e3 + g.start_s;
+    case kLag: return (static_cast<double>(grid) - t_last) / 1e3;
+    case kFirst: return r.v[lo];
+    case kLast:
+    case kDefault: return r.v[hi - 1];
+    case kChanges: {
+      double s = 0.0;
+      for (int i = lo; i < hi; ++i)
+        if (i >= 1 && r.v[i] != r.v[i - 1]) s += 1.0;
+      const double boundary = lo >= 1 && r.v[lo] != r.v[lo - 1] ? 1.0 : 0.0;
+      return s - (has_prev ? 0.0 : boundary);
+    }
+    case kDelta: {
+      const double v_first = r.v[lo];
+      const double d = two ? r.v[lo + 1] - v_first : 0.0;
+      const bool born = fabs(v_first + 0.0) < 10.0 * (fabs(d) + 1.0);
+      const double base = has_prev ? r.v[lo - 1] : (born ? -0.0 : v_first);
+      return r.v[hi - 1] - base;
+    }
+    case kIdelta: {
+      if (!(two || has_gprev)) return qnan();
+      const double prev = two ? r.v[hi - 2] : r.v[lo - 1];
+      return r.v[hi - 1] - prev;
+    }
+    case kDerivFast: {
+      if (!(has_gprev || two)) return qnan();
+      const double base_v = has_gprev ? r.v[lo - 1] : r.v[lo];
+      const double base_t = has_gprev ? t_prev : t_first();
+      const double dt = (t_last - base_t) / 1e3;
+      return dt > 0.0 ? (r.v[hi - 1] - base_v) / dt : qnan();
+    }
+    case kDeriv: {
+      if (!two) return qnan();
+      double st = 0.0, stt = 0.0, sv = 0.0, stv = 0.0;
+      for (int i = lo; i < hi; ++i) {
+        const double ts_s = static_cast<double>(shifted(r.ts[i], sh)) / 1e3;
+        st += ts_s;
+        stt += ts_s * ts_s;
+        sv += r.v[i];
+        stv += ts_s * r.v[i];
+      }
+      const double t0 = t_first() / 1e3;
+      const double st_ = st - nw * t0;
+      const double stt_ = stt - 2.0 * t0 * st + nw * t0 * t0;
+      const double stv_ = stv - t0 * sv;
+      const double den = nw * stt_ - st_ * st_;
+      return den != 0.0 ? (nw * stv_ - st_ * sv) / den : qnan();
+    }
+    case kLifetime: {
+      const double tf =
+          has_prev ? static_cast<double>(shifted(r.ts[0], sh)) : t_first();
+      return (t_last - tf) / 1e3;
+    }
+    case kScrapeInterval: {
+      if (!(has_prev || two)) return qnan();
+      const double dt =
+          (has_prev ? t_last - t_prev : t_last - t_first()) / 1e3;
+      const int cnt = has_prev ? n : n - 1;
+      return cnt > 0 ? dt / static_cast<double>(cnt) : qnan();
+    }
+    default: break;  // the counter funcs below
+  }
+  const double c_last = r.cm[hi - 1];
+  const double c_prev = lo >= 1 ? r.cm[lo - 1] : -INFINITY;
+  if (F == kIncrease || F == kIncreasePure) {
     if (has_prev) return c_last - c_prev;
-    if (func == kIncreasePure) return c_last - (-0.0);
+    if (F == kIncreasePure) return c_last - (-0.0);
     // new-series baseline: a counter born inside the window counts from 0
-    const double c_first = window_min(cvrow, lo, hi);
-    const double d = two ? cvrow[lo + 1] - c_first : 0.0;
+    double c_first = INFINITY;
+    for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cv[i]);
+    const double d = two ? r.cv[lo + 1] - c_first : 0.0;
     const bool born = fabs(c_first + 0.0) < 10.0 * (fabs(d) + 1.0);
     return c_last - (born ? -0.0 : c_first);
   }
-  // prevValue only within maxPrevInterval of the window start
-  const int32_t gate = static_cast<int32_t>(static_cast<uint32_t>(lo_t) -
-                                            static_cast<uint32_t>(mpi));
-  const bool has_gprev = has_prev && t_prev_i > gate;
   if (!(has_gprev || two)) return qnan();
-  const double t_last = static_cast<double>(shifted(trow[hi - 1], shift));
-  const double t_prev = static_cast<double>(t_prev_i);
-  if (func == kRate) {
+  if (F == kRate) {
     double dt, dv;
     if (has_gprev) {
       dt = (t_last - t_prev) / 1e3;
       dv = c_last - c_prev;
     } else {
-      dt = (t_last - static_cast<double>(shifted(trow[lo], shift))) / 1e3;
-      dv = c_last - window_min(cvrow, lo, hi);
+      double c_first = INFINITY;
+      for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cv[i]);
+      dt = (t_last - t_first()) / 1e3;
+      dv = c_last - c_first;
     }
     return dt > 0.0 ? dv / dt : qnan();
   }
   // irate: the last two samples
-  const double c_l2 = two ? cvrow[hi - 2] : c_prev;
+  const double c_l2 = two ? r.cv[hi - 2] : c_prev;
   const double t_l2 =
-      two ? static_cast<double>(shifted(trow[hi - 2], shift)) : t_prev;
+      two ? static_cast<double>(shifted(r.ts[hi - 2], sh)) : t_prev;
   const double dt = (t_last - t_l2) / 1e3;
   return dt > 0.0 ? (c_last - c_l2) / dt : qnan();
 }
 
+template <int F>
 __global__ void __launch_bounds__(kGroupThreads)
 rollup_groups(const int32_t* __restrict__ ts,
               const double* __restrict__ vals, const double* __restrict__ cv,
@@ -308,29 +484,20 @@ rollup_groups(const int32_t* __restrict__ ts,
               const int32_t* __restrict__ slots,
               const int32_t* __restrict__ counts,
               const int32_t* __restrict__ mpi,
+              const double* __restrict__ mean,
               const int32_t* __restrict__ order,
-              const int32_t* __restrict__ starts, int N, int T,
-              int32_t shift, int32_t min_ts, int32_t step, int32_t lookback,
-              int func, int aggr, double* __restrict__ out) {
-  const long long g = blockIdx.x;
+              const int32_t* __restrict__ starts, int N, int T, Grid g,
+              int aggr, double* __restrict__ out) {
+  const long long grp = blockIdx.x;
   const int t = blockIdx.y * kGroupThreads + threadIdx.x;
   if (t >= T) return;
-  const int32_t grid = static_cast<int32_t>(static_cast<uint32_t>(t) *
-                                            static_cast<uint32_t>(step));
-  const int32_t lo_t = static_cast<int32_t>(static_cast<uint32_t>(grid) -
-                                            static_cast<uint32_t>(lookback));
   double cnt = 0.0, s1 = 0.0, s2 = 0.0;
   double mn = INFINITY, mx = -INFINITY;
-  const int k_end = starts[g + 1];
-  for (int k = starts[g]; k < k_end; ++k) {
-    const long long r = order[k];
-    const long long off = r * static_cast<long long>(N);
-    const int slot = slots[r];
-    const long long soff = static_cast<long long>(slot) * N;
-    const double* cvrow = slot < 0 ? vals + off : cv + soff;
-    const double* cmrow = slot < 0 ? vals + off : cmax + soff;
-    const double v = series_value(ts + off, cvrow, cmrow, min(counts[r], N),
-                                  mpi[r], shift, min_ts, grid, lo_t, func);
+  const int k_end = starts[grp + 1];
+  for (int k = starts[grp]; k < k_end; ++k) {
+    const Row row = row_at(order[k], N, ts, vals, cv, cmax, slots, counts,
+                           mpi, mean);
+    const double v = series_value<F>(row, g, t);
     if (v != v) continue;  // NaN: series absent at this step
     cnt += 1.0;
     s1 += v;
@@ -340,21 +507,93 @@ rollup_groups(const int32_t* __restrict__ ts,
   }
   double res;
   switch (aggr) {
-    case kSum: res = s1; break;
-    case kCount: res = cnt; break;
-    case kAvg: res = s1 / cnt; break;
-    case kMin: res = mn; break;
-    case kMax: res = mx; break;
-    case kStddev:
-    case kStdvar: {
-      const double mean = s1 / cnt;
-      const double var = nan_max(s2 / cnt - mean * mean, 0.0);
-      res = aggr == kStddev ? sqrt(var) : var;
+    case aSum: res = s1; break;
+    case aCount: res = cnt; break;
+    case aAvg: res = s1 / cnt; break;
+    case aMin: res = mn; break;
+    case aMax: res = mx; break;
+    case aStddev:
+    case aStdvar: {
+      const double m1 = s1 / cnt;
+      const double var = nan_max(s2 / cnt - m1 * m1, 0.0);
+      res = aggr == aStddev ? sqrt(var) : var;
       break;
     }
     default: res = 1.0; break;  // group
   }
-  out[g * T + t] = cnt > 0.0 ? res : qnan();
+  out[grp * T + t] = cnt > 0.0 ? res : qnan();
+}
+
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads)
+rollup_series(const int32_t* __restrict__ ts,
+              const double* __restrict__ vals, const double* __restrict__ cv,
+              const double* __restrict__ cmax,
+              const int32_t* __restrict__ slots,
+              const int32_t* __restrict__ counts,
+              const int32_t* __restrict__ mpi,
+              const double* __restrict__ mean, int N, int T, Grid g,
+              double* __restrict__ out) {
+  const long long r = blockIdx.x;
+  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
+  if (t >= T) return;
+  const Row row = row_at(r, N, ts, vals, cv, cmax, slots, counts, mpi, mean);
+  out[r * T + t] = series_value<F>(row, g, t);
+}
+
+Grid make_grid(int shift, int min_ts, int step, int lookback,
+               double start_s) {
+  Grid g;
+  g.shift = shift;
+  g.min_ts = min_ts;
+  g.step = step;
+  g.lookback = lookback;
+  g.start_s = start_s;
+  return g;
+}
+
+constexpr int kFuncs = kScrapeInterval + 1;
+
+// The arguments of one series pass, K2's or B5's.
+struct PassArgs {
+  const int32_t* ts;
+  const double *vals, *cv, *cmax;
+  const int32_t *slots, *counts, *mpi;
+  const double* mean;
+  const int32_t *order, *starts;
+  int N, T;
+  Grid g;
+  int aggr;
+  double* out;
+};
+
+template <int F>
+void launch_groups(dim3 grid, cudaStream_t st, const PassArgs& a) {
+  rollup_groups<F><<<grid, kGroupThreads, 0, st>>>(
+      a.ts, a.vals, a.cv, a.cmax, a.slots, a.counts, a.mpi, a.mean, a.order,
+      a.starts, a.N, a.T, a.g, a.aggr, a.out);
+}
+
+template <int F>
+void launch_series(dim3 grid, cudaStream_t st, const PassArgs& a) {
+  rollup_series<F><<<grid, kGroupThreads, 0, st>>>(
+      a.ts, a.vals, a.cv, a.cmax, a.slots, a.counts, a.mpi, a.mean, a.N, a.T,
+      a.g, a.out);
+}
+
+using Launch = void (*)(dim3, cudaStream_t, const PassArgs&);
+
+// One launcher per func code, indexed by the code.
+template <int... F>
+const Launch* groups_table(std::integer_sequence<int, F...>) {
+  static const Launch table[] = {&launch_groups<F>...};
+  return table;
+}
+
+template <int... F>
+const Launch* series_table(std::integer_sequence<int, F...>) {
+  static const Launch table[] = {&launch_series<F>...};
+  return table;
 }
 
 }  // namespace
@@ -362,8 +601,8 @@ rollup_groups(const int32_t* __restrict__ ts,
 extern "C" int vm_rollup_scan(const void* ts, const void* vals,
                               const void* counts, long long S, int N,
                               int shift, int min_ts, int step, int instant,
-                              void* mpi, void* slots, void* n_irregular,
-                              void* stream) {
+                              int counter, void* mpi, void* slots,
+                              void* n_irregular, void* mean, void* stream) {
   if (S <= 0) return 0;
   const long long per_block = kPrepThreads / 32;
   const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
@@ -371,8 +610,9 @@ extern "C" int vm_rollup_scan(const void* ts, const void* vals,
   rollup_scan<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
       static_cast<const int32_t*>(counts), S, N, shift, min_ts, step,
-      instant, static_cast<int32_t*>(mpi), static_cast<int32_t*>(slots),
-      static_cast<int32_t*>(n_irregular));
+      instant, counter, static_cast<int32_t*>(mpi),
+      static_cast<int32_t*>(slots), static_cast<int32_t*>(n_irregular),
+      static_cast<double*>(mean));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,22 +633,56 @@ extern "C" int vm_rollup_prep(const void* vals, const void* counts,
 extern "C" int vm_rollup_groups(const void* ts, const void* vals,
                                 const void* cv, const void* cmax,
                                 const void* slots, const void* counts,
-                                const void* mpi, const void* order,
-                                const void* starts, long long G, int N, int T,
-                                int shift, int min_ts, int step, int lookback,
-                                int func, int aggr, void* out, void* stream) {
+                                const void* mpi, const void* mean,
+                                const void* order, const void* starts,
+                                long long G, int N, int T, int shift,
+                                int min_ts, int step, int lookback,
+                                double start_s, int func, int aggr, void* out,
+                                void* stream) {
   if (G <= 0 || T <= 0) return 0;
+  if (func < 0 || func >= kFuncs)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(G),
                   static_cast<unsigned>((T + kGroupThreads - 1) /
                                         kGroupThreads));
-  rollup_groups<<<grid, kGroupThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const PassArgs a{
       static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
       static_cast<const double*>(cv), static_cast<const double*>(cmax),
       static_cast<const int32_t*>(slots), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(mpi), static_cast<const int32_t*>(order),
-      static_cast<const int32_t*>(starts), N, T, shift, min_ts, step,
-      lookback, func, aggr, static_cast<double*>(out));
+      static_cast<const int32_t*>(mpi), static_cast<const double*>(mean),
+      static_cast<const int32_t*>(order),
+      static_cast<const int32_t*>(starts), N, T,
+      make_grid(shift, min_ts, step, lookback, start_s), aggr,
+      static_cast<double*>(out)};
+  groups_table(std::make_integer_sequence<int, kFuncs>())[func](
+      grid, static_cast<cudaStream_t>(stream), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vm_rollup_series(const void* ts, const void* vals,
+                                const void* cv, const void* cmax,
+                                const void* slots, const void* counts,
+                                const void* mpi, const void* mean,
+                                long long S, int N, int T, int shift,
+                                int min_ts, int step, int lookback,
+                                double start_s, int func, void* out,
+                                void* stream) {
+  if (S <= 0 || T <= 0) return 0;
+  if (func < 0 || func >= kFuncs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(S),
+                  static_cast<unsigned>((T + kGroupThreads - 1) /
+                                        kGroupThreads));
+  const PassArgs a{
+      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
+      static_cast<const double*>(cv), static_cast<const double*>(cmax),
+      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(mpi), static_cast<const double*>(mean),
+      nullptr, nullptr, N, T,
+      make_grid(shift, min_ts, step, lookback, start_s), 0,
+      static_cast<double*>(out)};
+  series_table(std::make_integer_sequence<int, kFuncs>())[func](
+      grid, static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }
 

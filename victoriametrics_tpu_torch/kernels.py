@@ -1,10 +1,11 @@
 """Build, load and launch-count the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface and loaded with ``ctypes``.  The
-build happens on first use, never at import (the CPU test host has no
-``nvcc``), into ``_build/`` beside this file; a library's file name carries
-a digest of its source and flags, so an edited source rebuilds and an
+shared library with a plain C interface and loaded with ``ctypes``
+(``csrc/*.cuh`` are headers the sources include).  The build happens on
+first use, never at import (the CPU test host has no ``nvcc``), into
+``_build/`` beside this file; a library's file name carries a digest of its
+source, the headers and the flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.  ``build()`` starts one ``nvcc`` per
 source, all at once.
 
@@ -39,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_D = ctypes.c_double
 
 # exported C functions per source, with their ctypes argument types
 SIGNATURES = {
@@ -48,16 +50,34 @@ SIGNATURES = {
         "vm_decode_plane": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
     },
     "rollup": {
-        # ts, vals, counts, S, N, shift, min_ts, step, instant, mpi, slots,
-        # n_irregular, stream
-        "vm_rollup_scan": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _P, _P, _P,
-                           _P],
+        # ts, vals, counts, S, N, shift, min_ts, step, instant, counter, mpi,
+        # slots, n_irregular, mean, stream
+        "vm_rollup_scan": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
+                           _P, _P, _P],
         # vals, counts, slots, S, N, cv, cmax, stream
         "vm_rollup_prep": [_P, _P, _P, _LL, _I, _P, _P, _P],
-        # ts, vals, cv, cmax, slots, counts, mpi, order, starts, G, N, T,
-        # shift, min_ts, step, lookback, func, aggr, out, stream
-        "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _P, _P],
+        # ts, vals, cv, cmax, slots, counts, mpi, mean, order, starts, G, N,
+        # T, shift, min_ts, step, lookback, start_s, func, aggr, out, stream
+        "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
+                             _I, _I, _I, _I, _I, _D, _I, _I, _P, _P],
+        # ts, vals, cv, cmax, slots, counts, mpi, mean, S, N, T, shift,
+        # min_ts, step, lookback, start_s, func, out, stream
+        "vm_rollup_series": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                             _I, _I, _I, _D, _I, _P, _P],
+    },
+    "select": {
+        # S, T, k, bytes (out): the scratch vm_topk_select needs
+        "vm_topk_scratch": [_LL, _I, _I, ctypes.POINTER(_LL)],
+        # rolled, S, T, k, bottom, scratch, out_idx, out_nan, stream
+        "vm_topk_select": [_P, _LL, _I, _I, _I, _P, _P, _P, _P],
+        # rolled, S, T, sel, M, out, stream
+        "vm_take_rows": [_P, _LL, _I, _P, _LL, _P, _P],
+        # rolled, S, T, kind, rank, stream
+        "vm_rank_rows": [_P, _LL, _I, _I, _P, _P],
+    },
+    "quantile": {
+        # rolled, T, order, starts, G, max_group, phi, out, stream
+        "vm_quantile_groups": [_P, _I, _P, _P, _LL, _I, _D, _P, _P],
     },
     "tile": {
         # ts, vals, counts, new_ts, new_vals, new_counts, S, N, K, stream
@@ -95,7 +115,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers are included by the sources: a changed header rebuilds
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
                              digest_size=8).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest}.so"

@@ -1,18 +1,21 @@
-"""Rolling-tile kernels: fused rollup + group aggregate (K2), append (K3)
-and window compaction (K4), each beside its plain PyTorch version.
+"""Rolling-tile kernels, each beside its plain PyTorch version: the
+windowed rollup (B5), the fused rollup + group aggregate (K2), append (K3),
+window compaction (K4), and the selections over a rolled tile: per-step
+topk/bottomk and the row gather (B6), the per-series rank statistic (B7)
+and the per-group quantile (B8).
 
-Port of the main-path part of ``victoriametrics_tpu/ops/device_rollup.py``.
-A tile is the device-resident state of one selector:
+Port of ``victoriametrics_tpu/ops/device_rollup.py``.  A tile is the
+device-resident state of one selector:
 
   ts:     int32 [S, N]  sample timestamps, ms, relative to the tile base,
                         padded with TS_PAD past counts
   values: float64 [S, N] (anything past counts; masked via counts)
   counts: int32 [S]     valid samples per row
 
-The fused kernel computes ``aggr(rollup(m[window]))`` -> [G, T] for the
-counter rollups ``rate``, ``increase``, ``increase_pure`` and ``irate`` and
-the eight ``AGGR_FUNCS``.  Empty windows give NaN, a NaN series value means
-"absent at this step", and a group with no live series at a step is NaN.
+The rollup covers every func of ``CORE_SUPPORTED`` and K2 all eight
+``AGGR_FUNCS`` over them.  Empty windows give NaN, a NaN series value
+means "absent at this step", and a group with no live series at a step is
+NaN.
 
 The kernel wrappers launch ``csrc/*.cu`` for CUDA tensors and run the plain
 version for CPU tensors; they never fall back from one to the other.
@@ -20,6 +23,7 @@ version for CPU tensors; they never fall back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -38,8 +42,24 @@ _I32_MAX = 2**31 - 1
 TIME_VALUED_FUNCS = frozenset({"tfirst_over_time", "tlast_over_time",
                                "timestamp"})
 
-#: rollup funcs the fused kernel (K2) computes, with their kernel codes
-FUSED_FUNCS = {"rate": 0, "increase": 1, "increase_pure": 2, "irate": 3}
+#: rollup funcs of the rollup kernels (B5, K2), with their kernel codes:
+#: every func of CORE_SUPPORTED
+FUNC_CODES = {
+    "rate": 0, "increase": 1, "increase_pure": 2, "irate": 3,
+    "count_over_time": 4, "present_over_time": 5, "sum_over_time": 6,
+    "avg_over_time": 7, "stddev_over_time": 8, "stdvar_over_time": 9,
+    "min_over_time": 10, "max_over_time": 11, "tfirst_over_time": 12,
+    "tlast_over_time": 13, "timestamp": 14, "lag": 15,
+    "first_over_time": 16, "last_over_time": 17, "default_rollup": 18,
+    "changes": 19, "delta": 20, "idelta": 21, "deriv_fast": 22, "deriv": 23,
+    "lifetime": 24, "scrape_interval": 25,
+}
+#: funcs that read the reset-corrected counter
+COUNTER_FUNCS = frozenset({"rate", "increase", "increase_pure", "irate"})
+#: funcs centred by the row mean
+CENTRED_FUNCS = frozenset({"stddev_over_time", "stdvar_over_time"})
+#: rank statistics of topk_<kind>, with their kernel codes
+RANK_KINDS = {"max": 0, "min": 1, "avg": 2, "median": 3, "last": 4}
 #: aggregates, with their kernel codes (the reference's FLEET_AGGR_CODES)
 AGGR_FUNCS = {"sum": 0, "count": 1, "avg": 2, "min": 3, "max": 4,
               "stddev": 5, "stdvar": 6, "group": 7}
@@ -97,6 +117,15 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(x, idx.clamp(0, x.shape[1] - 1), dim=1)
 
 
+def _serial_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sum along dim 1 in ascending order, one add after another:
+    the order of the kernels and of the reference on the CPU.  torch's CUDA
+    scan associates differently, so a CUDA tensor is summed on the CPU."""
+    if x.device.type == "cpu":
+        return torch.cumsum(x, dim=1)
+    return torch.cumsum(x.cpu(), dim=1).to(x.device)
+
+
 def _remove_counter_resets(values: torch.Tensor,
                            valid: torch.Tensor) -> torch.Tensor:
     """Monotonize counters: add back the lost base at each reset (prefix
@@ -109,7 +138,7 @@ def _remove_counter_resets(values: torch.Tensor,
     drop = torch.where(pair_valid & (vm < prev),
                        torch.where((prev - vm) * 8 < prev, prev - vm, prev),
                        0.0)
-    return values + torch.cumsum(drop, dim=1)
+    return values + _serial_cumsum(drop)
 
 
 def _max_prev_interval_tile(ts: torch.Tensor, counts: torch.Tensor,
@@ -147,20 +176,33 @@ def _max_prev_interval_tile(ts: torch.Tensor, counts: torch.Tensor,
                         si <= 32_000, si + si // 4, si + si // 8)))))
 
 
-def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
-                counts: torch.Tensor, cfg: RollupConfig,
-                min_ts=MIN_TS_NONE) -> torch.Tensor:
-    """Plain windowed counter rollup over a tile whose timestamps are
-    already on the cfg grid -> float64 [S, T] (NaN = gap).
+def _window_fold(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 width: int, init: float, op) -> torch.Tensor:
+    """Fold `op` over each window's samples x[lo:hi] in ascending sample
+    order (the kernels' order), starting from `init`."""
+    acc = torch.full(lo.shape, init, dtype=x.dtype, device=x.device)
+    for k in range(width):
+        idx = lo + k
+        acc = torch.where(idx < hi, op(acc, _take(x, idx)), acc)
+    return acc
+
+
+def rollup_tile_plain(func: str, ts: torch.Tensor, values: torch.Tensor,
+                      counts: torch.Tensor, cfg: RollupConfig,
+                      min_ts=MIN_TS_NONE) -> torch.Tensor:
+    """Plain windowed rollup of every CORE_SUPPORTED func over a tile whose
+    timestamps are already on the cfg grid -> float64 [S, T] (NaN = gap).
 
     Windows by ``torch.searchsorted`` on each row's valid prefix, window
-    endpoints by gathers.  `min_ts` gates the sample before a window like
-    a fetch that started there (rolling tiles hold more history)."""
-    if func not in FUSED_FUNCS:
+    endpoints by gathers, window sums and extrema folded in ascending
+    sample order.  `min_ts` gates the sample before a window like a fetch
+    that started there (rolling tiles hold more history)."""
+    if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     S, N = ts.shape
     dev = ts.device
-    nan = torch.tensor(torch.nan, dtype=torch.float64, device=dev)
+    f64 = torch.float64
+    nan = torch.tensor(torch.nan, dtype=f64, device=dev)
     valid = _valid_mask(counts, N)
     sts = torch.where(valid, ts.to(torch.int64), int(TS_PAD)).contiguous()
     T = num_steps(cfg)
@@ -169,45 +211,128 @@ def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
     hi = torch.searchsorted(sts, grid.expand(S, T).contiguous(), right=True)
     lo = torch.searchsorted(sts, lo_t.expand(S, T).contiguous(), right=True)
     have = hi > lo
-    cv = _remove_counter_resets(values, valid)
-    cmax = torch.cummax(cv, dim=1).values  # NaN-propagating
+    n = hi - lo
+    nw = n.to(f64)
+    two = n >= 2
+    width = int(n.max()) if S and T else 0
     t_prev_i = torch.where(lo >= 1, _take(sts, lo - 1), _I32_MIN)
     has_prev = (lo >= 1) & (t_prev_i >= int(min_ts))
-    c_last = torch.where(hi >= 1, _take(cmax, hi - 1), -torch.inf)
+    t_last = _take(sts, hi - 1).to(f64)
+    t_first = _take(sts, lo).to(f64)
+    t_prev = t_prev_i.to(f64)
+
+    def fold(x, init, op):
+        return _window_fold(x, lo, hi, width, init, op)
+
+    def gated_prev():
+        mpi = _max_prev_interval_tile(ts, counts, cfg, min_ts).to(torch.int64)
+        return has_prev & (t_prev_i > lo_t[None, :] - mpi[:, None])
+
+    def out(x, ok=None):
+        return torch.where(have if ok is None else have & ok, x, nan)
+
+    v = values
+    if func == "count_over_time":
+        return out(nw)
+    if func == "present_over_time":
+        return out(torch.ones_like(nw))
+    if func in ("sum_over_time", "avg_over_time"):
+        s = fold(v, 0.0, torch.add)
+        return out(s if func == "sum_over_time" else s / nw)
+    if func in ("stddev_over_time", "stdvar_over_time"):
+        total = torch.where(valid, v, 0.0).sum(dim=1, keepdim=True)
+        mean = total / counts[:, None].clamp(min=1).to(f64)
+        x = v - mean
+        s1 = fold(x, 0.0, torch.add)
+        s2 = fold(x * x, 0.0, torch.add)
+        m1 = s1 / nw
+        var = torch.maximum(s2 / nw - m1 * m1,
+                            torch.zeros((), dtype=f64, device=dev))
+        return out(torch.sqrt(var) if func == "stddev_over_time" else var)
+    if func == "min_over_time":
+        return out(fold(v, torch.inf, torch.minimum))
+    if func == "max_over_time":
+        return out(fold(v, -torch.inf, torch.maximum))
+    base_s = float(cfg.start) / 1e3
+    if func == "tfirst_over_time":
+        return out(t_first / 1e3 + base_s)
+    if func in ("tlast_over_time", "timestamp"):
+        return out(t_last / 1e3 + base_s)
+    if func == "lag":
+        return out((grid.to(f64)[None, :] - t_last) / 1e3)
+    if func == "first_over_time":
+        return out(_take(v, lo))
+    if func in ("last_over_time", "default_rollup"):
+        return out(_take(v, hi - 1))
+    if func == "changes":
+        vm = torch.where(valid, v, 0.0)
+        chg = torch.zeros_like(vm)
+        chg[:, 1:] = (valid[:, 1:] & valid[:, :-1] &
+                      (vm[:, 1:] != vm[:, :-1])).to(f64)
+        s = fold(chg, 0.0, torch.add)
+        return out(s - torch.where(has_prev, 0.0, _take(chg, lo)))
+    if func == "delta":
+        v_first = _take(v, lo)
+        d = torch.where(two, _take(v, lo + 1) - v_first, 0.0)
+        born = (v_first + 0.0).abs() < 10.0 * (d.abs() + 1.0)
+        neg0 = torch.tensor(-0.0, dtype=f64, device=dev)
+        base = torch.where(has_prev, _take(v, lo - 1),
+                           torch.where(born, neg0, v_first))
+        return out(_take(v, hi - 1) - base)
+    if func == "idelta":
+        has_gprev = gated_prev()
+        prev = torch.where(two, _take(v, hi - 2), _take(v, lo - 1))
+        return out(_take(v, hi - 1) - prev, two | has_gprev)
+    if func == "deriv_fast":
+        has_gprev = gated_prev()
+        base_v = torch.where(has_gprev, _take(v, lo - 1), _take(v, lo))
+        base_t = torch.where(has_gprev, t_prev, t_first)
+        dt = (t_last - base_t) / 1e3
+        return out((_take(v, hi - 1) - base_v) / dt,
+                   (has_gprev | two) & (dt > 0))
+    if func == "deriv":
+        ts_s = sts.to(f64) / 1e3
+        st = fold(ts_s, 0.0, torch.add)
+        stt = fold(ts_s * ts_s, 0.0, torch.add)
+        sv = fold(v, 0.0, torch.add)
+        stv = fold(ts_s * v, 0.0, torch.add)
+        t0 = t_first / 1e3
+        st_ = st - nw * t0
+        stt_ = stt - 2 * t0 * st + nw * t0 * t0
+        stv_ = stv - t0 * sv
+        den = nw * stt_ - st_ * st_
+        return out((nw * stv_ - st_ * sv) / den, two & (den != 0))
+    if func == "lifetime":
+        tf = torch.where(has_prev, sts[:, :1].to(f64), t_first)
+        return out((t_last - tf) / 1e3)
+    if func == "scrape_interval":
+        dt = torch.where(has_prev, t_last - t_prev, t_last - t_first) / 1e3
+        cnt = torch.where(has_prev, n, n - 1)
+        return out(dt / cnt.to(f64), (has_prev | two) & (cnt > 0))
+    # the counter funcs
+    cv = _remove_counter_resets(values, valid)
+    cmax = torch.cummax(cv, dim=1).values  # NaN-propagating
+    c_last = _take(cmax, hi - 1)
     c_prev = torch.where(lo >= 1, _take(cmax, lo - 1), -torch.inf)
-    c_first = torch.full((S, T), torch.inf, dtype=torch.float64, device=dev)
-    width = int((hi - lo).max()) if S and T else 0
-    for k in range(width):
-        idx = lo + k
-        c_first = torch.where(idx < hi, torch.minimum(c_first, _take(cv, idx)),
-                              c_first)
-    two = hi - lo >= 2
+    c_first = fold(cv, torch.inf, torch.minimum)
     if func in ("increase", "increase_pure"):
-        neg0 = torch.tensor(-0.0, dtype=torch.float64, device=dev)
+        neg0 = torch.tensor(-0.0, dtype=f64, device=dev)
         if func == "increase_pure":
             nb = neg0.expand(S, T)
         else:
             d = torch.where(two, _take(cv, lo + 1) - c_first, 0.0)
             born = (c_first + 0.0).abs() < 10.0 * (d.abs() + 1.0)
             nb = torch.where(born, neg0, c_first)
-        base = torch.where(has_prev, c_prev, nb)
-        return torch.where(have, c_last - base, nan)
-    mpi = _max_prev_interval_tile(ts, counts, cfg, min_ts).to(torch.int64)
-    has_gprev = has_prev & (t_prev_i > lo_t[None, :] - mpi[:, None])
-    t_last = torch.where(hi >= 1, _take(sts, hi - 1),
-                         _I32_MIN).to(torch.float64)
-    t_prev = t_prev_i.to(torch.float64)
-    ok = have & (has_gprev | two)
+        return out(c_last - torch.where(has_prev, c_prev, nb))
+    has_gprev = gated_prev()
     if func == "rate":
-        t_first = torch.where(have, _take(sts, lo), _I32_MAX).to(torch.float64)
         rate_base = torch.where(has_gprev, c_prev, c_first)
         dt = torch.where(has_gprev, t_last - t_prev, t_last - t_first) / 1e3
-        dv = c_last - rate_base
-        return torch.where(ok & (dt > 0), dv / dt, nan)
+        return out((c_last - rate_base) / dt, (has_gprev | two) & (dt > 0))
     c_l2 = torch.where(two, _take(cv, hi - 2), c_prev)
-    t_l2 = torch.where(two, _take(sts, hi - 2).to(torch.float64), t_prev)
+    t_l2 = torch.where(two, _take(sts, hi - 2).to(f64), t_prev)
     dt = (t_last - t_l2) / 1e3
-    return torch.where(ok & (dt > 0), (c_last - c_l2) / dt, nan)
+    return out((c_last - c_l2) / dt, (has_gprev | two) & (dt > 0))
 
 
 def partial_group_moments(aggr: str, rolled: torch.Tensor,
@@ -274,17 +399,18 @@ def aggregate_groups(aggr: str, rolled: torch.Tensor, group_ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K2: fused rollup + group aggregate.
+# K2 and B5: the rollup kernels.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class GroupLayout:
-    """Group ids of a tile's rows plus the member lists the fused kernel
-    walks: group g owns rows order[starts[g]:starts[g+1]], ascending."""
+    """Group ids of a tile's rows plus the member lists the group kernels
+    walk: group g owns rows order[starts[g]:starts[g+1]], ascending."""
     gids: torch.Tensor     # int32 [S]
     order: torch.Tensor    # int32 [S], rows stably sorted by group id
     starts: torch.Tensor   # int32 [G + 1]
     num_groups: int
+    max_group: int = 0     # members of the largest group
 
 
 def group_layout(gids, num_groups: int, device) -> GroupLayout:
@@ -297,18 +423,109 @@ def group_layout(gids, num_groups: int, device) -> GroupLayout:
     if g.numel() and (int(g.min()) < 0 or int(g.max()) >= num_groups):
         raise ValueError(f"group ids outside [0, {num_groups})")
     order = torch.sort(g, stable=True).indices
+    sizes = torch.bincount(g, minlength=num_groups)
     starts = torch.zeros(num_groups + 1, dtype=torch.int64, device=g.device)
-    starts[1:] = torch.cumsum(torch.bincount(g, minlength=num_groups), 0)
+    starts[1:] = torch.cumsum(sizes, 0)
     return GroupLayout(g.to(torch.int32), order.to(torch.int32),
-                       starts.to(torch.int32), int(num_groups))
+                       starts.to(torch.int32), int(num_groups),
+                       int(sizes.max()) if num_groups else 0)
+
+
+def _check_shift(func: str, shift: int) -> None:
+    if shift and func in TIME_VALUED_FUNCS:
+        raise ValueError(f"{func} reads absolute time and cannot run on a "
+                         "shifted (rolling) grid")
+
+
+def _check_tile(ts, values, counts) -> tuple[int, int]:
+    S, N = ts.shape
+    if N < 1:
+        raise ValueError("tile needs at least one column")
+    kernels.require(ts, "ts", torch.int32, (S, N))
+    kernels.require(values, "values", torch.float64, (S, N))
+    kernels.require(counts, "counts", torch.int32, (S,))
+    return S, N
+
+
+def _scan_rows(h, func: str, ts, values, counts, cfg: RollupConfig,
+               shift: int, min_ts, stream: int):
+    """The row passes K2 and B5 share: maxPrevInterval per row, the row
+    mean for stddev/stdvar_over_time, and the reset-corrected counter
+    scratch of the irregular rows for the counter funcs.  Returns the
+    series pass's row pointers and the tensors behind them."""
+    S, N = ts.shape
+    dev = ts.device
+    counter = func in COUNTER_FUNCS
+    mpi = torch.empty((S,), dtype=torch.int32, device=dev)
+    slots = torch.empty((S,), dtype=torch.int32, device=dev)
+    n_irregular = torch.zeros((1,), dtype=torch.int32, device=dev)
+    mean = torch.empty((S,), dtype=torch.float64, device=dev) \
+        if func in CENTRED_FUNCS else None
+    kernels.check(h, h.vm_rollup_scan(
+        ts.data_ptr(), values.data_ptr(), counts.data_ptr(), S, N,
+        int(shift), int(min_ts), cfg.step, int(cfg.start >= cfg.end),
+        int(counter), mpi.data_ptr(), slots.data_ptr(),
+        n_irregular.data_ptr(), None if mean is None else mean.data_ptr(),
+        stream), "rollup (row scan)")
+    # scratch only for counter rows with a reset, a NaN or -0.0: on the
+    # others the reset-corrected counter and its running maximum are the
+    # values
+    n = int(n_irregular.item()) if counter else 0
+    cv = torch.empty((n, N), dtype=torch.float64, device=dev)
+    cmax = torch.empty((n, N), dtype=torch.float64, device=dev)
+    if n:
+        kernels.check(h, h.vm_rollup_prep(
+            values.data_ptr(), counts.data_ptr(), slots.data_ptr(), S, N,
+            cv.data_ptr(), cmax.data_ptr(), stream), "rollup (row prep)")
+    # the caller keeps `keep` alive until the series pass is queued: the
+    # pointers alone would let the allocator reuse these tensors' memory
+    return (cv.data_ptr(), cmax.data_ptr(), slots.data_ptr(),
+            counts.data_ptr(), mpi.data_ptr(),
+            None if mean is None else mean.data_ptr()), \
+        (cv, cmax, slots, mpi, mean)
+
+
+def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
+                counts: torch.Tensor, cfg: RollupConfig, min_ts=MIN_TS_NONE,
+                shift: int = 0) -> torch.Tensor:
+    """B5: windowed rollup over a tile -> float64 [S, T] (NaN = gap).
+
+    `shift` (ms) rebases tile timestamps onto the cfg grid (rolling tiles:
+    shift = query_start - tile_base); `min_ts` is the query's fetch lower
+    bound in the shifted frame, gating only previous-sample accesses.
+    Time-valued funcs refuse a shift."""
+    if func not in FUNC_CODES:
+        raise ValueError(f"unsupported device rollup func {func!r}")
+    _check_shift(func, shift)
+    dev = kernels.placement(ts, values, counts)
+    if dev.type == "cpu":
+        return rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
+                                 min_ts)
+    S, N = _check_tile(ts, values, counts)
+    T = num_steps(cfg)
+    h = kernels.lib("rollup")
+    stream = kernels.stream_of(dev)
+    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
+                            stream)
+    out = torch.empty((S, T), dtype=torch.float64, device=dev)
+    kernels.check(h, h.vm_rollup_series(
+        ts.data_ptr(), values.data_ptr(), *rows, S, N, T, int(shift),
+        int(min_ts), cfg.step, cfg.lookback, float(cfg.start) / 1e3,
+        FUNC_CODES[func], out.data_ptr(), stream), "rollup_tile")
+    del keep  # the row tensors live until the launch is queued
+    kernels.LAUNCHES["rollup_tile"] += 1
+    return out
 
 
 def rollup_aggregate_tile_plain(func: str, aggr: str, ts, values, counts,
                                 groups: GroupLayout, cfg: RollupConfig,
                                 shift: int = 0,
                                 min_ts=MIN_TS_NONE) -> torch.Tensor:
-    """Plain PyTorch version of K2: rollup_tile, then aggregate_groups."""
-    rolled = rollup_tile(func, ts - int(shift), values, counts, cfg, min_ts)
+    """Plain PyTorch version of K2: rollup_tile_plain, then
+    aggregate_groups."""
+    _check_shift(func, shift)
+    rolled = rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
+                               min_ts)
     return aggregate_groups(aggr, rolled, groups.gids, groups.num_groups)
 
 
@@ -317,60 +534,40 @@ def rollup_aggregate_tile(func: str, aggr: str, ts: torch.Tensor,
                           groups: GroupLayout, cfg: RollupConfig,
                           shift: int = 0,
                           min_ts=MIN_TS_NONE) -> torch.Tensor:
-    """Fused aggr(rollup(m[d])) over one tile -> float64 [G, T].
+    """K2: fused aggr(rollup(m[d])) over one tile -> float64 [G, T].
 
     `shift` (ms) rebases tile timestamps onto the cfg grid: rolling tiles
     keep timestamps relative to their original base while the query grid
     advances, so shift = query_start - tile_base.  `min_ts` is the query's
     fetch lower bound in the shifted frame.  cfg is the normalized (start
-    0) grid."""
-    if func not in FUSED_FUNCS:
+    0) grid, or the absolute one for the time-valued funcs."""
+    if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     if aggr not in AGGR_FUNCS:
         raise ValueError(f"unsupported aggregate {aggr!r}")
+    _check_shift(func, shift)
     dev = kernels.placement(ts, values, counts, groups.gids, groups.order,
                             groups.starts)
     if dev.type == "cpu":
         return rollup_aggregate_tile_plain(func, aggr, ts, values, counts,
                                            groups, cfg, shift, min_ts)
-    S, N = ts.shape
+    S, N = _check_tile(ts, values, counts)
     G = groups.num_groups
     T = num_steps(cfg)
-    if N < 1:
-        raise ValueError("tile needs at least one column")
-    kernels.require(ts, "ts", torch.int32, (S, N))
-    kernels.require(values, "values", torch.float64, (S, N))
-    kernels.require(counts, "counts", torch.int32, (S,))
     kernels.require(groups.order, "order", torch.int32, (S,))
     kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
     h = kernels.lib("rollup")
-    mpi = torch.empty((S,), dtype=torch.int32, device=dev)
-    slots = torch.empty((S,), dtype=torch.int32, device=dev)
-    n_irregular = torch.zeros((1,), dtype=torch.int32, device=dev)
-    out = torch.empty((G, T), dtype=torch.float64, device=dev)
     stream = kernels.stream_of(dev)
-    kernels.check(h, h.vm_rollup_scan(
-        ts.data_ptr(), values.data_ptr(), counts.data_ptr(), S, N,
-        int(shift), int(min_ts), cfg.step, int(cfg.start >= cfg.end),
-        mpi.data_ptr(), slots.data_ptr(), n_irregular.data_ptr(), stream),
-        "rollup_aggregate_tile (row scan)")
-    # scratch only for rows with a reset, a NaN or -0.0: on the others the
-    # reset-corrected counter and its running maximum are the values
-    n = int(n_irregular.item())
-    cv = torch.empty((n, N), dtype=torch.float64, device=dev)
-    cmax = torch.empty((n, N), dtype=torch.float64, device=dev)
-    if n:
-        kernels.check(h, h.vm_rollup_prep(
-            values.data_ptr(), counts.data_ptr(), slots.data_ptr(), S, N,
-            cv.data_ptr(), cmax.data_ptr(), stream),
-            "rollup_aggregate_tile (row prep)")
+    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
+                            stream)
+    out = torch.empty((G, T), dtype=torch.float64, device=dev)
     kernels.check(h, h.vm_rollup_groups(
-        ts.data_ptr(), values.data_ptr(), cv.data_ptr(), cmax.data_ptr(),
-        slots.data_ptr(), counts.data_ptr(), mpi.data_ptr(),
-        groups.order.data_ptr(), groups.starts.data_ptr(), G, N, T,
-        int(shift), int(min_ts), cfg.step, cfg.lookback, FUSED_FUNCS[func],
+        ts.data_ptr(), values.data_ptr(), *rows, groups.order.data_ptr(),
+        groups.starts.data_ptr(), G, N, T, int(shift), int(min_ts), cfg.step,
+        cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
         AGGR_FUNCS[aggr], out.data_ptr(), stream),
         "rollup_aggregate_tile (group pass)")
+    del keep
     kernels.LAUNCHES["rollup_aggregate_tile"] += 1
     return out
 
@@ -462,3 +659,217 @@ def compact_tile(ts: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
         kernels.stream_of(dev)), "compact_tile")
     kernels.LAUNCHES["compact_tile"] += 1
     return ts2, v2, c2
+
+
+# ---------------------------------------------------------------------------
+# B6 / B7 / B8: selections over a rolled tile.
+# ---------------------------------------------------------------------------
+
+def _topk_key(rolled: torch.Tensor, bottom: bool) -> torch.Tensor:
+    bad = torch.isnan(rolled)
+    return torch.where(bad, -torch.inf, -rolled if bottom else rolled)
+
+
+def topk_select_plain(rolled: torch.Tensor, k: int, bottom: bool):
+    """Plain version of the B6 selection: per step, the k series with the
+    largest key NaN ? -inf : (bottom ? -v : v) in lax.top_k's order (+0.0
+    above -0.0, ties to the lower index) -> (idx int32 [T, k], sel_nan
+    bool [T, k])."""
+    bits = _topk_key(rolled, bottom).T.contiguous().view(torch.int64)
+    # float64 total order as int64: flip the magnitude bits of negatives
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFFFFFFFFFF, bits)
+    idx = torch.sort(order, dim=1, descending=True, stable=True).indices[:, :k]
+    sel_nan = torch.gather(torch.isnan(rolled).T, 1, idx)
+    return idx.to(torch.int32), sel_nan
+
+
+def topk_select(rolled: torch.Tensor, k: int, bottom: bool):
+    """B6 selection over a rolled tile [S, T], 1 <= k <= S -> (idx int32
+    [T, k], sel_nan bool [T, k]), in jax.lax.top_k's order."""
+    S, T = rolled.shape
+    if not 1 <= k <= S:
+        raise ValueError(f"k={k} outside [1, {S}]")
+    dev = kernels.placement(rolled)
+    if dev.type == "cpu":
+        return topk_select_plain(rolled, k, bottom)
+    kernels.require(rolled, "rolled", torch.float64, (S, T))
+    idx = torch.empty((T, k), dtype=torch.int32, device=dev)
+    sel_nan = torch.empty((T, k), dtype=torch.bool, device=dev)
+    h = kernels.lib("select")
+    nbytes = ctypes.c_longlong(0)
+    kernels.check(h, h.vm_topk_scratch(S, T, int(k), ctypes.byref(nbytes)),
+                  "topk_select_tile")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    kernels.check(h, h.vm_topk_select(
+        rolled.data_ptr(), S, T, int(k), int(bool(bottom)),
+        scratch.data_ptr(), idx.data_ptr(), sel_nan.data_ptr(),
+        kernels.stream_of(dev)), "topk_select_tile")
+    kernels.LAUNCHES["topk_select_tile"] += 1
+    return idx, sel_nan
+
+
+def topk_select_tile(func: str, ts, values, counts, cfg: RollupConfig,
+                     k: int, bottom: bool, min_ts=MIN_TS_NONE):
+    """Per-step topk/bottomk over a rolled tile: the [S, T] rollup stays on
+    the device; only [T, k] winner indices and NaN flags come back.
+    Returns (rolled, idx, sel_nan)."""
+    rolled = rollup_tile(func, ts, values, counts, cfg, min_ts)
+    idx, sel_nan = topk_select(rolled, k, bottom)
+    return rolled, idx, sel_nan
+
+
+def take_rows_plain(rolled: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Plain row gather; an index outside [0, S) gives a NaN row."""
+    S = rolled.shape[0]
+    sel = sel.to(torch.int64)
+    ok = (sel >= 0) & (sel < S)
+    rows = rolled.index_select(0, sel.clamp(0, max(S - 1, 0)))
+    return torch.where(ok[:, None], rows, torch.nan)
+
+
+def take_rows(rolled: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Row gather on a device-resident rolled tile: rolled [S, T], sel [m]
+    -> [m, T] (the D2H tail of the topk kernels)."""
+    dev = kernels.placement(rolled, sel)
+    if dev.type == "cpu":
+        return take_rows_plain(rolled, sel)
+    S, T = rolled.shape
+    kernels.require(rolled, "rolled", torch.float64, (S, T))
+    sel = sel.to(torch.int64).contiguous()
+    M = sel.shape[0]
+    out = torch.empty((M, T), dtype=torch.float64, device=dev)
+    h = kernels.lib("select")
+    kernels.check(h, h.vm_take_rows(
+        rolled.data_ptr(), S, T, sel.data_ptr(), M, out.data_ptr(),
+        kernels.stream_of(dev)), "take_rows")
+    kernels.LAUNCHES["take_rows"] += 1
+    return out
+
+
+def rank_rows_plain(rolled: torch.Tensor, kind: str) -> torch.Tensor:
+    """Plain version of the B7 statistic: one float64 per series over its
+    non-NaN steps (NaN where it has none)."""
+    if kind not in RANK_KINDS:
+        raise ValueError(f"unknown rank kind {kind!r}")
+    bad = torch.isnan(rolled)
+    n = (~bad).sum(dim=1)
+    T = rolled.shape[1]
+    if kind == "max":
+        r = torch.where(bad, -torch.inf, rolled).amax(dim=1)
+    elif kind == "min":
+        r = torch.where(bad, torch.inf, rolled).amin(dim=1)
+    elif kind == "avg":
+        r = _serial_cumsum(torch.where(bad, 0.0, rolled))[:, -1] / \
+            n.clamp(min=1).to(rolled.dtype)
+    elif kind == "median":
+        sv = torch.sort(torch.where(bad, torch.inf, rolled), dim=1).values
+        pos = 0.5 * (n - 1).clamp(min=0).to(rolled.dtype)
+        j0 = torch.floor(pos).to(torch.int64)
+        j1 = torch.minimum(j0 + 1, (n - 1).clamp(min=0))
+        a = torch.gather(sv, 1, j0[:, None])[:, 0]
+        b = torch.gather(sv, 1, j1[:, None])[:, 0]
+        r = a + (pos - j0.to(rolled.dtype)) * (b - a)
+    else:  # last
+        j = T - 1 - torch.argmax(torch.flip(~bad, dims=[1]).to(torch.int8),
+                                 dim=1)
+        r = torch.gather(rolled, 1, j[:, None])[:, 0]
+    return torch.where(n == 0, torch.nan, r)
+
+
+def rank_rows(rolled: torch.Tensor, kind: str) -> torch.Tensor:
+    """B7 statistic over a rolled tile [S, T] -> float64 [S]."""
+    if kind not in RANK_KINDS:
+        raise ValueError(f"unknown rank kind {kind!r}")
+    dev = kernels.placement(rolled)
+    if dev.type == "cpu":
+        return rank_rows_plain(rolled, kind)
+    S, T = rolled.shape
+    kernels.require(rolled, "rolled", torch.float64, (S, T))
+    rank = torch.empty((S,), dtype=torch.float64, device=dev)
+    h = kernels.lib("select")
+    kernels.check(h, h.vm_rank_rows(
+        rolled.data_ptr(), S, T, RANK_KINDS[kind], rank.data_ptr(),
+        kernels.stream_of(dev)), "rank_tile")
+    kernels.LAUNCHES["rank_tile"] += 1
+    return rank
+
+
+def rank_tile(func: str, kind: str, ts, values, counts, cfg: RollupConfig,
+              min_ts=MIN_TS_NONE):
+    """topk_<kind>/bottomk_<kind> ranking: the whole-series statistic on
+    the device; one float per series comes back.  Returns (rolled,
+    rank)."""
+    rolled = rollup_tile(func, ts, values, counts, cfg, min_ts)
+    return rolled, rank_rows(rolled, kind)
+
+
+def dense_by_group(rolled: torch.Tensor, groups: GroupLayout) -> torch.Tensor:
+    """The reference's dense [G, M, T] of a rolled tile: each group's rows
+    in ascending order (the reference's slots), NaN past the group's
+    size."""
+    S, T = rolled.shape
+    dev = rolled.device
+    order = groups.order.to(torch.int64)
+    gid_sorted = groups.gids.to(torch.int64)[order]
+    slot_sorted = torch.arange(S, device=dev) - \
+        groups.starts.to(torch.int64)[gid_sorted]
+    dense = torch.full((groups.num_groups, max(groups.max_group, 1), T),
+                       torch.nan, dtype=rolled.dtype, device=dev)
+    dense[gid_sorted, slot_sorted] = rolled[order]
+    return dense
+
+
+def quantile_groups_plain(rolled: torch.Tensor, groups: GroupLayout,
+                          phi: float) -> torch.Tensor:
+    """Plain version of the B8 quantile, as the reference computes it: the
+    rolled rows scattered into a dense [G, M, T] by slot within group,
+    sorted along M (NaN last), interpolated at clip(phi, 0, 1) (n - 1)."""
+    G = groups.num_groups
+    T = rolled.shape[1]
+    dev = rolled.device
+    dsort = torch.sort(dense_by_group(rolled, groups), dim=1,
+                       stable=True).values
+    n = torch.zeros((G, T), dtype=torch.int64, device=dev).index_add_(
+        0, groups.gids.to(torch.int64), (~torch.isnan(rolled)).to(torch.int64))
+    rank = min(max(float(phi), 0.0), 1.0) * (n - 1).clamp(min=0).to(
+        rolled.dtype)
+    lo = torch.floor(rank).to(torch.int64)
+    hi = torch.ceil(rank).to(torch.int64)
+    v_lo = torch.gather(dsort, 1, lo[:, None, :])[:, 0]
+    v_hi = torch.gather(dsort, 1, hi[:, None, :])[:, 0]
+    q = v_lo + (rank - lo.to(rolled.dtype)) * (v_hi - v_lo)
+    if phi < 0:
+        q = torch.full_like(q, -torch.inf)
+    if phi > 1:
+        q = torch.full_like(q, torch.inf)
+    return torch.where(n > 0, q, torch.nan)
+
+
+def quantile_groups(rolled: torch.Tensor, groups: GroupLayout,
+                    phi: float) -> torch.Tensor:
+    """B8 quantile over a rolled tile [S, T] by group -> float64 [G, T]."""
+    dev = kernels.placement(rolled, groups.gids, groups.order, groups.starts)
+    if dev.type == "cpu":
+        return quantile_groups_plain(rolled, groups, phi)
+    S, T = rolled.shape
+    G = groups.num_groups
+    kernels.require(rolled, "rolled", torch.float64, (S, T))
+    kernels.require(groups.order, "order", torch.int32, (S,))
+    kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
+    out = torch.empty((G, T), dtype=torch.float64, device=dev)
+    h = kernels.lib("quantile")
+    kernels.check(h, h.vm_quantile_groups(
+        rolled.data_ptr(), T, groups.order.data_ptr(),
+        groups.starts.data_ptr(), G, groups.max_group, float(phi),
+        out.data_ptr(), kernels.stream_of(dev)), "rollup_quantile_tile")
+    kernels.LAUNCHES["rollup_quantile_tile"] += 1
+    return out
+
+
+def rollup_quantile_tile(func: str, phi: float, ts, values, counts,
+                         groups: GroupLayout, cfg: RollupConfig,
+                         shift: int = 0, min_ts=MIN_TS_NONE) -> torch.Tensor:
+    """Fused quantile(phi, rollup(m[d])) by (...) -> float64 [G, T]:
+    B5 on the (shifted) tile, then B8 over each group's members."""
+    rolled = rollup_tile(func, ts, values, counts, cfg, min_ts, shift)
+    return quantile_groups(rolled, groups, phi)

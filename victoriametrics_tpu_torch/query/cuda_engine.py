@@ -1,9 +1,17 @@
-"""CUDA query backend: fused ``aggr(rollup(selector[window]))`` on device
-tiles, as a cold query and as a rolling refresh.
+"""CUDA query backend: rollups over device tiles, per series, fused with
+an aggregate, topk/bottomk and quantile, as a cold query and as a rolling
+refresh.
 
-Port of the fused and rolling paths of ``victoriametrics_tpu/query/
+Port of the single-card entry points of ``victoriametrics_tpu/query/
 tpu_engine.py`` (functions keep their reference names without the
 ``_tpu`` suffix):
+
+- per series: ``try_rollup`` -> B5 ``rollup_tile`` -> [S, T] rows;
+- selection: ``try_topk_rollup`` -> B6 ``topk_select_tile`` +
+  ``take_rows`` (topk/bottomk), or B7 ``rank_tile`` + ``take_rows``
+  (topk_<kind>/bottomk_<kind>), only the chosen rows back to the host;
+- quantile: ``try_quantile_rollup`` / ``run_quantile_on_tiles`` -> B8
+  ``rollup_quantile_tile`` -> [G, T];
 
 - cold: ``try_aggr_rollup`` -> ``_upload_tiles`` (host float->decimal,
   nearest-delta2 planes, H2D, K1 ``decode_tiles``) -> ``_dispatch_fused``
@@ -16,9 +24,12 @@ tpu_engine.py`` (functions keep their reference names without the
   ``compact_tile``; ``run_fused_on_tiles`` runs K2 on the resident tile.
 
 The engine is float64 only (the H100 computes float64 natively; the
-reference's float32 rebase tiles exist because the TPU does not).  Rollup
-funcs and aggregates outside K2's set return None: the reference engine's
-"not on device" contract, which its callers answer on the host.
+reference's float32 rebase tiles exist because the TPU does not), so the
+reference's func_mode is always "direct" here.  Queries the reference
+engine declines (funcs outside CORE_SUPPORTED, rollup args, too few
+series, an int32-overflowing span, a quantile over the dense budget)
+return None: its "not on device" contract, which callers answer on the
+host.
 """
 
 from __future__ import annotations
@@ -34,10 +45,11 @@ from .. import kernels
 from ..models import tile_cache
 from ..ops import decimal as dec
 from ..ops import device_decode as dd
-from ..ops.device_rollup import (AGGR_FUNCS, FUSED_FUNCS, MIN_TS_NONE,
-                                 GroupLayout, append_tile, compact_tile,
-                                 group_layout, normalized_cfg, pack_series,
-                                 rollup_aggregate_tile)
+from ..ops.device_rollup import (AGGR_FUNCS, MIN_TS_NONE, GroupLayout,
+                                 append_tile, compact_tile, group_layout,
+                                 normalized_cfg, pack_series, rank_tile,
+                                 rollup_aggregate_tile, rollup_quantile_tile,
+                                 rollup_tile, take_rows, topk_select_tile)
 from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
 from ..utils import metrics as metricslib
 
@@ -80,13 +92,16 @@ def timed_kernel_call(kernel: str, fn, *args, **kw):
     return out
 
 
-def _pull_host(out: torch.Tensor) -> np.ndarray:
+def _pull(out: torch.Tensor) -> np.ndarray:
     """D2H pull of a kernel result with byte accounting — the one seam
     where device results cross back to the host."""
     nbytes = out.numel() * out.element_size()
-    return tile_cache.timed_transfer(
-        "device:download", nbytes,
-        lambda: out.to("cpu").numpy().astype(np.float64, copy=False))
+    return tile_cache.timed_transfer("device:download", nbytes,
+                                     lambda: out.to("cpu").numpy())
+
+
+def _pull_host(out: torch.Tensor) -> np.ndarray:
+    return _pull(out).astype(np.float64, copy=False)
 
 
 @dataclasses.dataclass
@@ -131,36 +146,138 @@ def _fingerprint(series, start_ms: int) -> tuple:
     return ("tile", int.from_bytes(h.digest(), "little"), start_ms)
 
 
-def try_aggr_rollup(engine: CUDAEngine, aggr: str, func: str, series,
-                    gids, num_groups: int, cfg: RollupConfig,
-                    cache_key=None):
-    """Fused aggr(rollup(selector)) on device: per-series rollup and
-    segment aggregation in one kernel, so only the [G, T] aggregate
-    crosses back to the host.  Returns a float64 [G, T] array, or None when
-    the query is not one the device runs."""
-    if aggr not in FUSED_AGGRS or func not in FUSED_FUNCS or \
-            func not in CORE_SUPPORTED:
-        return None
-    if len(series) < engine.min_series:
-        return None
-    span = cfg.end - cfg.start + cfg.lookback
-    if span >= 2**31 - 1:
-        return None
+def _span_fits(cfg: RollupConfig) -> bool:
+    return cfg.end - cfg.start + cfg.lookback < 2**31 - 1
+
+
+def _resident_tiles(engine: CUDAEngine, series, cfg: RollupConfig,
+                    cache_key):
+    """The query's tile from the device cache, uploaded on a miss."""
     key = cache_key or _fingerprint(series, cfg.start)
     cache = engine.cache()
     tiles = cache.get(key)
     if tiles is None:
         tiles = _upload_tiles(engine, series, cfg)
         cache.put_device(key, tiles)
+    return tiles
+
+
+def try_rollup(engine: CUDAEngine, func: str, series, cfg: RollupConfig,
+               args: tuple, cache_key=None):
+    """Per-series rollup rows on device (B5).  Returns a list of float64
+    [T] rows, one per series, or None when the query is not one the
+    device runs."""
+    if func not in CORE_SUPPORTED:
+        return None  # device kernels cover the core set
+    if args:
+        return None
+    if len(series) < engine.min_series:
+        return None
+    if not _span_fits(cfg):
+        return None  # needs chunking; host path handles it
+    ts_t, v_t, counts = _resident_tiles(engine, series, cfg, cache_key)
+    out = timed_kernel_call("rollup_tile", rollup_tile, func, ts_t, v_t,
+                            counts, normalized_cfg(func, cfg), MIN_TS_NONE)
+    return list(_pull_host(out))
+
+
+TOPK_RANK_KINDS = frozenset({"max", "min", "avg", "median", "last"})
+
+
+def try_topk_rollup(engine: CUDAEngine, name: str, k: float, func: str,
+                    series, cfg: RollupConfig, cache_key=None):
+    """Fused topk/bottomk family on device: the [S, T] rollup stays on the
+    card; selection (per-step top-k, B6, or the whole-series rank of the
+    topk_<kind> variants, B7) runs there too and only winner indices and
+    the k selected rows come back.
+
+    Returns a list of (series index, values row) — the caller attaches
+    names — or None when the query is not one the device runs."""
+    if func not in CORE_SUPPORTED:
+        return None
+    if len(series) < engine.min_series:
+        return None
+    if not _span_fits(cfg):
+        return None
+    bottom = name.startswith("bottomk")
+    if name in ("topk", "bottomk"):
+        kind = None
+    else:
+        kind = name.split("_", 1)[1]
+        if kind not in TOPK_RANK_KINDS:
+            return None
+    k_i = max(int(k), 0)
+    if k_i == 0:
+        return []
+    ts_t, v_t, counts = _resident_tiles(engine, series, cfg, cache_key)
+    ncfg = normalized_cfg(func, cfg)
+    dev = ts_t.device
+    if kind is None:
+        k_eff = min(k_i, int(ts_t.shape[0]))
+        rolled, idx, sel_nan = timed_kernel_call(
+            "topk_select_tile", topk_select_tile, func, ts_t, v_t, counts,
+            ncfg, k_eff, bottom)
+        idx_h = _pull(idx).astype(np.int64)
+        valid = ~_pull(sel_nan)
+        sel = np.unique(idx_h[valid])
+        sel = sel[sel < len(series)]
+        if sel.size == 0:
+            return []
+        rows_sel = _pull_host(timed_kernel_call(
+            "take_rows", take_rows, rolled, torch.from_numpy(sel).to(dev)))
+        # rebuild the kept-sample mask for the selected rows
+        t_pos, j_pos = np.nonzero(valid)
+        s_pos = idx_h[t_pos, j_pos]
+        keep = s_pos < len(series)
+        row_of = np.searchsorted(sel, s_pos[keep])
+        mask = np.zeros((sel.size, rows_sel.shape[1]), dtype=bool)
+        mask[row_of, t_pos[keep]] = True
+        out = []
+        for j, i in enumerate(sel):
+            vals = np.where(mask[j], rows_sel[j], np.nan)
+            if not np.isnan(vals).all():
+                out.append((int(i), vals))
+        return out
+    rolled, rank = timed_kernel_call("rank_tile", rank_tile, func, kind,
+                                     ts_t, v_t, counts, ncfg)
+    rank_h = _pull_host(rank)[:len(series)]
+    # the host evaluator's ordering: stable sorts, ties favour later series
+    rank_h = np.where(np.isnan(rank_h), np.inf if bottom else -np.inf,
+                      rank_h)
+    if bottom:
+        order = np.argsort(-rank_h, kind="stable")
+    else:
+        order = np.argsort(rank_h, kind="stable")
+    sel = order[-min(k_i, len(series)):]  # rank order, ties favour later
+    rows_sel = _pull_host(timed_kernel_call(
+        "take_rows", take_rows, rolled, torch.from_numpy(sel).to(dev)))
+    return [(int(i), rows_sel[j]) for j, i in enumerate(sel)]
+
+
+def try_aggr_rollup(engine: CUDAEngine, aggr: str, func: str, series,
+                    gids, num_groups: int, cfg: RollupConfig,
+                    cache_key=None):
+    """Fused aggr(rollup(selector)) on device: per-series rollup and
+    segment aggregation in one kernel (K2), so only the [G, T] aggregate
+    crosses back to the host.  Returns a float64 [G, T] array, or None
+    when the query is not one the device runs."""
+    if aggr not in FUSED_AGGRS or func not in CORE_SUPPORTED:
+        return None
+    if len(series) < engine.min_series:
+        return None
+    if not _span_fits(cfg):
+        return None
+    tiles = _resident_tiles(engine, series, cfg, cache_key)
     return _dispatch_fused(engine, aggr, func, tiles,
                            group_layout(gids, num_groups, engine.device), cfg)
 
 
-def warmup(engine: CUDAEngine, funcs=("rate", "increase"),
+def warmup(engine: CUDAEngine, funcs=("rate", "increase", "default_rollup"),
            aggrs=("sum",)) -> int:
-    """Build and load the kernels and run the fused query once on a small
-    canonical shape, so the first real query pays neither.  Returns the
-    number of queries run.  A kernel that fails to build or launch raises."""
+    """Build and load the kernels and run the per-series and fused queries
+    once on a small canonical shape, so the first real query pays neither.
+    Returns the number of queries run.  A kernel that fails to build or
+    launch raises."""
     from ..storage.storage import SeriesData
     S, N = max(int(engine.min_series), 64), 128
     start = (int(time.time() * 1000) - N * 15_000) // 60_000 * 60_000
@@ -175,6 +292,8 @@ def warmup(engine: CUDAEngine, funcs=("rate", "increase"),
     gids = np.zeros(S, np.int32)
     n_runs = 0
     for func in funcs:
+        if try_rollup(engine, func, series, cfg, ()) is not None:
+            n_runs += 1
         for aggr in aggrs:
             if try_aggr_rollup(engine, aggr, func, series, gids, 1,
                                cfg) is not None:
@@ -431,3 +550,67 @@ def run_fused_on_tiles(engine: CUDAEngine, aggr: str, func: str, tiles,
     path: no host fetch, no upload)."""
     return _dispatch_fused(engine, aggr, func, tiles, groups, cfg, shift,
                            min_ts)
+
+
+# Device-memory budget of the reference's dense [G, M, T] quantile tensor
+# (it holds the scatter target and its sorted copy at once).  The port
+# builds no dense tensor, but declines exactly the shapes the reference
+# declines.
+_QUANTILE_DENSE_BYTES = 512 << 20
+_VALUE_ITEMSIZE = 8  # float64 tiles
+
+
+def group_slots(gids, num_groups: int):
+    """Per-series slot within its group (ascending series order, the
+    order GroupLayout walks) and the largest group size."""
+    counts_per_group = np.bincount(gids, minlength=num_groups)
+    max_group = int(counts_per_group.max()) if num_groups else 0
+    next_slot = np.zeros(num_groups, dtype=np.int32)
+    slots = np.empty(len(gids), dtype=np.int32)
+    for i, g in enumerate(gids):
+        slots[i] = next_slot[g]
+        next_slot[g] += 1
+    return slots, max_group
+
+
+def quantile_dense_fits(engine: CUDAEngine, num_groups: int, max_group: int,
+                        cfg: RollupConfig) -> bool:
+    T = (cfg.end - cfg.start) // cfg.step + 1
+    return num_groups * max_group * T <= \
+        _QUANTILE_DENSE_BYTES // (_VALUE_ITEMSIZE * 2)
+
+
+def try_quantile_rollup(engine: CUDAEngine, phi: float, func: str, series,
+                        gids, num_groups: int, cfg: RollupConfig,
+                        max_group: int, cache_key=None):
+    """Fused quantile/median(phi, rollup(selector)) by (...) on device.
+    `max_group` comes from group_slots().  Returns a float64 [G, T] array,
+    or None when the query is not one the device runs."""
+    if func not in CORE_SUPPORTED:
+        return None
+    if len(series) < engine.min_series:
+        return None
+    if not _span_fits(cfg):
+        return None
+    if not quantile_dense_fits(engine, num_groups, max_group, cfg):
+        return None  # the reference's dense budget: host wins
+    tiles = _resident_tiles(engine, series, cfg, cache_key)
+    return run_quantile_on_tiles(
+        engine, phi, func, tiles,
+        group_layout(gids, num_groups, engine.device), cfg)
+
+
+def run_quantile_on_tiles(engine: CUDAEngine, phi: float, func: str, tiles,
+                          groups: GroupLayout, cfg: RollupConfig,
+                          shift: int = 0, min_ts=None) -> np.ndarray:
+    """Fused quantile over a device-resident tile (the warm and rolling
+    path): `shift` rebases rolling-tile timestamps onto the query grid and
+    `min_ts` reproduces fetch truncation, as for run_fused_on_tiles."""
+    if min_ts is None:
+        min_ts = MIN_TS_NONE
+    ts_t, v_t, counts = tiles
+    out = timed_kernel_call("rollup_quantile_tile", rollup_quantile_tile,
+                            func, float(phi), ts_t, v_t, counts, groups,
+                            normalized_cfg(func, cfg), int(shift),
+                            int(min_ts))
+    return _pull_host(out)
