@@ -19,7 +19,11 @@ each printing one JSON line:
               groups of 32 and of all rows, on rates and on a tile of
               ties; times each with CUDA events beside its plain version
               and, where one PyTorch call computes the same function, that
-              call
+              call; B9 fleet_rollup_aggregate_tile, B10 fleet_append_tile
+              and B11 fleet_compact_tile at a fleet bucket's shape (nine
+              live streams of the dashboard tile with their own shifts,
+              fetch bounds and the eight aggregates mixed, three padded
+              slots, padded rows and groups)
   dashboard   the main path: a cold ``sum by (instance)(rate(m[5m]))``
               over 8192 counters x 6 h at 15 s (256 instances, step 60 s),
               then the other panels on its resident tile (per-series
@@ -32,6 +36,14 @@ each printing one JSON line:
               window with compact_window), each followed by the quantile
               panel through run_quantile_on_tiles; every refresh is held
               against a cold rebuild at rtol 1e-12
+  fleet       fleet-batched serving on the dashboard's store and resident
+              selector: 128 standing queries ({rate, increase, irate,
+              max_over_time} x the 8 aggregates x {by instance, no
+              grouping} x two grids) adopted into 16 buckets, then six
+              intervals through FleetPlane.run (one B9 launch per bucket,
+              B10 appends, B11 slides at a 30-minute resume), every
+              stream of every interval held against the per-stream path
+              (advance_rolling + run_fused_on_tiles) at rtol 1e-12
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
               query with its own launch counts; K1 and K2 are checked
@@ -70,6 +82,7 @@ from victoriametrics_tpu_torch.ops import device_rollup as dr
 from victoriametrics_tpu_torch.ops import decimal as dec
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
 from victoriametrics_tpu_torch.query import cuda_engine as ce
+from victoriametrics_tpu_torch.query import fleet
 from victoriametrics_tpu_torch.storage.columnar import PAD_TS, ColumnarSeries
 from victoriametrics_tpu_torch.storage.storage import SeriesData
 from victoriametrics_tpu_torch.utils import metrics as metricslib
@@ -86,6 +99,26 @@ DASH_SERIES, DASH_SAMPLES, DASH_GROUPS, DASH_STEP = 8192, 1440, 256, 60_000
 DASH_REFRESHES = [(1, SCRAPE)] * 3 + [(420, 420 * SCRAPE)] + [(1, SCRAPE)] * 2
 # full width: BASELINE.md config 2
 FULL_SERIES, FULL_PER_GROUP, FULL_STEP = 100_000, 32, 15_000
+# the dashboard's selector and its roll-state keys
+SELECTOR = "http_requests_total"
+# fleet: the standing queries' funcs, and their grids as (duration, step,
+# groupings): A the dashboard panel's range on its 60 s step (5 h 54 m:
+# its tile, slid at the resume refresh, holds no longer history), B the
+# last hour at the scrape interval.  The roll-state key that names a fleet
+# member carries no grid or window (the reference's), so one expression on
+# two grids would share one member: B's panels group with `without`, the
+# same groups written as expressions of their own
+FLEET_FUNCS = ("rate", "increase", "irate", "max_over_time")
+FLEET_GRIDS = {
+    "A": (354 * 60_000, 60_000, ((("instance",), False), ((), False))),
+    "B": (3_600_000, SCRAPE, ((("id",), True), (("instance", "id"), True)))}
+# (scrapes per series ingested before the interval, ms the clock advances):
+# five steady minutes, then a resume after 30 minutes that overruns grid
+# B's column headroom (B11) and not grid A's
+FLEET_INTERVALS = [(4, 60_000)] * 5 + [(120, 1_800_000)]
+# the phase's bucket shape in the kernels phase: slots, live streams,
+# columns, steps
+FLEET_B, FLEET_LIVE, FLEET_N, FLEET_T = 12, 9, 2048, 384
 
 # H100 SXM (NVIDIA data sheet): HBM3 rate, and the FP64 vector peak, used
 # for every scalar operation these kernels do (int32 adds and compares,
@@ -112,7 +145,17 @@ SOURCES = {
                   "victoriametrics_tpu/ops/device_rollup.py:904"),
     "rollup_quantile_tile": ("victoriametrics_tpu_torch/csrc/quantile.cu",
                              "victoriametrics_tpu/ops/device_rollup.py:948"),
+    "fleet_rollup_aggregate_tile": (
+        "victoriametrics_tpu_torch/csrc/rollup.cu",
+        "victoriametrics_tpu/ops/device_rollup.py:737"),
+    "fleet_append_tile": ("victoriametrics_tpu_torch/csrc/tile.cu",
+                          "victoriametrics_tpu/ops/device_rollup.py:800"),
+    "fleet_compact_tile": ("victoriametrics_tpu_torch/csrc/tile.cu",
+                           "victoriametrics_tpu/ops/device_rollup.py:851"),
 }
+#: the fleet phase's kernels, whose launches count on its own path
+FLEET_KERNELS = ("fleet_rollup_aggregate_tile", "fleet_append_tile",
+                 "fleet_compact_tile")
 # the quantile probabilities every B8 check runs
 PHIS = (-0.5, 0.0, 0.25, 0.5, 0.9, 1.0, 1.5)
 # funcs whose kernel and plain version do the same operations with no sum
@@ -635,10 +678,113 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
     return res
 
 
+def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
+    """B9, B10 and B11 against their plain versions at a fleet bucket's
+    shape: FLEET_B slots of FLEET_N columns holding the dashboard tile,
+    FLEET_LIVE of them live streams, each with its own grid shift, fetch
+    bound and aggregate (all eight mixed), its last 64 rows padded; the
+    rest padded slots.  Slot 1 has a counter reset on every 64th row,
+    slot 2 -0.0 at the row starts, slot 3 NaN and stale NaN samples,
+    slots 4 and 5 gaps before the grid; the last group is empty in every
+    stream.  B9 runs the fleet phase's funcs
+    at the aggregate tolerances, B10 and B11 bit for bit.  Returns the
+    largest difference per kernel."""
+    S, N0 = ts_t.shape
+    B, LIVE, N, G = FLEET_B, FLEET_LIVE, FLEET_N, DASH_GROUPS
+    ts = torch.full((B, S, N), int(dr.TS_PAD), dtype=torch.int32, device=dev)
+    vals = torch.zeros((B, S, N), dtype=torch.float64, device=dev)
+    cnt = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    ts[:LIVE, :, :N0] = ts_t
+    vals[:LIVE, :, :N0] = v_t
+    cnt[:LIVE] = counts
+    ts[:LIVE, -64:], vals[:LIVE, -64:], cnt[:LIVE, -64:] = int(dr.TS_PAD), \
+        0.0, 0
+    rows = torch.arange(0, S - 64, 64, device=dev)
+    mid = (counts[rows].long() // 2)[:, None]
+    cols = torch.arange(N, device=dev)[None, :]
+    v1 = vals[1, rows]
+    vals[1, rows] = torch.where(cols >= mid, v1 - v1.gather(1, mid), v1)
+    vals[2, ::97, :3] = -0.0
+    vals[3, 5::101, 10] = torch.nan
+    vals[3, 7::101, 20] = dec.STALE_NAN
+    # gaps: every 50th row of slots 4 and 5 has its first 40 samples 10
+    # minutes earlier, so the sample before a window can lie below the
+    # fetch bound, which gates it in slot 5 (min_ts) and not in slot 4
+    gap = torch.arange(0, S - 64, 50, device=dev)
+    ts[4:6, gap, :40] -= 600_000
+    gids = torch.from_numpy(rng.integers(0, G - 1, (B, S))).to(
+        device=dev, dtype=torch.int32)
+    layout = dr.fleet_layout(gids, G, dev)
+    aggr = torch.tensor([b % 8 if b < LIVE else 0 for b in range(B)],
+                        dtype=torch.int32, device=dev)
+    shift = torch.tensor([b * SCRAPE for b in range(B)], dtype=torch.int32,
+                         device=dev)
+    min_ts = torch.tensor(
+        [-(WINDOW + LOOKBACK_DELTA) if b % 2 else int(dr.MIN_TS_NONE)
+         for b in range(B)], dtype=torch.int32, device=dev)
+    v0 = torch.zeros((B, S), dtype=torch.float64, device=dev)
+    cfg0 = RollupConfig(0, (FLEET_T - 1) * DASH_STEP, DASH_STEP, WINDOW)
+    names = {code: name for name, code in dr.FLEET_AGGR_CODES.items()}
+    err = dict.fromkeys(FLEET_KERNELS, 0.0)
+    for func in FLEET_FUNCS:
+        cfg = dr.normalized_cfg(func, cfg0)
+        args = (func, cfg, layout, ts, vals, cnt, aggr, shift, min_ts, v0)
+        got = dr.fleet_rollup_aggregate_tile(*args)
+        want = dr.fleet_rollup_aggregate_tile_plain(*args)
+        mean = None
+        if func not in dr.COUNTER_FUNCS:  # the variance's 16-ulp term
+            mean = dr.fleet_rollup_aggregate_tile_plain(
+                func, cfg, layout, ts, vals, cnt, torch.full_like(aggr, 2),
+                shift, min_ts, v0)
+        for b in range(LIVE):
+            name = names[int(aggr[b])]
+            e = aggr_close(f"B9 {func} slot {b} {name}", name, got[b],
+                           want[b], func, None if mean is None else mean[b])
+            if name not in ("stddev", "stdvar"):
+                err["fleet_rollup_aggregate_tile"] = max(
+                    err["fleet_rollup_aggregate_tile"], e)
+        if not (bool(torch.isnan(got[LIVE:]).all()) and
+                bool(torch.isnan(got[:, G - 1]).all())):
+            raise AssertionError(f"B9 {func}: a padded slot or the empty "
+                                 "group is not NaN")
+        if not bool(torch.isfinite(got[:LIVE, :G - 1]).any()):
+            raise AssertionError(f"B9 {func}: no finite value")
+    # B10: a steady interval's columns, on rows near the capacity too
+    K = 8
+    new_ts = (ts.gather(2, (cnt.long() - 1).clamp(min=0)[..., None]) +
+              SCRAPE * (1 + torch.arange(K, device=dev))).to(torch.int32)
+    new_vals = torch.from_numpy(rng.normal(0, 1e3, (B, S, K))).to(dev)
+    new_counts = torch.from_numpy(rng.integers(0, K + 1, (B, S))).to(
+        device=dev, dtype=torch.int32)
+    new_counts[0] = 0  # nothing staged for slot 0
+    near = cnt.clone()
+    near[4, ::3] = N - 3  # rows whose tail runs past the capacity
+    got = dr.fleet_append_tile(ts.clone(), vals.clone(), near.clone(),
+                               new_ts, new_vals, new_counts)
+    want = dr.fleet_append_tile_plain(ts.clone(), vals.clone(), near.clone(),
+                                      new_ts, new_vals, new_counts)
+    for g, w, what in zip(got, want, ("ts", "values", "counts")):
+        assert_equal(f"B10 {what}", g, w)
+    del got, want
+    # B11: per-slot cutoffs; slots 2 and 5 are not compacted (cutoff 0),
+    # yet every slot's live samples below 0 (the lookback prefix of the
+    # cold tile's base) drop, as in the reference
+    cut = torch.tensor([0 if b in (2, 5) else 420 * SCRAPE + b * 45_000
+                        for b in range(B)], dtype=torch.int32, device=dev)
+    got = dr.fleet_compact_tile(ts, vals, cnt, cut, cut)
+    want = dr.fleet_compact_tile_plain(ts, vals, cnt, cut, cut)
+    for g, w, what in zip(got, want, ("ts", "values", "counts")):
+        assert_equal(f"B11 {what}", g, w)
+    if not bool((got[2][2] < cnt[2]).any()):
+        raise AssertionError("B11: a cutoff-0 slot kept its ts < 0")
+    return err
 
-def phase_kernels(rng, dev) -> dict:
+
+
+def phase_kernels(rng, dev):
     """Each kernel against its plain version on the card: the dashboard
-    shapes (timed) and ragged edge-case rows."""
+    shapes (timed), ragged edge-case rows and a fleet bucket.  Returns the
+    timed kernels' results and the fleet kernels' largest differences."""
     res = {}
     # dashboard-shape inputs, the same generator the dashboard phase uses
     ts_h, vals_h = counters(rng, DASH_SERIES, DASH_SAMPLES, T_START)
@@ -827,6 +973,7 @@ def phase_kernels(rng, dev) -> dict:
         DASH_SERIES * 8,
         ops=DASH_SERIES * n_cap)
     res.update(kernels_slice2(rng, dev, ts_t, v_t, counts, ragged))
+    fleet_err = kernels_fleet(rng, dev, ts_t, v_t, counts)
     for r in res.values():
         r["bound_ms"] = max(r["bytes"] / MEM_BYTES_PER_S,
                             r["ops"] / SCALAR_OPS_PER_S) * 1e3
@@ -835,8 +982,9 @@ def phase_kernels(rng, dev) -> dict:
     emit({"phase": "kernels", "ok": True,
           "shapes": {"series": DASH_SERIES, "tile_cols": n_cap,
                      "steps": T, "groups": DASH_GROUPS},
-          "kernels": res, "uploads": uploads})
-    return res
+          "kernels": res, "fleet_max_abs_err": fleet_err,
+          "uploads": uploads})
+    return res, fleet_err
 
 
 def _metric_sum(name: str) -> float:
@@ -953,11 +1101,21 @@ def dashboard_panels(engine, series, cfg, key, gids) -> dict:
     return out
 
 
-def phase_dashboard(rng, dev) -> dict:
+def dashboard_keys():
+    """The dashboard query's roll-state and roll-tile keys, and its group
+    keys."""
+    return ce.device_roll_keys(SELECTOR, None, "rate", "sum", None,
+                               ("instance",), False, None, WINDOW), \
+        [(("instance", f"host-{g}"),) for g in range(DASH_GROUPS)]
+
+
+def phase_dashboard(rng, dev):
     """The main path: cold query, then rolling refreshes, each held
-    against a cold rebuild."""
+    against a cold rebuild.  Returns the phase's result and the state the
+    fleet phase continues from (store, engine, keys, the last end)."""
     S, G = DASH_SERIES, DASH_GROUPS
-    extra = sum(k for k, _ in DASH_REFRESHES)
+    # room for the dashboard's refreshes and the fleet phase's intervals
+    extra = sum(k for k, _ in DASH_REFRESHES + FLEET_INTERVALS)
     store = SynthStorage(rng, S, DASH_SAMPLES, DASH_SAMPLES + extra)
     gids = (np.arange(S) % G).astype(np.int32)
     start, end = dashboard_grid()
@@ -991,17 +1149,14 @@ def phase_dashboard(rng, dev) -> dict:
                               RollupConfig(start, end, DASH_STEP, WINDOW),
                               key, gids)
     _, max_group = ce.group_slots(gids, G)
-    tiles = engine.cache().get(key)
-    rt = ce.RollingTile(
-        tiles=tiles, base_ms=start, n_cap=int(tiles[0].shape[1]),
-        lo_ms=fetch_lo, hi_ms=end, version=ver0,
-        structural=store.structural_version,
-        counts_host=np.array([sd.timestamps.size for sd in series],
-                             np.int64),
-        row_of_raw={sd.raw_name: i for i, sd in enumerate(series)},
-        n_samples=sum(sd.timestamps.size for sd in series), adopted_key=key)
-    groups = dr.group_layout(gids, G, dev)
-    engine.window_cache().put(("dashboard", "sum", "rate"), (rt, groups))
+    (skey, tkey), group_keys = dashboard_keys()
+    rt = ce.register_window(
+        engine, skey, tkey, gids, group_keys, tile_key=key, series=series,
+        cfg=RollupConfig(start, end, DASH_STEP, WINDOW),
+        fetch_info=(fetch_lo, end, ver0),
+        structural=store.structural_version)
+    if rt is None:
+        raise AssertionError("dashboard: the rolling window was not filed")
     refresh_ms, refresh_up, refresh_split, worst = [], [], [], 0.0
     quantile_ms, worst_q = [], 0.0
     compactions0 = _metric_sum("vm_device_window_compactions_total")
@@ -1012,7 +1167,7 @@ def phase_dashboard(rng, dev) -> dict:
         up0 = tile_cache.bytes_uploaded()
         snap, fetch0 = split_snapshot(), store.fetch_s
         t0 = time.perf_counter()
-        rt, groups = engine.window_cache().get(("dashboard", "sum", "rate"))
+        rt, groups, _ = engine.window_cache().get(skey)
         if not ce.advance_rolling(engine, rt, store, None, start, fetch_lo,
                                   end, None, None, True):
             raise AssertionError("rolling refresh declined: "
@@ -1048,7 +1203,8 @@ def phase_dashboard(rng, dev) -> dict:
         worst_q = max(worst_q, assert_close(
             "served quantile == cold", served_q, rebuilt_q, 1e-12, 0.0))
     launches = {name: kernels.LAUNCHES.get(name, 0) -
-                rebuild_launches.get(name, 0) for name in SOURCES}
+                rebuild_launches.get(name, 0) for name in SOURCES
+                if name not in FLEET_KERNELS}
     compactions = _metric_sum("vm_device_window_compactions_total") - \
         compactions0
     steady = [u for (k, _), u in zip(DASH_REFRESHES, refresh_up) if k == 1]
@@ -1068,7 +1224,297 @@ def phase_dashboard(rng, dev) -> dict:
            "quantile_served_vs_cold_max_abs_err": worst_q,
            "panels": panels, "launches": launches}
     emit(res)
+    return res, {"store": store, "engine": engine, "end": end}
+
+class StandingQuery:
+    """One subscribed dashboard panel as the fleet reads it (the
+    reference's matstream, duck-typed): grid, tenant, parsed shape, and
+    due() until its interval is served."""
+
+    def __init__(self, q: str, step: int, duration: int,
+                 shape: fleet.StreamShape):
+        self.q, self.step, self.duration, self.shape = q, step, duration, shape
+        self.tenant = None
+        self.end = None
+
+    def due(self, now_ms: int) -> bool:
+        return self.end is None or now_ms // self.step * self.step > self.end
+
+
+class FleetAPI:
+    """What FleetPlane.run reads of a serving front end: the storage and
+    the standing queries."""
+
+    def __init__(self, storage, engine, streams):
+        self.storage, self.engine, self._streams = storage, engine, streams
+        self.matstreams = self
+
+    def streams(self):
+        return list(self._streams)
+
+
+FLEET_SPLIT = {
+    "h2d": SPLIT["h2d"], "d2h": SPLIT["d2h"],
+    "append": 'vm_tpu_kernel_duration_seconds_sum{kernel="fleet_append_tile"',
+    "compact":
+        'vm_tpu_kernel_duration_seconds_sum{kernel="fleet_compact_tile"',
+    "launch": 'vm_tpu_kernel_duration_seconds_sum'
+              '{kernel="fleet_rollup_aggregate_tile"',
+}
+
+
+def _fleet_bound_b9(b) -> dict:
+    """B9's least time on bucket `b`: each live sample read once (12 B),
+    the per-row and per-stream arrays, the [B, G, T] output; 15 scalar
+    operations per (row, step), as K2."""
+    live = int(b.counts_h.sum())
+    B, S = b.B_pad, b.S_b
+    return bound(live * 12 + B * S * (4 + 4 + 4 + 8) + B * (b.G_b + 1) * 4 +
+                 B * 12 + B * b.G_b * b.T_b * 8, 15 * B * S * b.T_b)
+
+
+def _b9_args(b, now, dev) -> tuple:
+    """B9's arguments for bucket `b` at the grid ending `now`."""
+    shift = np.zeros(b.B_pad, np.int32)
+    min_ts = np.zeros(b.B_pad, np.int32)
+    for m in b.members:
+        shift[m.slot] = now - m.duration - m.base_ms
+        min_ts[m.slot] = -(m.lookback + m.lookback_delta)
+    d = b.dev
+    return (b.func, b.cfg, d["layout"], d["ts"], d["vals"], d["counts"],
+            d["aggr"], torch.from_numpy(shift).to(dev),
+            torch.from_numpy(min_ts).to(dev), d["v0"])
+
+
+def fleet_events(plane, buckets, now, next_cutoff) -> dict:
+    """B9, B10 and B11 on real buckets, CUDA-event timed beside their plain
+    versions and each held against it: B9 on the grid-A buckets of rate by
+    instance and of rate with no grouping (this interval's grid), B10 a
+    steady interval's columns and B11 the resume's slide on the grid-B
+    bucket of rate by instance."""
+    out = {}
+    a, one, bb = buckets
+    dev = plane.engine.device
+    args = _b9_args(a, now, dev)
+    got, want = dr.fleet_rollup_aggregate_tile(*args), \
+        dr.fleet_rollup_aggregate_tile_plain(*args)
+    err = 0.0
+    for m in a.members:
+        e = aggr_close(f"B9 bucket A {m.aggr}", m.aggr, got[m.slot],
+                       want[m.slot], a.func)
+        if m.aggr not in ("stddev", "stdvar"):
+            err = max(err, e)
+    args1 = _b9_args(one, now, dev)
+    out["fleet_rollup_aggregate_tile"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: dr.fleet_rollup_aggregate_tile(*args), reps=5),
+        plain_ms=cuda_ms(lambda: dr.fleet_rollup_aggregate_tile_plain(
+            *args), reps=3), library_ms=None,
+        shape=[a.B_pad, a.S_b, a.N_b, a.G_b, a.T_b],
+        ms_one_group=cuda_ms(lambda: dr.fleet_rollup_aggregate_tile(*args1),
+                             reps=5),
+        bound_ms_one_group=_fleet_bound_b9(one)["bound_ms"],
+        **_fleet_bound_b9(a))
+    # B10 on scratch copies of bucket B's planes, restored before each call
+    d = bb.dev
+    B, S, N = bb.B_pad, bb.S_b, bb.N_b
+    K = 8
+    cnt = d["counts"]
+    new_ts = (d["ts"].gather(2, (cnt.long() - 1).clamp(min=0)[..., None]) +
+              SCRAPE * (1 + torch.arange(K, device=dev))).to(torch.int32)
+    new_vals = torch.rand((B, S, K), dtype=torch.float64, device=dev,
+                          generator=torch.Generator(dev).manual_seed(4))
+    new_counts = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    new_counts[:len(bb.members)] = 4  # a steady interval's 4 scrapes
+    bufs = [torch.empty_like(t) for t in (d["ts"], d["vals"], cnt)]
+
+    def fresh():
+        for buf, t in zip(bufs, (d["ts"], d["vals"], cnt)):
+            buf.copy_(t)
+
+    fresh()
+    got = [t.clone() for t in dr.fleet_append_tile(*bufs, new_ts, new_vals,
+                                                   new_counts)]
+    fresh()
+    want = dr.fleet_append_tile_plain(*bufs, new_ts, new_vals, new_counts)
+    for g, w, what in zip(got, want, ("ts", "values", "counts")):
+        assert_equal(f"B10 bucket B {what}", g, w)
+    n_new = int(new_counts.sum())
+    out["fleet_append_tile"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: dr.fleet_append_tile(
+            *bufs, new_ts, new_vals, new_counts), setup=fresh),
+        plain_ms=cuda_ms(lambda: dr.fleet_append_tile_plain(
+            *bufs, new_ts, new_vals, new_counts), setup=fresh, reps=3),
+        library_ms=None, shape=[B, S, N, K],
+        **bound(n_new * 12 * 2 + B * S * 12, n_new))
+    del got, want, bufs
+    # B11 at the cutoffs the resume will slide bucket B's members to
+    cut = torch.zeros(B, dtype=torch.int32)
+    for m in bb.members:
+        cut[m.slot] = next_cutoff(m) - m.base_ms
+    cut = cut.to(dev)
+    got = dr.fleet_compact_tile(d["ts"], d["vals"], cnt, cut, cut)
+    want = dr.fleet_compact_tile_plain(d["ts"], d["vals"], cnt, cut, cut)
+    for g, w, what in zip(got, want, ("ts", "values", "counts")):
+        assert_equal(f"B11 bucket B {what}", g, w)
+    survivors = int(got[2].sum())
+    dropped = int(cnt.sum()) - survivors
+    del got, want
+    out["fleet_compact_tile"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: dr.fleet_compact_tile(
+            d["ts"], d["vals"], cnt, cut, cut)),
+        plain_ms=cuda_ms(lambda: dr.fleet_compact_tile_plain(
+            d["ts"], d["vals"], cnt, cut, cut), reps=3),
+        library_ms=None, shape=[B, S, N],
+        **bound(survivors * 12 + dropped * 4 + B * S * N * 12 + B * S * 8 +
+                B * 8, B * S * N))
+    return out
+
+
+def phase_fleet(rng, dev, state) -> dict:
+    """Fleet-batched serving on the dashboard's store and resident
+    selector: 128 standing queries adopted into 16 buckets, six intervals
+    through FleetPlane.run, each stream held against the per-stream path
+    on the selector's own rolling tile (grid A's streams first: their fetch
+    bound is the oldest, so the per-stream advance never slides the tile
+    past it)."""
+    store, engine = state["store"], state["engine"]
+    (_, tkey), inst_keys = dashboard_keys()
+    rt = engine.window_cache().get(tkey)
+    S, G = DASH_SERIES, DASH_GROUPS
+    inst = (np.arange(S) % G).astype(np.int32)
+    # by instance (or without id), and one group of every series
+    layouts = ((inst, inst_keys, dr.group_layout(inst, G, dev)),
+               (np.zeros(S, np.int32), [()],
+                dr.group_layout(np.zeros(S, np.int32), 1, dev)))
+    streams = []
+    for grid, (dur, step, groupings) in FLEET_GRIDS.items():
+        for func in FLEET_FUNCS:
+            for aggr in dr.FLEET_AGGR_CODES:
+                for (grouping, without), (gids, keys, groups) in zip(
+                        groupings, layouts):
+                    shape = fleet.StreamShape(
+                        selector=SELECTOR, filters=None, func=func,
+                        aggr=aggr, window=WINDOW, grouping=grouping,
+                        without=without, lookback_delta=LOOKBACK_DELTA)
+                    q = f"{aggr} {'without' if without else 'by'} " \
+                        f"({','.join(grouping)})({func}({SELECTOR}[5m]))"
+                    st = StandingQuery(q, step, dur, shape)
+                    skey, _ = ce.device_roll_keys(
+                        SELECTOR, None, func, aggr, None, grouping, without,
+                        None, WINDOW)
+                    if ce.register_window(engine, skey, tkey, gids,
+                                          keys) is not rt:
+                        raise AssertionError("fleet: window not filed")
+                    streams.append((st, skey, groups, grid))
+    api = FleetAPI(store, engine, [st for st, *_ in streams])
+    plane = engine.fleet()
+    torch.cuda.reset_peak_memory_stats(dev)
+    now = -(-(state["end"] + FLEET_INTERVALS[0][1]) // 60_000) * 60_000
+    intervals, worst, events = [], 0.0, None
+    launches = dict.fromkeys(FLEET_KERNELS, 0)
+    adoption_up = 0
+    for i, (k, adv) in enumerate(FLEET_INTERVALS):
+        if i:
+            now += adv
+        if i == len(FLEET_INTERVALS) - 1:
+            # before the resume: B9-B11 timed on real buckets
+            by = {(b.func, b.G_b, b.step): b
+                  for b in plane._buckets.values()}
+            one = fleet.bucket_up(1)  # the no-grouping buckets' groups
+            events = fleet_events(
+                plane, (by["rate", G, 60_000], by["rate", one, 60_000],
+                        by["rate", G, SCRAPE]),
+                now - adv,
+                lambda m, t=now: t - m.duration - m.lookback -
+                m.lookback_delta)
+        store.ingest(k, now - adv)
+        before = dict(kernels.LAUNCHES)
+        up0 = tile_cache.bytes_uploaded()
+        snap = {key: _metric_sum(n) for key, n in FLEET_SPLIT.items()}
+        fetch0 = store.fetch_s
+        adopt0 = plane.adopt_s
+        t0 = time.perf_counter()
+        n = plane.run(api, now)
+        wall = time.perf_counter() - t0
+        up = tile_cache.bytes_uploaded() - up0
+        split = {f"{key}_ms": (_metric_sum(m) - snap[key]) * 1e3
+                 for key, m in FLEET_SPLIT.items()}
+        split["fetch_ms"] = (store.fetch_s - fetch0) * 1e3
+        # the rest: host staging, and in the adoption interval the
+        # adoptions' host crops (adopt_ms holds each adoption's pull, whose
+        # bytes d2h_ms counts, and its crop)
+        split["stage_ms"] = wall * 1e3 - sum(split.values())
+        split["adopt_ms"] = (plane.adopt_s - adopt0) * 1e3
+        ran = {k2: kernels.LAUNCHES.get(k2, 0) - before.get(k2, 0)
+               for k2 in FLEET_KERNELS}
+        for k2 in FLEET_KERNELS:
+            launches[k2] += ran[k2]
+        stats = plane.stats()
+        if n != stats["buckets"] or n != ran["fleet_rollup_aggregate_tile"] \
+                or stats["members"] != len(streams) or stats["evictions"]:
+            raise AssertionError(f"fleet interval {i}: {n} launches, "
+                                 f"{ran}, {stats}, {plane.last_decline}")
+        if i == 0:
+            adoption_up = up
+        # the per-stream path: the selector's own rolling tile
+        t0 = time.perf_counter()
+        means = {}
+        for st, skey, groups, grid in streams:
+            sh = st.shape
+            start = now - st.duration
+            fetch_lo = start - sh.window - LOOKBACK_DELTA
+            if not ce.advance_rolling(engine, rt, store, None, start,
+                                      fetch_lo, now, None, None, True):
+                raise AssertionError("fleet oracle declined: "
+                                     + engine.last_roll_decline)
+            cfg = RollupConfig(start, now, st.step, sh.window)
+            want = ce.run_fused_on_tiles(engine, sh.aggr, sh.func, rt.tiles,
+                                         groups, cfg, start - rt.base_ms,
+                                         fetch_lo - start)
+            if sh.aggr == "avg":
+                means[grid, sh.func, sh.grouping] = want
+            r = plane._results[skey]
+            if r.end != now or r.rows.shape != want.shape:
+                raise AssertionError(f"fleet {st.q}: no result for {now}")
+            # the group mean, for the variance's 16-ulp term (avg comes
+            # before stddev and stdvar)
+            mean = means.get((grid, sh.func, sh.grouping))
+            e = aggr_close(f"fleet interval {i} {st.q}", sh.aggr,
+                           torch.from_numpy(r.rows), torch.from_numpy(want),
+                           sh.func,
+                           None if mean is None else torch.from_numpy(mean))
+            if sh.aggr not in ("stddev", "stdvar"):
+                worst = max(worst, e)
+            if not np.isfinite(r.rows).any():
+                raise AssertionError(f"fleet {st.q}: no finite value")
+            st.end = now
+        oracle_s = time.perf_counter() - t0
+        intervals.append({"scrapes": k, "fleet_ms": wall * 1e3,
+                          "split": split, "upload_bytes": up,
+                          "launches": ran, "per_stream_ms": oracle_s * 1e3})
+    steady = [iv["upload_bytes"] for iv in intervals[1:-1]]
+    if max(steady) * 20 > adoption_up:
+        raise AssertionError("fleet: steady intervals uploaded too much")
+    if launches["fleet_compact_tile"] < 1:
+        raise AssertionError("fleet: the resume slid no bucket (B11)")
+    buckets = sorted(plane._buckets.values(), key=lambda b: b.key)
+    res = {"phase": "fleet", "ok": True, "streams": len(streams),
+           "buckets": [{"func": b.func, "step": b.step, "B": b.B_pad,
+                        "S": b.S_b, "N": b.N_b, "T": b.T_b, "G": b.G_b}
+                       for b in buckets],
+           "device_plane_bytes": sum(b.ts_h.nbytes + b.vals_h.nbytes
+                                     for b in buckets),
+           "adoptions": plane.adoptions,
+           "adopt_ms_per_stream": plane.adopt_s / plane.adoptions * 1e3,
+           "adoption_upload_bytes": adoption_up, "intervals": intervals,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+           "fleet_vs_per_stream_max_abs_err": worst, "launches": launches,
+           "kernels": events}
+    emit(res)
+    engine._fleet = None  # the planes and mirrors go before full width
     return res
+
 
 
 def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
@@ -1315,15 +1761,22 @@ def main(argv=None) -> int:
           "load_seconds": time.perf_counter() - t0, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     rng = np.random.default_rng(args.seed)
-    kres = phase_kernels(rng, dev)
-    dash = phase_dashboard(rng, dev)
-    for name, n in dash["launches"].items():
-        if n < 1:
-            raise AssertionError(f"{name} never launched on the main path")
+    kres, fleet_err = phase_kernels(rng, dev)
+    dash, dash_state = phase_dashboard(rng, dev)
+    fl = phase_fleet(rng, dev, dash_state)
+    del dash_state
+    # B1-B8 count on the dashboard path, B9-B11 on the fleet's
+    launches = {**dash["launches"], **fl["launches"]}
+    for name in SOURCES:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched on its path")
+    for name in FLEET_KERNELS:
+        kres[name] = {**fl["kernels"][name], "max_abs_err": max(
+            fleet_err[name], fl["kernels"][name]["max_abs_err"])}
     phase_full_width(rng, dev, args.full_hours)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": dash["launches"][name],
+         "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"],
          "bound_ms": kres[name]["bound_ms"],

@@ -1,15 +1,21 @@
-// K2 rollup_aggregate_tile: fused aggr(rollup(m[window])) -> [G, T], and
-// B5 rollup_tile: the per-series rollup -> [S, T].
+// K2 rollup_aggregate_tile: fused aggr(rollup(m[window])) -> [G, T],
+// B5 rollup_tile: the per-series rollup -> [S, T], and B9
+// fleet_rollup_aggregate_tile: K2 over a stack of B streams -> [B, G, T].
 //
 // K2 replaces victoriametrics_tpu/ops/device_rollup.py:rollup_aggregate_tile
 // and B5 victoriametrics_tpu/ops/device_rollup.py:rollup_tile, jax.jit
 // programs of the 26 CORE_SUPPORTED rollup branches (_masked_window_reduce,
 // _remove_counter_resets, _max_prev_interval_tile) and, for K2,
-// partial_group_moments + finalize_group_moments.  On the TPU the window
-// reduce is a dense [S, 256-chunk, T] compare-and-reduce, because gathers
-// are slow there.  Here each (series, step) finds its window by binary
-// search on the sorted row and reads the samples it needs directly; one
-// device function, series_value, computes every func for both kernels.
+// partial_group_moments + finalize_group_moments.  B9 replaces
+// victoriametrics_tpu/ops/device_rollup.py:fleet_rollup_aggregate_tile
+// (fleet_rollup_aggregate_impl + _fleet_group_aggregate): rollup_tile
+// vmapped over a leading stream axis, each stream with its own grid shift,
+// fetch bound min_ts, rebase offsets v0 and aggregate code.  On the TPU
+// the window reduce is a dense [S, 256-chunk, T] compare-and-reduce,
+// because gathers are slow there.  Here each (series, step) finds its
+// window by binary search on the sorted row and reads the samples it needs
+// directly; one device function, series_value, computes every func for
+// all three kernels.
 //
 // Launches:
 //  1. rollup_scan, one warp per row: the row's maxPrevInterval mpi
@@ -34,6 +40,16 @@
 //     float atomics are used, so a result is the same on every run.
 //     B5: rollup_series, one block per (row, 128-step tile), writes
 //     series_value to [S, T].
+//     B9: fleet_rollup_groups, K2's pass with a stream axis: one block per
+//     (stream, group, 128-step tile).  The block reads its stream's shift,
+//     min_ts and aggregate code from [B] arrays and walks the stream's
+//     group members from a [B, S] order and [B, G + 1] starts (built once
+//     per upload of the bucket: a member's group ids are fixed while it
+//     lives).  The row scan and the scratch pass take the B x S rows as one
+//     tile, with the shift and min_ts of each row's stream.  The reference
+//     computes all eight aggregates and gathers one (:694-700); the block
+//     finalizes only its stream's, with the same NaN where cnt is 0, so
+//     padded rows (counts 0), padded groups and padded slots come out NaN.
 //
 // Faithfulness to the reference:
 //  * c_last and c_prev are max-reductions of cv over "ts <= bound" in the
@@ -64,9 +80,16 @@
 //  * Windows are searched within [0, counts[row]); timestamps are shifted
 //    by `shift` in wrapping int32 arithmetic like the reference's
 //    ts - shift.
+//  * v0 (B9 only: the reference's rebase offsets, zeros for float64
+//    buckets) enters where the reference adds it: the reset threshold and
+//    restarted base of cv (prev + v0), and the born-in-window test and
+//    zero base of delta / increase (first + v0, base -v0).  K2 and B5 run
+//    with v0 = +0.0 there, which is the reference's v0=None: x + 0.0 and a
+//    base of -0.0.
 //
 // Bound: bytes.  The function must read each valid sample's timestamp and
-// value once (12 B/sample) and write [G, T] (K2) or [S, T] (B5) float64.
+// value once (12 B/sample) and write [G, T] (K2), [S, T] (B5) or
+// [B, G, T] (B9) float64.
 // The scan pass reads the values once (8 B/sample) for the counter funcs
 // and stddev/stdvar only; the series pass reads about 2 log2(N) + window
 // timestamps and values per (series, step) from L1/L2, since a block's 128
@@ -138,18 +161,26 @@ __device__ __forceinline__ bool irregular_at(const double* __restrict__ vrow,
 
 // One warp per row: regularity (slot -1, or a scratch slot) when
 // `counter`, the row mean when `mean` is given, and mpi.
+// `shifts` / `min_tss` (B9): the values of each stream of rows_per_stream
+// rows, in place of the scalars.
 __global__ void __launch_bounds__(kPrepThreads)
 rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
             const int32_t* __restrict__ counts, long long S, int N,
-            int32_t shift, int32_t min_ts, int32_t step, int instant,
-            int counter, int32_t* __restrict__ mpi,
-            int32_t* __restrict__ slots, int32_t* __restrict__ n_irregular,
-            double* __restrict__ mean) {
+            int32_t shift, int32_t min_ts, const int32_t* __restrict__ shifts,
+            const int32_t* __restrict__ min_tss, long long rows_per_stream,
+            int32_t step, int instant, int counter,
+            int32_t* __restrict__ mpi, int32_t* __restrict__ slots,
+            int32_t* __restrict__ n_irregular, double* __restrict__ mean) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
       (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= S) return;  // uniform across the warp
+  if (shifts != nullptr) {
+    const long long b = row / rows_per_stream;
+    shift = shifts[b];
+    min_ts = min_tss[b];
+  }
   const unsigned full = 0xffffffffu;
   const int c = min(counts[row], N);
   const long long off = row * static_cast<long long>(N);
@@ -221,11 +252,13 @@ rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
 }
 
 // One warp per irregular row: cv and cmax over the row's valid prefix,
-// into the row's scratch slot.
+// into the row's scratch slot.  `v0` (B9, one per row) makes the reset
+// threshold and the restarted base absolute.
 __global__ void __launch_bounds__(kPrepThreads)
 rollup_prep(const double* __restrict__ vals,
             const int32_t* __restrict__ counts,
-            const int32_t* __restrict__ slots, long long S, int N,
+            const int32_t* __restrict__ slots,
+            const double* __restrict__ v0, long long S, int N,
             double* __restrict__ cv, double* __restrict__ cmax) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
@@ -238,6 +271,8 @@ rollup_prep(const double* __restrict__ vals,
   const int c = min(counts[row], N);
   const double* vrow = vals + row * static_cast<long long>(N);
   const long long soff = static_cast<long long>(slot) * N;
+  const bool rebased = v0 != nullptr;
+  const double v0r = rebased ? v0[row] : 0.0;
   double carry_sum = 0.0;
   double carry_max = -INFINITY;
   for (int base = 0; base < c; base += 32) {
@@ -247,7 +282,8 @@ rollup_prep(const double* __restrict__ vals,
       v = vrow[i];
       if (i >= 1) {
         const double prev = vrow[i - 1];
-        if (v < prev) drop = (prev - v) * 8.0 < prev ? prev - v : prev;
+        const double pa = rebased ? prev + v0r : prev;
+        if (v < prev) drop = (prev - v) * 8.0 < pa ? prev - v : pa;
       }
     }
     // left-to-right running sum of the drops (a serial scan's order)
@@ -292,6 +328,7 @@ struct Row {
   int c;              // valid samples
   int32_t mpi;        // maxPrevInterval
   double mean;        // mean of the valid samples (stddev/stdvar only)
+  double v0;          // rebase offset: B9's v0 plane, +0.0 for K2 and B5
 };
 
 // The query grid, the same for every row.
@@ -308,7 +345,8 @@ __device__ __forceinline__ Row row_at(long long r, int N,
                                       const int32_t* __restrict__ slots,
                                       const int32_t* __restrict__ counts,
                                       const int32_t* __restrict__ mpi,
-                                      const double* __restrict__ mean) {
+                                      const double* __restrict__ mean,
+                                      const double* __restrict__ v0) {
   const long long off = r * static_cast<long long>(N);
   const int slot = slots[r];
   const long long soff = static_cast<long long>(slot) * N;
@@ -320,6 +358,7 @@ __device__ __forceinline__ Row row_at(long long r, int N,
   row.c = min(counts[r], N);
   row.mpi = mpi[r];
   row.mean = mean != nullptr ? mean[r] : 0.0;
+  row.v0 = v0 != nullptr ? v0[r] : 0.0;
   return row;
 }
 
@@ -395,8 +434,8 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
     case kDelta: {
       const double v_first = r.v[lo];
       const double d = two ? r.v[lo + 1] - v_first : 0.0;
-      const bool born = fabs(v_first + 0.0) < 10.0 * (fabs(d) + 1.0);
-      const double base = has_prev ? r.v[lo - 1] : (born ? -0.0 : v_first);
+      const bool born = fabs(v_first + r.v0) < 10.0 * (fabs(d) + 1.0);
+      const double base = has_prev ? r.v[lo - 1] : (born ? -r.v0 : v_first);
       return r.v[hi - 1] - base;
     }
     case kIdelta: {
@@ -446,13 +485,13 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
   const double c_prev = lo >= 1 ? r.cm[lo - 1] : -INFINITY;
   if (F == kIncrease || F == kIncreasePure) {
     if (has_prev) return c_last - c_prev;
-    if (F == kIncreasePure) return c_last - (-0.0);
+    if (F == kIncreasePure) return c_last - (-r.v0);
     // new-series baseline: a counter born inside the window counts from 0
     double c_first = INFINITY;
     for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cv[i]);
     const double d = two ? r.cv[lo + 1] - c_first : 0.0;
-    const bool born = fabs(c_first + 0.0) < 10.0 * (fabs(d) + 1.0);
-    return c_last - (born ? -0.0 : c_first);
+    const bool born = fabs(c_first + r.v0) < 10.0 * (fabs(d) + 1.0);
+    return c_last - (born ? -r.v0 : c_first);
   }
   if (!(has_gprev || two)) return qnan();
   if (F == kRate) {
@@ -476,28 +515,32 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
   return dt > 0.0 ? (c_last - c_l2) / dt : qnan();
 }
 
+// The arguments of the series passes: the tile's rows and their row-scan
+// outputs.
+struct Tile {
+  const int32_t* ts;
+  const double *vals, *cv, *cmax;
+  const int32_t *slots, *counts, *mpi;
+  const double *mean, *v0;
+  int N;
+};
+
+__device__ __forceinline__ Row tile_row(const Tile& a, long long r) {
+  return row_at(r, a.N, a.ts, a.vals, a.cv, a.cmax, a.slots, a.counts, a.mpi,
+                a.mean, a.v0);
+}
+
+// aggr over the rows order[k0:k1] (offset by row0) at step t: the
+// segment moments of partial_group_moments in ascending row order,
+// finalized by the aggregate's code; NaN when no row is live.
 template <int F>
-__global__ void __launch_bounds__(kGroupThreads)
-rollup_groups(const int32_t* __restrict__ ts,
-              const double* __restrict__ vals, const double* __restrict__ cv,
-              const double* __restrict__ cmax,
-              const int32_t* __restrict__ slots,
-              const int32_t* __restrict__ counts,
-              const int32_t* __restrict__ mpi,
-              const double* __restrict__ mean,
-              const int32_t* __restrict__ order,
-              const int32_t* __restrict__ starts, int N, int T, Grid g,
-              int aggr, double* __restrict__ out) {
-  const long long grp = blockIdx.x;
-  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
-  if (t >= T) return;
+__device__ __forceinline__ double group_value(
+    const Tile& a, const int32_t* __restrict__ order, int k0, int k1,
+    long long row0, const Grid& g, int aggr, int t) {
   double cnt = 0.0, s1 = 0.0, s2 = 0.0;
   double mn = INFINITY, mx = -INFINITY;
-  const int k_end = starts[grp + 1];
-  for (int k = starts[grp]; k < k_end; ++k) {
-    const Row row = row_at(order[k], N, ts, vals, cv, cmax, slots, counts,
-                           mpi, mean);
-    const double v = series_value<F>(row, g, t);
+  for (int k = k0; k < k1; ++k) {
+    const double v = series_value<F>(tile_row(a, row0 + order[k]), g, t);
     if (v != v) continue;  // NaN: series absent at this step
     cnt += 1.0;
     s1 += v;
@@ -521,24 +564,49 @@ rollup_groups(const int32_t* __restrict__ ts,
     }
     default: res = 1.0; break;  // group
   }
-  out[grp * T + t] = cnt > 0.0 ? res : qnan();
+  return cnt > 0.0 ? res : qnan();
 }
 
 template <int F>
 __global__ void __launch_bounds__(kGroupThreads)
-rollup_series(const int32_t* __restrict__ ts,
-              const double* __restrict__ vals, const double* __restrict__ cv,
-              const double* __restrict__ cmax,
-              const int32_t* __restrict__ slots,
-              const int32_t* __restrict__ counts,
-              const int32_t* __restrict__ mpi,
-              const double* __restrict__ mean, int N, int T, Grid g,
+rollup_groups(Tile a, const int32_t* __restrict__ order,
+              const int32_t* __restrict__ starts, int T, Grid g, int aggr,
               double* __restrict__ out) {
+  const long long grp = blockIdx.x;
+  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
+  if (t >= T) return;
+  out[grp * T + t] = group_value<F>(a, order, starts[grp], starts[grp + 1], 0,
+                                    g, aggr, t);
+}
+
+// B9: block (b * G + grp, step tile) of a [B, S, N] stack; the stream's
+// rows are b * S + order[b, k], its groups starts[b, :].
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads)
+fleet_rollup_groups(Tile a, const int32_t* __restrict__ order,
+                    const int32_t* __restrict__ starts,
+                    const int32_t* __restrict__ shifts,
+                    const int32_t* __restrict__ min_tss,
+                    const int32_t* __restrict__ aggrs, long long S, int G,
+                    int T, Grid g, double* __restrict__ out) {
+  const long long bg = blockIdx.x;
+  const long long b = bg / G;
+  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
+  if (t >= T) return;
+  g.shift = shifts[b];
+  g.min_ts = min_tss[b];
+  const int32_t* st = starts + b * (G + 1) + (bg - b * G);
+  out[bg * T + t] = group_value<F>(a, order + b * S, st[0], st[1], b * S, g,
+                                   aggrs[b], t);
+}
+
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads)
+rollup_series(Tile a, int T, Grid g, double* __restrict__ out) {
   const long long r = blockIdx.x;
   const int t = blockIdx.y * kGroupThreads + threadIdx.x;
   if (t >= T) return;
-  const Row row = row_at(r, N, ts, vals, cv, cmax, slots, counts, mpi, mean);
-  out[r * T + t] = series_value<F>(row, g, t);
+  out[r * T + t] = series_value<F>(tile_row(a, r), g, t);
 }
 
 Grid make_grid(int shift, int min_ts, int step, int lookback,
@@ -552,16 +620,29 @@ Grid make_grid(int shift, int min_ts, int step, int lookback,
   return g;
 }
 
+Tile make_tile(const void* ts, const void* vals, const void* cv,
+               const void* cmax, const void* slots, const void* counts,
+               const void* mpi, const void* mean, const void* v0, int N) {
+  return Tile{static_cast<const int32_t*>(ts),
+              static_cast<const double*>(vals),
+              static_cast<const double*>(cv),
+              static_cast<const double*>(cmax),
+              static_cast<const int32_t*>(slots),
+              static_cast<const int32_t*>(counts),
+              static_cast<const int32_t*>(mpi),
+              static_cast<const double*>(mean),
+              static_cast<const double*>(v0), N};
+}
+
 constexpr int kFuncs = kScrapeInterval + 1;
 
-// The arguments of one series pass, K2's or B5's.
+// The arguments of one series pass, K2's, B5's or B9's.
 struct PassArgs {
-  const int32_t* ts;
-  const double *vals, *cv, *cmax;
-  const int32_t *slots, *counts, *mpi;
-  const double* mean;
+  Tile tile;
   const int32_t *order, *starts;
-  int N, T;
+  const int32_t *shifts, *min_tss, *aggrs;  // B9
+  long long S;                               // B9: rows per stream
+  int G, T;
   Grid g;
   int aggr;
   double* out;
@@ -570,15 +651,19 @@ struct PassArgs {
 template <int F>
 void launch_groups(dim3 grid, cudaStream_t st, const PassArgs& a) {
   rollup_groups<F><<<grid, kGroupThreads, 0, st>>>(
-      a.ts, a.vals, a.cv, a.cmax, a.slots, a.counts, a.mpi, a.mean, a.order,
-      a.starts, a.N, a.T, a.g, a.aggr, a.out);
+      a.tile, a.order, a.starts, a.T, a.g, a.aggr, a.out);
+}
+
+template <int F>
+void launch_fleet(dim3 grid, cudaStream_t st, const PassArgs& a) {
+  fleet_rollup_groups<F><<<grid, kGroupThreads, 0, st>>>(
+      a.tile, a.order, a.starts, a.shifts, a.min_tss, a.aggrs, a.S, a.G, a.T,
+      a.g, a.out);
 }
 
 template <int F>
 void launch_series(dim3 grid, cudaStream_t st, const PassArgs& a) {
-  rollup_series<F><<<grid, kGroupThreads, 0, st>>>(
-      a.ts, a.vals, a.cv, a.cmax, a.slots, a.counts, a.mpi, a.mean, a.N, a.T,
-      a.g, a.out);
+  rollup_series<F><<<grid, kGroupThreads, 0, st>>>(a.tile, a.T, a.g, a.out);
 }
 
 using Launch = void (*)(dim3, cudaStream_t, const PassArgs&);
@@ -591,9 +676,52 @@ const Launch* groups_table(std::integer_sequence<int, F...>) {
 }
 
 template <int... F>
+const Launch* fleet_table(std::integer_sequence<int, F...>) {
+  static const Launch table[] = {&launch_fleet<F>...};
+  return table;
+}
+
+template <int... F>
 const Launch* series_table(std::integer_sequence<int, F...>) {
   static const Launch table[] = {&launch_series<F>...};
   return table;
+}
+
+unsigned step_tiles(int T) {
+  return static_cast<unsigned>((T + kGroupThreads - 1) / kGroupThreads);
+}
+
+int scan(const void* ts, const void* vals, const void* counts, long long S,
+         int N, int shift, int min_ts, const void* shifts,
+         const void* min_tss, long long rows_per_stream, int step,
+         int instant, int counter, void* mpi, void* slots, void* n_irregular,
+         void* mean, void* stream) {
+  if (S <= 0) return 0;
+  const long long per_block = kPrepThreads / 32;
+  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
+                                                per_block);
+  rollup_scan<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
+      static_cast<const int32_t*>(counts), S, N, shift, min_ts,
+      static_cast<const int32_t*>(shifts),
+      static_cast<const int32_t*>(min_tss), rows_per_stream, step, instant,
+      counter, static_cast<int32_t*>(mpi), static_cast<int32_t*>(slots),
+      static_cast<int32_t*>(n_irregular), static_cast<double*>(mean));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int prep(const void* vals, const void* counts, const void* slots,
+         const void* v0, long long S, int N, void* cv, void* cmax,
+         void* stream) {
+  if (S <= 0) return 0;
+  const long long per_block = kPrepThreads / 32;
+  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
+                                                per_block);
+  rollup_prep<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(vals), static_cast<const int32_t*>(counts),
+      static_cast<const int32_t*>(slots), static_cast<const double*>(v0), S,
+      N, static_cast<double*>(cv), static_cast<double*>(cmax));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -603,31 +731,35 @@ extern "C" int vm_rollup_scan(const void* ts, const void* vals,
                               int shift, int min_ts, int step, int instant,
                               int counter, void* mpi, void* slots,
                               void* n_irregular, void* mean, void* stream) {
+  return scan(ts, vals, counts, S, N, shift, min_ts, nullptr, nullptr, 1,
+              step, instant, counter, mpi, slots, n_irregular, mean, stream);
+}
+
+// The row scan of a [B, S, N] stack: each stream's shift and min_ts.
+extern "C" int vm_fleet_rollup_scan(const void* ts, const void* vals,
+                                    const void* counts, long long B,
+                                    long long S, int N, const void* shifts,
+                                    const void* min_tss, int step,
+                                    int instant, int counter, void* mpi,
+                                    void* slots, void* n_irregular,
+                                    void* mean, void* stream) {
   if (S <= 0) return 0;
-  const long long per_block = kPrepThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
-                                                per_block);
-  rollup_scan<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
-      static_cast<const int32_t*>(counts), S, N, shift, min_ts, step,
-      instant, counter, static_cast<int32_t*>(mpi),
-      static_cast<int32_t*>(slots), static_cast<int32_t*>(n_irregular),
-      static_cast<double*>(mean));
-  return static_cast<int>(cudaGetLastError());
+  return scan(ts, vals, counts, B * S, N, 0, 0, shifts, min_tss, S, step,
+              instant, counter, mpi, slots, n_irregular, mean, stream);
 }
 
 extern "C" int vm_rollup_prep(const void* vals, const void* counts,
                               const void* slots, long long S, int N,
                               void* cv, void* cmax, void* stream) {
-  if (S <= 0) return 0;
-  const long long per_block = kPrepThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
-                                                per_block);
-  rollup_prep<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(vals), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(slots), S, N, static_cast<double*>(cv),
-      static_cast<double*>(cmax));
-  return static_cast<int>(cudaGetLastError());
+  return prep(vals, counts, slots, nullptr, S, N, cv, cmax, stream);
+}
+
+// The scratch pass of a [B, S, N] stack, rebased by the [B, S] v0 plane.
+extern "C" int vm_fleet_rollup_prep(const void* vals, const void* counts,
+                                    const void* slots, const void* v0,
+                                    long long B, long long S, int N, void* cv,
+                                    void* cmax, void* stream) {
+  return prep(vals, counts, slots, v0, B * S, N, cv, cmax, stream);
 }
 
 extern "C" int vm_rollup_groups(const void* ts, const void* vals,
@@ -642,20 +774,47 @@ extern "C" int vm_rollup_groups(const void* ts, const void* vals,
   if (G <= 0 || T <= 0) return 0;
   if (func < 0 || func >= kFuncs)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(G),
-                  static_cast<unsigned>((T + kGroupThreads - 1) /
-                                        kGroupThreads));
-  const PassArgs a{
-      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
-      static_cast<const double*>(cv), static_cast<const double*>(cmax),
-      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(mpi), static_cast<const double*>(mean),
-      static_cast<const int32_t*>(order),
-      static_cast<const int32_t*>(starts), N, T,
-      make_grid(shift, min_ts, step, lookback, start_s), aggr,
-      static_cast<double*>(out)};
+  PassArgs a{};
+  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
+                     N);
+  a.order = static_cast<const int32_t*>(order);
+  a.starts = static_cast<const int32_t*>(starts);
+  a.T = T;
+  a.g = make_grid(shift, min_ts, step, lookback, start_s);
+  a.aggr = aggr;
+  a.out = static_cast<double*>(out);
   groups_table(std::make_integer_sequence<int, kFuncs>())[func](
-      grid, static_cast<cudaStream_t>(stream), a);
+      dim3(static_cast<unsigned>(G), step_tiles(T)),
+      static_cast<cudaStream_t>(stream), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9 over a [B, S, N] stack -> out [B, G, T].
+extern "C" int vm_fleet_rollup_groups(
+    const void* ts, const void* vals, const void* cv, const void* cmax,
+    const void* slots, const void* counts, const void* mpi, const void* mean,
+    const void* v0, const void* order, const void* starts, const void* shifts,
+    const void* min_tss, const void* aggrs, long long B, long long S, int G,
+    int N, int T, int step, int lookback, double start_s, int func, void* out,
+    void* stream) {
+  if (B <= 0 || G <= 0 || T <= 0) return 0;
+  if (func < 0 || func >= kFuncs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PassArgs a{};
+  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, v0, N);
+  a.order = static_cast<const int32_t*>(order);
+  a.starts = static_cast<const int32_t*>(starts);
+  a.shifts = static_cast<const int32_t*>(shifts);
+  a.min_tss = static_cast<const int32_t*>(min_tss);
+  a.aggrs = static_cast<const int32_t*>(aggrs);
+  a.S = S;
+  a.G = G;
+  a.T = T;
+  a.g = make_grid(0, 0, step, lookback, start_s);
+  a.out = static_cast<double*>(out);
+  fleet_table(std::make_integer_sequence<int, kFuncs>())[func](
+      dim3(static_cast<unsigned>(B * G), step_tiles(T)),
+      static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,19 +829,15 @@ extern "C" int vm_rollup_series(const void* ts, const void* vals,
   if (S <= 0 || T <= 0) return 0;
   if (func < 0 || func >= kFuncs)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(S),
-                  static_cast<unsigned>((T + kGroupThreads - 1) /
-                                        kGroupThreads));
-  const PassArgs a{
-      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
-      static_cast<const double*>(cv), static_cast<const double*>(cmax),
-      static_cast<const int32_t*>(slots), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(mpi), static_cast<const double*>(mean),
-      nullptr, nullptr, N, T,
-      make_grid(shift, min_ts, step, lookback, start_s), 0,
-      static_cast<double*>(out)};
+  PassArgs a{};
+  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
+                     N);
+  a.T = T;
+  a.g = make_grid(shift, min_ts, step, lookback, start_s);
+  a.out = static_cast<double*>(out);
   series_table(std::make_integer_sequence<int, kFuncs>())[func](
-      grid, static_cast<cudaStream_t>(stream), a);
+      dim3(static_cast<unsigned>(S), step_tiles(T)),
+      static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,7 @@
 // K3 append_tile and K4 compact_tile: the rolling tile's two maintenance
-// passes, both per-row scatter/gather.
+// passes, both per-row scatter/gather; B10 fleet_append_tile and B11
+// fleet_compact_tile: the same two passes over a fleet bucket's [B, S, N]
+// stack of stream tiles.
 //
 // K3 replaces victoriametrics_tpu/ops/device_rollup.py:append_tile.  Each
 // row's K new samples land after its counts[row] existing ones; positions
@@ -18,12 +20,25 @@
 // One 256-thread block per row: a block reduction counts the dropped
 // prefix, then the block copies the row.
 //
+// B10 replaces victoriametrics_tpu/ops/device_rollup.py:fleet_append_tile
+// (jax.vmap of the append over the leading stream axis, donated).  The
+// append is independent per row, so B10 is K3's kernel over the B x S rows
+// of the stack, in place like K3; streams with nothing staged carry
+// new_counts 0 and are untouched.
+//
+// B11 replaces victoriametrics_tpu/ops/device_rollup.py:fleet_compact_tile:
+// K4's compaction with each stream's cutoff and delta read from [B] device
+// arrays (block row / S).  Every slot is compacted, as in the reference: a
+// slot given cutoff 0 drops its live samples with ts < 0 and keeps the
+// rest unchanged.  Fresh output tensors, as K4.
+//
 // Bound: bytes.  K3 reads each row's live new samples (the first
 // new_counts[row] of its K columns, 12 B each) and writes the same bytes
 // into the tile, plus the counts; K4 reads the survivors (12 B each) and
 // the timestamps of the dropped prefix (4 B each) and writes the whole
 // [S, N] output tile (12 B per column).  Both are single coalesced passes
-// with no arithmetic beyond an int32 rebase.
+// with no arithmetic beyond an int32 rebase; B10 and B11 move the same
+// bytes per row over B x S rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,9 +82,16 @@ __global__ void __launch_bounds__(kCompactThreads)
 compact_rows(const int32_t* __restrict__ ts, const double* __restrict__ vals,
              const int32_t* __restrict__ counts, int32_t* __restrict__ ts_out,
              double* __restrict__ vals_out, int32_t* __restrict__ counts_out,
-             int N, int32_t cutoff, int32_t delta) {
+             int N, int32_t cutoff, int32_t delta,
+             const int32_t* __restrict__ cutoffs,
+             const int32_t* __restrict__ deltas, long long rows_per_stream) {
   __shared__ int warp_drop[kCompactThreads / 32];
   const long long row = blockIdx.x;
+  if (cutoffs != nullptr) {  // B11: the row's stream's cutoff and delta
+    const long long b = row / rows_per_stream;
+    cutoff = cutoffs[b];
+    delta = deltas[b];
+  }
   const long long off = row * static_cast<long long>(N);
   const int c = counts[row];
   const int valid = c < N ? c : N;
@@ -101,12 +123,9 @@ compact_rows(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   if (threadIdx.x == 0) counts_out[row] = nc;
 }
 
-}  // namespace
-
-extern "C" int vm_append_tile(void* ts, void* vals, void* counts,
-                              const void* new_ts, const void* new_vals,
-                              const void* new_counts, long long S, int N,
-                              int K, void* stream) {
+int append(void* ts, void* vals, void* counts, const void* new_ts,
+           const void* new_vals, const void* new_counts, long long S, int N,
+           int K, void* stream) {
   if (S <= 0) return 0;
   const long long per_block = kAppendThreads / 32;
   const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
@@ -120,18 +139,59 @@ extern "C" int vm_append_tile(void* ts, void* vals, void* counts,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int vm_compact_tile(const void* ts, const void* vals,
-                               const void* counts, void* ts_out,
-                               void* vals_out, void* counts_out, long long S,
-                               int N, int cutoff, int delta, void* stream) {
+int compact(const void* ts, const void* vals, const void* counts,
+            void* ts_out, void* vals_out, void* counts_out, long long S,
+            int N, int cutoff, int delta, const void* cutoffs,
+            const void* deltas, long long rows_per_stream, void* stream) {
   if (S <= 0) return 0;
   compact_rows<<<static_cast<unsigned>(S), kCompactThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
       static_cast<const int32_t*>(counts), static_cast<int32_t*>(ts_out),
       static_cast<double*>(vals_out), static_cast<int32_t*>(counts_out), N,
-      cutoff, delta);
+      cutoff, delta, static_cast<const int32_t*>(cutoffs),
+      static_cast<const int32_t*>(deltas), rows_per_stream);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int vm_append_tile(void* ts, void* vals, void* counts,
+                              const void* new_ts, const void* new_vals,
+                              const void* new_counts, long long S, int N,
+                              int K, void* stream) {
+  return append(ts, vals, counts, new_ts, new_vals, new_counts, S, N, K,
+                stream);
+}
+
+// B10: [B, S, N] += [B, S, K], in place.
+extern "C" int vm_fleet_append_tile(void* ts, void* vals, void* counts,
+                                    const void* new_ts, const void* new_vals,
+                                    const void* new_counts, long long B,
+                                    long long S, int N, int K, void* stream) {
+  return append(ts, vals, counts, new_ts, new_vals, new_counts, B * S, N, K,
+                stream);
+}
+
+extern "C" int vm_compact_tile(const void* ts, const void* vals,
+                               const void* counts, void* ts_out,
+                               void* vals_out, void* counts_out, long long S,
+                               int N, int cutoff, int delta, void* stream) {
+  return compact(ts, vals, counts, ts_out, vals_out, counts_out, S, N, cutoff,
+                 delta, nullptr, nullptr, 1, stream);
+}
+
+// B11: each stream of the [B, S, N] stack compacted at its cutoff and
+// rebased by its delta ([B] int32 each).
+extern "C" int vm_fleet_compact_tile(const void* ts, const void* vals,
+                                     const void* counts, void* ts_out,
+                                     void* vals_out, void* counts_out,
+                                     const void* cutoffs, const void* deltas,
+                                     long long B, long long S, int N,
+                                     void* stream) {
+  if (S <= 0) return 0;
+  return compact(ts, vals, counts, ts_out, vals_out, counts_out, B * S, N, 0,
+                 0, cutoffs, deltas, S, stream);
 }
 
 extern "C" const char* vm_cuda_error_string(int e) {

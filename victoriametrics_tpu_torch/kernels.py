@@ -56,6 +56,12 @@ SIGNATURES = {
                            _P, _P, _P],
         # vals, counts, slots, S, N, cv, cmax, stream
         "vm_rollup_prep": [_P, _P, _P, _LL, _I, _P, _P, _P],
+        # ts, vals, counts, B, S, N, shifts, min_tss, step, instant,
+        # counter, mpi, slots, n_irregular, mean, stream
+        "vm_fleet_rollup_scan": [_P, _P, _P, _LL, _LL, _I, _P, _P, _I, _I,
+                                 _I, _P, _P, _P, _P, _P],
+        # vals, counts, slots, v0, B, S, N, cv, cmax, stream
+        "vm_fleet_rollup_prep": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P],
         # ts, vals, cv, cmax, slots, counts, mpi, mean, order, starts, G, N,
         # T, shift, min_ts, step, lookback, start_s, func, aggr, out, stream
         "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
@@ -64,6 +70,12 @@ SIGNATURES = {
         # min_ts, step, lookback, start_s, func, out, stream
         "vm_rollup_series": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                              _I, _I, _I, _D, _I, _P, _P],
+        # ts, vals, cv, cmax, slots, counts, mpi, mean, v0, order, starts,
+        # shifts, min_tss, aggrs, B, S, G, N, T, step, lookback, start_s,
+        # func, out, stream
+        "vm_fleet_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
+                                   _D, _I, _P, _P],
     },
     "select": {
         # S, T, k, bytes (out): the scratch vm_topk_select needs
@@ -85,6 +97,13 @@ SIGNATURES = {
         # ts, vals, counts, ts_out, vals_out, counts_out, S, N, cutoff,
         # delta, stream
         "vm_compact_tile": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+        # ts, vals, counts, new_ts, new_vals, new_counts, B, S, N, K, stream
+        "vm_fleet_append_tile": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                                 _P],
+        # ts, vals, counts, ts_out, vals_out, counts_out, cutoffs, deltas,
+        # B, S, N, stream
+        "vm_fleet_compact_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                  _I, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)

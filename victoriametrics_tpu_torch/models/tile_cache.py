@@ -167,6 +167,11 @@ class DeviceWindowCache:
                 self._entries.move_to_end(key)
             return v
 
+    def peek(self, key):
+        """The entry under `key` without refreshing its LRU position."""
+        with self._lock:
+            return self._entries.get(key)
+
     def put(self, key, value) -> None:
         with self._lock:
             self._entries[key] = value

@@ -1,8 +1,10 @@
 """Rolling-tile kernels, each beside its plain PyTorch version: the
 windowed rollup (B5), the fused rollup + group aggregate (K2), append (K3),
-window compaction (K4), and the selections over a rolled tile: per-step
+window compaction (K4), the selections over a rolled tile: per-step
 topk/bottomk and the row gather (B6), the per-series rank statistic (B7)
-and the per-group quantile (B8).
+and the per-group quantile (B8), and the fleet's passes over a [B, S, N]
+stack of stream tiles: rollup + aggregate (B9), append (B10) and
+compaction (B11).
 
 Port of ``victoriametrics_tpu/ops/device_rollup.py``.  A tile is the
 device-resident state of one selector:
@@ -60,9 +62,15 @@ COUNTER_FUNCS = frozenset({"rate", "increase", "increase_pure", "irate"})
 CENTRED_FUNCS = frozenset({"stddev_over_time", "stdvar_over_time"})
 #: rank statistics of topk_<kind>, with their kernel codes
 RANK_KINDS = {"max": 0, "min": 1, "avg": 2, "median": 3, "last": 4}
-#: aggregates, with their kernel codes (the reference's FLEET_AGGR_CODES)
+#: aggregates, with their kernel codes
 AGGR_FUNCS = {"sum": 0, "count": 1, "avg": 2, "min": 3, "max": 4,
               "stddev": 5, "stdvar": 6, "group": 7}
+#: the fleet's per-stream aggregate codes: the same table
+FLEET_AGGR_CODES = AGGR_FUNCS
+_AGGR_NAMES = {code: name for name, code in AGGR_FUNCS.items()}
+#: funcs a fleet bucket rolls (B9): the rolling funcs, not the ones that
+#: read absolute time or the row's first sample
+FLEET_FUNCS = frozenset(FUNC_CODES) - TIME_VALUED_FUNCS - {"lifetime"}
 
 
 def normalized_cfg(func: str, cfg: RollupConfig) -> RollupConfig:
@@ -126,17 +134,20 @@ def _serial_cumsum(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x.cpu(), dim=1).to(x.device)
 
 
-def _remove_counter_resets(values: torch.Tensor,
-                           valid: torch.Tensor) -> torch.Tensor:
+def _remove_counter_resets(values: torch.Tensor, valid: torch.Tensor,
+                           v0=None) -> torch.Tensor:
     """Monotonize counters: add back the lost base at each reset (prefix
     sum of the drops; the 8x threshold of rollup.go:921).  Pad positions
-    contribute nothing."""
+    contribute nothing.  `v0` ([S], the fleet's rebase offsets) makes the
+    threshold and the restarted base absolute, as in the reference."""
     vm = torch.where(valid, values, 0.0)
     prev = torch.cat([vm[:, :1], vm[:, :-1]], dim=1)
     pair_valid = valid & torch.cat(
         [torch.zeros_like(valid[:, :1]), valid[:, :-1]], dim=1)
+    prev_abs = prev if v0 is None else prev + v0[:, None]
     drop = torch.where(pair_valid & (vm < prev),
-                       torch.where((prev - vm) * 8 < prev, prev - vm, prev),
+                       torch.where((prev - vm) * 8 < prev_abs, prev - vm,
+                                   prev_abs),
                        0.0)
     return values + _serial_cumsum(drop)
 
@@ -189,14 +200,17 @@ def _window_fold(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 def rollup_tile_plain(func: str, ts: torch.Tensor, values: torch.Tensor,
                       counts: torch.Tensor, cfg: RollupConfig,
-                      min_ts=MIN_TS_NONE) -> torch.Tensor:
+                      min_ts=MIN_TS_NONE, v0=None) -> torch.Tensor:
     """Plain windowed rollup of every CORE_SUPPORTED func over a tile whose
     timestamps are already on the cfg grid -> float64 [S, T] (NaN = gap).
 
     Windows by ``torch.searchsorted`` on each row's valid prefix, window
     endpoints by gathers, window sums and extrema folded in ascending
     sample order.  `min_ts` gates the sample before a window like a fetch
-    that started there (rolling tiles hold more history)."""
+    that started there (rolling tiles hold more history).  `v0` ([S]
+    float64, the fleet's rebase offsets) enters where the reference adds
+    it: the counter-reset threshold and the new-series base of delta and
+    increase; None is the reference's v0=None (x + 0.0, a base of -0.0)."""
     if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     S, N = ts.shape
@@ -232,6 +246,9 @@ def rollup_tile_plain(func: str, ts: torch.Tensor, values: torch.Tensor,
         return torch.where(have if ok is None else have & ok, x, nan)
 
     v = values
+    # the reference's v0c: a +0.0 scalar without rebase offsets
+    v0c = torch.zeros((), dtype=f64, device=dev) if v0 is None else \
+        v0[:, None]
     if func == "count_over_time":
         return out(nw)
     if func == "present_over_time":
@@ -274,10 +291,9 @@ def rollup_tile_plain(func: str, ts: torch.Tensor, values: torch.Tensor,
     if func == "delta":
         v_first = _take(v, lo)
         d = torch.where(two, _take(v, lo + 1) - v_first, 0.0)
-        born = (v_first + 0.0).abs() < 10.0 * (d.abs() + 1.0)
-        neg0 = torch.tensor(-0.0, dtype=f64, device=dev)
+        born = (v_first + v0c).abs() < 10.0 * (d.abs() + 1.0)
         base = torch.where(has_prev, _take(v, lo - 1),
-                           torch.where(born, neg0, v_first))
+                           torch.where(born, -v0c, v_first))
         return out(_take(v, hi - 1) - base)
     if func == "idelta":
         has_gprev = gated_prev()
@@ -310,19 +326,18 @@ def rollup_tile_plain(func: str, ts: torch.Tensor, values: torch.Tensor,
         cnt = torch.where(has_prev, n, n - 1)
         return out(dt / cnt.to(f64), (has_prev | two) & (cnt > 0))
     # the counter funcs
-    cv = _remove_counter_resets(values, valid)
+    cv = _remove_counter_resets(values, valid, v0)
     cmax = torch.cummax(cv, dim=1).values  # NaN-propagating
     c_last = _take(cmax, hi - 1)
     c_prev = torch.where(lo >= 1, _take(cmax, lo - 1), -torch.inf)
     c_first = fold(cv, torch.inf, torch.minimum)
     if func in ("increase", "increase_pure"):
-        neg0 = torch.tensor(-0.0, dtype=f64, device=dev)
         if func == "increase_pure":
-            nb = neg0.expand(S, T)
+            nb = (-v0c).expand(S, T)
         else:
             d = torch.where(two, _take(cv, lo + 1) - c_first, 0.0)
-            born = (c_first + 0.0).abs() < 10.0 * (d.abs() + 1.0)
-            nb = torch.where(born, neg0, c_first)
+            born = (c_first + v0c).abs() < 10.0 * (d.abs() + 1.0)
+            nb = torch.where(born, -v0c, c_first)
         return out(c_last - torch.where(has_prev, c_prev, nb))
     has_gprev = gated_prev()
     if func == "rate":
@@ -448,35 +463,51 @@ def _check_tile(ts, values, counts) -> tuple[int, int]:
 
 
 def _scan_rows(h, func: str, ts, values, counts, cfg: RollupConfig,
-               shift: int, min_ts, stream: int):
-    """The row passes K2 and B5 share: maxPrevInterval per row, the row
-    mean for stddev/stdvar_over_time, and the reset-corrected counter
-    scratch of the irregular rows for the counter funcs.  Returns the
-    series pass's row pointers and the tensors behind them."""
-    S, N = ts.shape
+               shift: int, min_ts, stream: int, fleet=None):
+    """The row passes K2, B5 and B9 share: maxPrevInterval per row, the
+    row mean for stddev/stdvar_over_time, and the reset-corrected counter
+    scratch of the irregular rows for the counter funcs.  `fleet` is B9's
+    (shift [B], min_ts [B], v0 [B, S]) for a [B, S, N] stack: each row
+    takes its stream's shift and min_ts, and v0 rebases the scratch.
+    Returns the series pass's row pointers and the tensors behind them."""
+    B, S, N = (1, *ts.shape) if fleet is None else ts.shape
     dev = ts.device
     counter = func in COUNTER_FUNCS
-    mpi = torch.empty((S,), dtype=torch.int32, device=dev)
-    slots = torch.empty((S,), dtype=torch.int32, device=dev)
+    instant = int(cfg.start >= cfg.end)
+    mpi = torch.empty((B * S,), dtype=torch.int32, device=dev)
+    slots = torch.empty((B * S,), dtype=torch.int32, device=dev)
     n_irregular = torch.zeros((1,), dtype=torch.int32, device=dev)
-    mean = torch.empty((S,), dtype=torch.float64, device=dev) \
+    mean = torch.empty((B * S,), dtype=torch.float64, device=dev) \
         if func in CENTRED_FUNCS else None
-    kernels.check(h, h.vm_rollup_scan(
-        ts.data_ptr(), values.data_ptr(), counts.data_ptr(), S, N,
-        int(shift), int(min_ts), cfg.step, int(cfg.start >= cfg.end),
-        int(counter), mpi.data_ptr(), slots.data_ptr(),
-        n_irregular.data_ptr(), None if mean is None else mean.data_ptr(),
-        stream), "rollup (row scan)")
+    mean_p = None if mean is None else mean.data_ptr()
+    if fleet is None:
+        rc = h.vm_rollup_scan(
+            ts.data_ptr(), values.data_ptr(), counts.data_ptr(), S, N,
+            int(shift), int(min_ts), cfg.step, instant, int(counter),
+            mpi.data_ptr(), slots.data_ptr(), n_irregular.data_ptr(), mean_p,
+            stream)
+    else:
+        rc = h.vm_fleet_rollup_scan(
+            ts.data_ptr(), values.data_ptr(), counts.data_ptr(), B, S, N,
+            fleet[0].data_ptr(), fleet[1].data_ptr(), cfg.step, instant,
+            int(counter), mpi.data_ptr(), slots.data_ptr(),
+            n_irregular.data_ptr(), mean_p, stream)
+    kernels.check(h, rc, "rollup (row scan)")
     # scratch only for counter rows with a reset, a NaN or -0.0: on the
     # others the reset-corrected counter and its running maximum are the
     # values
     n = int(n_irregular.item()) if counter else 0
     cv = torch.empty((n, N), dtype=torch.float64, device=dev)
     cmax = torch.empty((n, N), dtype=torch.float64, device=dev)
-    if n:
+    if n and fleet is None:
         kernels.check(h, h.vm_rollup_prep(
             values.data_ptr(), counts.data_ptr(), slots.data_ptr(), S, N,
             cv.data_ptr(), cmax.data_ptr(), stream), "rollup (row prep)")
+    elif n:
+        kernels.check(h, h.vm_fleet_rollup_prep(
+            values.data_ptr(), counts.data_ptr(), slots.data_ptr(),
+            fleet[2].data_ptr(), B, S, N, cv.data_ptr(), cmax.data_ptr(),
+            stream), "rollup (row prep)")
     # the caller keeps `keep` alive until the series pass is queued: the
     # pointers alone would let the allocator reuse these tensors' memory
     return (cv.data_ptr(), cmax.data_ptr(), slots.data_ptr(),
@@ -658,6 +689,207 @@ def compact_tile(ts: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
         v2.data_ptr(), c2.data_ptr(), S, N, int(cutoff_rel), int(delta),
         kernels.stream_of(dev)), "compact_tile")
     kernels.LAUNCHES["compact_tile"] += 1
+    return ts2, v2, c2
+
+
+# ---------------------------------------------------------------------------
+# B9 / B10 / B11: the fleet's passes over a bucket's [B, S, N] stack.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FleetLayout:
+    """Group ids of a fleet bucket's [B, S] rows plus each stream's member
+    lists: stream b's group g owns rows order[b, starts[b, g]:starts[b,
+    g + 1]], ascending."""
+    gids: torch.Tensor     # int32 [B, S]
+    order: torch.Tensor    # int32 [B, S], each stream's rows by group id
+    starts: torch.Tensor   # int32 [B, G + 1]
+    num_groups: int
+
+
+def fleet_layout(gids, num_groups: int, device) -> FleetLayout:
+    """Build a FleetLayout from host or device group ids [B, S] (validated
+    to lie in [0, num_groups)).  A bucket builds it once per upload: a
+    member's group ids are fixed while it lives."""
+    g = torch.as_tensor(np.asarray(gids) if not torch.is_tensor(gids)
+                        else gids).to(device=device, dtype=torch.int64)
+    if g.dim() != 2:
+        raise ValueError("fleet group ids must be [B, S]")
+    if g.numel() and (int(g.min()) < 0 or int(g.max()) >= num_groups):
+        raise ValueError(f"group ids outside [0, {num_groups})")
+    order = torch.sort(g, dim=1, stable=True).indices
+    sizes = torch.zeros((g.shape[0], num_groups), dtype=torch.int64,
+                        device=g.device).scatter_add_(1, g,
+                                                      torch.ones_like(g))
+    starts = torch.zeros((g.shape[0], num_groups + 1), dtype=torch.int64,
+                         device=g.device)
+    starts[:, 1:] = torch.cumsum(sizes, 1)
+    return FleetLayout(g.to(torch.int32), order.to(torch.int32),
+                       starts.to(torch.int32), int(num_groups))
+
+
+def fleet_rollup_aggregate_tile_plain(func: str, cfg: RollupConfig,
+                                      layout: FleetLayout, ts, values,
+                                      counts, aggr, shift, min_ts,
+                                      v0) -> torch.Tensor:
+    """Plain PyTorch version of B9: per stream b, rollup_tile_plain on
+    ts[b] - shift[b] with min_ts[b] and v0[b], then aggregate_groups under
+    the aggregate aggr[b] names."""
+    outs = []
+    for b in range(ts.shape[0]):
+        code = int(aggr[b])
+        if code not in _AGGR_NAMES:
+            raise ValueError(f"unknown aggregate code {code}")
+        rolled = rollup_tile_plain(func, ts[b] - int(shift[b]), values[b],
+                                   counts[b], cfg, int(min_ts[b]), v0[b])
+        outs.append(aggregate_groups(_AGGR_NAMES[code], rolled,
+                                     layout.gids[b], layout.num_groups))
+    return torch.stack(outs)
+
+
+def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
+                                layout: FleetLayout, ts: torch.Tensor,
+                                values: torch.Tensor, counts: torch.Tensor,
+                                aggr: torch.Tensor, shift: torch.Tensor,
+                                min_ts: torch.Tensor,
+                                v0: torch.Tensor) -> torch.Tensor:
+    """B9: aggr(rollup(m[d])) for every stream of a fleet bucket in one
+    launch -> float64 [B, G, T].
+
+    ts int32 [B, S, N], values float64 [B, S, N], counts int32 [B, S];
+    per stream (int32 [B]) the aggregate code (FLEET_AGGR_CODES), the grid
+    shift (query start - member base, ms) and the fetch bound min_ts in the
+    shifted frame; v0 float64 [B, S] the rebase offsets (zeros on a
+    float64 bucket).  cfg is the bucket's start-0 grid.  Padded rows
+    (counts 0), groups and slots come out NaN; steps past a member's own T
+    are the caller's to slice off."""
+    if func not in FLEET_FUNCS:
+        raise ValueError(f"{func!r} does not roll in a fleet bucket")
+    dev = kernels.placement(ts, values, counts, layout.gids, layout.order,
+                            layout.starts, aggr, shift, min_ts, v0)
+    if dev.type == "cpu":
+        return fleet_rollup_aggregate_tile_plain(func, cfg, layout, ts,
+                                                 values, counts, aggr, shift,
+                                                 min_ts, v0)
+    if ts.dim() != 3 or ts.shape[2] < 1:
+        raise ValueError("fleet planes must be [B, S, N] with N >= 1")
+    B, S, N = ts.shape
+    G = layout.num_groups
+    T = num_steps(cfg)
+    kernels.require(ts, "ts", torch.int32, (B, S, N))
+    kernels.require(values, "values", torch.float64, (B, S, N))
+    kernels.require(counts, "counts", torch.int32, (B, S))
+    kernels.require(layout.order, "order", torch.int32, (B, S))
+    kernels.require(layout.starts, "starts", torch.int32, (B, G + 1))
+    for name, t in (("aggr", aggr), ("shift", shift), ("min_ts", min_ts)):
+        kernels.require(t, name, torch.int32, (B,))
+    kernels.require(v0, "v0", torch.float64, (B, S))
+    h = kernels.lib("rollup")
+    stream = kernels.stream_of(dev)
+    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, 0, 0, stream,
+                            fleet=(shift, min_ts, v0))
+    out = torch.empty((B, G, T), dtype=torch.float64, device=dev)
+    kernels.check(h, h.vm_fleet_rollup_groups(
+        ts.data_ptr(), values.data_ptr(), *rows, v0.data_ptr(),
+        layout.order.data_ptr(), layout.starts.data_ptr(), shift.data_ptr(),
+        min_ts.data_ptr(), aggr.data_ptr(), B, S, G, N, T, cfg.step,
+        cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
+        out.data_ptr(), stream), "fleet_rollup_aggregate_tile")
+    del keep  # the row tensors live until the launch is queued
+    kernels.LAUNCHES["fleet_rollup_aggregate_tile"] += 1
+    return out
+
+
+def _fleet_dims(ts, values, counts) -> tuple[int, int, int]:
+    if ts.dim() != 3:
+        raise ValueError("fleet planes must be [B, S, N]")
+    B, S, N = ts.shape
+    kernels.require(ts, "ts", torch.int32, (B, S, N))
+    kernels.require(values, "values", torch.float64, (B, S, N))
+    kernels.require(counts, "counts", torch.int32, (B, S))
+    return B, S, N
+
+
+def fleet_append_tile_plain(ts, values, counts, new_ts, new_values,
+                            new_counts):
+    """Plain PyTorch version of B10: K3's plain version over the B x S
+    rows, in place."""
+    B, S, N = ts.shape
+    K = new_ts.shape[2]
+    append_tile_plain(ts.view(B * S, N), values.view(B * S, N),
+                      counts.view(B * S), new_ts.reshape(B * S, K),
+                      new_values.reshape(B * S, K), new_counts.reshape(B * S))
+    return ts, values, counts
+
+
+def fleet_append_tile(ts: torch.Tensor, values: torch.Tensor,
+                      counts: torch.Tensor, new_ts: torch.Tensor,
+                      new_values: torch.Tensor, new_counts: torch.Tensor):
+    """B10: one launch scatters every staged stream's suffix columns
+    [B, S, K] onto the bucket's [B, S, N] planes, IN PLACE (the reference
+    donated them); streams with nothing staged carry new_counts 0.
+    Returns the same three tensors."""
+    dev = kernels.placement(ts, values, counts, new_ts, new_values,
+                            new_counts)
+    if dev.type == "cpu":
+        return fleet_append_tile_plain(ts, values, counts, new_ts,
+                                       new_values, new_counts)
+    B, S, N = _fleet_dims(ts, values, counts)
+    K = new_ts.shape[2] if new_ts.dim() == 3 else -1
+    kernels.require(new_ts, "new_ts", torch.int32, (B, S, K))
+    kernels.require(new_values, "new_values", torch.float64, (B, S, K))
+    kernels.require(new_counts, "new_counts", torch.int32, (B, S))
+    h = kernels.lib("tile")
+    kernels.check(h, h.vm_fleet_append_tile(
+        ts.data_ptr(), values.data_ptr(), counts.data_ptr(),
+        new_ts.data_ptr(), new_values.data_ptr(), new_counts.data_ptr(),
+        B, S, N, K, kernels.stream_of(dev)), "fleet_append_tile")
+    kernels.LAUNCHES["fleet_append_tile"] += 1
+    return ts, values, counts
+
+
+def fleet_compact_tile_plain(ts, values, counts, cutoff, delta):
+    """Plain PyTorch version of B11: K4's plain version with the cutoff
+    and delta of each row's stream; fresh output tensors."""
+    B, S, N = ts.shape
+    k = torch.arange(N, device=ts.device)
+    cut = cutoff.to(torch.int32)[:, None, None]
+    valid = k < counts[..., None]
+    drop = (valid & (ts < cut)).sum(dim=2).to(torch.int32)
+    new_counts = counts - drop
+    idx = (drop.to(torch.int64)[..., None] + k).clamp(0, N - 1)
+    live = k < new_counts[..., None]
+    ts2 = torch.where(live, torch.take_along_dim(ts, idx, 2) -
+                      delta.to(torch.int32)[:, None, None],
+                      int(TS_PAD)).to(torch.int32)
+    v2 = torch.where(live, torch.take_along_dim(values, idx, 2), 0.0)
+    return ts2, v2, new_counts
+
+
+def fleet_compact_tile(ts: torch.Tensor, values: torch.Tensor,
+                       counts: torch.Tensor, cutoff: torch.Tensor,
+                       delta: torch.Tensor):
+    """B11: window-slide compaction of every stream of a bucket at its own
+    cutoff and delta (int32 [B], tile-relative ms): each row drops its
+    samples older than the cutoff, shifts the survivors to the front and
+    rebases them by -delta.  A slot with cutoff 0 drops only live samples
+    with ts < 0, as in the reference, which compacts every slot.  Returns
+    NEW (ts, values, counts); the caller drops the old tensors."""
+    dev = kernels.placement(ts, values, counts, cutoff, delta)
+    if dev.type == "cpu":
+        return fleet_compact_tile_plain(ts, values, counts, cutoff, delta)
+    B, S, N = _fleet_dims(ts, values, counts)
+    kernels.require(cutoff, "cutoff", torch.int32, (B,))
+    kernels.require(delta, "delta", torch.int32, (B,))
+    ts2 = torch.empty_like(ts)
+    v2 = torch.empty_like(values)
+    c2 = torch.empty_like(counts)
+    h = kernels.lib("tile")
+    kernels.check(h, h.vm_fleet_compact_tile(
+        ts.data_ptr(), values.data_ptr(), counts.data_ptr(), ts2.data_ptr(),
+        v2.data_ptr(), c2.data_ptr(), cutoff.data_ptr(), delta.data_ptr(),
+        B, S, N, kernels.stream_of(dev)), "fleet_compact_tile")
+    kernels.LAUNCHES["fleet_compact_tile"] += 1
     return ts2, v2, c2
 
 

@@ -21,7 +21,10 @@ tpu_engine.py`` (functions keep their reference names without the
   ``data_version``, ``structural_version``, ``min_appended_since``,
   ``last_partial``, ``dedup_interval_ms``) and appends it with K3
   ``append_tile``; ``compact_window`` slides the window with K4
-  ``compact_tile``; ``run_fused_on_tiles`` runs K2 on the resident tile.
+  ``compact_tile``; ``run_fused_on_tiles`` runs K2 on the resident tile;
+  ``register_window`` files a query shape's rolling window under its
+  roll-state key (``device_roll_keys``), where the fleet
+  (``CUDAEngine.fleet()``, ``query/fleet.py``: B9-B11) adopts it.
 
 The engine is float64 only (the H100 computes float64 natively; the
 reference's float32 rebase tiles exist because the TPU does not), so the
@@ -45,9 +48,10 @@ from .. import kernels
 from ..models import tile_cache
 from ..ops import decimal as dec
 from ..ops import device_decode as dd
-from ..ops.device_rollup import (AGGR_FUNCS, MIN_TS_NONE, GroupLayout,
-                                 append_tile, compact_tile, group_layout,
-                                 normalized_cfg, pack_series, rank_tile,
+from ..ops.device_rollup import (AGGR_FUNCS, MIN_TS_NONE, TIME_VALUED_FUNCS,
+                                 GroupLayout, append_tile, compact_tile,
+                                 group_layout, normalized_cfg, pack_series,
+                                 rank_tile,
                                  rollup_aggregate_tile, rollup_quantile_tile,
                                  rollup_tile, take_rows, topk_select_tile)
 from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
@@ -115,6 +119,7 @@ class CUDAEngine:
     _cache: object = None
     _aux: object = None
     _wcache: object = None
+    _fleet: object = None
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -133,6 +138,15 @@ class CUDAEngine:
         if self._wcache is None:
             self._wcache = tile_cache.DeviceWindowCache()
         return self._wcache
+
+    def fleet(self):
+        """Fleet-batched stream plane (query.fleet.FleetPlane): every
+        device-resident stream of one bucket shape packed on a leading
+        stream axis and served by ONE launch per interval."""
+        if self._fleet is None:
+            from .fleet import FleetPlane
+            self._fleet = FleetPlane(self)
+        return self._fleet
 
 
 def _fingerprint(series, start_ms: int) -> tuple:
@@ -390,6 +404,74 @@ class RollingTile:
 
     def samples_in_range(self, fetch_lo: int) -> int:
         return sum(n for _, seg_hi, n in self.segments if seg_hi >= fetch_lo)
+
+
+#: funcs whose window the evaluator widens to the data's scrape interval
+#: (the reference's query/rollup_funcs.py:ADJUSTABLE_WINDOW_FUNCS)
+ADJUSTABLE_WINDOW_FUNCS = frozenset("""
+deriv deriv_fast ideriv irate rate rate_over_sum rollup
+rollup_candlestick rollup_deriv rollup_rate rollup_scrape_interval
+scrape_interval timestamp
+""".split())
+
+
+def device_roll_keys(selector: str, tenant, func: str, aggr: str, phi,
+                     grouping, without: bool, max_series, window: int):
+    """(roll_state_key, roll_tile_key) of the device-resident rolling
+    window that serves aggr(func(selector[window])) by (grouping), or
+    (None, None) when the shape cannot roll: the time-valued funcs read
+    absolute grids, lifetime the row's first sample, and the adjustable
+    windows (and default_rollup) at window <= 0 depend on per-fetch data.
+    The keys are the reference's (query/eval.py:_device_roll_keys), with
+    the selector's canonical text."""
+    if func in TIME_VALUED_FUNCS or func == "lifetime" or \
+            (window <= 0 and (func in ADJUSTABLE_WINDOW_FUNCS
+                              or func == "default_rollup")):
+        return None, None
+    return (("roll-aggr", selector, tenant, func, aggr, phi, tuple(grouping),
+             without, max_series),
+            ("roll-tile", selector, tenant, max_series))
+
+
+def register_window(engine: CUDAEngine, roll_state_key, roll_tile_key, gids,
+                    group_keys, tile_key=None, series=None,
+                    cfg: RollupConfig | None = None, fetch_info=None,
+                    structural=None):
+    """File a query shape's device-resident rolling window: the entry the
+    rolling refresh and the fleet's adoption read (the reference's
+    query/eval.py:1325-1350).
+
+    The selector's RollingTile lives under `roll_tile_key`.  After a cold
+    query (`tile_key` the key of its cached tile, with the query's
+    `series`, `cfg`, `fetch_info` = (fetch_lo, end, data version) and the
+    storage's `structural` version) a tile not yet adopted from that
+    cache entry is wrapped in a new RollingTile; without `tile_key` the
+    selector's existing RollingTile is reused.  The shape's entry
+    (rolling tile, GroupLayout, group keys) goes under `roll_state_key`.  Returns the RollingTile, or None when there is none
+    to register (an evicted tile, or series without raw names)."""
+    wcache = engine.window_cache()
+    rt = wcache.get(roll_tile_key)
+    if tile_key is not None:
+        tiles = engine.cache().get(tile_key)
+        if tiles is None or any(sd.raw_name is None for sd in series):
+            return None
+        if not isinstance(rt, RollingTile) or rt.adopted_key != tile_key:
+            rt = RollingTile(
+                tiles=tiles, base_ms=cfg.start, n_cap=int(tiles[0].shape[1]),
+                lo_ms=fetch_info[0], hi_ms=fetch_info[1],
+                version=fetch_info[2], structural=structural,
+                counts_host=np.fromiter((sd.timestamps.size for sd in series),
+                                        np.int64, len(series)),
+                row_of_raw={sd.raw_name: i for i, sd in enumerate(series)},
+                n_samples=sum(sd.timestamps.size for sd in series),
+                adopted_key=tile_key)
+            wcache.put(roll_tile_key, rt)
+    elif not isinstance(rt, RollingTile):
+        return None
+    wcache.put(roll_state_key,
+               (rt, group_layout(gids, len(group_keys), engine.device),
+                list(group_keys)))
+    return rt
 
 
 def advance_rolling(engine: CUDAEngine, rt: RollingTile, storage, filters,
