@@ -23,7 +23,12 @@ each printing one JSON line:
               and B11 fleet_compact_tile at a fleet bucket's shape (nine
               live streams of the dashboard tile with their own shifts,
               fetch bounds and the eight aggregates mixed, three padded
-              slots, padded rows and groups)
+              slots, padded rows and groups); B12 decode_and_rollup
+              (every func, shared-memory and scratch rows), B13
+              sharded_rollup_aggregate (every func and aggregate on 8
+              logical shards), B14 cached_fleet_rollup_aggregate and B15
+              time_sharded_rollup (every func but lifetime), each against
+              its plain version and against the unsharded kernels
   dashboard   the main path: a cold ``sum by (instance)(rate(m[5m]))``
               over 8192 counters x 6 h at 15 s (256 instances, step 60 s),
               then the other panels on its resident tile (per-series
@@ -53,6 +58,23 @@ each printing one JSON line:
               over every series, each with its launch counts and checked
               against the plain versions; a range quantile at this width
               is declined by the dense-budget gate, as in the reference
+  mesh        the multi-device paths on 8 logical shards of this card
+              (every shard on cuda:0): (a) the dashboard through
+              CUDAEngine(mesh=make_mesh(8, 1)): the cold query (K1 per
+              shard, B13 sharded_rollup_aggregate) and the six refreshes
+              (K3 per shard, K4 at the resume), every aggregate held
+              against the unsharded engine (count, group, min and max bit
+              for bit, sum and avg at rtol 1e-12, stddev and stdvar at the
+              tests' allowances) and each served result against its own
+              cold rebuild; (b) the full-width cold query through the
+              sharded engine, held against the full_width phase's K2 the
+              same way; (c) B15 time_sharded_rollup on a (2, 4) mesh over
+              the full-width tile's columns, against B5 at 1e-9; (d) B14:
+              16 standing queries in 2 buckets of 8 on an 8-way stream
+              mesh, against the same streams on an unsharded fleet, bit
+              for bit; (e) B12 decode_and_rollup on the dashboard's and
+              the full width's delta planes, against K1 -> B5 bit for bit
+              and against its plain version
   uploads     (inside kernels and full_width) both host->device paths of
               the tile cache, pinned-staged and direct, timed on a
               refresh's new columns and on cold delta planes
@@ -67,6 +89,9 @@ non-zero before the last line.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -81,6 +106,8 @@ from victoriametrics_tpu_torch.ops import device_decode as dd
 from victoriametrics_tpu_torch.ops import device_rollup as dr
 from victoriametrics_tpu_torch.ops import decimal as dec
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
+from victoriametrics_tpu_torch.parallel import mesh as meshlib
+from victoriametrics_tpu_torch.parallel.partition import split_rows
 from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
 from victoriametrics_tpu_torch.storage.columnar import PAD_TS, ColumnarSeries
@@ -152,10 +179,29 @@ SOURCES = {
                           "victoriametrics_tpu/ops/device_rollup.py:800"),
     "fleet_compact_tile": ("victoriametrics_tpu_torch/csrc/tile.cu",
                            "victoriametrics_tpu/ops/device_rollup.py:851"),
+    "decode_and_rollup": ("victoriametrics_tpu_torch/csrc/rollup.cu",
+                          "victoriametrics_tpu/ops/device_decode.py:157"),
+    "sharded_rollup_aggregate": ("victoriametrics_tpu_torch/csrc/mesh.cu",
+                                 "victoriametrics_tpu/parallel/mesh.py:103"),
+    "cached_fleet_rollup_aggregate": (
+        "victoriametrics_tpu_torch/csrc/rollup.cu",
+        "victoriametrics_tpu/parallel/mesh.py:68"),
+    "time_sharded_rollup": ("victoriametrics_tpu_torch/csrc/mesh.cu",
+                            "victoriametrics_tpu/parallel/mesh.py:141"),
 }
 #: the fleet phase's kernels, whose launches count on its own path
 FLEET_KERNELS = ("fleet_rollup_aggregate_tile", "fleet_append_tile",
                  "fleet_compact_tile")
+#: the mesh phase's kernels, whose launches count on its own path
+MESH_KERNELS = ("decode_and_rollup", "sharded_rollup_aggregate",
+                "cached_fleet_rollup_aggregate", "time_sharded_rollup")
+# the mesh phase: logical shards of the card, B15's (series, time) mesh,
+# step and halo (>= window / scrape + 2 samples), and the fleet part's
+# intervals: two steady minutes, then the 30-minute resume that slides
+# grid B's windows (B11 per shard)
+MESH_SHARDS = 8
+B15_MESH, B15_STEP, B15_HALO = (2, 4), 60_000, 32
+MESH_FLEET_INTERVALS = [(4, 60_000)] * 2 + [(120, 1_800_000)]
 # the quantile probabilities every B8 check runs
 PHIS = (-0.5, 0.0, 0.25, 0.5, 0.9, 1.0, 1.5)
 # funcs whose kernel and plain version do the same operations with no sum
@@ -777,7 +823,245 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
         assert_equal(f"B11 {what}", g, w)
     if not bool((got[2][2] < cnt[2]).any()):
         raise AssertionError("B11: a cutoff-0 slot kept its ts < 0")
-    return err
+    return err, (cfg0, layout, ts, vals, cnt, aggr, shift, min_ts, v0, gids)
+
+
+def mesh_close(what, aggr, got, want, func="rate", mean=None) -> float:
+    """A sharded aggregate against the unsharded one: count, group, min
+    and max bit for bit (B13 folds its shards in row order), the others at
+    aggr_close's tolerances (only the sums' association differs)."""
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    if aggr in ("count", "group", "min", "max"):
+        return assert_exact(what, got, want)
+    return aggr_close(what, aggr, got, want, func, mean)
+
+
+def sharded_plain(mesh, func, aggr, shards, layouts, cfg, shift=0,
+                  min_ts=dr.MIN_TS_NONE):
+    """B13's plain version: each shard's plain moments, then the plain
+    combine in shard order."""
+    mom = torch.stack([dr.rollup_group_moments_plain(
+        func, aggr, t, v, c, g, cfg, shift, min_ts)
+        for t, v, c, g in zip(*shards, layouts)])
+    return meshlib.combine_group_moments_plain(aggr, mom)
+
+
+def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
+    """B12-B15 against their plain versions and the unsharded kernels on
+    the card, timed at the dashboard shape.  B12: every func on the edge
+    planes (int8/16/32 d2), in shared memory and through the scratch
+    path, bit for bit against K1 -> B5; B13: every func and aggregate on
+    the ragged rows over 8 logical shards, unshifted and shifted, and the
+    dashboard tile; B14: the fleet bucket of kernels_fleet over 4 stream
+    shards, bit for bit against B9; B15: every func but lifetime on a
+    (2, 4) mesh over the dashboard tile's columns, against B5 and its
+    plain version."""
+    res = {}
+    S, G = DASH_SERIES, DASH_GROUPS
+    ts_t, v_t, counts = tile
+    start, end = dashboard_grid()
+    dcfg0 = RollupConfig(start, end, DASH_STEP, WINDOW)
+    cfg = dr.normalized_cfg("rate", dcfg0)
+    T = dr.num_steps(cfg)
+    n_valid = int(counts.sum())
+    # B12
+    err12 = 0.0
+    rcfg0 = RollupConfig(T_START + 600_000, T_START + 9_000_000, 60_000,
+                         WINDOW)
+    for a, nc in edge_planes:
+        k1 = dd.decode_tiles(*a, nc)
+        for func in dr.FUNC_CODES:
+            c = dr.normalized_cfg(func, rcfg0)
+            want = dr.rollup_tile(func, *k1, a[7], c)
+            for force in (False, True):
+                got = dd.decode_and_rollup(func, *a, c, nc, force)
+                assert_equal(f"B12 {func} {a[2].dtype} scratch {force}",
+                             got, want)
+            e = func_close(f"B12 {func} plain", func, got,
+                           dd.decode_and_rollup_plain(func, *a, c, nc))
+            if func in dr.COUNTER_FUNCS:
+                err12 = max(err12, e)
+    args, n_cap = dash_planes
+    b12 = lambda: dd.decode_and_rollup(  # noqa: E731
+        "rate", *args, cfg, n_cap)
+    assert_equal("B12 dashboard", b12(),
+                 dr.rollup_tile("rate", ts_t, v_t, counts, cfg))
+    plane_bytes = sum(t.numel() * t.element_size() for t in args)
+    res["decode_and_rollup"] = dict(
+        max_abs_err=err12, ms=cuda_ms(b12),
+        plain_ms=cuda_ms(lambda: dd.decode_and_rollup_plain(
+            "rate", *args, cfg, n_cap), reps=3),
+        library_ms=None,
+        ms_scratch=cuda_ms(lambda: dd.decode_and_rollup(
+            "rate", *args, cfg, n_cap, True)),
+        ms_k1_then_b5=cuda_ms(lambda: dr.rollup_tile(
+            "rate", *dd.decode_tiles(*args, n_cap), counts, cfg)),
+        **bound(plane_bytes + S * T * 8, 2 * 2 * S * n_cap + 15 * S * T))
+
+    # B13 over 8 logical shards
+    mesh = meshlib.make_mesh(MESH_SHARDS, 1, [dev] * MESH_SHARDS)
+    err13 = 0.0
+    rg = len(ragged)
+    pad = -(-rg // MESH_SHARDS) * MESH_SHARDS
+    rgids = np.zeros(pad, np.int32)
+    rgids[:rg] = np.arange(rg) * 7 % 4
+    for off, mt in ((0, int(dr.MIN_TS_NONE)), (120_000, -420_000)):
+        tsr, vr, cr = dr.pack_series(ragged, rcfg0.start - 600_000 - off)
+        tsr = np.concatenate([tsr, np.full((pad - rg, tsr.shape[1]),
+                                           dr.TS_PAD, np.int32)])
+        vr = np.concatenate([vr, np.zeros((pad - rg, vr.shape[1]))])
+        cr = np.concatenate([cr, np.zeros(pad - rg, np.int32)])
+        whole = [torch.from_numpy(x).to(dev) for x in (tsr, vr, cr)]
+        shards = [split_rows(mesh, "series", x) for x in whole]
+        layouts = [dr.group_layout(g, 5, dev) for g in split_rows(
+            mesh, "series", torch.from_numpy(rgids).to(dev))]
+        flat = dr.group_layout(rgids, 5, dev)
+        for func in dr.FUNC_CODES:
+            if off and func in dr.TIME_VALUED_FUNCS:
+                continue
+            c = dr.normalized_cfg(func, RollupConfig(
+                rcfg0.start - 600_000, rcfg0.start + 600_000, 60_000,
+                WINDOW))
+            mean = dr.rollup_aggregate_tile(func, "avg", *whole, flat, c,
+                                            off, mt)
+            for aggr in dr.AGGR_FUNCS:
+                fn = meshlib.cached_sharded_rollup_aggregate(mesh, func, aggr,
+                                                             c, 5)
+                got = fn(*shards, layouts, off, mt)
+                what = f"B13 {func}/{aggr} shift {off}"
+                mesh_close(what, aggr, got, dr.rollup_aggregate_tile(
+                    func, aggr, *whole, flat, c, off, mt), func, mean)
+                e = aggr_close(f"{what} plain", aggr, got, sharded_plain(
+                    mesh, func, aggr, shards, layouts, c, off, mt), func,
+                    mean)
+                if aggr not in ("stddev", "stdvar") and \
+                        func in dr.COUNTER_FUNCS:
+                    err13 = max(err13, e)
+    shards = [split_rows(mesh, "series", x) for x in (ts_t, v_t, counts)]
+    gids = torch.arange(S, device=dev).remainder(G).to(torch.int32)
+    layouts = [dr.group_layout(g, G, dev)
+               for g in split_rows(mesh, "series", gids)]
+    flat = dr.group_layout(gids, G, dev)
+    for aggr in dr.AGGR_FUNCS:
+        got = meshlib.sharded_rollup_aggregate(mesh, "rate", aggr, cfg, G)(
+            *shards, layouts)
+        mesh_close(f"B13 dashboard {aggr}", aggr, got,
+                   dr.rollup_aggregate_tile("rate", aggr, ts_t, v_t, counts,
+                                            flat, cfg))
+    b13 = meshlib.cached_sharded_rollup_aggregate(mesh, "rate", "sum", cfg,
+                                                  G)
+    res["sharded_rollup_aggregate"] = dict(
+        max_abs_err=err13, ms=cuda_ms(lambda: b13(*shards, layouts)),
+        plain_ms=cuda_ms(lambda: sharded_plain(
+            mesh, "rate", "sum", shards, layouts, cfg), reps=3),
+        library_ms=None, shards=MESH_SHARDS,
+        k2_ms=cuda_ms(lambda: dr.rollup_aggregate_tile(
+            "rate", "sum", ts_t, v_t, counts, flat, cfg)),
+        **bound(n_valid * 12 + S * 12 + G * T * 8, 15 * S * T))
+
+    # B14: kernels_fleet's bucket over 4 stream shards
+    cfg0, layout, fts, fvals, fcnt, aggr, shift, min_ts, v0, fgids = bucket
+    fmesh = meshlib.make_fleet_mesh([dev] * 4)
+    sh = {k: split_rows(fmesh, "stream", x) for k, x in (
+        ("ts", fts), ("vals", fvals), ("cnt", fcnt), ("aggr", aggr),
+        ("shift", shift), ("min_ts", min_ts), ("v0", v0))}
+    flay = [dr.fleet_layout(g, G, dev)
+            for g in split_rows(fmesh, "stream", fgids)]
+    names = {code: name for name, code in dr.FLEET_AGGR_CODES.items()}
+    err14 = 0.0
+    for func in FLEET_FUNCS:
+        c = dr.normalized_cfg(func, cfg0)
+        fn = meshlib.cached_fleet_rollup_aggregate(fmesh, func, c, G)
+        got = fn(sh["ts"], sh["vals"], sh["cnt"], flay, sh["aggr"],
+                 sh["shift"], sh["min_ts"], sh["v0"])
+        args9 = (func, c, layout, fts, fvals, fcnt, aggr, shift, min_ts, v0)
+        assert_equal(f"B14 {func}", got, dr.fleet_rollup_aggregate_tile(
+            *args9))
+        want = dr.fleet_rollup_aggregate_tile_plain(*args9)
+        for b in range(FLEET_LIVE):
+            name = names[int(aggr[b])]
+            e = aggr_close(f"B14 {func} slot {b}", name, got[b], want[b],
+                           func)
+            if name not in ("stddev", "stdvar"):
+                err14 = max(err14, e)
+    c = dr.normalized_cfg("rate", cfg0)
+    fn = meshlib.cached_fleet_rollup_aggregate(fmesh, "rate", c, G)
+    B, S9, _ = fts.shape
+    T9 = dr.num_steps(c)
+    res["cached_fleet_rollup_aggregate"] = dict(
+        max_abs_err=err14, shards=4,
+        ms=cuda_ms(lambda: fn(sh["ts"], sh["vals"], sh["cnt"], flay,
+                              sh["aggr"], sh["shift"], sh["min_ts"],
+                              sh["v0"]), reps=5),
+        plain_ms=cuda_ms(lambda: dr.fleet_rollup_aggregate_tile_plain(
+            "rate", c, layout, fts, fvals, fcnt, aggr, shift, min_ts, v0),
+            reps=3),
+        library_ms=None,
+        b9_ms=cuda_ms(lambda: dr.fleet_rollup_aggregate_tile(
+            "rate", c, layout, fts, fvals, fcnt, aggr, shift, min_ts, v0),
+            reps=5),
+        **bound(int(fcnt.sum()) * 12 + B * S9 * 20 + B * (G + 1) * 4 +
+                B * 12 + B * G * T9 * 8, 15 * B * S9 * T9))
+
+    # B15 over the dashboard tile's first DASH_SAMPLES columns, rebased to
+    # the first scrape so the grid's chunks line up with the columns'
+    base = T_START - start
+    ts15 = ts_t[:, :DASH_SAMPLES] - base
+    v15 = v_t[:, :DASH_SAMPLES].contiguous()
+    valid = torch.ones_like(ts15, dtype=torch.bool)
+    valid[::7, 100:103] = False  # gaps
+    mesh15 = meshlib.make_mesh(*B15_MESH, [dev] * MESH_SHARDS)
+    parts = [meshlib.split_2d(mesh15, x) for x in (ts15, v15, valid)]
+    cfg15 = RollupConfig(0, DASH_SAMPLES * SCRAPE - B15_STEP, B15_STEP,
+                         WINDOW)
+    # B5's view of the same samples: the valid ones compacted per row
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    ts5 = torch.where(valid, ts15, int(dr.TS_PAD)).gather(1, order)
+    v5 = torch.where(valid, v15, 0.0).gather(1, order)
+    c5 = valid.sum(dim=1).to(torch.int32)
+    err15 = 0.0
+    for func in dr.FUNC_CODES:
+        if func == "lifetime":
+            continue
+        step = meshlib.time_sharded_rollup(mesh15, func, cfg15, B15_HALO)
+        got = step(*parts)
+        want = dr.rollup_tile(func, ts5, v5, c5, cfg15)
+        if not bool(torch.isfinite(got).any()):
+            raise AssertionError(f"B15 {func}: no finite value")
+        # stddev/stdvar_over_time centre by the row mean, which a time
+        # shard takes over its own samples (the reference's semantics):
+        # they are held at the reference oracle's bound
+        assert_close(f"B15 {func} vs B5", got, want,
+                     *((1e-6, 1e-4) if func in dr.CENTRED_FUNCS
+                       else (1e-9, 1e-9)))
+        e = func_close(f"B15 {func} plain", func, got,
+                       meshlib.time_sharded_rollup_plain(
+                           mesh15, func, cfg15, B15_HALO)(*parts))
+        if func in dr.COUNTER_FUNCS:
+            err15 = max(err15, e)
+    # the halo kernel itself against its plain transcription
+    hal = tuple(x[0][0][:, -B15_HALO:] for x in parts)
+    for h in (hal, (None, None, None)):
+        g = meshlib.halo_compact(parts[0][0][1], parts[1][0][1],
+                                 parts[2][0][1], *h, 77_000)
+        w = meshlib.halo_compact_plain(parts[0][0][1], parts[1][0][1],
+                                       parts[2][0][1], *h, 77_000)
+        assert_equal("B15 halo counts", g[2], w[2])
+        live = torch.arange(g[0].shape[1], device=dev)[None, :] < g[2][:, None]
+        assert_equal("B15 halo ts", torch.where(live, g[0], 0),
+                     torch.where(live, w[0], 0))
+        assert_equal("B15 halo values", g[1], w[1])
+    step = meshlib.time_sharded_rollup(mesh15, "rate", cfg15, B15_HALO)
+    T15 = dr.num_steps(cfg15)
+    res["time_sharded_rollup"] = dict(
+        max_abs_err=err15, mesh=list(B15_MESH), halo=B15_HALO,
+        ms=cuda_ms(lambda: step(*parts)),
+        plain_ms=cuda_ms(lambda: meshlib.time_sharded_rollup_plain(
+            mesh15, "rate", cfg15, B15_HALO)(*parts), reps=3),
+        library_ms=None,
+        b5_ms=cuda_ms(lambda: dr.rollup_tile("rate", ts5, v5, c5, cfg15)),
+        **bound(S * DASH_SAMPLES * 13 + S * T15 * 8, 15 * S * T15))
+    return res
 
 
 
@@ -795,6 +1079,7 @@ def phase_kernels(rng, dev):
     want = dd.decode_tiles_plain(*args, n_cap)
     assert_equal("K1 ts", got[0], want[0])
     assert_equal("K1 values", got[1], want[1])
+    edge_planes = []  # (plane tensors, columns), B12's edge rows too
     for jitter, incr in ((20, 30), (2_000, 5_000), (100_000, 2_000_000)):
         edge = []
         for i in range(64):
@@ -807,6 +1092,7 @@ def phase_kernels(rng, dev):
         g, w = dd.decode_tiles(*a, nc), dd.decode_tiles_plain(*a, nc)
         assert_equal(f"K1 ts edge {p.ts_d2.dtype}", g[0], w[0])
         assert_equal(f"K1 values edge {p.val_d2.dtype}", g[1], w[1])
+        edge_planes.append((a, nc))
     in_bytes = sum(t.numel() * t.element_size() for t in args)
     out_bytes = DASH_SERIES * n_cap * 12
     res["decode_tiles"] = dict(
@@ -973,7 +1259,9 @@ def phase_kernels(rng, dev):
         DASH_SERIES * 8,
         ops=DASH_SERIES * n_cap)
     res.update(kernels_slice2(rng, dev, ts_t, v_t, counts, ragged))
-    fleet_err = kernels_fleet(rng, dev, ts_t, v_t, counts)
+    fleet_err, bucket = kernels_fleet(rng, dev, ts_t, v_t, counts)
+    res.update(kernels_mesh(dev, (args, n_cap), edge_planes,
+                            (ts_t, v_t, counts), ragged, bucket))
     for r in res.values():
         r["bound_ms"] = max(r["bytes"] / MEM_BYTES_PER_S,
                             r["ops"] / SCALAR_OPS_PER_S) * 1e3
@@ -1117,6 +1405,8 @@ def phase_dashboard(rng, dev):
     # room for the dashboard's refreshes and the fleet phase's intervals
     extra = sum(k for k, _ in DASH_REFRESHES + FLEET_INTERVALS)
     store = SynthStorage(rng, S, DASH_SAMPLES, DASH_SAMPLES + extra)
+    # the mesh phase replays the same store and ingests on a copy
+    replay = copy.deepcopy(store)
     gids = (np.arange(S) % G).astype(np.int32)
     start, end = dashboard_grid()
     fetch_lo = start - WINDOW - LOOKBACK_DELTA
@@ -1158,7 +1448,7 @@ def phase_dashboard(rng, dev):
     if rt is None:
         raise AssertionError("dashboard: the rolling window was not filed")
     refresh_ms, refresh_up, refresh_split, worst = [], [], [], 0.0
-    quantile_ms, worst_q = [], 0.0
+    quantile_ms, worst_q, served_all = [], 0.0, []
     compactions0 = _metric_sum("vm_device_window_compactions_total")
     for k, adv in DASH_REFRESHES:
         store.ingest(k, end)
@@ -1178,6 +1468,7 @@ def phase_dashboard(rng, dev):
                                        fetch_lo - start)
         wall = time.perf_counter() - t0
         refresh_ms.append(wall * 1e3)
+        served_all.append(served)
         refresh_up.append(tile_cache.bytes_uploaded() - up0)
         refresh_split.append(split_ms(snap, split_snapshot(), wall,
                                       {"fetch": store.fetch_s - fetch0}))
@@ -1204,7 +1495,7 @@ def phase_dashboard(rng, dev):
             "served quantile == cold", served_q, rebuilt_q, 1e-12, 0.0))
     launches = {name: kernels.LAUNCHES.get(name, 0) -
                 rebuild_launches.get(name, 0) for name in SOURCES
-                if name not in FLEET_KERNELS}
+                if name not in FLEET_KERNELS + MESH_KERNELS}
     compactions = _metric_sum("vm_device_window_compactions_total") - \
         compactions0
     steady = [u for (k, _), u in zip(DASH_REFRESHES, refresh_up) if k == 1]
@@ -1224,7 +1515,9 @@ def phase_dashboard(rng, dev):
            "quantile_served_vs_cold_max_abs_err": worst_q,
            "panels": panels, "launches": launches}
     emit(res)
-    return res, {"store": store, "engine": engine, "end": end}
+    return res, {"store": store, "engine": engine, "end": end,
+                 "replay": {"store": replay, "cold": out,
+                            "served": served_all}}
 
 class StandingQuery:
     """One subscribed dashboard panel as the fleet reads it (the
@@ -1640,6 +1933,19 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
             "instant_quantile": float(got["instant_quantile"][0, 0])}
 
 
+def decode_tap(planes: list):
+    """Wrap dd.decode_tiles to keep the planes an engine hands K1; returns
+    the restore function."""
+    real = dd.decode_tiles
+
+    def tap(*a):
+        planes.append(a)
+        return real(*a)
+
+    dd.decode_tiles = tap
+    return lambda: setattr(dd, "decode_tiles", real)
+
+
 def phase_full_width(rng, dev, hours: float) -> dict:
     """BASELINE config 2 as one cold query, with its time split."""
     S, G = FULL_SERIES, FULL_SERIES // FULL_PER_GROUP
@@ -1661,13 +1967,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     # keep the planes the engine hands K1, to hold K1 against its plain
     # version afterwards (the wrapper itself runs and counts as always)
     planes = []
-    decode = dd.decode_tiles
-
-    def decode_tap(*a):
-        planes.append(a)
-        return decode(*a)
-
-    dd.decode_tiles = decode_tap
+    restore = decode_tap(planes)
     snap = split_snapshot()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1675,7 +1975,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
         out = ce.try_aggr_rollup(engine, "sum", "rate", series, gids, G, cfg,
                                  cache_key=key)
     finally:
-        dd.decode_tiles = decode
+        restore()
     total = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES.get(name, 0) for name in SOURCES}
     split = split_ms(snap, split_snapshot(), total)
@@ -1701,7 +2001,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
         del w_ts, w_v
     uploads = upload_paths(
         "full_width_planes", [a.cpu().numpy() for a in args], dev, reps=3)
-    del planes, args
+    del planes  # `args` stay for the mesh phase's B12
     groups = dr.group_layout(gids, G, dev)
     ncfg = dr.normalized_cfg("rate", cfg)
     k2_ms = cuda_ms(lambda: dr.rollup_aggregate_tile(
@@ -1736,6 +2036,382 @@ def phase_full_width(rng, dev, hours: float) -> dict:
            "k1_bitwise_vs_plain": True, "max_abs_err_vs_plain": err,
            "uploads": uploads, "slice2": slice2}
     emit(res)
+    return res, {"engine": engine, "series": series, "cfg": cfg,
+                 "gids": gids, "key": key, "out": out, "N": N,
+                 "planes": (args, n_cap)}
+
+
+class Aside:
+    """Launches made beside the mesh path (the unsharded comparisons and
+    the cold rebuilds): `with aside():` records them so the path's counts
+    leave them out."""
+
+    def __init__(self):
+        self.n = collections.Counter()
+
+    @contextlib.contextmanager
+    def __call__(self):
+        before = dict(kernels.LAUNCHES)
+        try:
+            yield
+        finally:
+            for k, v in kernels.LAUNCHES.items():
+                self.n[k] += v - before.get(k, 0)
+
+
+def mesh_dashboard(dev, replay, aside) -> dict:
+    """(a): the dashboard's cold query and six refreshes through an
+    engine on MESH_SHARDS logical shards, against an unsharded engine on
+    the same replayed store (whose sum equals phase_dashboard's results bit
+    for bit) and against cold rebuilds.  Returns the part's result and the
+    state (d) and (e) continue from."""
+    store = replay["store"]
+    S, G = DASH_SERIES, DASH_GROUPS
+    gids = (np.arange(S) % G).astype(np.int32)
+    start, end = dashboard_grid()
+    mesh = meshlib.make_mesh(MESH_SHARDS, 1, [dev] * MESH_SHARDS)
+    meng = ce.CUDAEngine(mesh=mesh)
+    flat = ce.CUDAEngine(device=dev)
+
+    def cold(eng, start_ms, end_ms, key=None):
+        series = store.search_series(start_ms - WINDOW - LOOKBACK_DELTA,
+                                     end_ms)
+        cfg = RollupConfig(start_ms, end_ms, DASH_STEP, WINDOW)
+        return ce.try_aggr_rollup(eng, "sum", "rate", series, gids, G, cfg,
+                                  cache_key=key), series
+
+    ver0 = store.data_version
+    key = ("mesh-dashboard", start, ver0)
+    snap = split_snapshot()
+    t0 = time.perf_counter()
+    got, series = cold(meng, start, end, key)
+    cold_s = time.perf_counter() - t0
+    cold_split = split_ms(snap, split_snapshot(), cold_s)
+    planes = []
+    restore = decode_tap(planes)
+    try:
+        with aside():
+            want, _ = cold(flat, start, end, key)
+    finally:
+        restore()
+    if not np.array_equal(want.view(np.int64), replay["cold"].view(np.int64)):
+        raise AssertionError("mesh: the replayed store differs from the "
+                             "dashboard phase's")
+    cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
+    tiles = meng.cache().get(key)
+    if len(tiles[0]) != MESH_SHARDS:
+        raise AssertionError("mesh: the tile is not sharded")
+    worst = {}
+
+    def compare(what, served):
+        """Every aggregate on both engines' tiles."""
+        mean = None
+        for aggr in dr.AGGR_FUNCS:
+            g = served(meng, aggr)
+            with aside():
+                w = served(flat, aggr)
+            e = mesh_close(f"mesh {what} {aggr}", aggr, g, w, "rate", mean)
+            if aggr == "avg":
+                mean = torch.from_numpy(w)
+            worst[aggr] = max(worst.get(aggr, 0.0), e)
+
+    compare("cold", lambda eng, aggr: ce.try_aggr_rollup(
+        eng, aggr, "rate", series, gids, G, cfg, cache_key=key))
+    (skey, tkey), group_keys = dashboard_keys()
+    fetch_lo = start - WINDOW - LOOKBACK_DELTA
+    for eng in (meng, flat):
+        if ce.register_window(eng, skey, tkey, gids, group_keys,
+                              tile_key=key, series=series, cfg=cfg,
+                              fetch_info=(fetch_lo, end, ver0),
+                              structural=store.structural_version) is None:
+            raise AssertionError("mesh: the rolling window was not filed")
+    refresh_ms, worst_cold, worst_q = [], 0.0, 0.0
+    for i, (k, adv) in enumerate(DASH_REFRESHES):
+        store.ingest(k, end)
+        start, end = start + adv, end + adv
+        fetch_lo = start - WINDOW - LOOKBACK_DELTA
+        cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
+        rolled = {}
+        for eng in (meng, flat):
+            with contextlib.ExitStack() as stack:
+                if eng is flat:
+                    stack.enter_context(aside())
+                t0 = time.perf_counter()
+                rt, groups, _ = eng.window_cache().get(skey)
+                if not ce.advance_rolling(eng, rt, store, None, start,
+                                          fetch_lo, end, None, None, True):
+                    raise AssertionError("mesh refresh declined: "
+                                         + eng.last_roll_decline)
+                rolled[eng is meng] = (rt, groups, ce.run_fused_on_tiles(
+                    eng, "sum", "rate", rt.tiles, groups, cfg,
+                    start - rt.base_ms, fetch_lo - start))
+                if eng is meng:
+                    refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        served = rolled[True][2]
+        if not np.array_equal(rolled[False][2].view(np.int64),
+                              replay["served"][i].view(np.int64)):
+            raise AssertionError("mesh: the replayed refresh differs from "
+                                 "the dashboard phase's")
+
+        def on_tile(eng, aggr):
+            rt, groups, _ = rolled[eng is meng]
+            return ce.run_fused_on_tiles(eng, aggr, "rate", rt.tiles, groups,
+                                         cfg, start - rt.base_ms,
+                                         fetch_lo - start)
+
+        compare(f"refresh {i}", on_tile)
+        # the quantile panel: B5 per shard, B8 on the gathered rows
+        rt, groups, _ = rolled[True]
+        q = ce.run_quantile_on_tiles(meng, 0.9, "rate", rt.tiles, groups,
+                                     cfg, start - rt.base_ms,
+                                     fetch_lo - start)
+        with aside():
+            rtf, gf, _ = rolled[False]
+            qf = ce.run_quantile_on_tiles(flat, 0.9, "rate", rtf.tiles, gf,
+                                          cfg, start - rtf.base_ms,
+                                          fetch_lo - start)
+            rebuilt, _ = cold(ce.CUDAEngine(mesh=mesh), start, end)
+        worst_q = max(worst_q, assert_exact(
+            f"mesh quantile refresh {i}", torch.from_numpy(q),
+            torch.from_numpy(qf)))
+        worst_cold = max(worst_cold, assert_close(
+            f"mesh served == cold {i}", served, rebuilt, 1e-12, 0.0))
+    rt = meng.window_cache().get(tkey)
+    return {"cold_ms": cold_s * 1e3, "cold_split": cold_split,
+            "refresh_ms": refresh_ms, "appends": rt.appends,
+            "max_abs_err_vs_unsharded": worst,
+            "served_vs_cold_max_abs_err": worst_cold,
+            "quantile_max_abs_err_vs_unsharded": worst_q}, {
+        "mesh": mesh, "engine": meng, "flat": flat, "end": end,
+        "store": store, "planes": planes[0], "cfg": cfg}
+
+
+def mesh_fleet(dev, st, aside) -> dict:
+    """(d): 16 standing queries (rate x the 8 aggregates x grid B's two
+    groupings: 2 buckets of 8) through the mesh engine's fleet (an 8-way
+    stream mesh: B14, and B10 / B11 per shard) and through an unsharded
+    engine's, on the replayed store, every stream of every interval bit
+    for bit."""
+    store, meng = st["store"], st["engine"]
+    S, G = DASH_SERIES, DASH_GROUPS
+    (_, tkey), inst_keys = dashboard_keys()
+    inst = (np.arange(S) % G).astype(np.int32)
+    start, end = st["end"] - (DASH_SAMPLES - 1) * SCRAPE + 300_000, st["end"]
+    flat = ce.CUDAEngine(device=dev)
+    with aside():
+        series = store.search_series(start - WINDOW - LOOKBACK_DELTA, end)
+        cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
+        key = ("mesh-fleet", start)
+        ce.try_aggr_rollup(flat, "sum", "rate", series, inst, G, cfg,
+                           cache_key=key)
+        skey0, _ = ce.device_roll_keys(SELECTOR, None, "rate", "sum", None,
+                                       ("instance",), False, None, WINDOW)
+        ce.register_window(flat, skey0, tkey, inst, inst_keys, tile_key=key,
+                           series=series, cfg=cfg,
+                           fetch_info=(start - WINDOW - LOOKBACK_DELTA, end,
+                                       store.data_version),
+                           structural=store.structural_version)
+    dur, step, groupings = FLEET_GRIDS["B"]
+    layouts = ((inst, inst_keys), (np.zeros(S, np.int32), [()]))
+    sides = {True: [], False: []}
+    for aggr in dr.FLEET_AGGR_CODES:
+        for (grouping, without), (gids, keys) in zip(groupings, layouts):
+            skey, _ = ce.device_roll_keys(SELECTOR, None, "rate", aggr, None,
+                                          grouping, without, None, WINDOW)
+            for eng in (meng, flat):
+                if ce.register_window(eng, skey, tkey, gids, keys) is None:
+                    raise AssertionError("mesh fleet: window not filed")
+                shape = fleet.StreamShape(
+                    selector=SELECTOR, filters=None, func="rate", aggr=aggr,
+                    window=WINDOW, grouping=grouping, without=without,
+                    lookback_delta=LOOKBACK_DELTA)
+                sides[eng is meng].append((StandingQuery(
+                    f"{aggr} ({grouping})", step, dur, shape), skey))
+    apis = {m: FleetAPI(store, meng if m else flat, [q for q, _ in sides[m]])
+            for m in (True, False)}
+    planes = {True: meng.fleet(), False: flat.fleet()}
+    now = -(-(end + MESH_FLEET_INTERVALS[0][1]) // 60_000) * 60_000
+    wall_ms, launches = [], []
+    for i, (k, adv) in enumerate(MESH_FLEET_INTERVALS):
+        if i:
+            now += adv
+        store.ingest(k, now - adv)
+        before = kernels.LAUNCHES.get("cached_fleet_rollup_aggregate", 0)
+        t0 = time.perf_counter()
+        n = planes[True].run(apis[True], now)
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(kernels.LAUNCHES.get(
+            "cached_fleet_rollup_aggregate", 0) - before)
+        with aside():
+            nf = planes[False].run(apis[False], now)
+        stats = planes[True].stats()
+        # (two buckets at 256 groups; one of 16 when the groupings' group
+        # counts share a ladder rung)
+        if n != nf or n != stats["buckets"] or launches[-1] != n or \
+                stats["members"] != 16 or stats["evictions"]:
+            raise AssertionError(f"mesh fleet interval {i}: {n}/{nf} "
+                                 f"launches, {stats}, "
+                                 f"{planes[True].last_decline}")
+        for b in planes[True]._buckets.values():
+            if b.B_pad % MESH_SHARDS or len(b.dev["ts"]) != MESH_SHARDS:
+                raise AssertionError("mesh fleet: a bucket is not stream-"
+                                     "sharded")
+        for (qm, skey), (qf, _) in zip(sides[True], sides[False]):
+            rm, rf = planes[True]._results[skey], planes[False]._results[skey]
+            if rm.end != now or not np.array_equal(
+                    rm.rows.view(np.int64), rf.rows.view(np.int64)):
+                raise AssertionError(f"mesh fleet interval {i} {qm.q}: "
+                                     "differs from the unsharded fleet")
+            if not np.isfinite(rm.rows).any():
+                raise AssertionError(f"mesh fleet {qm.q}: no finite value")
+            qm.end = qf.end = now
+    return {"streams": 16, "buckets": len(planes[True]._buckets),
+            "interval_ms": wall_ms, "b14_launches": launches,
+            "bitwise_vs_unsharded": True}
+
+
+def mesh_decode(dev, what, planes, cfg, aside, tiles=None,
+                chunk=4096) -> dict:
+    """(e): B12 on an engine's delta planes against K1 -> B5 (K1 run
+    again, or the engine's decoded `tiles` where no append has touched
+    them) bit for bit, and against its plain version on the first,
+    middle and last row chunks (K1 and B5 are each held against theirs
+    over every row elsewhere)."""
+    args, n_cap = planes[:8], planes[8]
+    ncfg = dr.normalized_cfg("rate", cfg)
+    got = dd.decode_and_rollup("rate", *args, ncfg, n_cap)
+    with aside():
+        if tiles is None:
+            tiles = (*dd.decode_tiles(*args, n_cap), args[7])
+        want = dr.rollup_tile("rate", *tiles, ncfg)
+    assert_equal(f"B12 {what} vs K1 -> B5", got, want)
+    del want
+    err = 0.0
+    S = int(args[7].shape[0])
+    for r0 in sorted({0, S // 2 // chunk * chunk, (S - 1) // chunk * chunk}):
+        err = max(err, func_close(
+            f"B12 {what} rows {r0}+", "rate", got[r0:r0 + chunk],
+            dd.decode_and_rollup_plain(
+                "rate", *(a[r0:r0 + chunk] for a in args), ncfg, n_cap)))
+    with aside():
+        ms = cuda_ms(lambda: dd.decode_and_rollup("rate", *args, ncfg,
+                                                  n_cap), reps=3)
+        k1_b5_ms = cuda_ms(lambda: dr.rollup_tile(
+            "rate", *dd.decode_tiles(*args, n_cap), args[7], ncfg), reps=3)
+    return {"max_abs_err_vs_plain": err, "rows": S, "cols": int(n_cap),
+            "steps": int(got.shape[1]), "ms": ms, "k1_then_b5_ms": k1_b5_ms}
+
+
+def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:
+    """(b) the full-width cold query through the sharded engine, against
+    the full_width phase's K2 (and every other aggregate on both resident
+    tiles), and (c) B15 on a (2, 4) mesh over the full-width tile's
+    columns against B5."""
+    S, G = FULL_SERIES, FULL_SERIES // FULL_PER_GROUP
+    flat, series, cfg, gids, key = (fw[k] for k in ("engine", "series",
+                                                    "cfg", "gids", "key"))
+    mesh = meshlib.make_mesh(MESH_SHARDS, 1, [dev] * MESH_SHARDS)
+    meng = ce.CUDAEngine(mesh=mesh, cache_bytes=64 << 30)
+    snap = split_snapshot()
+    t0 = time.perf_counter()
+    out = ce.try_aggr_rollup(meng, "sum", "rate", series, gids, G, cfg,
+                             cache_key=key)
+    total = time.perf_counter() - t0
+    split = split_ms(snap, split_snapshot(), total)
+    aggr_close("mesh full width sum", "sum", torch.from_numpy(out),
+               torch.from_numpy(fw["out"]))
+    worst = {}
+    mean = None
+    for aggr in dr.AGGR_FUNCS:
+        g = ce.try_aggr_rollup(meng, aggr, "rate", series, gids, G, cfg,
+                               cache_key=key)
+        with aside():
+            w = ce.try_aggr_rollup(flat, aggr, "rate", series, gids, G, cfg,
+                                   cache_key=key)
+        worst[aggr] = mesh_close(f"mesh full width {aggr}", aggr, g, w,
+                                 "rate", mean)
+        if aggr == "avg":
+            mean = torch.from_numpy(w)
+    ts_s, v_s, c_s = meng.cache().get(key)
+    groups = ce.groups_for(meng, gids, G)
+    ncfg = dr.normalized_cfg("rate", cfg)
+    fn = meshlib.cached_sharded_rollup_aggregate(mesh, "rate", "sum", ncfg,
+                                                 G)
+    with aside():
+        b13_ms = cuda_ms(lambda: fn(ts_s, v_s, c_s, groups.shards), reps=3)
+    del ts_s, v_s, c_s, groups, meng
+    b = {"total_ms": total * 1e3, "split": split, "b13_event_ms": b13_ms,
+         "max_abs_err_vs_unsharded": worst}
+    # (c) B15 over the tile's first N columns (every sample valid)
+    ts_t, v_t, counts = flat.cache().get(key)
+    if not bool((counts == fw["N"]).all()):
+        raise AssertionError("full width: rows of unequal length")
+    # columns in 4 chunks whose grids line up with B15_STEP: N % 16 == 0
+    N = fw["N"] // 16 * 16
+    mesh15 = meshlib.make_mesh(*B15_MESH, [dev] * MESH_SHARDS)
+    valid = torch.ones((S, N), dtype=torch.bool, device=dev)
+    parts = [meshlib.split_2d(mesh15, x)
+             for x in (ts_t[:, :N], v_t[:, :N], valid)]
+    cfg15 = RollupConfig(0, N * SCRAPE - B15_STEP, B15_STEP, WINDOW)
+    c = {}
+    for func in ("rate", "timestamp"):
+        step = meshlib.time_sharded_rollup(mesh15, func, cfg15, B15_HALO)
+        got = step(*parts)
+        with aside():
+            want = dr.rollup_tile(func, ts_t, v_t, counts, cfg15)
+        if not bool(torch.isfinite(got[:, WINDOW // B15_STEP + 1:]).all()):
+            raise AssertionError(f"full width B15 {func}: not finite")
+        c[func] = {"max_abs_err_vs_b5": assert_close(
+            f"full width B15 {func}", got, want, 1e-9, 1e-9)}
+        del got, want
+    step = meshlib.time_sharded_rollup(mesh15, "rate", cfg15, B15_HALO)
+    with aside():
+        c["rate"]["ms"] = cuda_ms(lambda: step(*parts), reps=3)
+        c["rate"]["b5_ms"] = cuda_ms(lambda: dr.rollup_tile(
+            "rate", ts_t, v_t, counts, cfg15), reps=3)
+    c.update(mesh=list(B15_MESH), halo=B15_HALO, step=B15_STEP,
+             steps=dr.num_steps(cfg15), cols=N)
+    return b, c
+
+
+def phase_mesh(dev, replay, fw) -> dict:
+    """The mesh phase, (a)-(e), every shard on `dev`.  Its launch counts
+    leave out the unsharded comparisons and the cold rebuilds."""
+    t_phase = time.perf_counter()
+    aside = Aside()
+    kernels.reset_launches()
+    walls = {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    dash, st = part("dashboard", mesh_dashboard, dev, replay, aside)
+    fl = part("fleet", mesh_fleet, dev, st, aside)
+    e = {"dashboard": part("decode_dashboard", mesh_decode, dev, "dashboard",
+                           st["planes"], st["cfg"], aside)}
+    del st
+    b, c = part("full_width", mesh_full_width, dev, fw, aside)
+    e["full_width"] = part(
+        "decode_full_width", mesh_decode, dev, "full width",
+        fw["planes"][0] + (fw["planes"][1],), fw["cfg"], aside,
+        fw["engine"].cache().get(fw["key"]))
+    launches = {k: kernels.LAUNCHES.get(k, 0) - aside.n.get(k, 0)
+                for k in SOURCES}
+    for name in MESH_KERNELS + ("decode_tiles", "append_tile",
+                                "compact_tile", "fleet_append_tile",
+                                "fleet_compact_tile"):
+        if launches[name] < 1:
+            raise AssertionError(f"mesh: {name} not launched on the path")
+    res = {"phase": "mesh", "ok": True, "shards": MESH_SHARDS,
+           "wall_s": time.perf_counter() - t_phase, "part_wall_s": walls,
+           "dashboard": dash,
+           "fleet": fl, "full_width": b, "time_sharded": c,
+           "decode_and_rollup": e, "launches": launches}
+    emit(res)
     return res
 
 
@@ -1763,17 +2439,22 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     kres, fleet_err = phase_kernels(rng, dev)
     dash, dash_state = phase_dashboard(rng, dev)
+    replay = dash_state.pop("replay")
     fl = phase_fleet(rng, dev, dash_state)
     del dash_state
-    # B1-B8 count on the dashboard path, B9-B11 on the fleet's
-    launches = {**dash["launches"], **fl["launches"]}
-    for name in SOURCES:
-        if launches.get(name, 0) < 1:
-            raise AssertionError(f"{name} never launched on its path")
     for name in FLEET_KERNELS:
         kres[name] = {**fl["kernels"][name], "max_abs_err": max(
             fleet_err[name], fl["kernels"][name]["max_abs_err"])}
-    phase_full_width(rng, dev, args.full_hours)
+    _, fw = phase_full_width(rng, dev, args.full_hours)
+    mesh = phase_mesh(dev, replay, fw)
+    del replay, fw
+    # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on
+    # the mesh phase's
+    launches = {**dash["launches"], **fl["launches"],
+                **{k: mesh["launches"][k] for k in MESH_KERNELS}}
+    for name in SOURCES:
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name} never launched on its path")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],

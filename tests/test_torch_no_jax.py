@@ -42,6 +42,8 @@ def _port_modules():
 def test_port_and_chip_smoke_import_without_jax():
     mods = _port_modules()
     assert "victoriametrics_tpu_torch.query.cuda_engine" in mods
+    assert {"victoriametrics_tpu_torch.parallel.mesh",
+            "victoriametrics_tpu_torch.parallel.partition"} <= set(mods)
     assert len(mods) >= 15
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,

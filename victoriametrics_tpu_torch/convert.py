@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from .ops.device_rollup import fleet_layout
+from .parallel import mesh as meshlib
+from .parallel import partition
 
 _PLANE_FIELDS = ("ts_first", "ts_fdelta", "ts_d2", "val_first",
                  "val_fdelta", "val_d2", "scale", "counts")
@@ -47,3 +49,21 @@ def fleet_from_reference(ts, values, counts, gids, v0, aggr, num_groups,
             _tensor(counts, np.int32, device),
             fleet_layout(np.asarray(gids, dtype=np.int32), num_groups, device),
             _tensor(v0, np.float64, device), _tensor(aggr, np.int32, device))
+
+
+def mesh_from_reference(shape, devices) -> meshlib.Mesh:
+    """A reference mesh's layout, its ``mesh.shape`` as a mapping of axis
+    name -> size in axis order (``{"series": 8, "time": 1}``, or
+    ``{"stream": 8}`` for the fleet's), as the port's Mesh over `devices`
+    (one per mesh position; a device may repeat)."""
+    names = tuple(shape)
+    return meshlib.Mesh(meshlib.device_array(devices).reshape(
+        tuple(shape[n] for n in names)), names)
+
+
+def shards_from_reference(mesh, name: str, a) -> list:
+    """One of the reference's row-padded mesh arrays (numpy), named as in
+    its partition-rule table, as the port's per-shard tensors: each shard's
+    rows on its device (views of one buffer where the shards share a
+    device), through the same rule table."""
+    return partition.shard_put(mesh, name, np.asarray(a))

@@ -14,6 +14,9 @@
 // (double)(int32)x * scale[row], one IEEE multiply (the library is built
 // with --fmad=false, and there is nothing to contract here anyway).
 //
+// The row decode itself lives in decode.cuh, which B12 (rollup.cu
+// decode_rollup) shares.
+//
 // Bound: bytes.  A row reads its d2 plane (1, 2 or 4 B per column) plus a
 // few scalars and writes 4 B (ts plane) or 8 B (values plane) per column;
 // there are two adds per element.  Design: one 256-thread block per row
@@ -24,43 +27,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode.cuh"
+
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int32_t kTsPad = 2147483647;
-
-// Block-wide inclusive scan of uint32 values (mod 2^32).  Every thread of
-// the block must call it; *total receives the sum over the block.
-__device__ uint32_t block_scan(uint32_t v, uint32_t* warp_sums,
-                               uint32_t* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < kWarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  *total = warp_sums[kWarps - 1];
-  __syncthreads();  // warp_sums is rewritten by the next call
-  return v;
-}
 
 // One block per row.  Exactly one of ts_out (timestamp plane, masked to
 // TS_PAD past counts) and val_out (value plane, scaled) is non-null.
 template <typename D2>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDecodeThreads)
 decode_plane(const int32_t* __restrict__ first,
              const int32_t* __restrict__ fdelta,
              const D2* __restrict__ d2, int d2w,
@@ -68,43 +42,23 @@ decode_plane(const int32_t* __restrict__ first,
              const double* __restrict__ scale,
              int32_t* __restrict__ ts_out, double* __restrict__ val_out,
              int n) {
-  __shared__ uint32_t warp_sums[kWarps];
+  __shared__ uint32_t warp_sums[kDecodeWarps];
   const long long row = blockIdx.x;
-  const uint32_t x0 = static_cast<uint32_t>(first[row]);
-  const uint32_t fd = static_cast<uint32_t>(fdelta[row]);
-  const D2* d2row = d2 + row * static_cast<long long>(d2w);
-  const int cnt = ts_out != nullptr ? counts[row] : 0;
-  const double sc = val_out != nullptr ? scale[row] : 0.0;
-  uint32_t carry_a = 0u, carry_b = 0u;
-  for (int base = 0; base < n; base += kThreads) {
-    const int j = base + threadIdx.x;
-    uint32_t a = 0u;
-    if (j == 1) {
-      a = fd;
-    } else if (j >= 2 && j < n) {
-      a = static_cast<uint32_t>(static_cast<int32_t>(d2row[j - 2]));
-    }
-    uint32_t tot;
-    const uint32_t b = carry_a + block_scan(a, warp_sums, &tot);
-    carry_a += tot;
-    const uint32_t x = x0 + carry_b + block_scan(b, warp_sums, &tot);
-    carry_b += tot;
-    if (j < n) {
-      const long long o = row * static_cast<long long>(n) + j;
-      if (ts_out != nullptr) {
-        ts_out[o] = j < cnt ? static_cast<int32_t>(x) : kTsPad;
-      } else {
-        val_out[o] = static_cast<double>(static_cast<int32_t>(x)) * sc;
-      }
-    }
-  }
+  const long long o = row * static_cast<long long>(n);
+  decode_row(static_cast<uint32_t>(first[row]),
+             static_cast<uint32_t>(fdelta[row]),
+             d2 + row * static_cast<long long>(d2w), n,
+             ts_out != nullptr ? counts[row] : 0,
+             val_out != nullptr ? scale[row] : 0.0,
+             ts_out != nullptr ? ts_out + o : nullptr,
+             val_out != nullptr ? val_out + o : nullptr, warp_sums);
 }
 
 template <typename D2>
 void launch(const void* first, const void* fdelta, const void* d2, int d2w,
             const void* counts, const void* scale, void* ts_out,
             void* val_out, long long S, int n, cudaStream_t stream) {
-  decode_plane<D2><<<static_cast<unsigned>(S), kThreads, 0, stream>>>(
+  decode_plane<D2><<<static_cast<unsigned>(S), kDecodeThreads, 0, stream>>>(
       static_cast<const int32_t*>(first), static_cast<const int32_t*>(fdelta),
       static_cast<const D2*>(d2), d2w, static_cast<const int32_t*>(counts),
       static_cast<const double*>(scale), static_cast<int32_t*>(ts_out),

@@ -1,6 +1,8 @@
 // K2 rollup_aggregate_tile: fused aggr(rollup(m[window])) -> [G, T],
-// B5 rollup_tile: the per-series rollup -> [S, T], and B9
-// fleet_rollup_aggregate_tile: K2 over a stack of B streams -> [B, G, T].
+// B5 rollup_tile: the per-series rollup -> [S, T], B9
+// fleet_rollup_aggregate_tile: K2 over a stack of B streams -> [B, G, T],
+// B12 decode_and_rollup: K1's row decode fused into B5 -> [S, T], and
+// B13's per-shard pass: K2's group walk writing its moments -> [M, G, T].
 //
 // K2 replaces victoriametrics_tpu/ops/device_rollup.py:rollup_aggregate_tile
 // and B5 victoriametrics_tpu/ops/device_rollup.py:rollup_tile, jax.jit
@@ -51,6 +53,26 @@
 //     finalizes only its stream's, with the same NaN where cnt is 0, so
 //     padded rows (counts 0), padded groups and padded slots come out NaN.
 //
+//  4. B12 (replaces victoriametrics_tpu/ops/device_decode.py:
+//     decode_and_rollup, decode_tiles then rollup_tile in one jit):
+//     decode_rollup, one 256-thread block per row (grid-stride over the
+//     rows, as many blocks as the card holds at once).  The block decodes
+//     the row's two delta planes with K1's decode_row (decode.cuh) into a
+//     workspace, runs scan_row and, for an irregular counter row,
+//     prep_row on it (the functions rollup_scan and rollup_prep run), and
+//     its threads evaluate series_value<F> for the row's steps.  The
+//     decoded tile is never written, and the output equals K1 then B5 bit
+//     for bit.  The workspace is the row's values and timestamps (12 B
+//     per column) in dynamic shared memory up to the opt-in limit (above
+//     48 KB through cudaFuncSetAttribute), else a global scratch slot per
+//     resident block; cv and cmax always sit in the block's scratch slot,
+//     so the scratch is blocks x n columns, never S x n.
+//  5. B13's per-shard pass (replaces the partial_group_moments half of
+//     victoriametrics_tpu/parallel/mesh.py:sharded_rollup_aggregate):
+//     rollup_group_moments, K2's block and group walk, writing the
+//     aggregate's moments (moments.cuh, in MOMENTS order) to [M, G, T];
+//     mesh.cu combines the shards.
+//
 // Faithfulness to the reference:
 //  * c_last and c_prev are max-reductions of cv over "ts <= bound" in the
 //    reference; they equal cv[hi-1] / cv[lo-1] only when cv never
@@ -89,7 +111,8 @@
 //
 // Bound: bytes.  The function must read each valid sample's timestamp and
 // value once (12 B/sample) and write [G, T] (K2), [S, T] (B5) or
-// [B, G, T] (B9) float64.
+// [B, G, T] (B9) float64; B12 reads the delta planes instead (1-4 B per
+// column and plane) and writes [S, T]; B13's pass writes [M, G, T].
 // The scan pass reads the values once (8 B/sample) for the counter funcs
 // and stddev/stdvar only; the series pass reads about 2 log2(N) + window
 // timestamps and values per (series, step) from L1/L2, since a block's 128
@@ -102,6 +125,9 @@
 #include <stdint.h>
 
 #include <utility>
+
+#include "decode.cuh"
+#include "moments.cuh"
 
 namespace {
 
@@ -120,24 +146,6 @@ enum Func {
   kIdelta = 21, kDerivFast = 22, kDeriv = 23, kLifetime = 24,
   kScrapeInterval = 25
 };
-enum Aggr {
-  aSum = 0, aCount = 1, aAvg = 2, aMin = 3, aMax = 4, aStddev = 5,
-  aStdvar = 6, aGroup = 7
-};
-
-__device__ __forceinline__ double qnan() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
-__device__ __forceinline__ double nan_max(double a, double b) {
-  if (a != a || b != b) return qnan();
-  return a > b ? a : b;
-}
-
-__device__ __forceinline__ double nan_min(double a, double b) {
-  if (a != a || b != b) return qnan();
-  return a < b ? a : b;
-}
 
 // ts - shift with int32 wraparound.
 __device__ __forceinline__ int32_t shifted(int32_t t, int32_t shift) {
@@ -159,33 +167,17 @@ __device__ __forceinline__ bool irregular_at(const double* __restrict__ vrow,
   return i >= 1 && v < vrow[i - 1];
 }
 
-// One warp per row: regularity (slot -1, or a scratch slot) when
-// `counter`, the row mean when `mean` is given, and mpi.
-// `shifts` / `min_tss` (B9): the values of each stream of rows_per_stream
-// rows, in place of the scalars.
-__global__ void __launch_bounds__(kPrepThreads)
-rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
-            const int32_t* __restrict__ counts, long long S, int N,
-            int32_t shift, int32_t min_ts, const int32_t* __restrict__ shifts,
-            const int32_t* __restrict__ min_tss, long long rows_per_stream,
-            int32_t step, int instant, int counter,
-            int32_t* __restrict__ mpi, int32_t* __restrict__ slots,
-            int32_t* __restrict__ n_irregular, double* __restrict__ mean) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
-      (threadIdx.x >> 5);
+// The row scan of one row, run by every lane of one warp: returns (on
+// every lane) whether the row is irregular when `counter`, writes the
+// mean of its valid samples to *mean when `mean` is given, and its
+// maxPrevInterval to *mpi (lane 0).  K2, B5 and B9 scan their rows with
+// rollup_scan below, B12 the row it has just decoded.
+__device__ bool scan_row(const int32_t* trow, const double* vrow, int c,
+                         int N, int32_t shift, int32_t min_ts, int32_t step,
+                         int instant, int counter, double* mean,
+                         int32_t* mpi) {
   const int lane = threadIdx.x & 31;
-  if (row >= S) return;  // uniform across the warp
-  if (shifts != nullptr) {
-    const long long b = row / rows_per_stream;
-    shift = shifts[b];
-    min_ts = min_tss[b];
-  }
   const unsigned full = 0xffffffffu;
-  const int c = min(counts[row], N);
-  const long long off = row * static_cast<long long>(N);
-  const int32_t* trow = ts + off;
-  const double* vrow = vals + off;
   bool irregular = false;
   if (counter) {
     for (int base = 0; base < c && !irregular; base += 32) {
@@ -197,13 +189,12 @@ rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
     double s = 0.0;
     for (int i = lane; i < c; i += 32) s += vrow[i];
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(full, s, o);
-    if (lane == 0) mean[row] = s / static_cast<double>(c > 1 ? c : 1);
+    if (lane == 0) *mean = s / static_cast<double>(c > 1 ? c : 1);
   }
-  if (lane != 0) return;
-  slots[row] = irregular ? atomicAdd(n_irregular, 1) : -1;
+  if (lane != 0) return irregular;
   if (instant) {
-    mpi[row] = step;
-    return;
+    *mpi = step;
+    return irregular;
   }
   // 0.6 quantile of the last <= 20 intervals among samples >= min_ts
   const int base = c - 21 > 0 ? c - 21 : 0;
@@ -248,31 +239,47 @@ rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   else if (si <= 16000) r = si + si / 2;
   else if (si <= 32000) r = si + si / 4;
   else r = si + si / 8;
-  mpi[row] = r;
+  *mpi = r;
+  return irregular;
 }
 
-// One warp per irregular row: cv and cmax over the row's valid prefix,
-// into the row's scratch slot.  `v0` (B9, one per row) makes the reset
-// threshold and the restarted base absolute.
+// One warp per row: regularity (slot -1, or a scratch slot) when
+// `counter`, the row mean when `mean` is given, and mpi.
+// `shifts` / `min_tss` (B9): the values of each stream of rows_per_stream
+// rows, in place of the scalars.
 __global__ void __launch_bounds__(kPrepThreads)
-rollup_prep(const double* __restrict__ vals,
-            const int32_t* __restrict__ counts,
-            const int32_t* __restrict__ slots,
-            const double* __restrict__ v0, long long S, int N,
-            double* __restrict__ cv, double* __restrict__ cmax) {
+rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
+            const int32_t* __restrict__ counts, long long S, int N,
+            int32_t shift, int32_t min_ts, const int32_t* __restrict__ shifts,
+            const int32_t* __restrict__ min_tss, long long rows_per_stream,
+            int32_t step, int instant, int counter,
+            int32_t* __restrict__ mpi, int32_t* __restrict__ slots,
+            int32_t* __restrict__ n_irregular, double* __restrict__ mean) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
       (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= S) return;  // uniform across the warp
-  const int slot = slots[row];
-  if (slot < 0) return;  // regular row: cv = cmax = values
-  const unsigned full = 0xffffffffu;
+  if (shifts != nullptr) {
+    const long long b = row / rows_per_stream;
+    shift = shifts[b];
+    min_ts = min_tss[b];
+  }
   const int c = min(counts[row], N);
-  const double* vrow = vals + row * static_cast<long long>(N);
-  const long long soff = static_cast<long long>(slot) * N;
-  const bool rebased = v0 != nullptr;
-  const double v0r = rebased ? v0[row] : 0.0;
+  const long long off = row * static_cast<long long>(N);
+  const bool irregular = scan_row(
+      ts + off, vals + off, c, N, shift, min_ts, step, instant, counter,
+      mean != nullptr ? mean + row : nullptr, mpi + row);
+  if (lane == 0) slots[row] = irregular ? atomicAdd(n_irregular, 1) : -1;
+}
+
+// cv and cmax over one row's valid prefix, run by every lane of one warp.
+// `rebased` (B9): v0r makes the reset threshold and the restarted base
+// absolute.
+__device__ void prep_row(const double* vrow, int c, bool rebased, double v0r,
+                         double* cv_row, double* cmax_row) {
+  const int lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
   double carry_sum = 0.0;
   double carry_max = -INFINITY;
   for (int base = 0; base < c; base += 32) {
@@ -300,11 +307,32 @@ rollup_prep(const double* __restrict__ vals,
     }
     m = nan_max(m, carry_max);
     if (i < c) {
-      cv[soff + i] = cvv;
-      cmax[soff + i] = m;
+      cv_row[i] = cvv;
+      cmax_row[i] = m;
     }
     carry_max = __shfl_sync(full, m, 31);
   }
+}
+
+// One warp per irregular row: cv and cmax over the row's valid prefix,
+// into the row's scratch slot.  `v0` (B9, one per row) makes the reset
+// threshold and the restarted base absolute.
+__global__ void __launch_bounds__(kPrepThreads)
+rollup_prep(const double* __restrict__ vals,
+            const int32_t* __restrict__ counts,
+            const int32_t* __restrict__ slots,
+            const double* __restrict__ v0, long long S, int N,
+            double* __restrict__ cv, double* __restrict__ cmax) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
+      (threadIdx.x >> 5);
+  if (row >= S) return;  // uniform across the warp
+  const int slot = slots[row];
+  if (slot < 0) return;  // regular row: cv = cmax = values
+  const long long soff = static_cast<long long>(slot) * N;
+  prep_row(vals + row * static_cast<long long>(N), min(counts[row], N),
+           v0 != nullptr, v0 != nullptr ? v0[row] : 0.0, cv + soff,
+           cmax + soff);
 }
 
 // #{i in [lo, hi) : ts[i] - shift <= x} + lo, on a sorted row.
@@ -530,41 +558,29 @@ __device__ __forceinline__ Row tile_row(const Tile& a, long long r) {
                 a.mean, a.v0);
 }
 
-// aggr over the rows order[k0:k1] (offset by row0) at step t: the
-// segment moments of partial_group_moments in ascending row order,
-// finalized by the aggregate's code; NaN when no row is live.
+// The segment moments of partial_group_moments over the rows
+// order[k0:k1] (offset by row0) at step t, in ascending row order.
+template <int F>
+__device__ __forceinline__ Moments group_moments(
+    const Tile& a, const int32_t* __restrict__ order, int k0, int k1,
+    long long row0, const Grid& g, int t) {
+  Moments m = moments_empty();
+  for (int k = k0; k < k1; ++k) {
+    const double v = series_value<F>(tile_row(a, row0 + order[k]), g, t);
+    if (v != v) continue;  // NaN: series absent at this step
+    moments_add(m, v);
+  }
+  return m;
+}
+
+// aggr over the rows order[k0:k1] at step t: the moments finalized by
+// the aggregate's code; NaN when no row is live.
 template <int F>
 __device__ __forceinline__ double group_value(
     const Tile& a, const int32_t* __restrict__ order, int k0, int k1,
     long long row0, const Grid& g, int aggr, int t) {
-  double cnt = 0.0, s1 = 0.0, s2 = 0.0;
-  double mn = INFINITY, mx = -INFINITY;
-  for (int k = k0; k < k1; ++k) {
-    const double v = series_value<F>(tile_row(a, row0 + order[k]), g, t);
-    if (v != v) continue;  // NaN: series absent at this step
-    cnt += 1.0;
-    s1 += v;
-    s2 += v * v;
-    mn = v < mn ? v : mn;
-    mx = v > mx ? v : mx;
-  }
-  double res;
-  switch (aggr) {
-    case aSum: res = s1; break;
-    case aCount: res = cnt; break;
-    case aAvg: res = s1 / cnt; break;
-    case aMin: res = mn; break;
-    case aMax: res = mx; break;
-    case aStddev:
-    case aStdvar: {
-      const double m1 = s1 / cnt;
-      const double var = nan_max(s2 / cnt - m1 * m1, 0.0);
-      res = aggr == aStddev ? sqrt(var) : var;
-      break;
-    }
-    default: res = 1.0; break;  // group
-  }
-  return cnt > 0.0 ? res : qnan();
+  return finalize_moments(group_moments<F>(a, order, k0, k1, row0, g, t),
+                          aggr);
 }
 
 template <int F>
@@ -600,13 +616,113 @@ fleet_rollup_groups(Tile a, const int32_t* __restrict__ order,
                                    aggrs[b], t);
 }
 
+// B13's per-shard pass: K2's group walk, writing the aggregate's moments
+// (moment_count of them, in their stored order) as [M, G, T] instead of
+// finalizing them.
 template <int F>
 __global__ void __launch_bounds__(kGroupThreads)
-rollup_series(Tile a, int T, Grid g, double* __restrict__ out) {
+rollup_group_moments(Tile a, const int32_t* __restrict__ order,
+                     const int32_t* __restrict__ starts, int G, int T,
+                     Grid g, int aggr, double* __restrict__ out) {
+  const long long grp = blockIdx.x;
+  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
+  if (t >= T) return;
+  const Moments m = group_moments<F>(a, order, starts[grp], starts[grp + 1],
+                                     0, g, t);
+  const long long plane = static_cast<long long>(G) * T;
+  for (int k = 0; k < moment_count(aggr); ++k)
+    out[k * plane + grp * T + t] = moment_get(m, aggr, k);
+}
+
+// B5: row r's steps go to out[r * ldo + t] (ldo = T for a whole [S, T]
+// output; B15 writes a time shard's block of a wider one).
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads)
+rollup_series(Tile a, int T, long long ldo, Grid g,
+              double* __restrict__ out) {
   const long long r = blockIdx.x;
   const int t = blockIdx.y * kGroupThreads + threadIdx.x;
   if (t >= T) return;
-  out[r * T + t] = series_value<F>(tile_row(a, r), g, t);
+  out[r * ldo + t] = series_value<F>(tile_row(a, r), g, t);
+}
+
+// B12 decode_and_rollup: one block of kDecodeThreads threads per row
+// (grid-stride over the rows).  The block decodes the row's two delta
+// planes with K1's row decode into a workspace, scans it (mpi, mean,
+// regularity) and, for an irregular counter row, writes cv and cmax, each
+// with the functions K2 and B5 use; then its threads compute
+// series_value<F> for the row's steps.  The workspace is the row's
+// values and timestamps in dynamic shared memory (12 B per column) when
+// they fit the opt-in limit, else a global scratch slot per block; cv and
+// cmax (counter funcs only) always sit in the block's scratch slot, so
+// the scratch is blocks x n, never S x n.
+struct DecodeArgs {
+  const int32_t *ts_first, *ts_fd;
+  const void* ts_d2;
+  int ts_d2_bytes, ts_d2w;
+  const int32_t *val_first, *val_fd;
+  const void* val_d2;
+  int val_d2_bytes, val_d2w;
+  const double* scale;
+  const int32_t* counts;
+  long long S;
+  int n;
+};
+
+template <int F>
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_rollup(DecodeArgs a, int T, Grid g, int instant, int smem_ws,
+              unsigned char* __restrict__ scratch, long long slot_bytes,
+              double* __restrict__ out) {
+  extern __shared__ double smem[];
+  __shared__ uint32_t warp_sums[kDecodeWarps];
+  __shared__ int32_t s_mpi;
+  __shared__ double s_mean;
+  __shared__ int s_irregular;
+  constexpr bool kCounter = F <= kIrate;
+  constexpr bool kCentred = F == kStddev || F == kStdvar;
+  const int n = a.n;
+  unsigned char* slot = scratch + blockIdx.x * slot_bytes;
+  double* cv = reinterpret_cast<double*>(slot);
+  double* cmax = cv + n;
+  double* v = smem_ws ? smem : (kCounter ? cmax + n
+                                          : reinterpret_cast<double*>(slot));
+  int32_t* tsr = reinterpret_cast<int32_t*>(v + n);
+  for (long long row = blockIdx.x; row < a.S; row += gridDim.x) {
+    const int cnt = a.counts[row];
+    decode_row_any(a.ts_d2_bytes, static_cast<uint32_t>(a.ts_first[row]),
+                   static_cast<uint32_t>(a.ts_fd[row]),
+                   static_cast<const unsigned char*>(a.ts_d2) +
+                       row * a.ts_d2w * a.ts_d2_bytes,
+                   n, cnt, 0.0, tsr, nullptr, warp_sums);
+    decode_row_any(a.val_d2_bytes, static_cast<uint32_t>(a.val_first[row]),
+                   static_cast<uint32_t>(a.val_fd[row]),
+                   static_cast<const unsigned char*>(a.val_d2) +
+                       row * a.val_d2w * a.val_d2_bytes,
+                   n, 0, a.scale[row], nullptr, v, warp_sums);
+    __syncthreads();
+    const int c = min(cnt, n);
+    if (threadIdx.x < 32) {
+      const bool irregular = scan_row(tsr, v, c, n, g.shift, g.min_ts,
+                                      g.step, instant, kCounter,
+                                      kCentred ? &s_mean : nullptr, &s_mpi);
+      if (kCounter && irregular) prep_row(v, c, false, 0.0, cv, cmax);
+      if (threadIdx.x == 0) s_irregular = irregular;
+    }
+    __syncthreads();
+    Row r;
+    r.ts = tsr;
+    r.v = v;
+    r.cv = kCounter && s_irregular ? cv : v;
+    r.cm = kCounter && s_irregular ? cmax : v;
+    r.c = c;
+    r.mpi = s_mpi;
+    r.mean = kCentred ? s_mean : 0.0;
+    r.v0 = 0.0;
+    for (int t = threadIdx.x; t < T; t += kDecodeThreads)
+      out[row * T + t] = series_value<F>(r, g, t);
+    __syncthreads();  // the workspace is rewritten for the next row
+  }
 }
 
 Grid make_grid(int shift, int min_ts, int step, int lookback,
@@ -643,6 +759,7 @@ struct PassArgs {
   const int32_t *shifts, *min_tss, *aggrs;  // B9
   long long S;                               // B9: rows per stream
   int G, T;
+  long long ldo;                             // B5: output row stride
   Grid g;
   int aggr;
   double* out;
@@ -663,7 +780,14 @@ void launch_fleet(dim3 grid, cudaStream_t st, const PassArgs& a) {
 
 template <int F>
 void launch_series(dim3 grid, cudaStream_t st, const PassArgs& a) {
-  rollup_series<F><<<grid, kGroupThreads, 0, st>>>(a.tile, a.T, a.g, a.out);
+  rollup_series<F><<<grid, kGroupThreads, 0, st>>>(a.tile, a.T, a.ldo, a.g,
+                                                   a.out);
+}
+
+template <int F>
+void launch_moments(dim3 grid, cudaStream_t st, const PassArgs& a) {
+  rollup_group_moments<F><<<grid, kGroupThreads, 0, st>>>(
+      a.tile, a.order, a.starts, a.G, a.T, a.g, a.aggr, a.out);
 }
 
 using Launch = void (*)(dim3, cudaStream_t, const PassArgs&);
@@ -685,6 +809,71 @@ template <int... F>
 const Launch* series_table(std::integer_sequence<int, F...>) {
   static const Launch table[] = {&launch_series<F>...};
   return table;
+}
+
+template <int... F>
+const Launch* moments_table(std::integer_sequence<int, F...>) {
+  static const Launch table[] = {&launch_moments<F>...};
+  return table;
+}
+
+// B12's launch plan: the workspace in shared memory when the row's values
+// and timestamps fit the opt-in limit (and `force_global` is 0), the grid
+// the blocks resident on the card at once (at most S), and the global
+// scratch those blocks need.
+struct DecodePlan {
+  int blocks, smem_ws;
+  size_t smem_bytes;
+  long long slot_bytes;
+};
+
+using DecodeKernel = void (*)(DecodeArgs, int, Grid, int, int,
+                              unsigned char*, long long, double*);
+
+template <int F>
+DecodeKernel decode_kernel() {
+  return &decode_rollup<F>;
+}
+
+template <int... F>
+const DecodeKernel* decode_table(std::integer_sequence<int, F...>) {
+  static const DecodeKernel table[] = {decode_kernel<F>()...};
+  return table;
+}
+
+int decode_plan(long long S, int n, int func, int force_global,
+                DecodePlan* p) {
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long row_bytes = 12LL * n;
+  // the static shared memory of the kernel stays below 1 KiB
+  p->smem_ws = !force_global && row_bytes + 1024 <= optin;
+  p->smem_bytes = p->smem_ws ? static_cast<size_t>(row_bytes) : 0;
+  const long long slot = (func <= kIrate ? 16LL * n : 0) +
+                         (p->smem_ws ? 0 : row_bytes);
+  p->slot_bytes = (slot + 7) / 8 * 8;
+  const DecodeKernel k =
+      decode_table(std::make_integer_sequence<int, kFuncs>())[func];
+  if (p->smem_bytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(k),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(p->smem_bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, reinterpret_cast<const void*>(k), kDecodeThreads,
+      p->smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long resident = static_cast<long long>(sms) *
+                             (per_sm > 0 ? per_sm : 1);
+  p->blocks = static_cast<int>(S < resident ? S : resident);
+  return 0;
 }
 
 unsigned step_tiles(int T) {
@@ -825,7 +1014,7 @@ extern "C" int vm_rollup_series(const void* ts, const void* vals,
                                 long long S, int N, int T, int shift,
                                 int min_ts, int step, int lookback,
                                 double start_s, int func, void* out,
-                                void* stream) {
+                                long long ldo, void* stream) {
   if (S <= 0 || T <= 0) return 0;
   if (func < 0 || func >= kFuncs)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -833,11 +1022,100 @@ extern "C" int vm_rollup_series(const void* ts, const void* vals,
   a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
                      N);
   a.T = T;
+  a.ldo = ldo;
   a.g = make_grid(shift, min_ts, step, lookback, start_s);
   a.out = static_cast<double*>(out);
   series_table(std::make_integer_sequence<int, kFuncs>())[func](
       dim3(static_cast<unsigned>(S), step_tiles(T)),
       static_cast<cudaStream_t>(stream), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B13's per-shard pass over one shard's tile -> out [M, G, T], M =
+// moment_count(aggr).
+extern "C" int vm_rollup_group_moments(
+    const void* ts, const void* vals, const void* cv, const void* cmax,
+    const void* slots, const void* counts, const void* mpi, const void* mean,
+    const void* order, const void* starts, long long G, int N, int T,
+    int shift, int min_ts, int step, int lookback, double start_s, int func,
+    int aggr, void* out, void* stream) {
+  if (G <= 0 || T <= 0) return 0;
+  if (func < 0 || func >= kFuncs || aggr < aSum || aggr > aGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PassArgs a{};
+  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
+                     N);
+  a.order = static_cast<const int32_t*>(order);
+  a.starts = static_cast<const int32_t*>(starts);
+  a.G = static_cast<int>(G);
+  a.T = T;
+  a.g = make_grid(shift, min_ts, step, lookback, start_s);
+  a.aggr = aggr;
+  a.out = static_cast<double*>(out);
+  moments_table(std::make_integer_sequence<int, kFuncs>())[func](
+      dim3(static_cast<unsigned>(G), step_tiles(T)),
+      static_cast<cudaStream_t>(stream), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B12's plan for S rows of n columns: *blocks to launch and the global
+// scratch in bytes they need (see decode_plan).
+extern "C" int vm_decode_rollup_plan(long long S, int n, int func,
+                                     int force_global, int* blocks,
+                                     long long* scratch_bytes) {
+  *blocks = 0;
+  *scratch_bytes = 0;
+  if (S <= 0 || n <= 0) return 0;
+  if (func < 0 || func >= kFuncs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodePlan p;
+  const int rc = decode_plan(S, n, func, force_global, &p);
+  if (rc != 0) return rc;
+  *blocks = p.blocks;
+  *scratch_bytes = p.slot_bytes * p.blocks;
+  return 0;
+}
+
+// B12 over S rows -> out [S, T]; `scratch` holds the bytes
+// vm_decode_rollup_plan asked for, for the same S, n, func, force_global.
+extern "C" int vm_decode_rollup(
+    const void* ts_first, const void* ts_fd, const void* ts_d2,
+    int ts_d2_bytes, int ts_d2w, const void* val_first, const void* val_fd,
+    const void* val_d2, int val_d2_bytes, int val_d2w, const void* scale,
+    const void* counts, long long S, int n, int T, int min_ts, int step,
+    int lookback, double start_s, int instant, int func, int force_global,
+    void* scratch, void* out, void* stream) {
+  if (S <= 0 || n <= 0 || T <= 0) return 0;
+  if (func < 0 || func >= kFuncs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int b : {ts_d2_bytes, val_d2_bytes})
+    if (b != 1 && b != 2 && b != 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+  DecodePlan p;
+  const int rc = decode_plan(S, n, func, force_global, &p);
+  if (rc != 0) return rc;
+  DecodeArgs a;
+  a.ts_first = static_cast<const int32_t*>(ts_first);
+  a.ts_fd = static_cast<const int32_t*>(ts_fd);
+  a.ts_d2 = ts_d2;
+  a.ts_d2_bytes = ts_d2_bytes;
+  a.ts_d2w = ts_d2w;
+  a.val_first = static_cast<const int32_t*>(val_first);
+  a.val_fd = static_cast<const int32_t*>(val_fd);
+  a.val_d2 = val_d2;
+  a.val_d2_bytes = val_d2_bytes;
+  a.val_d2w = val_d2w;
+  a.scale = static_cast<const double*>(scale);
+  a.counts = static_cast<const int32_t*>(counts);
+  a.S = S;
+  a.n = n;
+  const DecodeKernel k =
+      decode_table(std::make_integer_sequence<int, kFuncs>())[func];
+  k<<<static_cast<unsigned>(p.blocks), kDecodeThreads, p.smem_bytes,
+      static_cast<cudaStream_t>(stream)>>>(
+      a, T, make_grid(0, min_ts, step, lookback, start_s), instant, p.smem_ws,
+      static_cast<unsigned char*>(scratch), p.slot_bytes,
+      static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,6 +19,7 @@ reads around the engine's main path.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -67,9 +68,24 @@ SIGNATURES = {
         "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
                              _I, _I, _I, _I, _I, _D, _I, _I, _P, _P],
         # ts, vals, cv, cmax, slots, counts, mpi, mean, S, N, T, shift,
-        # min_ts, step, lookback, start_s, func, out, stream
+        # min_ts, step, lookback, start_s, func, out, ldo, stream
         "vm_rollup_series": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                             _I, _I, _I, _D, _I, _P, _P],
+                             _I, _I, _I, _D, _I, _P, _LL, _P],
+        # ts, vals, cv, cmax, slots, counts, mpi, mean, order, starts, G, N,
+        # T, shift, min_ts, step, lookback, start_s, func, aggr, out, stream
+        "vm_rollup_group_moments": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _LL, _I, _I, _I, _I, _I, _I, _D, _I, _I,
+                                    _P, _P],
+        # S, n, func, force_global, blocks (out), scratch_bytes (out)
+        "vm_decode_rollup_plan": [_LL, _I, _I, _I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_LL)],
+        # ts_first, ts_fd, ts_d2, ts_d2_bytes, ts_d2w, val_first, val_fd,
+        # val_d2, val_d2_bytes, val_d2w, scale, counts, S, n, T, min_ts,
+        # step, lookback, start_s, instant, func, force_global, scratch,
+        # out, stream
+        "vm_decode_rollup": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P,
+                             _LL, _I, _I, _I, _I, _I, _D, _I, _I, _I, _P,
+                             _P, _P],
         # ts, vals, cv, cmax, slots, counts, mpi, mean, v0, order, starts,
         # shifts, min_tss, aggrs, B, S, G, N, T, step, lookback, start_s,
         # func, out, stream
@@ -90,6 +106,17 @@ SIGNATURES = {
     "quantile": {
         # rolled, T, order, starts, G, max_group, phi, out, stream
         "vm_quantile_groups": [_P, _I, _P, _P, _LL, _I, _D, _P, _P],
+    },
+    "mesh": {
+        # moments, D, M, GT, aggr, out, stream
+        "vm_combine_moments": [_P, _I, _I, _LL, _I, _P, _P],
+        # ts, ts_ld, vals, vals_ld, valid, valid_ld, h_ts, h_ts_ld, h_vals,
+        # h_vals_ld, h_valid, h_valid_ld, R, C, H, shift, ts_out, vals_out,
+        # counts, stream
+        "vm_halo_compact": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
+                            _LL, _LL, _I, _I, _I, _P, _P, _P, _P],
+        # out, ld, R, cols, shift, stream
+        "vm_add_seconds": [_P, _LL, _LL, _I, _I, _P],
     },
     "tile": {
         # ts, vals, counts, new_ts, new_vals, new_counts, S, N, K, stream
@@ -204,6 +231,16 @@ def check(h: ctypes.CDLL, rc: int, what: str) -> None:
 def stream_of(device: torch.device) -> int:
     """Raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device):
+    """Context making a CUDA ``device`` the current one (a launch must go
+    to a stream of the current device); nothing for the CPU.  The mesh
+    layer wraps each shard's launches in it."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def placement(*tensors: torch.Tensor) -> torch.device:

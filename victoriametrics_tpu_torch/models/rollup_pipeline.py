@@ -5,9 +5,8 @@ tile, the port of ``victoriametrics_tpu/models/rollup_pipeline.py``.
 aggregate, group count) and runs the fused kernel (K2) on tensors:
 
 - forward(ts, values, counts, group_ids) -> [G, T]   one device
-
-The series-sharded variant of the reference is queued with the other
-multi-device kernels.
+- sharded(mesh)(ts, values, counts, group_ids) -> [G, T]   series-sharded
+  (B13: each shard's moments, combined in shard order)
 """
 
 from __future__ import annotations
@@ -15,10 +14,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from ..ops.device_rollup import (group_layout, pack_series,
+from ..ops.device_rollup import (MIN_TS_NONE, group_layout, pack_series,
                                  rollup_aggregate_tile)
 from ..ops.rollup_np import RollupConfig
+from ..parallel import mesh as meshlib
+from ..parallel.partition import AXIS_SERIES, split_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +35,24 @@ class QueryPipeline:
         groups = group_layout(group_ids, self.num_groups, ts.device)
         return rollup_aggregate_tile(self.rollup_func, self.aggr, ts, values,
                                      counts, groups, self.cfg)
+
+    def sharded(self, mesh):
+        """forward over a series-sharded mesh: the returned function takes
+        whole tensors (rows a multiple of the series axis, split into row
+        blocks) or per-shard lists, and returns float64 [G, T] on the
+        mesh's first device."""
+        fn = meshlib.sharded_rollup_aggregate(
+            mesh, self.rollup_func, self.aggr, self.cfg, self.num_groups)
+
+        def run(ts, values, counts, group_ids):
+            ts, values, counts, group_ids = (
+                x if isinstance(x, list) else
+                split_rows(mesh, AXIS_SERIES, torch.as_tensor(x))
+                for x in (ts, values, counts, group_ids))
+            groups = [group_layout(g, self.num_groups, t.device)
+                      for g, t in zip(group_ids, ts)]
+            return fn(ts, values, counts, groups, 0, MIN_TS_NONE)
+        return run
 
 
 def synth_workload(n_series: int, n_samples: int, cfg: RollupConfig,

@@ -189,8 +189,11 @@ class DeviceWindowCache:
 
 
 def tiles_nbytes(tiles) -> int:
-    return sum(t.numel() * t.element_size() for t in tiles
-               if isinstance(t, torch.Tensor))
+    """Device bytes of a tile tuple; a series-sharded entry (a list of
+    per-shard tensors) counts the bytes of every shard."""
+    return sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+               else tiles_nbytes(t) if isinstance(t, (list, tuple)) else 0
+               for t in tiles)
 
 
 class TileCache:

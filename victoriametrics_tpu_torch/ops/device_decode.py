@@ -1,4 +1,5 @@
-"""Compact nearest-delta2 planes: host packing and the device decode (K1).
+"""Compact nearest-delta2 planes: host packing, the device decode (K1) and
+the fused decode + rollup (B12).
 
 The cold upload ships second-order deltas quantized to the narrowest
 integer plane that fits (int8/int16/int32), about 2-5 bytes per sample
@@ -7,7 +8,9 @@ the tile on the card with two cumulative sums per row.  Port of
 ``victoriametrics_tpu/ops/device_decode.py``: ``pack_delta_planes`` is the
 same host code (same arrays, dtype for dtype, float64 scale);
 ``decode_tiles`` launches ``csrc/decode.cu`` for CUDA tensors and runs its
-plain PyTorch version for CPU tensors.
+plain PyTorch version for CPU tensors; ``decode_and_rollup`` decodes each
+row and rolls it up in one kernel (``csrc/rollup.cu`` decode_rollup),
+never writing the decoded [S, n] tile.
 
 Overflow safety: a tile is only eligible when every intermediate
 (mantissa, delta) fits int32; otherwise ``pack_delta_planes`` returns None
@@ -16,12 +19,16 @@ and the caller packs a dense tile.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from .. import kernels
+from .device_rollup import (FUNC_CODES, MIN_TS_NONE, num_steps,
+                            rollup_tile_plain)
+from .rollup_np import RollupConfig
 
 TS_PAD = np.int32(2**31 - 1)
 
@@ -182,3 +189,69 @@ def decode_tiles(ts_first, ts_fd, ts_d2, val_first, val_fd, val_d2, scale,
         "decode_tiles (value plane)")
     kernels.LAUNCHES["decode_tiles"] += 1
     return ts, vals
+
+
+def decode_and_rollup_plain(func: str, ts_first, ts_fd, ts_d2, val_first,
+                            val_fd, val_d2, scale, counts, cfg: RollupConfig,
+                            n: int) -> torch.Tensor:
+    """Plain version of B12: decode_tiles_plain, then rollup_tile_plain."""
+    ts, vals = decode_tiles_plain(ts_first, ts_fd, ts_d2, val_first, val_fd,
+                                  val_d2, scale, counts, n)
+    return rollup_tile_plain(func, ts, vals, counts, cfg)
+
+
+def decode_and_rollup(func: str, ts_first, ts_fd, ts_d2, val_first, val_fd,
+                      val_d2, scale, counts, cfg: RollupConfig, n: int,
+                      force_global: bool = False) -> torch.Tensor:
+    """B12: fused decode + rollup of delta planes -> float64 [S, T].
+
+    The kernel decodes each row with K1's arithmetic and rolls it up with
+    B5's series pass, so its output equals decode_tiles -> rollup_tile bit
+    for bit, without the decoded tile.  A decoded row (12 B per column)
+    lives in shared memory up to the card's opt-in limit, else in a
+    global scratch slot of each resident block; `force_global` takes the
+    scratch path at any width (to test it)."""
+    if func not in FUNC_CODES:
+        raise ValueError(f"unsupported device rollup func {func!r}")
+    args = (ts_first, ts_fd, ts_d2, val_first, val_fd, val_d2, scale, counts)
+    dev = kernels.placement(*args)
+    S = int(counts.shape[0])
+    n = int(n)
+    for name, d2 in (("ts_d2", ts_d2), ("val_d2", val_d2)):
+        if d2.dim() != 2 or d2.shape[0] != S or d2.shape[1] < n - 2:
+            raise ValueError(f"{name}: need [S, >= n-2] = [{S}, >= {n - 2}],"
+                             f" got {tuple(d2.shape)}")
+        if d2.dtype not in (torch.int8, torch.int16, torch.int32):
+            raise TypeError(f"{name}: int8/int16/int32 plane, got {d2.dtype}")
+    if dev.type == "cpu":
+        return decode_and_rollup_plain(func, *args, cfg, n)
+    for name, t in (("ts_first", ts_first), ("ts_fdelta", ts_fd),
+                    ("val_first", val_first), ("val_fdelta", val_fd),
+                    ("counts", counts)):
+        kernels.require(t, name, torch.int32, (S,))
+    kernels.require(scale, "scale", torch.float64, (S,))
+    for name, d2 in (("ts_d2", ts_d2), ("val_d2", val_d2)):
+        kernels.require(d2, name, d2.dtype, tuple(d2.shape))
+    T = num_steps(cfg)
+    h = kernels.lib("rollup")
+    code = FUNC_CODES[func]
+    blocks = ctypes.c_int(0)
+    nbytes = ctypes.c_longlong(0)
+    kernels.check(h, h.vm_decode_rollup_plan(
+        S, n, code, int(bool(force_global)), ctypes.byref(blocks),
+        ctypes.byref(nbytes)), "decode_and_rollup (plan)")
+    scratch = torch.empty(max(nbytes.value, 8), dtype=torch.uint8,
+                          device=dev)
+    out = torch.empty((S, T), dtype=torch.float64, device=dev)
+    kernels.check(h, h.vm_decode_rollup(
+        ts_first.data_ptr(), ts_fd.data_ptr(), ts_d2.data_ptr(),
+        ts_d2.element_size(), ts_d2.shape[1], val_first.data_ptr(),
+        val_fd.data_ptr(), val_d2.data_ptr(), val_d2.element_size(),
+        val_d2.shape[1], scale.data_ptr(), counts.data_ptr(), S, n, T,
+        int(MIN_TS_NONE), cfg.step, cfg.lookback, float(cfg.start) / 1e3,
+        int(cfg.start >= cfg.end), code, int(bool(force_global)),
+        scratch.data_ptr(), out.data_ptr(), kernels.stream_of(dev)),
+        "decode_and_rollup")
+    del scratch  # lives until the launch is queued
+    kernels.LAUNCHES["decode_and_rollup"] += 1
+    return out

@@ -405,6 +405,14 @@ def finalize_group_moments(aggr: str,
     return torch.where(cnt > 0, out, torch.nan)
 
 
+#: the moments each aggregate keeps, in their stored order
+#: (csrc/moments.cuh): cnt, then s1 (and s2), or min, or max
+MOMENTS = {"sum": ("cnt", "s1"), "avg": ("cnt", "s1"), "min": ("cnt", "min"),
+           "max": ("cnt", "max"), "stddev": ("cnt", "s1", "s2"),
+           "stdvar": ("cnt", "s1", "s2"), "count": ("cnt",),
+           "group": ("cnt",)}
+
+
 def aggregate_groups(aggr: str, rolled: torch.Tensor, group_ids: torch.Tensor,
                      num_groups: int) -> torch.Tensor:
     """Aggregate per-series rollup results [S, T] into [G, T] by group id.
@@ -516,33 +524,53 @@ def _scan_rows(h, func: str, ts, values, counts, cfg: RollupConfig,
         (cv, cmax, slots, mpi, mean)
 
 
+def _out_block(out, shape, dev) -> torch.Tensor:
+    """A caller's output block: float64 of `shape` on `dev` with unit
+    column stride (rows may be a wider tensor's), or a new tensor."""
+    if out is None:
+        return torch.empty(shape, dtype=torch.float64, device=dev)
+    if out.dtype != torch.float64 or tuple(out.shape) != tuple(shape) or \
+            out.device != dev:
+        raise ValueError(f"out: expected float64 {tuple(shape)} on {dev}, "
+                         f"got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+    if len(shape) > 1 and shape[-1] > 1 and out.stride(-1) != 1:
+        raise ValueError("out: columns must be contiguous")
+    return out
+
+
 def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
                 counts: torch.Tensor, cfg: RollupConfig, min_ts=MIN_TS_NONE,
-                shift: int = 0) -> torch.Tensor:
+                shift: int = 0, out=None) -> torch.Tensor:
     """B5: windowed rollup over a tile -> float64 [S, T] (NaN = gap).
 
     `shift` (ms) rebases tile timestamps onto the cfg grid (rolling tiles:
     shift = query_start - tile_base); `min_ts` is the query's fetch lower
     bound in the shifted frame, gating only previous-sample accesses.
-    Time-valued funcs refuse a shift."""
+    Time-valued funcs refuse a shift.  `out`, when given, is the [S, T]
+    block written (a row block of a gathered tile, or a time shard's
+    columns of a wider one)."""
     if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     _check_shift(func, shift)
     dev = kernels.placement(ts, values, counts)
-    if dev.type == "cpu":
-        return rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
-                                 min_ts)
-    S, N = _check_tile(ts, values, counts)
     T = num_steps(cfg)
+    if dev.type == "cpu":
+        res = rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
+                                min_ts)
+        return res if out is None else \
+            _out_block(out, res.shape, dev).copy_(res)
+    S, N = _check_tile(ts, values, counts)
+    out = _out_block(out, (S, T), dev)
     h = kernels.lib("rollup")
     stream = kernels.stream_of(dev)
     rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
                             stream)
-    out = torch.empty((S, T), dtype=torch.float64, device=dev)
     kernels.check(h, h.vm_rollup_series(
         ts.data_ptr(), values.data_ptr(), *rows, S, N, T, int(shift),
         int(min_ts), cfg.step, cfg.lookback, float(cfg.start) / 1e3,
-        FUNC_CODES[func], out.data_ptr(), stream), "rollup_tile")
+        FUNC_CODES[func], out.data_ptr(), out.stride(0) if S else T, stream),
+        "rollup_tile")
     del keep  # the row tensors live until the launch is queued
     kernels.LAUNCHES["rollup_tile"] += 1
     return out
@@ -600,6 +628,63 @@ def rollup_aggregate_tile(func: str, aggr: str, ts: torch.Tensor,
         "rollup_aggregate_tile (group pass)")
     del keep
     kernels.LAUNCHES["rollup_aggregate_tile"] += 1
+    return out
+
+
+def rollup_group_moments_plain(func: str, aggr: str, ts, values, counts,
+                               groups: GroupLayout, cfg: RollupConfig,
+                               shift: int = 0,
+                               min_ts=MIN_TS_NONE) -> torch.Tensor:
+    """Plain version of B13's per-shard pass: rollup_tile_plain, then
+    partial_group_moments stacked in MOMENTS order -> [M, G, T]."""
+    _check_shift(func, shift)
+    rolled = rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
+                               min_ts)
+    m = partial_group_moments(aggr, rolled, groups.gids, groups.num_groups)
+    return torch.stack([m[k] for k in MOMENTS[aggr]])
+
+
+def rollup_group_moments(func: str, aggr: str, ts: torch.Tensor,
+                         values: torch.Tensor, counts: torch.Tensor,
+                         groups: GroupLayout, cfg: RollupConfig,
+                         shift: int = 0, min_ts=MIN_TS_NONE,
+                         out=None) -> torch.Tensor:
+    """B13's per-shard pass: K2's group walk over one shard's tile,
+    writing the aggregate's moments (MOMENTS[aggr]) -> float64 [M, G, T]
+    instead of finalizing them; `out`, when given, is the shard's block of
+    the [D, M, G, T] buffer the combine reads."""
+    if func not in FUNC_CODES:
+        raise ValueError(f"unsupported device rollup func {func!r}")
+    if aggr not in AGGR_FUNCS:
+        raise ValueError(f"unsupported aggregate {aggr!r}")
+    _check_shift(func, shift)
+    dev = kernels.placement(ts, values, counts, groups.gids, groups.order,
+                            groups.starts)
+    if dev.type == "cpu":
+        res = rollup_group_moments_plain(func, aggr, ts, values, counts,
+                                         groups, cfg, shift, min_ts)
+        return res if out is None else \
+            _out_block(out, res.shape, dev).copy_(res)
+    S, N = _check_tile(ts, values, counts)
+    G = groups.num_groups
+    T = num_steps(cfg)
+    kernels.require(groups.order, "order", torch.int32, (S,))
+    kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
+    out = _out_block(out, (len(MOMENTS[aggr]), G, T), dev)
+    if not out.is_contiguous():
+        raise ValueError("out: must be contiguous")
+    h = kernels.lib("rollup")
+    stream = kernels.stream_of(dev)
+    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
+                            stream)
+    kernels.check(h, h.vm_rollup_group_moments(
+        ts.data_ptr(), values.data_ptr(), *rows, groups.order.data_ptr(),
+        groups.starts.data_ptr(), G, N, T, int(shift), int(min_ts), cfg.step,
+        cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
+        AGGR_FUNCS[aggr], out.data_ptr(), stream),
+        "sharded_rollup_aggregate (moments)")
+    del keep
+    kernels.LAUNCHES["rollup_group_moments"] += 1
     return out
 
 
@@ -752,9 +837,10 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
                                 values: torch.Tensor, counts: torch.Tensor,
                                 aggr: torch.Tensor, shift: torch.Tensor,
                                 min_ts: torch.Tensor,
-                                v0: torch.Tensor) -> torch.Tensor:
+                                v0: torch.Tensor, out=None) -> torch.Tensor:
     """B9: aggr(rollup(m[d])) for every stream of a fleet bucket in one
-    launch -> float64 [B, G, T].
+    launch -> float64 [B, G, T] (`out`, when given: a stream shard's block
+    of a bucket's output, B14).
 
     ts int32 [B, S, N], values float64 [B, S, N], counts int32 [B, S];
     per stream (int32 [B]) the aggregate code (FLEET_AGGR_CODES), the grid
@@ -768,9 +854,11 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
     dev = kernels.placement(ts, values, counts, layout.gids, layout.order,
                             layout.starts, aggr, shift, min_ts, v0)
     if dev.type == "cpu":
-        return fleet_rollup_aggregate_tile_plain(func, cfg, layout, ts,
-                                                 values, counts, aggr, shift,
-                                                 min_ts, v0)
+        res = fleet_rollup_aggregate_tile_plain(func, cfg, layout, ts,
+                                                values, counts, aggr, shift,
+                                                min_ts, v0)
+        return res if out is None else \
+            _out_block(out, res.shape, dev).copy_(res)
     if ts.dim() != 3 or ts.shape[2] < 1:
         raise ValueError("fleet planes must be [B, S, N] with N >= 1")
     B, S, N = ts.shape
@@ -788,7 +876,9 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
     stream = kernels.stream_of(dev)
     rows, keep = _scan_rows(h, func, ts, values, counts, cfg, 0, 0, stream,
                             fleet=(shift, min_ts, v0))
-    out = torch.empty((B, G, T), dtype=torch.float64, device=dev)
+    out = _out_block(out, (B, G, T), dev)
+    if not out.is_contiguous():
+        raise ValueError("out: must be contiguous")
     kernels.check(h, h.vm_fleet_rollup_groups(
         ts.data_ptr(), values.data_ptr(), *rows, v0.data_ptr(),
         layout.order.data_ptr(), layout.starts.data_ptr(), shift.data_ptr(),

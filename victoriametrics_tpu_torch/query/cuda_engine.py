@@ -26,6 +26,17 @@ tpu_engine.py`` (functions keep their reference names without the
   roll-state key (``device_roll_keys``), where the fleet
   (``CUDAEngine.fleet()``, ``query/fleet.py``: B9-B11) adopts it.
 
+With a mesh (``CUDAEngine(mesh=parallel.mesh.make_mesh(...))``, the
+reference's ``TPUEngine(mesh=...)``) a tile's rows are padded to a
+multiple of the series axis and split into per-shard row blocks (a list
+of tensors), each on its shard's device: K1, K3, K4 and B5 run per
+shard, the fused aggregate is B13 (``sharded_rollup_aggregate``: each
+shard's moments, combined in shard order), and the selections and
+quantiles run B6/B7/B8 on the shards' rollups gathered onto the first
+device.  Padded rows have count 0 and group 0 and come back from no
+entry point.  ``auto_mesh`` keeps the reference's rule: no mesh below two
+cards, so one card serves unsharded.
+
 The engine is float64 only (the H100 computes float64 natively; the
 reference's float32 rebase tiles exist because the TPU does not), so the
 reference's func_mode is always "direct" here.  Queries the reference
@@ -49,12 +60,14 @@ from ..models import tile_cache
 from ..ops import decimal as dec
 from ..ops import device_decode as dd
 from ..ops.device_rollup import (AGGR_FUNCS, MIN_TS_NONE, TIME_VALUED_FUNCS,
-                                 GroupLayout, append_tile, compact_tile,
-                                 group_layout, normalized_cfg, pack_series,
-                                 rank_tile,
-                                 rollup_aggregate_tile, rollup_quantile_tile,
-                                 rollup_tile, take_rows, topk_select_tile)
+                                 TS_PAD, GroupLayout, append_tile,
+                                 compact_tile, group_layout, normalized_cfg,
+                                 num_steps, pack_series, quantile_groups,
+                                 rank_rows, rollup_aggregate_tile,
+                                 rollup_tile, take_rows, topk_select)
 from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
+from ..parallel import mesh as meshlib
+from ..parallel.partition import AXIS_SERIES, host_rows, per_shard, shard_put
 from ..utils import metrics as metricslib
 
 FUSED_AGGRS = frozenset(AGGR_FUNCS)
@@ -73,12 +86,19 @@ def _kernel_histogram(kernel: str, phase: str):
     return h
 
 
+def _cuda_devices(out):
+    if isinstance(out, (tuple, list)):
+        for t in out:
+            yield from _cuda_devices(t)
+    elif isinstance(out, torch.Tensor) and out.is_cuda:
+        yield out.device
+
+
 def _synchronize(out) -> None:
-    items = out if isinstance(out, tuple) else (out,)
-    for t in items:
-        if isinstance(t, torch.Tensor) and t.is_cuda:
-            torch.cuda.synchronize(t.device)
-            return
+    """Wait for every card a result (a tensor, or tuples and lists of
+    them: a sharded tile's) lies on."""
+    for dev in set(_cuda_devices(out)):
+        torch.cuda.synchronize(dev)
 
 
 def timed_kernel_call(kernel: str, fn, *args, **kw):
@@ -111,10 +131,14 @@ def _pull_host(out: torch.Tensor) -> np.ndarray:
 @dataclasses.dataclass
 class CUDAEngine:
     """The port's device engine: one card (``device="cuda"``), or the plain
-    PyTorch versions when a caller asks for ``device="cpu"``."""
+    PyTorch versions when a caller asks for ``device="cpu"``.  With a
+    `mesh` (parallel.mesh.Mesh, series axis) tiles are series-sharded over
+    its devices and `device` becomes the mesh's first device, where
+    results are gathered."""
     device: object = "cuda"
     cache_bytes: int = 2 << 30
     min_series: int = 64         # below this the host path wins
+    mesh: object = None          # parallel.mesh.Mesh: series-axis sharding
     last_roll_decline: str = ""  # why the last rolling advance fell back
     _cache: object = None
     _aux: object = None
@@ -122,10 +146,18 @@ class CUDAEngine:
     _fleet: object = None
 
     def __post_init__(self):
+        if self.mesh is not None:
+            self.device = meshlib.first_device(self.mesh)
         self.device = torch.device(self.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDAEngine: no CUDA device is available "
                                "(pass device='cpu' for the plain versions)")
+
+    def series_shards(self) -> int:
+        """Size of the mesh's series axis (1 = single-device engine)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.shape[AXIS_SERIES]
 
     def cache(self) -> tile_cache.TileCache:
         if self._cache is None:
@@ -147,6 +179,79 @@ class CUDAEngine:
             from .fleet import FleetPlane
             self._fleet = FleetPlane(self)
         return self._fleet
+
+
+def auto_mesh():
+    """Series-axis mesh over every visible CUDA device, or None below two
+    cards (the reference's rule, query/tpu_engine.py:454-468): one card
+    serves unsharded."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        return None
+    return meshlib.make_mesh(n_series=n, n_time=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """A series-sharded tile's group layouts: `full` over the live rows on
+    the gather device (the quantile's, B8, over the gathered rollup) and
+    one per shard over its row block, padded rows in group 0 (B13's; their
+    rollup is NaN and adds nothing)."""
+    full: GroupLayout
+    shards: tuple
+
+    @property
+    def gids(self) -> torch.Tensor:
+        return self.full.gids
+
+    @property
+    def num_groups(self) -> int:
+        return self.full.num_groups
+
+
+def groups_for(engine: CUDAEngine, gids, num_groups: int):
+    """The group layout a query's kernels take: a GroupLayout on the
+    engine's device, or MeshGroups on a series-sharded engine."""
+    full = group_layout(gids, num_groups, engine.device)
+    if engine.series_shards() <= 1:
+        return full
+    g = np.asarray(gids if not torch.is_tensor(gids) else gids.cpu(),
+                   dtype=np.int32)
+    blocks = shard_put(engine.mesh, "gids", g, 0)
+    return MeshGroups(full, tuple(group_layout(b, num_groups, b.device)
+                                  for b in blocks))
+
+
+def tile_shape(tiles) -> tuple[int, int]:
+    """(rows, columns) of a tile, summed over its shards (padded rows
+    included)."""
+    ts = tiles[0]
+    if isinstance(ts, list):
+        return sum(int(t.shape[0]) for t in ts), int(ts[0].shape[1])
+    return int(ts.shape[0]), int(ts.shape[1])
+
+
+def rolled_rows(engine: CUDAEngine, func: str, tiles, cfg: RollupConfig,
+                min_ts=MIN_TS_NONE, shift: int = 0) -> torch.Tensor:
+    """B5 over a tile -> float64 [rows, T] on the engine's device; on a
+    series-sharded tile each shard writes its block of one buffer there
+    (a peer copy from another card)."""
+    ts_t, v_t, counts = tiles
+    if not isinstance(ts_t, list):
+        return rollup_tile(func, ts_t, v_t, counts, cfg, min_ts, shift)
+    out = torch.empty((tile_shape(tiles)[0], num_steps(cfg)),
+                      dtype=torch.float64, device=engine.device)
+    r0 = 0
+    for ts, v, c in zip(ts_t, v_t, counts):
+        block = out[r0:r0 + ts.shape[0]]
+        here = ts.device == engine.device
+        with kernels.on_device(ts.device):
+            got = rollup_tile(func, ts, v, c, cfg, min_ts, shift,
+                              out=block if here else None)
+        if not here:
+            block.copy_(got, non_blocking=True)
+        r0 += int(ts.shape[0])
+    return out
 
 
 def _fingerprint(series, start_ms: int) -> tuple:
@@ -189,10 +294,11 @@ def try_rollup(engine: CUDAEngine, func: str, series, cfg: RollupConfig,
         return None
     if not _span_fits(cfg):
         return None  # needs chunking; host path handles it
-    ts_t, v_t, counts = _resident_tiles(engine, series, cfg, cache_key)
-    out = timed_kernel_call("rollup_tile", rollup_tile, func, ts_t, v_t,
-                            counts, normalized_cfg(func, cfg), MIN_TS_NONE)
-    return list(_pull_host(out))
+    tiles = _resident_tiles(engine, series, cfg, cache_key)
+    out = timed_kernel_call("rollup_tile", rolled_rows, engine, func, tiles,
+                            normalized_cfg(func, cfg))
+    # mesh tiles are row-padded; only the live rows come back
+    return list(_pull_host(out[:len(series)]))
 
 
 TOPK_RANK_KINDS = frozenset({"max", "min", "avg", "median", "last"})
@@ -223,16 +329,18 @@ def try_topk_rollup(engine: CUDAEngine, name: str, k: float, func: str,
     k_i = max(int(k), 0)
     if k_i == 0:
         return []
-    ts_t, v_t, counts = _resident_tiles(engine, series, cfg, cache_key)
-    ncfg = normalized_cfg(func, cfg)
-    dev = ts_t.device
+    tiles = _resident_tiles(engine, series, cfg, cache_key)
+    dev = engine.device
+    # on a mesh, the shards' rollups gathered on the first device
+    rolled = timed_kernel_call("rollup_tile", rolled_rows, engine, func,
+                               tiles, normalized_cfg(func, cfg))
     if kind is None:
-        k_eff = min(k_i, int(ts_t.shape[0]))
-        rolled, idx, sel_nan = timed_kernel_call(
-            "topk_select_tile", topk_select_tile, func, ts_t, v_t, counts,
-            ncfg, k_eff, bottom)
+        k_eff = min(k_i, int(rolled.shape[0]))
+        idx, sel_nan = timed_kernel_call("topk_select_tile", topk_select,
+                                         rolled, k_eff, bottom)
         idx_h = _pull(idx).astype(np.int64)
         valid = ~_pull(sel_nan)
+        # padded tile rows roll to all-NaN and are never selected valid
         sel = np.unique(idx_h[valid])
         sel = sel[sel < len(series)]
         if sel.size == 0:
@@ -252,8 +360,7 @@ def try_topk_rollup(engine: CUDAEngine, name: str, k: float, func: str,
             if not np.isnan(vals).all():
                 out.append((int(i), vals))
         return out
-    rolled, rank = timed_kernel_call("rank_tile", rank_tile, func, kind,
-                                     ts_t, v_t, counts, ncfg)
+    rank = timed_kernel_call("rank_tile", rank_rows, rolled, kind)
     rank_h = _pull_host(rank)[:len(series)]
     # the host evaluator's ordering: stable sorts, ties favour later series
     rank_h = np.where(np.isnan(rank_h), np.inf if bottom else -np.inf,
@@ -283,7 +390,7 @@ def try_aggr_rollup(engine: CUDAEngine, aggr: str, func: str, series,
         return None
     tiles = _resident_tiles(engine, series, cfg, cache_key)
     return _dispatch_fused(engine, aggr, func, tiles,
-                           group_layout(gids, num_groups, engine.device), cfg)
+                           groups_for(engine, gids, num_groups), cfg)
 
 
 def warmup(engine: CUDAEngine, funcs=("rate", "increase", "default_rollup"),
@@ -316,25 +423,43 @@ def warmup(engine: CUDAEngine, funcs=("rate", "increase", "default_rollup"),
 
 
 def _dispatch_fused(engine: CUDAEngine, aggr: str, func: str, tiles,
-                    groups: GroupLayout, cfg: RollupConfig, shift: int = 0,
+                    groups, cfg: RollupConfig, shift: int = 0,
                     min_ts=None) -> np.ndarray:
-    """Run K2 on a tile and pull the [G, T] result.  `shift` rebases
-    rolling-tile timestamps onto the query grid and `min_ts` reproduces
-    fetch truncation on over-covering tiles."""
+    """Run K2 on a tile, or B13 on a series-sharded one, and pull the
+    [G, T] result.  `shift` rebases rolling-tile timestamps onto the query
+    grid and `min_ts` reproduces fetch truncation on over-covering
+    tiles."""
     if min_ts is None:
         min_ts = MIN_TS_NONE
     ts_t, v_t, counts = tiles
-    out = timed_kernel_call("rollup_aggregate_tile", rollup_aggregate_tile,
-                            func, aggr, ts_t, v_t, counts, groups,
-                            normalized_cfg(func, cfg), int(shift),
-                            int(min_ts))
+    ncfg = normalized_cfg(func, cfg)
+    if engine.series_shards() > 1:
+        fn = meshlib.cached_sharded_rollup_aggregate(
+            engine.mesh, func, aggr, ncfg, groups.num_groups)
+        out = timed_kernel_call("sharded_rollup_aggregate", fn, ts_t, v_t,
+                                counts, groups.shards, int(shift),
+                                int(min_ts))
+    else:
+        out = timed_kernel_call("rollup_aggregate_tile",
+                                rollup_aggregate_tile, func, aggr, ts_t, v_t,
+                                counts, groups, ncfg, int(shift),
+                                int(min_ts))
     return _pull_host(out)
 
 
 def _upload_tiles(engine: CUDAEngine, series, cfg: RollupConfig):
     """Cold upload: compact delta planes decoded on device (~2-5
-    B/sample over the link); dense tiles when the data needs >int32."""
-    put = tile_cache.chunked_device_put
+    B/sample over the link); dense tiles when the data needs >int32.
+
+    On a mesh the rows are padded to a multiple of the series axis
+    (padded rows: count 0 and scale 1, which K1 decodes to TS_PAD rows)
+    and placed per the partition rules, and K1 decodes each shard's rows
+    on its own device: the decoded tile never leaves it."""
+    mesh = engine.mesh if engine.series_shards() > 1 else None
+
+    def put(a, name, pad_value=0):
+        return shard_put(mesh, name, a, pad_value, device=engine.device)
+
     triples = []
     for sd in series:
         m, e = dec.float_to_decimal(sd.values)
@@ -351,17 +476,19 @@ def _upload_tiles(engine: CUDAEngine, series, cfg: RollupConfig):
                 planes,
                 ts_d2=np.pad(planes.ts_d2, ((0, 0), (0, pad))),
                 val_d2=np.pad(planes.val_d2, ((0, 0), (0, pad))))
-        dev = [put(getattr(planes, f.name), engine.device)
+        dev = [put(getattr(planes, f.name), f.name,
+                   1 if f.name == "scale" else 0)
                for f in dataclasses.fields(planes)]
-        ts_t, v_t = timed_kernel_call("decode_tiles", dd.decode_tiles, *dev,
-                                      n_cap)
+        ts_t, v_t = timed_kernel_call(
+            "decode_tiles", per_shard,
+            lambda *a: dd.decode_tiles(*a, n_cap), *dev)
         return ts_t, v_t, dev[7]
     ts, vals, counts = pack_series(
         [(sd.timestamps, sd.values) for sd in series], cfg.start,
         n_pad=tile_capacity(
             max((sd.timestamps.size for sd in series), default=1)))
-    return (put(ts, engine.device), put(vals, engine.device),
-            put(counts, engine.device))
+    return (put(ts, "ts", int(TS_PAD)), put(vals, "values"),
+            put(counts, "counts"))
 
 
 def tile_capacity(n: int) -> int:
@@ -457,7 +584,7 @@ def register_window(engine: CUDAEngine, roll_state_key, roll_tile_key, gids,
             return None
         if not isinstance(rt, RollingTile) or rt.adopted_key != tile_key:
             rt = RollingTile(
-                tiles=tiles, base_ms=cfg.start, n_cap=int(tiles[0].shape[1]),
+                tiles=tiles, base_ms=cfg.start, n_cap=tile_shape(tiles)[1],
                 lo_ms=fetch_info[0], hi_ms=fetch_info[1],
                 version=fetch_info[2], structural=structural,
                 counts_host=np.fromiter((sd.timestamps.size for sd in series),
@@ -469,7 +596,7 @@ def register_window(engine: CUDAEngine, roll_state_key, roll_tile_key, gids,
     elif not isinstance(rt, RollingTile):
         return None
     wcache.put(roll_state_key,
-               (rt, group_layout(gids, len(group_keys), engine.device),
+               (rt, groups_for(engine, gids, len(group_keys)),
                 list(group_keys)))
     return rt
 
@@ -538,13 +665,15 @@ def compact_window(engine: CUDAEngine, rt: RollingTile,
     if rt.adopted_key is not None:
         engine.cache().invalidate(rt.adopted_key)
         rt.adopted_key = None
-    ts_t, v_t, counts_t = rt.tiles
+    # K4 per shard on a mesh, every shard at the same cutoff
     new_ts, new_vals, new_counts = timed_kernel_call(
-        "compact_tile", compact_tile, ts_t, v_t, counts_t, int(cutoff_rel),
-        int(cutoff_rel))
+        "compact_tile", per_shard,
+        lambda ts, v, c: compact_tile(ts, v, c, int(cutoff_rel),
+                                      int(cutoff_rel)), *rt.tiles)
+    rows = len(rt.counts_host)  # the live rows (a mesh tile pads more)
     counts_host = tile_cache.timed_transfer(
-        "device:download", new_counts.numel() * 4,
-        lambda: new_counts.to("cpu").numpy().astype(np.int64))
+        "device:download", rows * 4,
+        lambda: host_rows(new_counts, rows).astype(np.int64))
     rt.tiles = (new_ts, new_vals, new_counts)
     rt.counts_host = counts_host
     rt.n_samples = int(counts_host.sum())
@@ -576,8 +705,7 @@ def _append_cols(engine: CUDAEngine, rt: RollingTile, cols,
         if int(new_n.max()) > rt.n_cap:
             engine.last_roll_decline = "column headroom exhausted"
             return False
-    ts_t, v_t, counts_t = rt.tiles
-    S_tile = int(ts_t.shape[0])
+    S_tile = tile_shape(rt.tiles)[0]
     K = int(cols.ts.shape[1])
     K_pad = (K + 7) // 8 * 8  # few distinct append shapes
     new_ts = np.zeros((S_tile, K_pad), dtype=np.int32)
@@ -589,11 +717,13 @@ def _append_cols(engine: CUDAEngine, rt: RollingTile, cols,
     if rt.adopted_key is not None:
         engine.cache().invalidate(rt.adopted_key)
         rt.adopted_key = None
-    put = tile_cache.chunked_device_put
-    timed_kernel_call("append_tile", append_tile, ts_t, v_t, counts_t,
-                      put(new_ts, engine.device),
-                      put(new_vals, engine.device),
-                      put(new_counts, engine.device))
+    # the tile rows are already padded to the mesh multiple: these puts
+    # only place the columns per shard
+    mesh = engine.mesh if engine.series_shards() > 1 else None
+    news = [shard_put(mesh, name, a, device=engine.device) for name, a in
+            (("ts", new_ts), ("values", new_vals), ("counts", new_counts))]
+    timed_kernel_call("append_tile", per_shard, append_tile, *rt.tiles,
+                      *news)
     rt.counts_host[rows_idx] = new_n
     rt.n_samples += cols.n_samples
     rt.appends += 1
@@ -683,16 +813,20 @@ def try_quantile_rollup(engine: CUDAEngine, phi: float, func: str, series,
 
 
 def run_quantile_on_tiles(engine: CUDAEngine, phi: float, func: str, tiles,
-                          groups: GroupLayout, cfg: RollupConfig,
-                          shift: int = 0, min_ts=None) -> np.ndarray:
+                          groups, cfg: RollupConfig, shift: int = 0,
+                          min_ts=None) -> np.ndarray:
     """Fused quantile over a device-resident tile (the warm and rolling
     path): `shift` rebases rolling-tile timestamps onto the query grid and
-    `min_ts` reproduces fetch truncation, as for run_fused_on_tiles."""
+    `min_ts` reproduces fetch truncation, as for run_fused_on_tiles.  On a
+    mesh B5 runs per shard into one gathered [rows, T] rollup, and B8 runs
+    there over the live rows only (the padded rows are dropped before the
+    layout, never given out-of-range groups)."""
     if min_ts is None:
         min_ts = MIN_TS_NONE
-    ts_t, v_t, counts = tiles
-    out = timed_kernel_call("rollup_quantile_tile", rollup_quantile_tile,
-                            func, float(phi), ts_t, v_t, counts, groups,
-                            normalized_cfg(func, cfg), int(shift),
-                            int(min_ts))
+    layout = groups.full if isinstance(groups, MeshGroups) else groups
+    rolled = timed_kernel_call("rollup_tile", rolled_rows, engine, func,
+                               tiles, normalized_cfg(func, cfg), int(min_ts),
+                               int(shift))
+    out = timed_kernel_call("rollup_quantile_tile", quantile_groups,
+                            rolled[:layout.gids.shape[0]], layout, float(phi))
     return _pull_host(out)

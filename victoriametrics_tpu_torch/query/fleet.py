@@ -1,7 +1,7 @@
 """Fleet-batched device serving: every resident stream of one bucket shape
 served by ONE launch per interval.
 
-Port of ``victoriametrics_tpu/query/fleet.py`` for one card.  A dashboard
+Port of ``victoriametrics_tpu/query/fleet.py``.  A dashboard
 holds many standing queries (streams), each of which would otherwise pay
 its own rollup launch every interval.  This plane stacks the rolling
 windows of all device-resident streams of one bucket shape on a leading
@@ -41,14 +41,20 @@ re-uploads from the mirror instead of pulling [B, S, N] back.  Uploads are
 private copies (``tile_cache.chunked_device_put``), since B10 writes the
 device planes in place.
 
+On an engine with a mesh the plane shards the stream axis over the mesh's
+devices (``parallel.mesh.make_fleet_mesh``): a bucket's slots round up to
+a multiple of the stream axis, its planes are uploaded per the partition
+rules as per-shard slices of streams, B10 and B11 run per shard, and B14
+(``cached_fleet_rollup_aggregate``) runs B9 on each shard's streams into
+one [B, G, T] output for the single host pull.
+
 What the port leaves out, for later slices: the MetricsQL analysis of the
 stream's query text (a stream carries its parsed :class:`StreamShape`),
 the matstream registry itself (duck-typed: ``api.matstreams.streams()``
-and ``st.due(now_ms)``), the flight recorder and cost-plane hooks (the
-counters below and the shares on :class:`FleetResult` remain), and the
-mesh branch (one card: a bucket's slots are not rounded to a mesh axis).
-Buckets are float64, the port's only tile type, so the rebase-offset
-plane v0 is zeros.
+and ``st.due(now_ms)``), and the flight recorder and cost-plane hooks (the
+counters below and the shares on :class:`FleetResult` remain).  Buckets
+are float64, the port's only tile type, so the rebase-offset plane v0 is
+zeros.
 
 ``VM_DEVICE_FLEET=0`` disables the plane: the per-stream rolling path
 (``advance_rolling`` + ``run_fused_on_tiles``) then serves every stream,
@@ -71,9 +77,12 @@ from ..ops.device_rollup import (FLEET_AGGR_CODES, TS_PAD,
                                  fleet_layout, fleet_rollup_aggregate_tile,
                                  normalized_cfg)
 from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
+from ..parallel import mesh as meshlib
+from ..parallel.partition import (AXIS_STREAM, axis_multiple, host_rows,
+                                  per_shard, shard_put)
 from ..utils import metrics as metricslib
 from .cuda_engine import (RollingTile, _pull_host, device_roll_keys,
-                          tile_capacity, timed_kernel_call)
+                          tile_capacity, tile_shape, timed_kernel_call)
 
 _LAUNCHES = metricslib.REGISTRY.counter("vm_device_fleet_launches_total")
 #: incremented by the number of due streams each launch served: the ratio
@@ -165,7 +174,7 @@ class FleetBucket:
                  "v0_h", "aggr_h", "dev", "dirty",
                  "last_up_bytes", "last_up_wall")
 
-    def __init__(self, key):
+    def __init__(self, key, n_stream: int = 1):
         (self.func, self.step, self.lookback,
          self.S_b, self.N_b, self.T_b, self.G_b) = key
         self.key = key
@@ -178,12 +187,13 @@ class FleetBucket:
         self.cfg = normalized_cfg(self.func, RollupConfig(
             start=0, end=(self.T_b - 1) * self.step, step=self.step,
             window=self.lookback))
-        self._alloc()
+        self._alloc(n_stream)
 
-    def _alloc(self, b_need: int = 1) -> None:
+    def _alloc(self, n_stream: int, b_need: int = 1) -> None:
         """(Re)allocate mirrors for at least `b_need` stream slots
-        (ladder-bucketed)."""
+        (ladder-bucketed, rounded up to the mesh's stream-axis size)."""
         b = bucket_up(max(b_need, 1))
+        b = -(-b // n_stream) * n_stream
         if b <= self.B_pad:
             return
         old = self.B_pad
@@ -239,6 +249,14 @@ class FleetPlane:
         self.evictions = 0
         self.adopt_s = 0.0     # wall seconds spent adopting (pull + crop)
         self.last_decline = ""
+        # the stream-axis mesh over the engine mesh's devices, or None
+        self._mesh = None
+        if getattr(engine, "mesh", None) is not None:
+            self._mesh = meshlib.make_fleet_mesh(
+                list(engine.mesh.devices.flat))
+
+    def n_stream(self) -> int:
+        return axis_multiple(self._mesh, AXIS_STREAM)
 
     def has(self, skey) -> bool:
         with self._lock:
@@ -395,10 +413,11 @@ class FleetPlane:
         if rt.lo_ms > fetch_lo:
             return None
         tiles = rt.tiles
-        N = int(tiles[0].shape[1])
+        N = tile_shape(tiles)[1]
+        # a series-sharded tile's shards come back in row order
         ts_full, vals_full = tile_cache.timed_transfer(
             "device:download", S * N * 12,
-            lambda: (tiles[0][:S].cpu().numpy(), tiles[1][:S].cpu().numpy()))
+            lambda: (host_rows(tiles[0], S), host_rows(tiles[1], S)))
         counts = np.asarray(rt.counts_host, dtype=np.int32).copy()
         # crop to this stream's fetch bound and REBASE the origin there:
         # samples older than fetch_lo never contribute to this stream
@@ -439,7 +458,7 @@ class FleetPlane:
         m.G = len(group_keys)
         m.T = st.duration // st.step + 1
         m.group_keys = list(group_keys)
-        m.gids = groups.gids[:S].cpu().numpy().astype(np.int32)
+        m.gids = host_rows(groups.gids, S).astype(np.int32)
         m.base_ms = base_ms
         m.lo_ms = max(rt.lo_ms, base_ms)
         m.hi_ms = rt.hi_ms
@@ -454,8 +473,8 @@ class FleetPlane:
                bucket_up(m.G))
         b = self._buckets.get(key)
         if b is None:
-            b = self._buckets[key] = FleetBucket(key)
-        b._alloc(len(b.members) + 1)
+            b = self._buckets[key] = FleetBucket(key, self.n_stream())
+        b._alloc(self.n_stream(), len(b.members) + 1)
         m.bucket = b
         m.slot = len(b.members)
         b.members.append(m)
@@ -585,20 +604,26 @@ class FleetPlane:
             m.counts[rows_idx] = new_n
             b.counts_h[m.slot, rows_idx] = new_n.astype(np.int32)
 
-    def _put(self, a: np.ndarray):
+    def _put(self, name: str, a: np.ndarray):
         """A private device copy of a host array (B10 writes the planes in
-        place, so they must never alias a mirror)."""
-        return tile_cache.chunked_device_put(a, self.engine.device)
+        place, so they must never alias a mirror): one tensor, or on a
+        mesh the per-shard slices of its stream axis per the partition
+        rules (`name`)."""
+        return shard_put(self._mesh, name, a, device=self.engine.device)
 
     def _upload(self, b: FleetBucket) -> None:
         """Full mirror -> device upload (adoption, eviction repack), with
-        the bucket's group layout built once for the members it holds."""
+        the bucket's group layout built once for the members it holds
+        (one per stream shard on a mesh)."""
         t0 = time.perf_counter()
-        b.dev = {"ts": self._put(b.ts_h), "vals": self._put(b.vals_h),
-                 "counts": self._put(b.counts_h), "v0": self._put(b.v0_h),
-                 "aggr": self._put(b.aggr_h),
-                 "layout": fleet_layout(self._put(b.gids_h), b.G_b,
-                                        self.engine.device)}
+        b.dev = {"ts": self._put("fleet_ts", b.ts_h),
+                 "vals": self._put("fleet_values", b.vals_h),
+                 "counts": self._put("fleet_counts", b.counts_h),
+                 "v0": self._put("fleet_v0", b.v0_h),
+                 "aggr": self._put("fleet_aggr", b.aggr_h),
+                 "layout": per_shard(
+                     lambda g: fleet_layout(g, b.G_b, g.device),
+                     self._put("fleet_gids", b.gids_h))}
         b.last_up_wall = time.perf_counter() - t0
         b.last_up_bytes = (b.ts_h.nbytes + b.vals_h.nbytes +
                            b.counts_h.nbytes + b.gids_h.nbytes +
@@ -625,9 +650,11 @@ class FleetPlane:
             new_vals[m.slot, rows_idx, :Kc] = cols.vals
             new_counts[m.slot, rows_idx] = cols.counts
         dev = b.dev
-        timed_kernel_call("fleet_append_tile", fleet_append_tile, dev["ts"],
-                          dev["vals"], dev["counts"], self._put(new_ts),
-                          self._put(new_vals), self._put(new_counts))
+        timed_kernel_call("fleet_append_tile", per_shard, fleet_append_tile,
+                          dev["ts"], dev["vals"], dev["counts"],
+                          self._put("fleet_ts", new_ts),
+                          self._put("fleet_values", new_vals),
+                          self._put("fleet_counts", new_counts))
         b.last_up_wall = time.perf_counter() - t0
         b.last_up_bytes = (new_ts.nbytes + new_vals.nbytes +
                            new_counts.nbytes)
@@ -674,10 +701,11 @@ class FleetPlane:
             m.segments = [(max(lo, cutoff_abs), hi, nn)
                           for lo, hi, nn in m.segments if hi >= cutoff_abs]
         if b.dev is not None and not b.dirty:
-            cut_d = self._put(cut_rel.astype(np.int32))
-            out = timed_kernel_call("fleet_compact_tile", fleet_compact_tile,
-                                    b.dev["ts"], b.dev["vals"],
-                                    b.dev["counts"], cut_d, cut_d)
+            cut_d = self._put("fleet_shift", cut_rel.astype(np.int32))
+            out = timed_kernel_call("fleet_compact_tile", per_shard,
+                                    fleet_compact_tile, b.dev["ts"],
+                                    b.dev["vals"], b.dev["counts"], cut_d,
+                                    cut_d)
             b.dev["ts"], b.dev["vals"], b.dev["counts"] = out
             tile_cache.count_window_compaction()
         return True
@@ -725,12 +753,21 @@ class FleetPlane:
             min_ts[m.slot] = -(m.lookback + m.lookback_delta)
         t0 = time.perf_counter()
         dev = b.dev
-        out = timed_kernel_call("fleet_rollup_aggregate_tile",
-                                fleet_rollup_aggregate_tile, b.func, b.cfg,
-                                dev["layout"], dev["ts"], dev["vals"],
-                                dev["counts"], dev["aggr"],
-                                self._put(shift), self._put(min_ts),
-                                dev["v0"])
+        args = (dev["ts"], dev["vals"], dev["counts"], dev["layout"],
+                dev["aggr"], self._put("fleet_shift", shift),
+                self._put("fleet_min_ts", min_ts), dev["v0"])
+        if self._mesh is not None:
+            # B14: B9 on each stream shard's slice, one [B, G, T] output
+            fn = meshlib.cached_fleet_rollup_aggregate(self._mesh, b.func,
+                                                       b.cfg, b.G_b)
+            out = timed_kernel_call("fleet_rollup_aggregate_tile", fn,
+                                    *args)
+        else:
+            ts, vals, counts, layout, aggr, sh, mt, v0 = args
+            out = timed_kernel_call("fleet_rollup_aggregate_tile",
+                                    fleet_rollup_aggregate_tile, b.func,
+                                    b.cfg, layout, ts, vals, counts, aggr,
+                                    sh, mt, v0)
         out_h = _pull_host(out)
         wall = time.perf_counter() - t0
         ver = getattr(api.storage, "data_version", None)
