@@ -13,18 +13,24 @@ each printing one JSON line:
               take_rows, B7 rank_tile and B8 rollup_quantile_tile against
               their plain PyTorch versions on the card: every rollup func
               (K2 under every aggregate) on ragged edge-case rows and the
-              dashboard tile, shifted and not; the selections for k in
-              {1, 10, S}, every rank kind (and a tile wider than the
+              dashboard tile, shifted and not; B6 at k in {1, 10, 16, 17,
+              K_REG, K_REG + 1, S} (both of its paths and their
+              boundaries) on the dashboard, ragged, tie and tall tiles,
+              take_rows with int32 and int64 indices (out-of-range ones
+              among them), every rank kind (and a tile wider than the
               kernels' shared-memory staging), every quantile phi at
               groups of 32 and of all rows, on rates and on a tile of
               ties; times each with CUDA events beside its plain version
               and, where one PyTorch call computes the same function, that
-              call; B9 fleet_rollup_aggregate_tile, B10 fleet_append_tile
-              and B11 fleet_compact_tile at a fleet bucket's shape (nine
-              live streams of the dashboard tile with their own shifts,
-              fetch bounds and the eight aggregates mixed, three padded
-              slots, padded rows and groups); B12 decode_and_rollup
-              (every func, shared-memory and scratch rows), B13
+              call (B6 and take_rows and their library calls three ways:
+              events around one call, around back-to-back calls, and the
+              wrapper's host time); B9 fleet_rollup_aggregate_tile, B10
+              fleet_append_tile and B11 fleet_compact_tile at a fleet
+              bucket's shape (nine live streams of the dashboard tile with
+              their own shifts, fetch bounds and the eight aggregates
+              mixed, three padded slots, padded rows and groups); B12
+              decode_and_rollup (every func, shared-memory and scratch
+              rows), B13
               sharded_rollup_aggregate (every func and aggregate on 8
               logical shards), B14 cached_fleet_rollup_aggregate and B15
               time_sharded_rollup (every func but lifetime), each against
@@ -56,8 +62,12 @@ each printing one JSON line:
               resident tile, topk(10, rate), topk_median(10, rate),
               avg by (instance)(deriv) and an instant quantile(0.99, rate)
               over every series, each with its launch counts and checked
-              against the plain versions; a range quantile at this width
-              is declined by the dense-budget gate, as in the reference
+              against the plain versions (B6 also at k = 20 and, its sort
+              path, at K_REG + 1 on a 512-step slice); the library calls
+              beside B6-B8 (torch.topk, torch.index_select,
+              torch.nanquantile) at this width; a range quantile at this
+              width is declined by the dense-budget gate, as in the
+              reference
   mesh        the multi-device paths on 8 logical shards of this card
               (every shard on cuda:0): (a) the dashboard through
               CUDAEngine(mesh=make_mesh(8, 1)): the cold query (K1 per
@@ -112,6 +122,9 @@ from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
 from victoriametrics_tpu_torch.storage.columnar import PAD_TS, ColumnarSeries
 from victoriametrics_tpu_torch.storage.storage import SeriesData
+from victoriametrics_tpu_torch.timing import (
+    MEM_BYTES_PER_S, SCALAR_OPS_PER_S, bound, cuda_ms, library_or_oom,
+    take_rows_bound, three_ms, topk_bound)
 from victoriametrics_tpu_torch.utils import metrics as metricslib
 
 T_START = 1_753_700_000_000   # unix ms of the first scrape
@@ -146,12 +159,6 @@ FLEET_INTERVALS = [(4, 60_000)] * 5 + [(120, 1_800_000)]
 # the phase's bucket shape in the kernels phase: slots, live streams,
 # columns, steps
 FLEET_B, FLEET_LIVE, FLEET_N, FLEET_T = 12, 9, 2048, 384
-
-# H100 SXM (NVIDIA data sheet): HBM3 rate, and the FP64 vector peak, used
-# for every scalar operation these kernels do (int32 adds and compares,
-# float64 arithmetic)
-MEM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 34e12
 
 SOURCES = {
     "decode_tiles": ("victoriametrics_tpu_torch/csrc/decode.cu",
@@ -238,27 +245,6 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 10, setup=None) -> float:
-    """Median device time of fn() in ms (CUDA events, after one warm-up;
-    `setup` runs before each call, outside the timed span)."""
-    if setup is not None:
-        setup()
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if setup is not None:
-            setup()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -351,14 +337,6 @@ def aggr_close(what, aggr, got, want, func="rate", mean=None) -> float:
     if loose:
         return assert_close(what, got, want, rtol, atol)
     return assert_close(what, got, want, 1e-12, 0.0)
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the scalar rate."""
-    b, o = nbytes / MEM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return {"bytes": nbytes, "ops": ops, "bound_ms": max(b, o) * 1e3,
-            "bound_by": "bytes" if b >= o else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -573,20 +551,36 @@ def check_ranks(what: str, rolled) -> None:
                          1e-12 if kind == "avg" else 0.0, 0.0)
 
 
-def check_selections(what: str, rolled, dev) -> None:
-    """B6, take_rows, B7 and B8 on one rolled tile against their plain
-    versions: every k in {1, 10, S} top and bottom, every rank kind, every
-    phi at groups of 32 and at one group of all rows."""
-    S, T = rolled.shape
+def topk_ks(S: int) -> list[int]:
+    """B6's k at every path boundary: the old register path's 16 | 17,
+    the scan path's K_REG | K_REG + 1 (the sort path), and S."""
+    return sorted({k for k in (1, 10, 16, 17, dr.K_REG, dr.K_REG + 1, S)
+                   if k <= S})
+
+
+def check_topk(what: str, rolled, ks=None) -> None:
+    """B6 against its plain version, picks and NaN flags bit for bit, at
+    each k of ks (every k of topk_ks by default), top and bottom."""
     for bottom in (False, True):
-        for k in sorted({1, min(10, S), S}):
+        for k in ks or topk_ks(rolled.shape[0]):
             gi, gn = dr.topk_select(rolled, k, bottom)
             wi, wn = dr.topk_select_plain(rolled, k, bottom)
             assert_equal(f"B6 {what} k={k} bottom={bottom} idx", gi, wi)
             assert_equal(f"B6 {what} k={k} bottom={bottom} nan", gn, wn)
-    sel = torch.tensor([S - 1, -1, 0, S, S // 2], device=dev)
-    assert_exact(f"take_rows {what}", dr.take_rows(rolled, sel),
-                 dr.take_rows_plain(rolled, sel))
+
+
+def check_selections(what: str, rolled, dev) -> None:
+    """B6, take_rows, B7 and B8 on one rolled tile against their plain
+    versions: B6 at every k of topk_ks top and bottom, take_rows with
+    int32 and int64 indices (out-of-range ones among them), every rank
+    kind, every phi at groups of 32 and at one group of all rows."""
+    S, T = rolled.shape
+    check_topk(what, rolled)
+    sel = torch.tensor([S - 1, -1, 0, S, S // 2, -S - 3, 2 * S], device=dev)
+    for dtype in (torch.int64, torch.int32):
+        assert_equal(f"take_rows {what} {dtype}",
+                     dr.take_rows(rolled, sel.to(dtype)),
+                     dr.take_rows_plain(rolled, sel.to(dtype)))
     check_ranks(what, rolled)
     for n_groups in (max(S // 32, 1), 1):
         gids = (torch.arange(S, device=dev) % n_groups).to(torch.int32)
@@ -666,36 +660,48 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
     for what, r in (("dashboard", rolled), ("ragged", rag_rolled),
                     ("ties", ties)):
         check_selections(what, r, dev)
-    # B6's sort path (k > 16) on a tile taller than a block's shared memory
+    # B6 on a tile taller than the sort path stages in shared memory
     tall = pool[torch.from_numpy(rng.integers(0, 7, (30_000, 4))).to(dev)]
     tall[1::3] = torch.from_numpy(rng.normal(0, 1, (10_000, 4))).to(dev)
-    for bottom in (False, True):
-        for k in (20, 30_000):
-            gi, gn = dr.topk_select(tall, k, bottom)
-            wi, wn = dr.topk_select_plain(tall, k, bottom)
-            assert_equal(f"B6 tall k={k} bottom={bottom} idx", gi, wi)
-            assert_equal(f"B6 tall k={k} bottom={bottom} nan", gn, wn)
+    check_topk("tall", tall)
+    # row counts that no cluster of the plan divides: the last member's
+    # range is shorter than the others'
+    for what, r, rows in (("dashboard", rolled, 8191), ("ties", ties, 5001)):
+        plan = dr.topk_plan(rows, T, 10, kernels.sm_count(dev))
+        if plan.cluster < 2 or rows % plan.cluster == 0:
+            raise AssertionError(f"B6 {rows} rows: plan {plan} splits evenly")
+        check_topk(f"{what} rows :{rows}", r[:rows], (10, dr.K_REG))
     check_ranks("wide", wide)
 
+    # times: cuda_ms as in earlier runs, device_ms (back-to-back calls)
+    # and host_ms (the wrapper's host time), for the kernels and their
+    # library calls
     key = dr._topk_key(rolled, False).T.contiguous()
+    k10 = three_ms(lambda: dr.topk_select(rolled, 10, False))
+    lib10 = three_ms(lambda: torch.topk(key, 10, dim=1))
     res["topk_select_tile"] = dict(
         max_abs_err=0.0,  # picks identical, checked above
-        ms=cuda_ms(lambda: dr.topk_select(rolled, 10, False)),
-        plain_ms=cuda_ms(lambda: dr.topk_select_plain(rolled, 10, False),
-                         reps=3),
-        library_ms=cuda_ms(lambda: torch.topk(key, 10, dim=1)),
-        ms_k20=cuda_ms(lambda: dr.topk_select(rolled, 20, False)),
-        ms_k_all=cuda_ms(lambda: dr.topk_select(rolled, S, False), reps=3),
-        **bound(S * T * 8 + T * 10 * 5, S * T))
+        **k10, plain_ms=cuda_ms(lambda: dr.topk_select_plain(
+            rolled, 10, False), reps=3),
+        library_ms=lib10["ms"], library=lib10,
+        k20=three_ms(lambda: dr.topk_select(rolled, 20, False)),
+        library_k20=three_ms(lambda: torch.topk(key, 20, dim=1)),
+        k_all=three_ms(lambda: dr.topk_select(rolled, S, False), n=10,
+                       reps=3),
+        plan_k10=dr.topk_plan(S, T, 10, kernels.sm_count(dev))._asdict(),
+        **topk_bound(S, T, 10))
     idx, _ = dr.topk_select(rolled, 10, False)
     sel = torch.unique(idx.long())
     M = int(sel.numel())
+    t64 = three_ms(lambda: dr.take_rows(rolled, sel))
+    lib = three_ms(lambda: torch.index_select(rolled, 0, sel))
+    sel32 = sel.to(torch.int32)
     res["take_rows"] = dict(
-        max_abs_err=0.0, rows=M,
-        ms=cuda_ms(lambda: dr.take_rows(rolled, sel)),
+        max_abs_err=0.0, rows=M, **t64,
+        int32=three_ms(lambda: dr.take_rows(rolled, sel32)),
         plain_ms=cuda_ms(lambda: dr.take_rows_plain(rolled, sel)),
-        library_ms=cuda_ms(lambda: torch.index_select(rolled, 0, sel)),
-        **bound(M * T * 16 + M * 8, 0))
+        library_ms=lib["ms"], library=lib,
+        **take_rows_bound(M, T))
     res["rank_tile"] = dict(
         max_abs_err=float(max_abs_err(dr.rank_rows(rolled, "avg"),
                                       dr.rank_rows_plain(rolled, "avg"))),
@@ -1879,7 +1885,7 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
                torch.from_numpy(got["avg_deriv_by_instance"]),
                (drv / drv_n).cpu(), "deriv")
     idx, sel_nan = dr.topk_select(rolled, 10, False)
-    # k = 20 takes B6's sort path
+    # k = 20, as k = 10, takes B6's scan path (k <= K_REG)
     idx20, nan20 = dr.topk_select(rolled, 20, False)
     for t0 in range(0, T, 512):
         wi, wn = dr.topk_select_plain(rolled[:, t0:t0 + 512].contiguous(),
@@ -1892,7 +1898,15 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
                      wi)
         assert_equal(f"full width B6 k=20 nan steps {t0}+",
                      nan20[t0:t0 + 512], wn)
-    del idx20, nan20
+    del idx20, nan20, wi, wn
+    # the sort path (k > K_REG) over all 100,000 rows: a 512-step slice
+    part = rolled[:, :512].contiguous()
+    k_sort = dr.K_REG + 1
+    gi, gn = dr.topk_select(part, k_sort, False)
+    wi, wn = dr.topk_select_plain(part, k_sort, False)
+    assert_equal(f"full width B6 k={k_sort} 512 steps", gi, wi)
+    assert_equal(f"full width B6 k={k_sort} nan 512 steps", gn, wn)
+    del gi, gn, wi, wn
     want_sel = np.unique(idx.cpu().numpy()[~sel_nan.cpu().numpy()])
     if [i for i, _ in got["topk"]] != [int(i) for i in want_sel]:
         raise AssertionError("full width topk: other series")
@@ -1901,13 +1915,33 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
                        kind="stable")
     if [i for i, _ in got["topk_median"]] != [int(i) for i in order[-10:]]:
         raise AssertionError("full width topk_median: other series")
+    sel_t = torch.from_numpy(want_sel).to(dev)  # the panel's rows, int64
+    b6 = {f"k{k}": three_ms(lambda k=k: dr.topk_select(rolled, k, False),
+                            n=10, reps=3) for k in (10, 20)}
+    b6[f"k{k_sort}_512_steps"] = three_ms(
+        lambda: dr.topk_select(part, k_sort, False), n=3, reps=3)
+    b6["plan_k10"] = dr.topk_plan(S, T, 10, kernels.sm_count(dev))._asdict()
+    b6["bound_ms"] = topk_bound(S, T, 10)["bound_ms"]
+    del part
+    # library calls on the same inputs (the key pre-transposed, as at the
+    # dashboard shape)
+    key = dr._topk_key(rolled, False).T.contiguous()
+    library = {f"topk_k{k}": library_or_oom(
+        lambda k=k: torch.topk(key, k, dim=1), 10) for k in (10, 20)}
+    del key
+    library["index_select"] = library_or_oom(
+        lambda: torch.index_select(rolled, 0, sel_t), 10)
+    library["nanquantile_median"] = library_or_oom(
+        lambda: torch.nanquantile(rolled, 0.5, dim=1), 3)
     events = {
         "rollup_tile_ms": cuda_ms(lambda: dr.rollup_tile(
             "rate", ts_t, v_t, counts, ncfg), reps=3),
-        "topk_select_ms": cuda_ms(lambda: dr.topk_select(rolled, 10, False),
-                                  reps=3),
-        "topk_select_k20_ms": cuda_ms(
-            lambda: dr.topk_select(rolled, 20, False), reps=3),
+        "topk_select_ms": b6["k10"]["ms"],
+        "topk_select_k20_ms": b6["k20"]["ms"],
+        "topk_select": b6,
+        "take_rows": {"rows": int(sel_t.numel()), **three_ms(
+            lambda: dr.take_rows(rolled, sel_t), n=10, reps=3),
+            **take_rows_bound(int(sel_t.numel()), T)},
         "rank_median_ms": cuda_ms(lambda: dr.rank_rows(rolled, "median"),
                                   reps=3),
         "k2_deriv_avg_ms": cuda_ms(lambda: dr.rollup_aggregate_tile(
@@ -1928,7 +1962,10 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
                             dr.normalized_cfg("rate", icfg), i_min_ts, shift)
     events["instant_quantile_ms"] = cuda_ms(
         lambda: dr.quantile_groups(inst_k, one, 0.99), reps=3)
-    return {"queries": out, "event_ms": events,
+    dense = dr.dense_by_group(inst_k, one)
+    library["nanquantile_instant"] = library_or_oom(
+        lambda: torch.nanquantile(dense, 0.99, dim=1), 10)
+    return {"queries": out, "event_ms": events, "library": library,
             "b5_max_abs_err_vs_plain": err5,
             "instant_quantile": float(got["instant_quantile"][0, 0])}
 

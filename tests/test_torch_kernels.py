@@ -47,3 +47,12 @@ def test_the_mesh_and_fused_decode_entry_points_are_bound():
     # B15 writes a time shard's block of a wider output: B5 takes a row
     # stride
     assert len(kernels.SIGNATURES["rollup"]["vm_rollup_series"]) == 20
+
+
+def test_b6_is_one_entry_point_with_its_plan():
+    # B6 takes the wrapper's plan (topk_plan) in one call; take_rows names
+    # its index type
+    assert set(kernels.SIGNATURES["select"]) == {
+        "vm_topk_select", "vm_take_rows", "vm_rank_rows"}
+    assert len(kernels.SIGNATURES["select"]["vm_topk_select"]) == 14
+    assert len(kernels.SIGNATURES["select"]["vm_take_rows"]) == 8

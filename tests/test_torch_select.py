@@ -18,6 +18,7 @@ import torch
 
 from victoriametrics_tpu.ops import device_rollup as ref
 from victoriametrics_tpu.ops.rollup_np import RollupConfig as RefConfig
+from victoriametrics_tpu_torch import timing
 from victoriametrics_tpu_torch.ops import device_rollup as dr
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
 from victoriametrics_tpu_torch.query import cuda_engine as ce
@@ -85,6 +86,96 @@ def test_topk_select_ties_match_lax_top_k(k, bottom):
     np.testing.assert_array_equal(
         sel_nan.numpy(), np.isnan(rolled).T[np.arange(9)[:, None],
                                             np.asarray(w_idx)])
+
+
+# B6's path boundaries: the old register path's last k (16) and the sort
+# path's first before this design (17), the scan path's last (K_REG) and
+# the sort path's first (K_REG + 1)
+BOUNDARY_KS = [16, 17, dr.K_REG, dr.K_REG + 1]
+
+
+@pytest.mark.parametrize("bottom", [False, True])
+@pytest.mark.parametrize("k", BOUNDARY_KS)
+def test_topk_select_path_boundaries_match_lax_top_k(k, bottom):
+    """k at each path boundary on a tile of ties (signed zeros,
+    infinities), NaN rows and a ragged last 32-step tile."""
+    rng = np.random.default_rng(100 + k)
+    pool = np.array([-0.0, 0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 2.5])
+    rolled = pool[rng.integers(0, pool.size, (dr.K_REG + 16, 37))]
+    rolled[::11] = np.nan
+    key = jnp.where(jnp.isnan(rolled), -jnp.inf,
+                    -jnp.asarray(rolled) if bottom else jnp.asarray(rolled))
+    _, w_idx = jax.lax.top_k(key.T, k)
+    w_idx = np.asarray(w_idx)
+    idx, sel_nan = dr.topk_select(torch.from_numpy(rolled), k, bottom)
+    np.testing.assert_array_equal(idx.numpy(), w_idx)
+    np.testing.assert_array_equal(
+        sel_nan.numpy(), np.isnan(rolled).T[np.arange(37)[:, None], w_idx])
+
+
+# (S, T, k): the dashboard at k = 10, 20 and S, the full width at k = 10
+# and 20 and its sort-path check (a 512-step slice), a tile shorter than a
+# warp's 32 rows, a tile with k = S on the scan path, and row counts that
+# no cluster size divides (the last member's range is shorter)
+PLAN_CASES = [(8192, 355, 10), (8192, 355, 20), (8192, 355, 8192),
+              (100_000, 5761, 10), (100_000, 5761, 20),
+              (100_000, 512, dr.K_REG + 1), (40, 9, 7), (64, 3, 64),
+              (30_000, 4, 30_000), (8191, 355, 10), (5001, 355, dr.K_REG)]
+
+
+@pytest.mark.parametrize("S,T,k", PLAN_CASES)
+def test_topk_plan(S, T, k):
+    p = dr.topk_plan(S, T, k)
+    if k <= dr.K_REG:  # one launch, no scratch
+        assert p.scratch == 0 and p.chunk == 0 and p.blocks == 0
+        assert p.cluster in (1, 2, 4, 8, 16)
+        # the members' row ranges cover [0, S), none empty
+        assert p.cluster * p.rows >= S > (p.cluster - 1) * p.rows
+        assert p.cluster == 1 or p.rows >= 256
+    else:  # the sort path: chunks of steps, scratch for codes and pairs
+        assert p.cluster == 1
+        assert 1 <= p.chunk <= T and 1 <= p.blocks <= p.chunk
+        assert p.scratch >= 9 * p.chunk * S + p.blocks * 24 * k
+        assert p.chunk == T or 9 * p.chunk * S <= 256 << 20
+
+
+def test_topk_plan_fills_the_card():
+    # the dashboard's 12 tiles of 32 steps take the largest cluster; the
+    # full width's 181 tiles take 2 row ranges each, 2 blocks an SM
+    assert dr.topk_plan(8192, 355, 10)[:2] == (16, 512)
+    assert dr.topk_plan(100_000, 5761, 10)[:2] == (2, 50_000)
+    assert dr.topk_plan(100_000, 5761, 20)[:2] == (2, 50_000)
+    assert dr.topk_plan(40, 9, 7).cluster == 1
+
+
+def test_selection_bounds_count_each_byte_once():
+    # B6 reads [S, T] float64 once and writes [T, k] int32 picks and bool
+    # flags; take_rows reads and writes M rows and reads M int64 indices
+    b = timing.topk_bound(8192, 355, 10)
+    assert b["bytes"] == 8192 * 355 * 8 + 355 * 10 * 5
+    assert b["ops"] == 8192 * 355 and b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(b["bytes"] / 3.35e12 * 1e3)
+    r = timing.take_rows_bound(2260, 355)
+    assert r["bytes"] == 2260 * 355 * 16 + 2260 * 8 and r["ops"] == 0
+    assert timing.bound(1.0, 1e9)["bound_by"] == "operations"
+
+
+def test_topk_plan_refuses_k_outside_the_rows():
+    with pytest.raises(ValueError):
+        dr.topk_plan(4, 3, 5)
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+def test_take_rows_matches_reference_int_types(tile, dtype):
+    """int32 indices (B6's own) and int64 (the engine's), out-of-range
+    ones among them (NaN rows, jnp.take's fill mode)."""
+    cfg = dr.normalized_cfg("rate", CFG)
+    rolled = dr.rollup_tile("rate", *_port(tile), cfg)
+    sel = np.array([3, -1, S - 1, S, 0, 3, -S - 2, 2 * S], dtype=dtype)
+    want = np.asarray(ref.take_rows(jnp.asarray(rolled.numpy()),
+                                    jnp.asarray(sel)))
+    got = dr.take_rows(rolled, torch.from_numpy(sel)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_take_rows_matches_reference(tile):

@@ -21,6 +21,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -94,12 +95,13 @@ SIGNATURES = {
                                    _D, _I, _P, _P],
     },
     "select": {
-        # S, T, k, bytes (out): the scratch vm_topk_select needs
-        "vm_topk_scratch": [_LL, _I, _I, ctypes.POINTER(_LL)],
-        # rolled, S, T, k, bottom, scratch, out_idx, out_nan, stream
-        "vm_topk_select": [_P, _LL, _I, _I, _I, _P, _P, _P, _P],
-        # rolled, S, T, sel, M, out, stream
-        "vm_take_rows": [_P, _LL, _I, _P, _LL, _P, _P],
+        # rolled, S, T, k, bottom, cluster, rows, chunk, blocks, scratch,
+        # scratch_bytes, out_idx, out_nan, stream (the plan's fields:
+        # ops/device_rollup.topk_plan)
+        "vm_topk_select": [_P, _LL, _I, _I, _I, _I, _LL, _I, _I, _P, _LL,
+                           _P, _P, _P],
+        # rolled, S, T, sel, M, idx64, out, stream
+        "vm_take_rows": [_P, _LL, _I, _P, _LL, _I, _P, _P],
         # rolled, S, T, kind, rank, stream
         "vm_rank_rows": [_P, _LL, _I, _I, _P, _P],
     },
@@ -204,6 +206,9 @@ def lib(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
     needed."""
     global _loads
+    h = _libs.get(name)  # loaded: no lock on a launch's path
+    if h is not None:
+        return h
     with _lock:
         h = _libs.get(name)
         if h is not None:
@@ -228,9 +233,30 @@ def check(h: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA ``device`` (a launch plan's
+    grid)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+# torch's own raw-stream lookup (what its generated kernels launch with);
+# a Stream object costs a launch several microseconds of host time
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(device: torch.device) -> int:
     """Raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    if _raw_stream is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    index = torch.device(device).index
+    return _raw_stream(torch.cuda.current_device() if index is None
+                       else index)
 
 
 def on_device(device):

@@ -25,8 +25,9 @@ version for CPU tensors; they never fall back from one to the other.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -1005,6 +1006,50 @@ def topk_select_plain(rolled: torch.Tensor, k: int, bottom: bool):
     return idx.to(torch.int32), sel_nan
 
 
+#: largest k of B6's scan path (csrc/select.cu kRegMax); larger k sorts
+K_REG = 64
+_MAX_CLUSTER = 16  # most blocks of a cluster (kMaxCluster)
+_MIN_MEMBER_ROWS = 256  # rows a cluster member streams, at least
+_SORT_CHUNK_BYTES = 256 << 20  # the sort path's codes and flags per chunk
+
+
+class TopkPlan(NamedTuple):
+    """How one B6 call runs (``topk_plan``).  The scan path (k <= K_REG)
+    uses cluster and rows; the sort path chunk, blocks and scratch."""
+    cluster: int  # blocks of a 32-step tile's cluster, one row range each
+    rows: int     # rows of a cluster member's range
+    chunk: int    # steps the sort path transposes per pass
+    blocks: int   # sort blocks walking a chunk's steps
+    scratch: int  # bytes: a chunk's codes and flags, each block's pairs
+
+
+def _round256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+@functools.lru_cache(maxsize=256)
+def topk_plan(S: int, T: int, k: int, sms: int = 132) -> TopkPlan:
+    """B6's plan for (S, T, k) on a card of ``sms`` SMs.  Scan path: the
+    cluster of a 32-step tile doubled up to 16 while the grid has under 2
+    blocks an SM and every member keeps 256 rows or more.  Sort path:
+    chunks of steps whose codes and flags fill at most 256 MiB, two blocks
+    an SM."""
+    if not 1 <= k <= S:
+        raise ValueError(f"k={k} outside [1, {S}]")
+    if k <= K_REG:
+        tiles = -(-T // 32)
+        cluster = 1
+        while (cluster < _MAX_CLUSTER and tiles * cluster < 2 * sms and
+               S >= 2 * cluster * _MIN_MEMBER_ROWS):
+            cluster *= 2
+        return TopkPlan(cluster, -(-S // cluster), 0, 0, 0)
+    chunk = min(T, max(32, _SORT_CHUNK_BYTES // (9 * S) // 32 * 32))
+    blocks = min(2 * sms, chunk)
+    scratch = (_round256(8 * chunk * S) + _round256(chunk * S) +
+               blocks * _round256(24 * k))
+    return TopkPlan(1, S, chunk, blocks, scratch)
+
+
 def topk_select(rolled: torch.Tensor, k: int, bottom: bool):
     """B6 selection over a rolled tile [S, T], 1 <= k <= S -> (idx int32
     [T, k], sel_nan bool [T, k]), in jax.lax.top_k's order."""
@@ -1015,17 +1060,19 @@ def topk_select(rolled: torch.Tensor, k: int, bottom: bool):
     if dev.type == "cpu":
         return topk_select_plain(rolled, k, bottom)
     kernels.require(rolled, "rolled", torch.float64, (S, T))
+    k = int(k)
+    plan = topk_plan(S, T, k, kernels.sm_count(dev))
     idx = torch.empty((T, k), dtype=torch.int32, device=dev)
     sel_nan = torch.empty((T, k), dtype=torch.bool, device=dev)
+    scratch = (torch.empty(plan.scratch, dtype=torch.uint8, device=dev)
+               if plan.scratch else None)
     h = kernels.lib("select")
-    nbytes = ctypes.c_longlong(0)
-    kernels.check(h, h.vm_topk_scratch(S, T, int(k), ctypes.byref(nbytes)),
-                  "topk_select_tile")
-    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     kernels.check(h, h.vm_topk_select(
-        rolled.data_ptr(), S, T, int(k), int(bool(bottom)),
-        scratch.data_ptr(), idx.data_ptr(), sel_nan.data_ptr(),
-        kernels.stream_of(dev)), "topk_select_tile")
+        rolled.data_ptr(), S, T, k, int(bool(bottom)), plan.cluster,
+        plan.rows, plan.chunk, plan.blocks,
+        None if scratch is None else scratch.data_ptr(), plan.scratch,
+        idx.data_ptr(), sel_nan.data_ptr(), kernels.stream_of(dev)),
+        "topk_select_tile")
     kernels.LAUNCHES["topk_select_tile"] += 1
     return idx, sel_nan
 
@@ -1041,28 +1088,36 @@ def topk_select_tile(func: str, ts, values, counts, cfg: RollupConfig,
 
 
 def take_rows_plain(rolled: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """Plain row gather; an index outside [0, S) gives a NaN row."""
+    """Plain row gather, as jnp.take's fill mode: a negative index counts
+    from the end, and one outside [-S, S) gives a NaN row."""
     S = rolled.shape[0]
     sel = sel.to(torch.int64)
+    sel = torch.where(sel < 0, sel + S, sel)
     ok = (sel >= 0) & (sel < S)
     rows = rolled.index_select(0, sel.clamp(0, max(S - 1, 0)))
     return torch.where(ok[:, None], rows, torch.nan)
 
 
 def take_rows(rolled: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """Row gather on a device-resident rolled tile: rolled [S, T], sel [m]
-    -> [m, T] (the D2H tail of the topk kernels)."""
+    """Row gather on a device-resident rolled tile: rolled [S, T], sel
+    int32 or int64 [m] -> [m, T] (the D2H tail of the topk kernels)."""
     dev = kernels.placement(rolled, sel)
     if dev.type == "cpu":
         return take_rows_plain(rolled, sel)
     S, T = rolled.shape
     kernels.require(rolled, "rolled", torch.float64, (S, T))
-    sel = sel.to(torch.int64).contiguous()
+    if sel.dtype not in (torch.int32, torch.int64) or sel.dim() != 1 or \
+            not sel.is_contiguous():
+        raise TypeError(f"sel: expected a contiguous int32 or int64 vector, "
+                        f"got {sel.dtype}{tuple(sel.shape)}")
     M = sel.shape[0]
     out = torch.empty((M, T), dtype=torch.float64, device=dev)
+    if M == 0 or T == 0:
+        return out
     h = kernels.lib("select")
     kernels.check(h, h.vm_take_rows(
-        rolled.data_ptr(), S, T, sel.data_ptr(), M, out.data_ptr(),
+        rolled.data_ptr(), S, T, sel.data_ptr(), M,
+        int(sel.dtype == torch.int64), out.data_ptr(),
         kernels.stream_of(dev)), "take_rows")
     kernels.LAUNCHES["take_rows"] += 1
     return out
