@@ -20,19 +20,28 @@ each printing one JSON line:
               among them), every rank kind (and a tile wider than the
               kernels' shared-memory staging), every quantile phi at
               groups of 32 and of all rows, on rates and on a tile of
-              ties; times each with CUDA events beside its plain version
+              ties, and on B8's cluster and block paths at their edges
+              (one group of 100,000 rows, groups at and above what a
+              cluster and a block stage, one that no cluster divides,
+              an all-NaN group and one with a single live row); times
+              each with CUDA events beside its plain version
               and, where one PyTorch call computes the same function, that
               call (B6 and take_rows and their library calls three ways:
               events around one call, around back-to-back calls, and the
-              wrapper's host time); B9 fleet_rollup_aggregate_tile, B10
+              wrapper's host time; B8 and torch.nanquantile also so, and
+              K2 over one group of the dashboard tile); B9
+              fleet_rollup_aggregate_tile, B10
               fleet_append_tile and B11 fleet_compact_tile at a fleet
               bucket's shape (nine live streams of the dashboard tile with
               their own shifts, fetch bounds and the eight aggregates
-              mixed, three padded slots, padded rows and groups); B12
+              mixed, three padded slots, padded rows and groups), B9 also
+              over groups it walks in chunks, its count, group, min and
+              max against K2 on each stream bit for bit; B12
               decode_and_rollup (every func, shared-memory and scratch
               rows), B13
               sharded_rollup_aggregate (every func and aggregate on 8
-              logical shards), B14 cached_fleet_rollup_aggregate and B15
+              logical shards), B14 cached_fleet_rollup_aggregate (both
+              fleet buckets, bit for bit against B9) and B15
               time_sharded_rollup (every func but lifetime), each against
               its plain version and against the unsharded kernels
   dashboard   the main path: a cold ``sum by (instance)(rate(m[5m]))``
@@ -62,7 +71,9 @@ each printing one JSON line:
               resident tile, topk(10, rate), topk_median(10, rate),
               avg by (instance)(deriv) and an instant quantile(0.99, rate)
               over every series, each with its launch counts and checked
-              against the plain versions (B6 also at k = 20 and, its sort
+              against the plain versions (B8's instant at every phi on its
+              cluster path, timed three ways beside torch.nanquantile;
+              B6 also at k = 20 and, its sort
               path, at K_REG + 1 on a 512-step slice); the library calls
               beside B6-B8 (torch.topk, torch.index_select,
               torch.nanquantile) at this width; a range quantile at this
@@ -123,8 +134,8 @@ from victoriametrics_tpu_torch.query import fleet
 from victoriametrics_tpu_torch.storage.columnar import PAD_TS, ColumnarSeries
 from victoriametrics_tpu_torch.storage.storage import SeriesData
 from victoriametrics_tpu_torch.timing import (
-    MEM_BYTES_PER_S, SCALAR_OPS_PER_S, bound, cuda_ms, library_or_oom,
-    take_rows_bound, three_ms, topk_bound)
+    MEM_BYTES_PER_S, SCALAR_OPS_PER_S, bound, cuda_ms, fleet_bound,
+    library_or_oom, quantile_bound, take_rows_bound, three_ms, topk_bound)
 from victoriametrics_tpu_torch.utils import metrics as metricslib
 
 T_START = 1_753_700_000_000   # unix ms of the first scrape
@@ -591,6 +602,63 @@ def check_selections(what: str, rolled, dev) -> None:
                          dr.quantile_groups_plain(rolled, groups, phi))
 
 
+def check_quantile(what: str, rolled, groups, want_plan) -> dict:
+    """B8 bit for bit against its plain version at every phi, on the path
+    `want_plan` names ((path, cluster, staged), None for any)."""
+    S, T = rolled.shape
+    plan = dr.quantile_plan(groups.num_groups, T, groups.max_group,
+                            kernels.sm_count(rolled.device))
+    if want_plan is not None and \
+            (plan.path, plan.cluster, plan.staged) != want_plan:
+        raise AssertionError(f"B8 {what}: plan {plan}, not {want_plan}")
+    for phi in PHIS:
+        assert_exact(f"B8 {what} phi={phi}",
+                     dr.quantile_groups(rolled, groups, phi),
+                     dr.quantile_groups_plain(rolled, groups, phi))
+    return plan._asdict()
+
+
+def check_quantile_paths(rng, dev) -> dict:
+    """B8's cluster and block paths at their edges, on values with ties,
+    signed zeros, infinities and NaN: one group of 100,000 rows at one
+    step (16 staged members), groups at and just above what a cluster
+    stages (16 x 24,576 keys), a group that 16 does not divide, a group
+    just above what one block stages (the block path, 132 steps), and
+    three groups of which one is all NaN and one has a single live row."""
+    pool = torch.tensor([-0.0, 0.0, 1.0, -1.0, torch.inf, -torch.inf,
+                         torch.nan, 2.5], dtype=torch.float64, device=dev)
+
+    def values(S, T):
+        v = torch.from_numpy(np.round(rng.normal(0, 3, (S, T)), 1)).to(dev)
+        pick = torch.from_numpy(rng.random((S, T)) < 0.3).to(dev)
+        return torch.where(pick, pool[torch.from_numpy(
+            rng.integers(0, 8, (S, T))).to(dev)], v)
+
+    def one(S):
+        return dr.group_layout(torch.zeros(S, dtype=torch.int32, device=dev),
+                               1, dev)
+
+    cl = dr.Q_CLUSTER
+    plans = {}
+    for what, S, T, want in (("one group 100000", 100_000, 1, (cl, 16, 1)),
+                             ("cluster stage limit", 393_216, 1, (cl, 16, 1)),
+                             ("above cluster stage", 393_217, 1, (cl, 16, 0)),
+                             ("16 does not divide", 100_003, 2, (cl, 16, 1)),
+                             ("above block stage", 24_577, 132,
+                              (dr.Q_BLOCK, 1, 0))):
+        plans[what] = check_quantile(what, values(S, T), one(S), want)
+    r = values(60_000, 2)
+    r[:40_000] = torch.nan         # group 0: all NaN
+    r[40_000:50_000] = torch.nan   # group 1: one live row
+    r[40_017] = 3.5
+    gids = torch.repeat_interleave(
+        torch.arange(3, device=dev, dtype=torch.int32),
+        torch.tensor([40_000, 10_000, 10_000], device=dev))
+    plans["nan and one live"] = check_quantile(
+        "all NaN, one live", r, dr.group_layout(gids, 3, dev), (cl, 16, 1))
+    return plans
+
+
 def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
     """B5-B8 against their plain versions on the card (ragged rows, the
     dashboard tile, tie-heavy and wide tiles), timed at the dashboard
@@ -672,6 +740,7 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
             raise AssertionError(f"B6 {rows} rows: plan {plan} splits evenly")
         check_topk(f"{what} rows :{rows}", r[:rows], (10, dr.K_REG))
     check_ranks("wide", wide)
+    quantile_plans = check_quantile_paths(rng, dev)
 
     # times: cuda_ms as in earlier runs, device_ms (back-to-back calls)
     # and host_ms (the wrapper's host time), for the kernels and their
@@ -717,6 +786,8 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
     g_all = dr.group_layout(torch.zeros(S, dtype=torch.int32, device=dev), 1,
                             dev)
     dense = dr.dense_by_group(rolled, g32)
+    dense_all = dr.dense_by_group(rolled, g_all)
+    sms = kernels.sm_count(dev)
     res["rollup_quantile_tile"] = dict(
         max_abs_err=0.0,  # identical, checked above
         ms=cuda_ms(lambda: dr.quantile_groups(rolled, g32, 0.9)),
@@ -724,9 +795,18 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
         library_ms=cuda_ms(lambda: torch.nanquantile(dense, 0.9, dim=1)),
         ms_one_group=cuda_ms(lambda: dr.quantile_groups(rolled, g_all, 0.5)),
         library_ms_one_group=cuda_ms(lambda: torch.nanquantile(
-            dr.dense_by_group(rolled, g_all), 0.5, dim=1), reps=3),
-        **bound(S * T * 8 + DASH_GROUPS * T * 8 + S * 4 +
-                (DASH_GROUPS + 1) * 4, S * T))
+            dense_all, 0.5, dim=1), reps=3),
+        # ms, device_ms and host_ms of B8 and torch.nanquantile (on the
+        # reference's dense [G, M, T]) at M = 32 and M = 8192
+        m32=three_ms(lambda: dr.quantile_groups(rolled, g32, 0.9)),
+        library_m32=three_ms(lambda: torch.nanquantile(dense, 0.9, dim=1)),
+        m8192=three_ms(lambda: dr.quantile_groups(rolled, g_all, 0.5)),
+        library_m8192=three_ms(lambda: torch.nanquantile(
+            dense_all, 0.5, dim=1), n=10, reps=3),
+        bound_ms_m8192=quantile_bound(S, T, 1)["bound_ms"],
+        plan_m32=dr.quantile_plan(DASH_GROUPS, T, 32, sms)._asdict(),
+        plan_m8192=dr.quantile_plan(1, T, S, sms)._asdict(),
+        paths=quantile_plans, **quantile_bound(S, T, DASH_GROUPS))
     return res
 
 
@@ -801,6 +881,49 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
                                  "group is not NaN")
         if not bool(torch.isfinite(got[:LIVE, :G - 1]).any()):
             raise AssertionError(f"B9 {func}: no finite value")
+    # B9 over groups larger than its chunk (FLEET_CHUNK), which it walks in
+    # chunks and folds: in slots 0, 3, ... every row is one group; in 1,
+    # 4, ... three interleaved groups of ~2731 rows (the last chunk
+    # shorter); in 2, 5, ... a group of the first 300 rows, one of every
+    # 40th row after them (~197: one pass) and one of the rest
+    r = torch.arange(S, device=dev)
+    gids1 = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    gids1[1::3] = (r % 3).to(torch.int32)
+    gids1[2::3] = torch.where(r < 300, 0, torch.where(r % 40 == 0, 1, 2)).to(
+        torch.int32)
+    layout1 = dr.fleet_layout(gids1, 3, dev)
+    if dr.fleet_chunks(layout1) < 2:
+        raise AssertionError("B9 large groups: not chunked")
+    per_stream = [dr.group_layout(gids1[b], 3, dev) for b in range(LIVE)]
+    for func in FLEET_FUNCS:
+        cfg = dr.normalized_cfg(func, cfg0)
+        args = (func, cfg, layout1, ts, vals, cnt, aggr, shift, min_ts, v0)
+        got = dr.fleet_rollup_aggregate_tile(*args)
+        want = dr.fleet_rollup_aggregate_tile_plain(*args)
+        mean = dr.fleet_rollup_aggregate_tile_plain(
+            func, cfg, layout1, ts, vals, cnt, torch.full_like(aggr, 2),
+            shift, min_ts, v0) if func not in dr.COUNTER_FUNCS else None
+        for b in range(LIVE):
+            name = names[int(aggr[b])]
+            e = aggr_close(f"B9 large groups {func} slot {b} {name}", name,
+                           got[b], want[b], func,
+                           None if mean is None else mean[b])
+            if name not in ("stddev", "stdvar"):
+                err["fleet_rollup_aggregate_tile"] = max(
+                    err["fleet_rollup_aggregate_tile"], e)
+        if not bool(torch.isfinite(got[:LIVE]).any()):
+            raise AssertionError(f"B9 large groups {func}: no finite value")
+        # count, group, min and max: K2 on each stream's tile, bit for bit
+        for name in ("count", "group", "min", "max"):
+            code = torch.full_like(aggr, dr.FLEET_AGGR_CODES[name])
+            got = dr.fleet_rollup_aggregate_tile(func, cfg, layout1, ts, vals,
+                                                 cnt, code, shift, min_ts, v0)
+            for b in range(LIVE):
+                assert_equal(
+                    f"B9 large groups {func} slot {b} {name} vs K2", got[b],
+                    dr.rollup_aggregate_tile(func, name, ts[b], vals[b],
+                                             cnt[b], per_stream[b], cfg,
+                                             int(shift[b]), int(min_ts[b])))
     # B10: a steady interval's columns, on rows near the capacity too
     K = 8
     new_ts = (ts.gather(2, (cnt.long() - 1).clamp(min=0)[..., None]) +
@@ -829,7 +952,8 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
         assert_equal(f"B11 {what}", g, w)
     if not bool((got[2][2] < cnt[2]).any()):
         raise AssertionError("B11: a cutoff-0 slot kept its ts < 0")
-    return err, (cfg0, layout, ts, vals, cnt, aggr, shift, min_ts, v0, gids)
+    return err, (cfg0, layout, ts, vals, cnt, aggr, shift, min_ts, v0, gids,
+                 gids1)
 
 
 def mesh_close(what, aggr, got, want, func="rate", mean=None) -> float:
@@ -965,18 +1089,28 @@ def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
             "rate", "sum", ts_t, v_t, counts, flat, cfg)),
         **bound(n_valid * 12 + S * 12 + G * T * 8, 15 * S * T))
 
-    # B14: kernels_fleet's bucket over 4 stream shards
-    cfg0, layout, fts, fvals, fcnt, aggr, shift, min_ts, v0, fgids = bucket
+    # B14: kernels_fleet's bucket over 4 stream shards, and its bucket of
+    # large groups (each shard's own layout chunks them as B9 does)
+    (cfg0, layout, fts, fvals, fcnt, aggr, shift, min_ts, v0, fgids,
+     fgids1) = bucket
     fmesh = meshlib.make_fleet_mesh([dev] * 4)
     sh = {k: split_rows(fmesh, "stream", x) for k, x in (
         ("ts", fts), ("vals", fvals), ("cnt", fcnt), ("aggr", aggr),
         ("shift", shift), ("min_ts", min_ts), ("v0", v0))}
     flay = [dr.fleet_layout(g, G, dev)
             for g in split_rows(fmesh, "stream", fgids)]
+    flay1 = [dr.fleet_layout(g, 3, dev)
+             for g in split_rows(fmesh, "stream", fgids1)]
+    layout1 = dr.fleet_layout(fgids1, 3, dev)
     names = {code: name for name, code in dr.FLEET_AGGR_CODES.items()}
     err14 = 0.0
     for func in FLEET_FUNCS:
         c = dr.normalized_cfg(func, cfg0)
+        fn1 = meshlib.cached_fleet_rollup_aggregate(fmesh, func, c, 3)
+        assert_equal(f"B14 {func} large groups", fn1(
+            sh["ts"], sh["vals"], sh["cnt"], flay1, sh["aggr"], sh["shift"],
+            sh["min_ts"], sh["v0"]), dr.fleet_rollup_aggregate_tile(
+            func, c, layout1, fts, fvals, fcnt, aggr, shift, min_ts, v0))
         fn = meshlib.cached_fleet_rollup_aggregate(fmesh, func, c, G)
         got = fn(sh["ts"], sh["vals"], sh["cnt"], flay, sh["aggr"],
                  sh["shift"], sh["min_ts"], sh["v0"])
@@ -1176,9 +1310,18 @@ def phase_kernels(rng, dev):
                     err2 = max(err2, e)
     T = dr.num_steps(cfg)
     n_valid = int(counts.sum())
+    # sum(rate) over one group of every series: timed only, the start of
+    # K2's own large-group work (its walk is B9's before chunking)
+    g_one = dr.group_layout(np.zeros(DASH_SERIES, np.int32), 1, dev)
+    k2_one = lambda: dr.rollup_aggregate_tile(  # noqa: E731
+        "rate", "sum", ts_t, v_t, counts, g_one, cfg)
+    if not bool(torch.isfinite(k2_one()).all()):
+        raise AssertionError("K2 dashboard one group: non-finite rates")
     res["rollup_aggregate_tile"] = dict(
         max_abs_err=err2, ms=cuda_ms(k2), plain_ms=cuda_ms(k2_plain, reps=3),
         ms_with_resets=cuda_ms(k2_resets),
+        one_group={**three_ms(k2_one, n=10, reps=5), **bound(
+            n_valid * 12 + DASH_SERIES * 12 + T * 8, 15 * DASH_SERIES * T)},
         bytes=n_valid * 12 + DASH_SERIES * 12 + DASH_GROUPS * T * 8,
         ops=15 * DASH_SERIES * T)
 
@@ -1563,13 +1706,8 @@ FLEET_SPLIT = {
 
 
 def _fleet_bound_b9(b) -> dict:
-    """B9's least time on bucket `b`: each live sample read once (12 B),
-    the per-row and per-stream arrays, the [B, G, T] output; 15 scalar
-    operations per (row, step), as K2."""
-    live = int(b.counts_h.sum())
-    B, S = b.B_pad, b.S_b
-    return bound(live * 12 + B * S * (4 + 4 + 4 + 8) + B * (b.G_b + 1) * 4 +
-                 B * 12 + B * b.G_b * b.T_b * 8, 15 * B * S * b.T_b)
+    """B9's least time on bucket `b` (timing.fleet_bound)."""
+    return fleet_bound(int(b.counts_h.sum()), b.B_pad, b.S_b, b.G_b, b.T_b)
 
 
 def _b9_args(b, now, dev) -> tuple:
@@ -1613,6 +1751,14 @@ def fleet_events(plane, buckets, now, next_cutoff) -> dict:
         ms_one_group=cuda_ms(lambda: dr.fleet_rollup_aggregate_tile(*args1),
                              reps=5),
         bound_ms_one_group=_fleet_bound_b9(one)["bound_ms"],
+        # ms, device_ms and host_ms of both buckets, and the one-group
+        # bucket's chunks per group (FLEET_CHUNK members each)
+        by_instance=three_ms(lambda: dr.fleet_rollup_aggregate_tile(*args),
+                             n=10, reps=5),
+        one_group=three_ms(lambda: dr.fleet_rollup_aggregate_tile(*args1),
+                           n=10, reps=5),
+        chunks_one_group=dr.fleet_chunks(args1[2]),
+        shape_one_group=[one.B_pad, one.S_b, one.N_b, one.G_b, one.T_b],
         **_fleet_bound_b9(a))
     # B10 on scratch copies of bucket B's planes, restored before each call
     d = bb.dev
@@ -1960,11 +2106,19 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
         raise AssertionError("full width instant quantile: not finite")
     inst_k = dr.rollup_tile("rate", ts_t, v_t, counts,
                             dr.normalized_cfg("rate", icfg), i_min_ts, shift)
+    # B8's cluster path on the instant's one group of every series, bit
+    # for bit at every phi
+    events["instant_quantile_plan"] = check_quantile(
+        "full width instant", inst_k, one,
+        (dr.Q_CLUSTER, 16, 1) if S == 100_000 else None)
     events["instant_quantile_ms"] = cuda_ms(
         lambda: dr.quantile_groups(inst_k, one, 0.99), reps=3)
+    events["instant_quantile"] = {
+        **three_ms(lambda: dr.quantile_groups(inst_k, one, 0.99)),
+        **quantile_bound(S, 1, 1)}
     dense = dr.dense_by_group(inst_k, one)
     library["nanquantile_instant"] = library_or_oom(
-        lambda: torch.nanquantile(dense, 0.99, dim=1), 10)
+        lambda: torch.nanquantile(dense, 0.99, dim=1), 50)
     return {"queries": out, "event_ms": events, "library": library,
             "b5_max_abs_err_vs_plain": err5,
             "instant_quantile": float(got["instant_quantile"][0, 0])}

@@ -281,3 +281,126 @@ def test_fleet_compact_matches_reference_bitwise(seed):
                                torch.float64 else g[b],
                                w.view(torch.uint8) if w.dtype ==
                                torch.float64 else w)
+
+
+# a bucket whose groups exceed B9's chunk: S_1 rows a slot, two groups;
+# stream 0 is one group of every row, stream 1 splits 300 rows from the
+# rest, stream 2 puts every row in group 1, slot 3 is padded
+S_1, N_1, T_1, G_1 = 2304, 24, 8, 2
+CFG_1 = RollupConfig(0, (T_1 - 1) * STEP, STEP, WINDOW)
+
+
+def _one_group_bucket(seed=5):
+    rng = np.random.default_rng(seed)
+    B = 4
+    ts = np.full((B, S_1, N_1), TS_PAD, np.int32)
+    vals = np.zeros((B, S_1, N_1), np.float64)
+    counts = np.zeros((B, S_1), np.int32)
+    gids = np.zeros((B, S_1), np.int32)
+    for b in range(B - 1):
+        for r in range(S_1 - PAD_ROWS):
+            t, v = _row(rng, KINDS[(r + b) % len(KINDS)],
+                        int(rng.integers(2, N_1)))
+            counts[b, r] = t.size
+            ts[b, r, :t.size] = t
+            vals[b, r, :t.size] = v
+    gids[1, 300:] = 1
+    gids[2] = 1
+    shift = np.array([0, STEP, 15_000, 0], np.int32)
+    min_ts = np.array([dr.MIN_TS_NONE, -(WINDOW + LOOKBACK_DELTA), 0, 0],
+                      np.int32)
+    return ts, vals, counts, gids, np.zeros((B, S_1)), np.zeros(B, np.int32), \
+        shift, min_ts
+
+
+ONE_GROUP = _one_group_bucket()
+
+
+@pytest.mark.parametrize("func", ["rate", "max_over_time"])
+def test_fleet_one_group_bucket_matches_reference(func):
+    """Groups of 2004-2304 rows, which B9 walks in chunks of FLEET_CHUNK,
+    against the reference under every aggregate: count and group bit for
+    bit, the rest at the tolerances above."""
+    ts, vals, counts, gids, v0, _, shift, min_ts = ONE_GROUP
+    cfg = dr.normalized_cfg(func, CFG_1)
+    rcfg = RefConfig(cfg.start, cfg.end, cfg.step, cfg.window)
+    t, v, c, layout, v0_t, _ = convert.fleet_from_reference(
+        ts, vals, counts, gids, v0, np.zeros(4, np.int32), G_1, "cpu")
+    assert dr.fleet_chunks(layout) == -(-S_1 // dr.FLEET_CHUNK) > 1
+    mean = None
+    for name, code in sorted(dr.FLEET_AGGR_CODES.items(),
+                             key=lambda x: x[0] != "avg"):
+        aggr = np.full(4, code, np.int32)
+        want = np.asarray(ref.fleet_rollup_aggregate_tile(
+            func, rcfg, G_1, jnp.asarray(ts), jnp.asarray(vals),
+            jnp.asarray(counts), jnp.asarray(gids), jnp.asarray(aggr),
+            jnp.asarray(shift), jnp.asarray(min_ts), jnp.asarray(v0)))
+        got = dr.fleet_rollup_aggregate_tile(
+            func, cfg, layout, t, v, c, torch.from_numpy(aggr),
+            torch.from_numpy(shift), torch.from_numpy(min_ts), v0_t).numpy()
+        assert got.shape == want.shape == (4, G_1, T_1)
+        if name == "avg":
+            mean = got
+        if name in ("count", "group"):
+            np.testing.assert_array_equal(got, want)
+        else:
+            for b in range(4):
+                _close(got[b], want[b], name, func, mean[b])
+    assert np.isfinite(got[:3]).sum() > 10 and np.isnan(got[3]).all()
+
+
+@pytest.mark.parametrize("chunk", [dr.FLEET_CHUNK, 256])
+def test_fleet_layout_max_group_and_chunk_slots(chunk, monkeypatch):
+    """max_group is the largest group of any stream; each stream numbers
+    its chunked groups' chunks 0, 1, ... in group order (slot0), within
+    the layout's slots."""
+    monkeypatch.setattr(dr, "FLEET_CHUNK", chunk)
+    layout = dr.fleet_layout(ONE_GROUP[3], G_1, "cpu")
+    assert layout.max_group == S_1 and layout.chunk == chunk
+    assert dr.fleet_layout(BUCKET[3], N_GROUPS, "cpu").max_group == max(
+        int(np.bincount(g, minlength=N_GROUPS).max()) for g in BUCKET[3])
+    sizes = np.diff(layout.starts.numpy(), axis=1)
+    slots = []
+    for b in range(4):
+        mine = [int(layout.slot0[b, g]) + c for g in range(G_1)
+                if sizes[b, g] > chunk for c in range(-(-sizes[b, g] // chunk))]
+        assert mine == list(range(len(mine)))
+        slots.append(len(mine))
+    # stream 1's groups of 300 and 2004 rows take one chunk more
+    n = -(-S_1 // chunk)
+    assert slots == [n, n + 1, n, n] and layout.slots == n + 1
+    # a bucket of groups no larger than the chunk needs no slots
+    small = dr.fleet_layout(BUCKET[3], N_GROUPS, "cpu")
+    assert small.slots == 0 and dr.fleet_chunks(small) == 1
+
+
+def test_fleet_chunk_boundaries_are_the_same_on_stream_shards():
+    """B14 runs B9 on each stream shard's own layout: every group keeps
+    its size, the chunk and the partial slots its chunks fold through, so
+    its chunks [k * chunk, (k + 1) * chunk) and B14's bits are the
+    bucket's; only the grid's chunk extent (the shard's largest group)
+    may differ."""
+    rng = np.random.default_rng(9)
+    B, S, G = 8, 2048, 4
+    gids = np.zeros((B, S), np.int32)
+    gids[1] = np.arange(S) % G                   # 512 rows a group
+    gids[2, 300:] = 3                            # 300 and 1748 rows
+    gids[3] = rng.integers(0, G, S)              # ~512, uneven
+    gids[4] = np.where(np.arange(S) % 40 == 0, 2, 1)
+    gids[6] = np.arange(S) * G // S              # consecutive blocks
+    gids[7] = np.arange(S) % 16 // 4             # 512 rows, interleaved
+    bucket = dr.fleet_layout(gids, G, "cpu")
+    extents = set()
+    for d in range(4):  # the stream mesh's contiguous shards of 2 streams
+        part = slice(2 * d, 2 * d + 2)
+        shard = dr.fleet_layout(gids[part], G, "cpu")
+        extents.add(dr.fleet_chunks(shard))
+        sizes = np.diff(shard.starts.numpy(), axis=1)
+        for i, b in enumerate(range(B)[part]):
+            for g in range(G):
+                m = int(bucket.starts[b, g + 1] - bucket.starts[b, g])
+                assert sizes[i, g] == m and shard.chunk == bucket.chunk
+                if m > dr.FLEET_CHUNK:
+                    assert int(shard.slot0[i, g]) == int(bucket.slot0[b, g])
+        assert shard.slots <= bucket.slots
+    assert len(extents) > 1  # the shards' largest groups differ

@@ -264,3 +264,96 @@ def test_topk_select_refuses_k_outside_the_rows():
         dr.topk_select(rolled, 5, False)
     with pytest.raises(ValueError):
         dr.topk_select(rolled, 0, False)
+
+
+# B8's plan at the main path's shapes (quantile by instance, M = 32 over
+# 256 groups; the dashboard's median without by, M = 8192; the full
+# width's instant quantile, M = 100,000 at one step), at the staging edges
+# of one block (24,576 keys) and of a cluster (16 x 24,576), at a group no
+# cluster size divides, and at the large-group test's shape below
+QPLAN_CASES = [(256, 355, 32), (1, 355, 8192), (1, 1, 100_000),
+               (1, 355, 24_576), (1, 355, 24_577), (1, 1, 393_216),
+               (1, 1, 393_217), (1, 1, 100_003), (1, 4, 30_000),
+               (3, 2, 40_000), (2, 66, 8192)]
+
+
+@pytest.mark.parametrize("G,T,M", QPLAN_CASES)
+def test_quantile_plan(G, T, M):
+    p = dr.quantile_plan(G, T, M)
+    if M <= 32:
+        assert p == (dr.Q_WARP, 1, M, 0)
+        return
+    assert p.path == (dr.Q_CLUSTER if p.cluster > 1 else dr.Q_BLOCK)
+    assert p.cluster in (1, 2, 4, 8, 16)
+    # the members' slices cover the largest group, none empty
+    assert p.cluster * p.slice >= M > (p.cluster - 1) * p.slice
+    assert p.cluster == 1 or p.slice >= 2048
+    # a cluster leaves the card no fuller than one block an SM
+    assert p.cluster == 1 or G * T * p.cluster <= 132
+    # staged exactly when a block's keys fit its shared memory
+    assert p.staged == int(p.slice <= 24_576)
+
+
+def test_quantile_plan_spreads_one_large_group():
+    # the dashboard keeps one block per (group, step); the full width's
+    # instant quantile takes 16 SMs; the staging edges of a block and of
+    # a cluster, and a group that 16 does not divide (last member 6238)
+    assert dr.quantile_plan(1, 355, 8192) == (dr.Q_BLOCK, 1, 8192, 1)
+    assert dr.quantile_plan(1, 1, 100_000) == (dr.Q_CLUSTER, 16, 6250, 1)
+    assert dr.quantile_plan(1, 355, 24_576).staged == 1
+    assert dr.quantile_plan(1, 355, 24_577) == (dr.Q_BLOCK, 1, 24_577, 0)
+    assert dr.quantile_plan(1, 1, 393_216) == (dr.Q_CLUSTER, 16, 24_576, 1)
+    assert dr.quantile_plan(1, 1, 393_217) == (dr.Q_CLUSTER, 16, 24_577, 0)
+    p = dr.quantile_plan(1, 1, 100_003)
+    assert p[:3] == (dr.Q_CLUSTER, 16, 6251) and 100_003 - 15 * 6251 == 6238
+    # fewer SMs, fewer members; few keys, fewer members
+    assert dr.quantile_plan(1, 1, 100_000, sms=8).cluster == 8
+    assert dr.quantile_plan(1, 1, 8192).cluster == 4
+
+
+def _large_group_tile(S=30_000, N=6):
+    """One group of S series over 4 steps: last_over_time of sparse rows
+    (empty windows and rows with no sample are NaN gaps) whose values hold
+    ties, signed zeros, infinities and NaN samples."""
+    rng = np.random.default_rng(21)
+    pool = np.array([-0.0, 0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 2.5])
+    counts = rng.integers(0, N + 1, S).astype(np.int32)
+    ts = np.full((S, N), dr.TS_PAD, np.int32)
+    vals = np.zeros((S, N))
+    for s in range(S):
+        n = counts[s]
+        ts[s, :n] = np.sort(rng.choice(300_000, n, replace=False)) - 120_000
+        v = np.round(rng.normal(0, 3, n), 1)  # ties
+        pick = rng.random(n) < 0.3
+        v[pick] = pool[rng.integers(0, pool.size, int(pick.sum()))]
+        vals[s, :n] = v
+    return ts, vals, counts
+
+
+LARGE_GROUP = _large_group_tile()
+
+
+@pytest.mark.parametrize("phi", PHIS)
+def test_quantile_over_one_large_group_matches_reference(phi):
+    """B8's cluster path's shape (one group of 30,000 series, 4 steps)
+    against the reference's jitted rollup_quantile_tile, exactly: the
+    rolled values are the samples themselves (last_over_time) and the
+    order statistics and interpolation are the same."""
+    ts, vals, counts = LARGE_GROUP
+    S = ts.shape[0]
+    cfg = RollupConfig(0, 180_000, 60_000, 120_000)
+    gids = np.zeros(S, np.int32)
+    want = np.asarray(ref.rollup_quantile_tile(
+        "last_over_time", phi, jnp.asarray(ts), jnp.asarray(vals),
+        jnp.asarray(counts), jnp.asarray(gids),
+        jnp.asarray(np.arange(S, dtype=np.int32)), _rcfg(cfg), 1, S))
+    groups = dr.group_layout(gids, 1, "cpu")
+    assert dr.quantile_plan(1, 4, groups.max_group).path == dr.Q_CLUSTER
+    got = dr.rollup_quantile_tile("last_over_time", phi, torch.from_numpy(ts),
+                                  torch.from_numpy(vals),
+                                  torch.from_numpy(counts), groups,
+                                  cfg).numpy()
+    assert got.shape == want.shape == (1, 4)
+    np.testing.assert_array_equal(got, want)
+    if 0 < phi < 1:  # the extremes are infinite, inf - inf is NaN
+        assert np.isfinite(got).all()

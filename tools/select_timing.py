@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time B6 topk_select and take_rows, and the PyTorch calls that compute
-the same functions, on one CUDA card, three ways each.
+"""Time B6 topk_select and take_rows, B8 quantile_groups and B9
+fleet_rollup_aggregate_tile, and the PyTorch calls that compute the same
+functions where there is one, on one CUDA card, three ways each.
 
     python3 tools/select_timing.py [--root DIR] [--seed N] [--label L]
 
@@ -22,7 +23,16 @@ series x 1440 samples at step 60 s (the dashboard, 355 steps) and
 chip_smoke.py holds these kernels against their plain versions at both
 shapes; this script only times them.  Where the port has B6's plan
 (``topk_plan``), the scan path is also timed at every cluster size, its
-picks held against the plan's, beside the plan's choice.
+picks held against the plan's, beside the plan's choice.  B8 runs at
+the main path's three shapes beside torch.nanquantile on the reference's
+dense [G, M, T]: the dashboard's quantile by instance (M = 32) and median
+without by (M = 8192) and the full width's instant quantile (one group of
+100,000, its last step).  B9 runs on two fleet buckets of 8 streams x
+8192 jittered counters x 2048 columns, 384 steps of 60 s: grouped by
+instance (256 groups of 32) and one group of every row (8 groups, the
+fleet's padding), with their bounds, and the one-group bucket at each
+chunk R of B9 (``FLEET_CHUNK``); K2 sum(rate) over one group of the
+dashboard tile beside them.
 ``--root`` imports the port from another checkout (a parent commit
 unpacked under a gitignored directory), so two versions compare in one
 chip call: parent, change, change, parent.  Prints one JSON line with the
@@ -56,19 +66,115 @@ def load_timing():
     return mod
 
 
-def rate_tile(dr, RollupConfig, dev, gen, S: int, N: int, start: int,
-              end: int, step: int) -> torch.Tensor:
-    """rate(m[5m]) of S jittered counters of N samples from T_START."""
-    jit = torch.randint(-JITTER, JITTER + 1, (S, N), generator=gen,
+def counter_tile(dev, gen, shape, N: int, base: int):
+    """Jittered 15 s counters of N samples, [*shape, N], timestamps
+    relative to `base`; returns (ts, values, counts)."""
+    jit = torch.randint(-JITTER, JITTER + 1, (*shape, N), generator=gen,
                         device=dev, dtype=torch.int32)
-    ts = (torch.arange(N, device=dev, dtype=torch.int32) * SCRAPE)[None] + \
-        jit + int(T_START - start)
+    ts = (torch.arange(N, device=dev, dtype=torch.int32) * SCRAPE) + \
+        jit + int(base)
     del jit
-    vals = torch.randint(0, 50, (S, N), generator=gen, device=dev,
-                         dtype=torch.int64).cumsum_(1).to(torch.float64)
-    counts = torch.full((S,), N, dtype=torch.int32, device=dev)
+    vals = torch.randint(0, 50, (*shape, N), generator=gen, device=dev,
+                         dtype=torch.int64).cumsum_(-1).to(torch.float64)
+    counts = torch.full(shape, N, dtype=torch.int32, device=dev)
+    return ts, vals, counts
+
+
+def rate_tile(dr, RollupConfig, dev, gen, S: int, N: int, start: int,
+              end: int, step: int, k2=None) -> torch.Tensor:
+    """rate(m[5m]) of S jittered counters of N samples from T_START; `k2`,
+    when given, is called with the tile and the grid first."""
+    ts, vals, counts = counter_tile(dev, gen, (S,), N, T_START - start)
     cfg = dr.normalized_cfg("rate", RollupConfig(start, end, step, WINDOW))
+    if k2 is not None:
+        k2(ts, vals, counts, cfg)
     return dr.rollup_tile("rate", ts, vals, counts, cfg)
+
+
+def quantile_times(tm, dr, rolled: torch.Tensor, groups: int, phi: float,
+                   n: int) -> dict:
+    """B8 over `groups` groups of rolled's rows (row % groups) beside
+    torch.nanquantile on the reference's dense [G, M, T]."""
+    S, T = rolled.shape
+    dev = rolled.device
+    gids = (torch.arange(S, device=dev) % groups).to(torch.int32)
+    layout = dr.group_layout(gids, groups, dev)
+    dense = dr.dense_by_group(rolled, layout)
+    out = {"S": S, "T": T, "G": groups, "M": layout.max_group,
+           **tm.three_ms(lambda: dr.quantile_groups(rolled, layout, phi), n),
+           "library": tm.three_ms(
+               lambda: torch.nanquantile(dense, phi, dim=1), n),
+           "bound_ms": tm.quantile_bound(S, T, groups)["bound_ms"]}
+    if hasattr(dr, "quantile_plan"):  # a port with B8's plan
+        out["plan"] = dr.quantile_plan(groups, T, layout.max_group)._asdict()
+    return out
+
+
+def fleet_times(tm, dr, RollupConfig, dev, gen, n: int) -> dict:
+    """B9 on a bucket of 8 streams x 8192 counters x 2048 columns (1440
+    samples), 384 steps of 60 s, grouped by instance and as one group."""
+    B, S, N, T = 8, 8192, 2048, 384
+    ts = torch.full((B, S, N), 2**31 - 1, dtype=torch.int32, device=dev)
+    vals = torch.zeros((B, S, N), dtype=torch.float64, device=dev)
+    t, v, counts = counter_tile(dev, gen, (B, S), 1440, 0)
+    ts[..., :1440], vals[..., :1440] = t, v
+    del t, v
+    cfg = RollupConfig(0, (T - 1) * 60_000, 60_000, WINDOW)
+    aggr = torch.zeros(B, dtype=torch.int32, device=dev)  # sum
+    shift = (torch.arange(B, device=dev, dtype=torch.int32) % 4) * SCRAPE
+    min_ts = torch.full((B,), -2 * WINDOW, dtype=torch.int32, device=dev)
+    v0 = torch.zeros((B, S), dtype=torch.float64, device=dev)
+    out = {}
+    for name, G, gids in (("by_instance", 256, torch.arange(S) % 256),
+                          ("one_group", 8, torch.zeros(S))):
+        layout = dr.fleet_layout(
+            gids.to(torch.int32)[None].expand(B, S).contiguous(), G, dev)
+        out[name] = {
+            "shape": [B, S, N, G, T],
+            **tm.three_ms(lambda: dr.fleet_rollup_aggregate_tile(
+                "rate", cfg, layout, ts, vals, counts, aggr, shift, min_ts,
+                v0), n, reps=5),
+            "bound_ms": tm.fleet_bound(int(counts.sum()), B, S, G, T)[
+                "bound_ms"]}
+        if hasattr(dr, "fleet_chunks"):  # a port with B9's chunks
+            out[name]["chunks"] = dr.fleet_chunks(layout)
+    if hasattr(dr, "FLEET_CHUNK"):
+        out["chunk_sweep"] = chunk_sweep(tm, dr, cfg, ts, vals, counts,
+                                         shift, min_ts, v0, n)
+    return out
+
+
+def chunk_sweep(tm, dr, cfg, ts, vals, counts, shift, min_ts, v0,
+                n: int) -> dict:
+    """device_ms of B9 on the one-group bucket at each chunk R (the
+    layout built with FLEET_CHUNK = R), its counts held equal to R =
+    FLEET_CHUNK's: what FLEET_CHUNK is tuned on."""
+    B, S = counts.shape
+    dev = ts.device
+    gids = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    sum_, count = (torch.full((B,), dr.FLEET_AGGR_CODES[a], device=dev,
+                              dtype=torch.int32) for a in ("sum", "count"))
+    plan = dr.FLEET_CHUNK
+    out = {"plan": plan}
+    want = dr.fleet_rollup_aggregate_tile(
+        "rate", cfg, dr.fleet_layout(gids, 8, dev), ts, vals, counts, count,
+        shift, min_ts, v0)
+    try:
+        for r in (16, 32, 64, 128, 256, S):
+            dr.FLEET_CHUNK = r
+            layout = dr.fleet_layout(gids, 8, dev)
+            got = dr.fleet_rollup_aggregate_tile(
+                "rate", cfg, layout, ts, vals, counts, count, shift, min_ts,
+                v0)
+            if not torch.equal(got.view(torch.int64), want.view(torch.int64)):
+                raise AssertionError(f"B9 chunk {r}: other counts")
+            out[f"chunk{r}"] = tm.device_ms(
+                lambda: dr.fleet_rollup_aggregate_tile(
+                    "rate", cfg, layout, ts, vals, counts, sum_, shift,
+                    min_ts, v0), n)
+    finally:
+        dr.FLEET_CHUNK = plan
+    return out
 
 
 def shape_times(tm, dr, rolled: torch.Tensor, ks, n: int) -> dict:
@@ -142,7 +248,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    kernels.build(("rollup", "select"))
+    kernels.build(("rollup", "select", "quantile"))
     res = {"label": args.label, "root": args.root, "gpu": gpu,
            "build_s": time.perf_counter() - t0}
     gen = torch.Generator(device=dev)
@@ -150,9 +256,23 @@ def main(argv=None) -> int:
     # the dashboard's grid (chip_smoke.dashboard_grid): 6 h at 15 s
     n = 1440
     end = T_START + -(-((n - 1) * SCRAPE + JITTER) // 60_000) * 60_000
+    k2 = {}
+
+    def k2_one_group(ts, vals, counts, cfg):  # sum(rate) over every row
+        one = dr.group_layout(torch.zeros(8192, dtype=torch.int32,
+                                          device=dev), 1, dev)
+        k2.update(tm.three_ms(lambda: dr.rollup_aggregate_tile(
+            "rate", "sum", ts, vals, counts, one, cfg), 10, reps=5))
+
     rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n,
-                       end - ((n - 1) * SCRAPE - WINDOW), end, 60_000)
+                       end - ((n - 1) * SCRAPE - WINDOW), end, 60_000,
+                       k2_one_group)
     res["dashboard"] = shape_times(tm, dr, rolled, (10, 20, 8192), 50)
+    res["dashboard"]["k2_one_group"] = k2
+    res["dashboard"]["quantile_m32"] = quantile_times(tm, dr, rolled, 256,
+                                                      0.9, 50)
+    res["dashboard"]["quantile_m8192"] = quantile_times(tm, dr, rolled, 1,
+                                                        0.5, 20)
     sweep = hasattr(dr, "topk_plan")  # the scan path's plan (PR 5 on)
     if sweep:
         res["dashboard"]["clusters"] = cluster_sweep(
@@ -166,6 +286,11 @@ def main(argv=None) -> int:
     if sweep:
         res["full_width"]["clusters"] = cluster_sweep(
             tm, dr, kernels, rolled, (10, 20), (1, 2, 4, 8))
+    res["full_width"]["quantile_instant"] = quantile_times(
+        tm, dr, rolled[:, -1:].contiguous(), 1, 0.99, 50)
+    del rolled
+    torch.cuda.empty_cache()
+    res["fleet"] = fleet_times(tm, dr, RollupConfig, dev, gen, 10)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(res), flush=True)
     return 0

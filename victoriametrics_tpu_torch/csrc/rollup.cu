@@ -52,6 +52,22 @@
 //     computes all eight aggregates and gathers one (:694-700); the block
 //     finalizes only its stream's, with the same NaN where cnt is 0, so
 //     padded rows (counts 0), padded groups and padded slots come out NaN.
+//     A group of more than R = chunk members (FLEET_CHUNK, 64) is split
+//     into chunks of R consecutive members, one block each: one group of
+//     8192 rows was 8 x 3 blocks on 132 SMs, each thread walking 8192 rows;
+//     in chunks it is 8 x 128 x 3, as many (row, step) walks as the
+//     by-instance bucket's 8 x 256 x 3 blocks of 32 rows.  A chunk's block writes its moments to a partial slot
+//     (wrapper-allocated [5, B x slots, T]; the layout numbers each
+//     stream's chunks, slot0) and fleet_fold, a second launch, merges a
+//     group's chunks in ascending chunk order with moments_merge and
+//     finalizes them, B13's combine (mesh.cu).  A second launch rather than
+//     a cluster fold: a group's chunk count is not bounded by a cluster's
+//     16 blocks, and the fold reads ~1 MB.  Chunk boundaries depend only on
+//     the group's own size, so a stream shard (B14) gets B9's bits; count,
+//     group, min and max equal K2's single pass bit for bit (extrema keep
+//     the first of equal values in ascending order), the sums differ only
+//     in association.  Groups of at most R members keep the single pass,
+//     and a bucket with none larger launches no fold.
 //
 //  4. B12 (replaces victoriametrics_tpu/ops/device_decode.py:
 //     decode_and_rollup, decode_tiles then rollup_tile in one jit):
@@ -133,6 +149,7 @@ namespace {
 
 constexpr int kPrepThreads = 256;
 constexpr int kGroupThreads = 128;
+constexpr int kFoldBatch = 8;  // chunks a fold thread loads at once
 constexpr int32_t kI32Min = -2147483647 - 1;
 constexpr long long kNegZeroBits =
     static_cast<long long>(0x8000000000000000ULL);
@@ -595,8 +612,22 @@ rollup_groups(Tile a, const int32_t* __restrict__ order,
                                     g, aggr, t);
 }
 
-// B9: block (b * G + grp, step tile) of a [B, S, N] stack; the stream's
-// rows are b * S + order[b, k], its groups starts[b, :].
+// The arguments of B9's chunked groups: a group of more than `chunk`
+// members is walked in chunks of `chunk` consecutive members; chunk c of
+// stream b's group grp writes its moments to partial slot b * slots +
+// slot0[b, grp] + c, moment k at partial[(k * B * slots + slot) * T + t].
+struct Chunks {
+  const int32_t* slot0;
+  int chunk, chunks;
+  long long slots, plane;  // partial slots per stream; B * slots * T
+  double* partial;
+};
+
+// B9: block ((b * G + grp) * chunks + c, step tile) of a [B, S, N] stack;
+// the stream's rows are b * S + order[b, k], its groups starts[b, :].  A
+// group of at most `chunk` members is finalized by its chunk-0 block in
+// one pass (K2's); a larger one's chunk-c block writes the moments of
+// members [c * chunk, (c + 1) * chunk), which fleet_fold folds.
 template <int F>
 __global__ void __launch_bounds__(kGroupThreads)
 fleet_rollup_groups(Tile a, const int32_t* __restrict__ order,
@@ -604,16 +635,70 @@ fleet_rollup_groups(Tile a, const int32_t* __restrict__ order,
                     const int32_t* __restrict__ shifts,
                     const int32_t* __restrict__ min_tss,
                     const int32_t* __restrict__ aggrs, long long S, int G,
-                    int T, Grid g, double* __restrict__ out) {
-  const long long bg = blockIdx.x;
+                    int T, Grid g, Chunks ch, double* __restrict__ out) {
+  const long long bg = blockIdx.x / ch.chunks;
+  const int c = static_cast<int>(blockIdx.x - bg * ch.chunks);
   const long long b = bg / G;
   const int t = blockIdx.y * kGroupThreads + threadIdx.x;
   if (t >= T) return;
   g.shift = shifts[b];
   g.min_ts = min_tss[b];
   const int32_t* st = starts + b * (G + 1) + (bg - b * G);
-  out[bg * T + t] = group_value<F>(a, order + b * S, st[0], st[1], b * S, g,
-                                   aggrs[b], t);
+  const int k0 = st[0], k1 = st[1];
+  if (k1 - k0 <= ch.chunk) {
+    if (c == 0)
+      out[bg * T + t] = group_value<F>(a, order + b * S, k0, k1, b * S, g,
+                                       aggrs[b], t);
+    return;
+  }
+  const int c0 = k0 + c * ch.chunk;
+  if (c0 >= k1) return;
+  const Moments m = group_moments<F>(a, order + b * S, c0,
+                                     min(c0 + ch.chunk, k1), b * S, g, t);
+  double* p = ch.partial + (b * ch.slots + ch.slot0[bg] + c) * T + t;
+  p[0] = m.cnt;
+  p[ch.plane] = m.s1;
+  p[2 * ch.plane] = m.s2;
+  p[3 * ch.plane] = m.mn;
+  p[4 * ch.plane] = m.mx;
+}
+
+// B9's fold, one thread per (stream, group, step) of a chunked group: its
+// chunks' moments merged in ascending chunk order, as B13's combine folds
+// its shards (mesh.cu combine_moments), then finalized by the stream's
+// aggregate.  Groups of at most `chunk` members were finalized already.
+__global__ void __launch_bounds__(kPrepThreads)
+fleet_fold(const int32_t* __restrict__ starts,
+           const int32_t* __restrict__ aggrs, long long B, int G, int T,
+           Chunks ch, double* __restrict__ out) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
+  if (e >= B * G * T) return;
+  const long long bg = e / T;
+  const int t = static_cast<int>(e - bg * T);
+  const long long b = bg / G;
+  const int32_t* st = starts + b * (G + 1) + (bg - b * G);
+  const int m = st[1] - st[0];
+  if (m <= ch.chunk) return;
+  const int n = (m + ch.chunk - 1) / ch.chunk;
+  const long long pl = ch.plane;
+  const double* p = ch.partial + (b * ch.slots + ch.slot0[bg]) * T + t;
+  Moments acc = moments_empty();
+  int c = 0;
+  // kFoldBatch chunks' loads in flight before their merges, in order
+  for (; c + kFoldBatch <= n; c += kFoldBatch, p += kFoldBatch * T) {
+    Moments q[kFoldBatch];
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) {
+      const double* x = p + u * T;
+      q[u] = Moments{x[0], x[pl], x[2 * pl], x[3 * pl], x[4 * pl]};
+    }
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) moments_merge(acc, q[u]);
+  }
+  for (; c < n; ++c, p += T)
+    moments_merge(acc, Moments{p[0], p[pl], p[2 * pl], p[3 * pl], p[4 * pl]});
+  out[bg * T + t] = finalize_moments(acc, aggrs[b]);
 }
 
 // B13's per-shard pass: K2's group walk, writing the aggregate's moments
@@ -758,6 +843,7 @@ struct PassArgs {
   const int32_t *order, *starts;
   const int32_t *shifts, *min_tss, *aggrs;  // B9
   long long S;                               // B9: rows per stream
+  Chunks ch;                                 // B9
   int G, T;
   long long ldo;                             // B5: output row stride
   Grid g;
@@ -775,7 +861,7 @@ template <int F>
 void launch_fleet(dim3 grid, cudaStream_t st, const PassArgs& a) {
   fleet_rollup_groups<F><<<grid, kGroupThreads, 0, st>>>(
       a.tile, a.order, a.starts, a.shifts, a.min_tss, a.aggrs, a.S, a.G, a.T,
-      a.g, a.out);
+      a.g, a.ch, a.out);
 }
 
 template <int F>
@@ -978,16 +1064,22 @@ extern "C" int vm_rollup_groups(const void* ts, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9 over a [B, S, N] stack -> out [B, G, T].
+// B9 over a [B, S, N] stack -> out [B, G, T]: the group pass and, when
+// some group has more than `chunk` members (chunks > 1), the fold of its
+// chunks' moments [5, B * pslots, T] in `partial`.  slot0 [B, G], chunk,
+// chunks and pslots are the layout's (ops/device_rollup.py:fleet_layout).
 extern "C" int vm_fleet_rollup_groups(
     const void* ts, const void* vals, const void* cv, const void* cmax,
     const void* slots, const void* counts, const void* mpi, const void* mean,
     const void* v0, const void* order, const void* starts, const void* shifts,
     const void* min_tss, const void* aggrs, long long B, long long S, int G,
-    int N, int T, int step, int lookback, double start_s, int func, void* out,
-    void* stream) {
+    int N, int T, int step, int lookback, double start_s, int func,
+    const void* slot0, int chunk, int chunks, long long pslots,
+    void* partial, void* out, void* stream) {
   if (B <= 0 || G <= 0 || T <= 0) return 0;
-  if (func < 0 || func >= kFuncs)
+  if (func < 0 || func >= kFuncs || chunk < 1 || chunks < 1 ||
+      (chunks > 1 && (pslots < 1 || partial == nullptr)) ||
+      B * G * chunks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   PassArgs a{};
   a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, v0, N);
@@ -1000,10 +1092,20 @@ extern "C" int vm_fleet_rollup_groups(
   a.G = G;
   a.T = T;
   a.g = make_grid(0, 0, step, lookback, start_s);
+  a.ch = Chunks{static_cast<const int32_t*>(slot0), chunk, chunks, pslots,
+                B * pslots * T, static_cast<double*>(partial)};
   a.out = static_cast<double*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   fleet_table(std::make_integer_sequence<int, kFuncs>())[func](
-      dim3(static_cast<unsigned>(B * G), step_tiles(T)),
-      static_cast<cudaStream_t>(stream), a);
+      dim3(static_cast<unsigned>(B * G * chunks), step_tiles(T)), st, a);
+  if (chunks > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const long long n = B * G * T;
+    fleet_fold<<<static_cast<unsigned>((n + kPrepThreads - 1) / kPrepThreads),
+                 kPrepThreads, 0, st>>>(a.starts, a.aggrs, B, G, T, a.ch,
+                                        a.out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

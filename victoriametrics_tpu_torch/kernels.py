@@ -89,10 +89,11 @@ SIGNATURES = {
                              _P, _P],
         # ts, vals, cv, cmax, slots, counts, mpi, mean, v0, order, starts,
         # shifts, min_tss, aggrs, B, S, G, N, T, step, lookback, start_s,
-        # func, out, stream
+        # func, slot0, chunk, chunks, pslots, partial, out, stream (the
+        # layout's chunking: ops/device_rollup.fleet_layout)
         "vm_fleet_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I,
-                                   _D, _I, _P, _P],
+                                   _D, _I, _P, _I, _I, _LL, _P, _P, _P],
     },
     "select": {
         # rolled, S, T, k, bottom, cluster, rows, chunk, blocks, scratch,
@@ -106,8 +107,10 @@ SIGNATURES = {
         "vm_rank_rows": [_P, _LL, _I, _I, _P, _P],
     },
     "quantile": {
-        # rolled, T, order, starts, G, max_group, phi, out, stream
-        "vm_quantile_groups": [_P, _I, _P, _P, _LL, _I, _D, _P, _P],
+        # rolled, T, order, starts, G, path, cluster, slice, staged, phi,
+        # out, stream (the plan's fields: ops/device_rollup.quantile_plan)
+        "vm_quantile_groups": [_P, _I, _P, _P, _LL, _I, _I, _I, _I, _D, _P,
+                               _P],
     },
     "mesh": {
         # moments, D, M, GT, aggr, out, stream

@@ -782,21 +782,44 @@ def compact_tile(ts: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
 # B9 / B10 / B11: the fleet's passes over a bucket's [B, S, N] stack.
 # ---------------------------------------------------------------------------
 
+#: B9's chunk R: a group of more members is walked in chunks of R
+#: consecutive members, one block each, whose moments fold in chunk order;
+#: a one-group bucket of 8192 rows a stream then runs 128 blocks a stream
+#: and step tile where it ran one.  A smaller R gives more blocks and a
+#: longer serial fold (tools/select_timing.py sweeps R)
+FLEET_CHUNK = 64
+
+
 @dataclasses.dataclass(frozen=True)
 class FleetLayout:
     """Group ids of a fleet bucket's [B, S] rows plus each stream's member
     lists: stream b's group g owns rows order[b, starts[b, g]:starts[b,
-    g + 1]], ascending."""
+    g + 1]], ascending.  B9 walks a group of more than `chunk` members in
+    chunks of `chunk` consecutive members, the last one shorter: the
+    chunks depend on nothing but the group's own size.  Chunk c of stream
+    b's group g writes partial slot slot0[b, g] + c of the stream's
+    `slots`."""
     gids: torch.Tensor     # int32 [B, S]
     order: torch.Tensor    # int32 [B, S], each stream's rows by group id
     starts: torch.Tensor   # int32 [B, G + 1]
     num_groups: int
+    max_group: int         # members of the largest group of any stream
+    slot0: torch.Tensor    # int32 [B, G], read for chunked groups only
+    slots: int             # partial slots per stream: its groups' chunks
+    chunk: int             # FLEET_CHUNK when the layout was built
+
+
+def fleet_chunks(layout: FleetLayout) -> int:
+    """Blocks of B9's grid per (stream, group, step tile): the chunks of
+    the layout's largest group (1 when no group is chunked)."""
+    m = layout.max_group
+    return -(-m // layout.chunk) if m > layout.chunk else 1
 
 
 def fleet_layout(gids, num_groups: int, device) -> FleetLayout:
     """Build a FleetLayout from host or device group ids [B, S] (validated
-    to lie in [0, num_groups)).  A bucket builds it once per upload: a
-    member's group ids are fixed while it lives."""
+    to lie in [0, num_groups)), chunked by FLEET_CHUNK.  A bucket builds it
+    once per upload: a member's group ids are fixed while it lives."""
     g = torch.as_tensor(np.asarray(gids) if not torch.is_tensor(gids)
                         else gids).to(device=device, dtype=torch.int64)
     if g.dim() != 2:
@@ -810,8 +833,16 @@ def fleet_layout(gids, num_groups: int, device) -> FleetLayout:
     starts = torch.zeros((g.shape[0], num_groups + 1), dtype=torch.int64,
                          device=g.device)
     starts[:, 1:] = torch.cumsum(sizes, 1)
+    # each stream's chunked groups numbered in group order
+    chunk = FLEET_CHUNK
+    n_chunks = torch.where(sizes > chunk, -(-sizes // chunk), 0)
+    slot0 = torch.cumsum(n_chunks, 1) - n_chunks
+    max_group, slots = (torch.stack([sizes.max(), n_chunks.sum(1).max()])
+                        .tolist() if sizes.numel() else (0, 0))
     return FleetLayout(g.to(torch.int32), order.to(torch.int32),
-                       starts.to(torch.int32), int(num_groups))
+                       starts.to(torch.int32), int(num_groups),
+                       int(max_group), slot0.to(torch.int32), int(slots),
+                       int(chunk))
 
 
 def fleet_rollup_aggregate_tile_plain(func: str, cfg: RollupConfig,
@@ -870,6 +901,7 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
     kernels.require(counts, "counts", torch.int32, (B, S))
     kernels.require(layout.order, "order", torch.int32, (B, S))
     kernels.require(layout.starts, "starts", torch.int32, (B, G + 1))
+    kernels.require(layout.slot0, "slot0", torch.int32, (B, G))
     for name, t in (("aggr", aggr), ("shift", shift), ("min_ts", min_ts)):
         kernels.require(t, name, torch.int32, (B,))
     kernels.require(v0, "v0", torch.float64, (B, S))
@@ -880,13 +912,19 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
     out = _out_block(out, (B, G, T), dev)
     if not out.is_contiguous():
         raise ValueError("out: must be contiguous")
+    chunks = fleet_chunks(layout)
+    # the chunks' moments (cnt, s1, s2, min, max), folded by a second launch
+    partial = (torch.empty((5, B * layout.slots, T), dtype=torch.float64,
+                           device=dev) if chunks > 1 else None)
     kernels.check(h, h.vm_fleet_rollup_groups(
         ts.data_ptr(), values.data_ptr(), *rows, v0.data_ptr(),
         layout.order.data_ptr(), layout.starts.data_ptr(), shift.data_ptr(),
         min_ts.data_ptr(), aggr.data_ptr(), B, S, G, N, T, cfg.step,
         cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
-        out.data_ptr(), stream), "fleet_rollup_aggregate_tile")
-    del keep  # the row tensors live until the launch is queued
+        layout.slot0.data_ptr(), layout.chunk, chunks, layout.slots,
+        None if partial is None else partial.data_ptr(), out.data_ptr(),
+        stream), "fleet_rollup_aggregate_tile")
+    del keep, partial  # they live until the launch is queued
     kernels.LAUNCHES["fleet_rollup_aggregate_tile"] += 1
     return out
 
@@ -1222,6 +1260,43 @@ def quantile_groups_plain(rolled: torch.Tensor, groups: GroupLayout,
     return torch.where(n > 0, q, torch.nan)
 
 
+#: B8's paths (csrc/quantile.cu Path)
+Q_WARP, Q_BLOCK, Q_CLUSTER = 0, 1, 2
+_Q_WARP_MAX = 32             # members of quantile_warp's largest group
+_Q_STAGE_MAX = 24576         # keys a block stages (kStageMax)
+_Q_MIN_MEMBER_KEYS = 2048    # keys a cluster member takes, at least
+
+
+class QuantilePlan(NamedTuple):
+    """How one B8 call runs (``quantile_plan``)."""
+    path: int     # Q_WARP, Q_BLOCK or Q_CLUSTER
+    cluster: int  # blocks of one (group, step)
+    slice: int    # keys a block takes: the largest group, or its share
+    staged: int   # 1 when a block stages its keys in shared memory
+
+
+@functools.lru_cache(maxsize=256)
+def quantile_plan(G: int, T: int, max_group: int,
+                  sms: int = 132) -> QuantilePlan:
+    """B8's plan for G groups of at most max_group members over T steps on
+    a card of ``sms`` SMs.  Up to 32 members: a warp per (group, step).
+    Otherwise one block per (group, step), its keys staged when they fit
+    (_Q_STAGE_MAX); where G x T leaves SMs idle, a cluster per (group,
+    step), doubled up to 16 while the grid stays within one block an SM
+    and every member keeps 2048 keys or more, each member staging its
+    slice when it fits."""
+    if max_group <= _Q_WARP_MAX:
+        return QuantilePlan(Q_WARP, 1, max_group, 0)
+    pairs = G * T
+    cluster = 1
+    while (cluster < _MAX_CLUSTER and pairs * cluster * 2 <= sms and
+           max_group >= 2 * cluster * _Q_MIN_MEMBER_KEYS):
+        cluster *= 2
+    part = -(-max_group // cluster)
+    return QuantilePlan(Q_CLUSTER if cluster > 1 else Q_BLOCK, cluster,
+                        part, int(part <= _Q_STAGE_MAX))
+
+
 def quantile_groups(rolled: torch.Tensor, groups: GroupLayout,
                     phi: float) -> torch.Tensor:
     """B8 quantile over a rolled tile [S, T] by group -> float64 [G, T]."""
@@ -1234,11 +1309,13 @@ def quantile_groups(rolled: torch.Tensor, groups: GroupLayout,
     kernels.require(groups.order, "order", torch.int32, (S,))
     kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
     out = torch.empty((G, T), dtype=torch.float64, device=dev)
+    plan = quantile_plan(G, T, groups.max_group, kernels.sm_count(dev))
     h = kernels.lib("quantile")
     kernels.check(h, h.vm_quantile_groups(
         rolled.data_ptr(), T, groups.order.data_ptr(),
-        groups.starts.data_ptr(), G, groups.max_group, float(phi),
-        out.data_ptr(), kernels.stream_of(dev)), "rollup_quantile_tile")
+        groups.starts.data_ptr(), G, plan.path, plan.cluster, plan.slice,
+        plan.staged, float(phi), out.data_ptr(), kernels.stream_of(dev)),
+        "rollup_quantile_tile")
     kernels.LAUNCHES["rollup_quantile_tile"] += 1
     return out
 

@@ -107,3 +107,17 @@ def take_rows_bound(M: int, T: int) -> dict:
     """take_rows of M rows of T float64: each row read and written once,
     M int64 indices read."""
     return bound(M * T * 16 + M * 8, 0)
+
+
+def quantile_bound(S: int, T: int, G: int) -> dict:
+    """B8 over a rolled [S, T] float64 tile in G groups: every value read
+    and compared once, the int32 order and starts read, [G, T] written."""
+    return bound(S * T * 8 + S * 4 + (G + 1) * 4 + G * T * 8, S * T)
+
+
+def fleet_bound(live: int, B: int, S: int, G: int, T: int) -> dict:
+    """B9 on a [B, S, N] bucket: each live sample read once (12 B), the
+    per-row counts, order, group ids and v0 and the per-stream arrays, the
+    [B, G, T] output; 15 scalar operations per (row, step), as K2."""
+    return bound(live * 12 + B * S * (4 + 4 + 4 + 8) + B * (G + 1) * 4 +
+                 B * 12 + B * G * T * 8, 15 * B * S * T)
