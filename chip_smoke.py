@@ -29,18 +29,29 @@ each printing one JSON line:
               call (B6 and take_rows and their library calls three ways:
               events around one call, around back-to-back calls, and the
               wrapper's host time; B8 and torch.nanquantile also so, and
-              K2 over one group of the dashboard tile); B9
+              K2 over one group of the dashboard tile); K2's count,
+              group, min and max of rate (with resets too) and deriv,
+              plain and rolling, equal to B5's rows under the plain
+              aggregate; K2 over one group of the dashboard tile and over
+              groups of exactly R, R + 1 and 2R + 1 members (R =
+              FLEET_CHUNK), every aggregate (count, group, min and max
+              against B5's rows, the rest against the chunked plain
+              version); B9
               fleet_rollup_aggregate_tile, B10
               fleet_append_tile and B11 fleet_compact_tile at a fleet
               bucket's shape (nine live streams of the dashboard tile with
               their own shifts, fetch bounds and the eight aggregates
               mixed, three padded slots, padded rows and groups), B9 also
               over groups it walks in chunks, its count, group, min and
-              max against K2 on each stream bit for bit; B12
+              max against K2 on each stream bit for bit (whether the
+              other aggregates come out bit for bit too is recorded);
+              B12
               decode_and_rollup (every func, shared-memory and scratch
               rows), B13
               sharded_rollup_aggregate (every func and aggregate on 8
-              logical shards), B14 cached_fleet_rollup_aggregate (both
+              logical shards, by instance and in one group; its moments
+              bit for bit against a sequential walk of B5's rows, the
+              8 shards one launch), B14 cached_fleet_rollup_aggregate (both
               fleet buckets, bit for bit against B9) and B15
               time_sharded_rollup (every func but lifetime), each against
               its plain version and against the unsharded kernels
@@ -67,7 +78,9 @@ each printing one JSON line:
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
               query with its own launch counts; K1 and K2 are checked
-              against their plain versions in row chunks; then, on the
+              against their plain versions in row chunks, and K2's count,
+              group, min and max of rate and deriv against B5's rows
+              under the plain aggregate; then, on the
               resident tile, topk(10, rate), topk_median(10, rate),
               avg by (instance)(deriv) and an instant quantile(0.99, rate)
               over every series, each with its launch counts and checked
@@ -301,6 +314,20 @@ def assert_exact(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
     if not torch.equal(got[live].view(torch.int64),
                        want[live].view(torch.int64)):
         raise AssertionError(f"{what}: not bit-identical")
+    return 0.0
+
+
+def assert_same_values(what: str, got: torch.Tensor,
+                       want: torch.Tensor) -> float:
+    """The same numbers at the same places: NaN positions equal and every
+    other value equal as a number (-0.0 == 0.0: the plain aggregates'
+    scatter does not order signed zeros)."""
+    if got.shape != want.shape or not torch.equal(torch.isnan(got),
+                                                  torch.isnan(want)):
+        raise AssertionError(f"{what}: NaN positions differ")
+    live = ~torch.isnan(got)
+    if not torch.equal(got[live], want[live]):
+        raise AssertionError(f"{what}: values differ")
     return 0.0
 
 
@@ -895,6 +922,7 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
     if dr.fleet_chunks(layout1) < 2:
         raise AssertionError("B9 large groups: not chunked")
     per_stream = [dr.group_layout(gids1[b], 3, dev) for b in range(LIVE)]
+    bitwise = {}  # B9 == K2 per stream, bit for bit, in each other aggregate
     for func in FLEET_FUNCS:
         cfg = dr.normalized_cfg(func, cfg0)
         args = (func, cfg, layout1, ts, vals, cnt, aggr, shift, min_ts, v0)
@@ -913,17 +941,24 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
                     err["fleet_rollup_aggregate_tile"], e)
         if not bool(torch.isfinite(got[:LIVE]).any()):
             raise AssertionError(f"B9 large groups {func}: no finite value")
-        # count, group, min and max: K2 on each stream's tile, bit for bit
-        for name in ("count", "group", "min", "max"):
+        # K2 on each stream's tile, chunked by the same rule: count,
+        # group, min and max bit for bit; whether the others come out bit
+        # for bit too is recorded
+        for name in dr.AGGR_FUNCS:
             code = torch.full_like(aggr, dr.FLEET_AGGR_CODES[name])
             got = dr.fleet_rollup_aggregate_tile(func, cfg, layout1, ts, vals,
                                                  cnt, code, shift, min_ts, v0)
             for b in range(LIVE):
-                assert_equal(
-                    f"B9 large groups {func} slot {b} {name} vs K2", got[b],
-                    dr.rollup_aggregate_tile(func, name, ts[b], vals[b],
-                                             cnt[b], per_stream[b], cfg,
-                                             int(shift[b]), int(min_ts[b])))
+                k2 = dr.rollup_aggregate_tile(func, name, ts[b], vals[b],
+                                              cnt[b], per_stream[b], cfg,
+                                              int(shift[b]), int(min_ts[b]))
+                what = f"B9 large groups {func} slot {b} {name} vs K2"
+                if name in ("count", "group", "min", "max"):
+                    assert_equal(what, got[b], k2)
+                else:
+                    same = bool(torch.equal(got[b].view(torch.int64),
+                                            k2.view(torch.int64)))
+                    bitwise[name] = bitwise.get(name, True) and same
     # B10: a steady interval's columns, on rows near the capacity too
     K = 8
     new_ts = (ts.gather(2, (cnt.long() - 1).clamp(min=0)[..., None]) +
@@ -952,8 +987,8 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
         assert_equal(f"B11 {what}", g, w)
     if not bool((got[2][2] < cnt[2]).any()):
         raise AssertionError("B11: a cutoff-0 slot kept its ts < 0")
-    return err, (cfg0, layout, ts, vals, cnt, aggr, shift, min_ts, v0, gids,
-                 gids1)
+    return err, bitwise, (cfg0, layout, ts, vals, cnt, aggr, shift, min_ts,
+                          v0, gids, gids1)
 
 
 def mesh_close(what, aggr, got, want, func="rate", mean=None) -> float:
@@ -964,6 +999,29 @@ def mesh_close(what, aggr, got, want, func="rate", mean=None) -> float:
     if aggr in ("count", "group", "min", "max"):
         return assert_exact(what, got, want)
     return aggr_close(what, aggr, got, want, func, mean)
+
+
+def sequential_moments(aggr: str, rolled: torch.Tensor,
+                       layout) -> torch.Tensor:
+    """The moments [M, G, T] of a walk of each group's rows in ascending
+    order, one add after another (the per-shard pass's order for a group
+    of at most FLEET_CHUNK members)."""
+    G, T = layout.num_groups, rolled.shape[1]
+    order, starts = layout.order.long(), layout.starts.long()
+    sizes = starts[1:] - starts[:-1]
+    m = {"cnt": torch.zeros((G, T), dtype=torch.float64, device=rolled.device)}
+    m["s1"], m["s2"] = torch.zeros_like(m["cnt"]), torch.zeros_like(m["cnt"])
+    m["min"] = torch.full_like(m["cnt"], torch.inf)
+    m["max"] = torch.full_like(m["cnt"], -torch.inf)
+    for k in range(layout.max_group):
+        v = rolled[order[(starts[:-1] + k).clamp(max=len(order) - 1)]]
+        live = (k < sizes)[:, None] & ~torch.isnan(v)
+        m["cnt"] = torch.where(live, m["cnt"] + 1.0, m["cnt"])
+        m["s1"] = torch.where(live, m["s1"] + v, m["s1"])
+        m["s2"] = torch.where(live, m["s2"] + v * v, m["s2"])
+        m["min"] = torch.where(live & (v < m["min"]), v, m["min"])
+        m["max"] = torch.where(live & (v > m["max"]), v, m["max"])
+    return torch.stack([m[k] for k in dr.MOMENTS[aggr]])
 
 
 def sharded_plain(mesh, func, aggr, shards, layouts, cfg, shift=0,
@@ -1072,12 +1130,33 @@ def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
     layouts = [dr.group_layout(g, G, dev)
                for g in split_rows(mesh, "series", gids)]
     flat = dr.group_layout(gids, G, dev)
-    for aggr in dr.AGGR_FUNCS:
-        got = meshlib.sharded_rollup_aggregate(mesh, "rate", aggr, cfg, G)(
-            *shards, layouts)
-        mesh_close(f"B13 dashboard {aggr}", aggr, got,
-                   dr.rollup_aggregate_tile("rate", aggr, ts_t, v_t, counts,
-                                            flat, cfg))
+    # by instance (32 rows a group, 4 a shard) and one group (1024 rows a
+    # shard, which each shard walks in chunks and folds)
+    zeros = torch.zeros(S, dtype=torch.int32, device=dev)
+    for g_, lays, fl in ((G, layouts, flat), (1, [
+            dr.group_layout(g, 1, dev) for g in split_rows(
+                mesh, "series", zeros)], dr.group_layout(zeros, 1, dev))):
+        for aggr in dr.AGGR_FUNCS:
+            got = meshlib.sharded_rollup_aggregate(mesh, "rate", aggr, cfg,
+                                                   g_)(*shards, lays)
+            mesh_close(f"B13 dashboard {g_} groups {aggr}", aggr, got,
+                       dr.rollup_aggregate_tile("rate", aggr, ts_t, v_t,
+                                                counts, fl, cfg))
+    # the shards of one card run one row scan and one moments pass: one
+    # launch of the wrapper, whose moments are each shard's rows walked in
+    # order one add after another (no shard holds more than FLEET_CHUNK
+    # members of a group), bit for bit
+    before = kernels.LAUNCHES["rollup_group_moments"]
+    for aggr in ("sum", "stddev", "min", "max"):
+        mom = dr.rollup_group_moments("rate", aggr, *shards, layouts, cfg)
+        for d in range(MESH_SHARDS):
+            assert_equal(f"B13 moments {aggr} shard {d}", mom[d],
+                         sequential_moments(aggr, dr.rollup_tile(
+                             "rate", *(x[d] for x in shards), cfg),
+                             layouts[d]))
+    if kernels.LAUNCHES["rollup_group_moments"] - before != 4:
+        raise AssertionError("B13: the shards of one card took more than "
+                             "one moments launch")
     b13 = meshlib.cached_sharded_rollup_aggregate(mesh, "rate", "sum", cfg,
                                                   G)
     res["sharded_rollup_aggregate"] = dict(
@@ -1310,9 +1389,52 @@ def phase_kernels(rng, dev):
                     err2 = max(err2, e)
     T = dr.num_steps(cfg)
     n_valid = int(counts.sum())
-    # sum(rate) over one group of every series: timed only, the start of
-    # K2's own large-group work (its walk is B9's before chunking)
+    # K2's staged windows against B5's global searches: count, group, min
+    # and max of rate (with resets too) and deriv, plain and rolling grids,
+    # equal to B5's rows under the plain aggregate
+    for func, vals in (("rate", v_t), ("rate", v_reset), ("deriv", v_t)):
+        for sh, mt in ((0, int(dr.MIN_TS_NONE)), roll):
+            rolled = dr.rollup_tile(func, ts_t, vals, counts, cfg, mt, sh)
+            for aggr in ("count", "group", "min", "max"):
+                assert_same_values(
+                    f"K2 {func}/{aggr} shift {sh} vs B5",
+                    dr.rollup_aggregate_tile(func, aggr, ts_t, vals, counts,
+                                             groups, cfg, sh, mt),
+                    dr.aggregate_groups(aggr, rolled, groups.gids,
+                                        DASH_GROUPS))
+    # K2 over groups it walks in chunks of R = FLEET_CHUNK: one group of
+    # every series, and groups of exactly R, R + 1 and 2R + 1 members
+    # beside one of the rest, members scattered over the tile; every
+    # aggregate of rate: count, group, min and max equal to B5's rows
+    # under the plain aggregate, the others against the chunked plain
+    # version at aggr_close's tolerances
+    R = dr.FLEET_CHUNK
+    perm = rng.permutation(DASH_SERIES)
+    edge = np.full(DASH_SERIES, 3, np.int32)
+    edge[perm[:R]], edge[perm[R:2 * R + 1]] = 0, 1
+    edge[perm[2 * R + 1:4 * R + 2]] = 2
     g_one = dr.group_layout(np.zeros(DASH_SERIES, np.int32), 1, dev)
+    g_edge = dr.group_layout(edge, 4, dev)
+    if g_edge.slots != 2 + 3 + -(-(DASH_SERIES - 4 * R - 2) // R):
+        raise AssertionError(f"K2 chunk edges: {g_edge.slots} slots")
+    rolled = dr.rollup_tile("rate", ts_t, v_t, counts, cfg)
+    for what, lay in (("one group", g_one), ("R, R+1, 2R+1", g_edge)):
+        for aggr in dr.AGGR_FUNCS:
+            got = dr.rollup_aggregate_tile("rate", aggr, ts_t, v_t, counts,
+                                           lay, cfg)
+            if aggr in ("count", "group", "min", "max"):
+                assert_same_values(f"K2 {what} {aggr} vs B5", got,
+                                   dr.aggregate_groups(aggr, rolled, lay.gids,
+                                                       lay.num_groups))
+                continue
+            e = aggr_close(f"K2 {what} {aggr}", aggr, got,
+                           dr.rollup_aggregate_tile_plain(
+                               "rate", aggr, ts_t, v_t, counts, lay, cfg))
+            if aggr not in ("stddev", "stdvar"):
+                err2 = max(err2, e)
+    del rolled
+    # sum(rate) over one group of every series: timed beside the
+    # by-instance query (the same tile, 128 chunks of 64 rows)
     k2_one = lambda: dr.rollup_aggregate_tile(  # noqa: E731
         "rate", "sum", ts_t, v_t, counts, g_one, cfg)
     if not bool(torch.isfinite(k2_one()).all()):
@@ -1408,7 +1530,8 @@ def phase_kernels(rng, dev):
         DASH_SERIES * 8,
         ops=DASH_SERIES * n_cap)
     res.update(kernels_slice2(rng, dev, ts_t, v_t, counts, ragged))
-    fleet_err, bucket = kernels_fleet(rng, dev, ts_t, v_t, counts)
+    fleet_err, b9_k2_bitwise, bucket = kernels_fleet(rng, dev, ts_t, v_t,
+                                                     counts)
     res.update(kernels_mesh(dev, (args, n_cap), edge_planes,
                             (ts_t, v_t, counts), ragged, bucket))
     for r in res.values():
@@ -1420,6 +1543,7 @@ def phase_kernels(rng, dev):
           "shapes": {"series": DASH_SERIES, "tile_cols": n_cap,
                      "steps": T, "groups": DASH_GROUPS},
           "kernels": res, "fleet_max_abs_err": fleet_err,
+          "b9_vs_k2_bitwise": b9_k2_bitwise,
           "uploads": uploads})
     return res, fleet_err
 
@@ -2213,6 +2337,29 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     err = assert_close("full width K2 vs plain", torch.from_numpy(out),
                        plain.cpu(), 1e-12, 0.0)
     del cnt, s1, plain
+    # K2's staged windows (512-step tiles here) against B5's global
+    # searches: count, group, min and max of rate and deriv equal B5's rows
+    # under the plain aggregate, folded over row chunks
+    for func in ("rate", "deriv"):
+        want = {}
+        for r0 in range(0, S, chunk):
+            sl = slice(r0, r0 + chunk)
+            rolled = dr.rollup_tile(func, ts_t[sl], v_t[sl], counts[sl], ncfg)
+            m = dr.partial_group_moments("min", rolled, groups.gids[sl], G)
+            m["max"] = dr.partial_group_moments("max", rolled,
+                                                groups.gids[sl], G)["max"]
+            for k, x in m.items():
+                want[k] = x if k not in want else \
+                    torch.minimum(want[k], x) if k == "min" else \
+                    torch.maximum(want[k], x) if k == "max" else want[k] + x
+            del rolled, m
+        for aggr in ("count", "group", "min", "max"):
+            assert_same_values(
+                f"full width K2 {func}/{aggr} vs B5",
+                dr.rollup_aggregate_tile(func, aggr, ts_t, v_t, counts, groups,
+                                         ncfg),
+                dr.finalize_group_moments(aggr, want))
+        del want
     slice2 = full_width_queries(engine, series, cfg, key, gids, G, dev)
     res = {"phase": "full_width", "ok": True, "series": S, "groups": G,
            "samples_per_series": N, "hours": hours, "steps": T,

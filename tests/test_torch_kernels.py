@@ -38,10 +38,11 @@ def test_bindings_match_the_source(name):
 
 
 def test_the_mesh_and_fused_decode_entry_points_are_bound():
-    # B12 (rollup.cu), B13's moments pass (rollup.cu) and the mesh
-    # layer's combine, halo and add-back (mesh.cu)
+    # B12 (rollup.cu), B13's moments pass (rollup.cu: K2's group pass
+    # with moments = 1) and the mesh layer's combine, halo and add-back
+    # (mesh.cu)
     assert {"vm_decode_rollup_plan", "vm_decode_rollup",
-            "vm_rollup_group_moments"} <= set(kernels.SIGNATURES["rollup"])
+            "vm_rollup_groups"} <= set(kernels.SIGNATURES["rollup"])
     assert set(kernels.SIGNATURES["mesh"]) == {
         "vm_combine_moments", "vm_halo_compact", "vm_add_seconds"}
     # B15 writes a time shard's block of a wider output: B5 takes a row

@@ -220,6 +220,57 @@ def test_sharded_rollup_aggregate_matches_reference(func):
             _close_aggr(got, flat, aggr, func, mean)
 
 
+def _chunked_tile():
+    """8 shards of 40 rows: group 0 holds 160 rows (20 a shard, chunked at
+    R = 16), groups 1-3 the rest; the SHARD_KINDS mix of rows."""
+    rng = np.random.default_rng(29)
+    series = [_series(rng, int(rng.integers(4, 140)),
+                      SHARD_KINDS[i % len(SHARD_KINDS)]) for i in range(320)]
+    ts, vals, counts = dr.pack_series(series, CFG.start)
+    gids = np.where(np.arange(320) % 2 == 0, 0,
+                    1 + np.arange(320) % 3).astype(np.int32)
+    return ts, vals, counts, gids
+
+
+@pytest.mark.parametrize("func", ("rate", "max_over_time"))
+def test_sharded_one_launch_path_matches_reference(monkeypatch, func):
+    """The shards of one device run as one row scan and one group pass
+    (rollup_group_moments over all 8 shards), a shard's group of more than
+    R members folding its chunks within the shard: against the
+    reference's sharded_rollup_aggregate at its rtol and atol of 1e-9, and
+    count, group, min and max equal to the unsharded K2's."""
+    monkeypatch.setattr(dr, "FLEET_CHUNK", 16)
+    ts, vals, counts, gids = _chunked_tile()
+    rmesh = ref_mesh.make_mesh(n_series=8)
+    mesh = convert.mesh_from_reference(dict(rmesh.shape), CPU8)
+    (ts_s, v_s, c_s), layouts = _port_sharded(mesh, ts, vals, counts, gids)
+    assert all(g.slots == 2 for g in layouts)  # 20 rows: 2 chunks a shard
+    calls = []
+    one_pass = dr.rollup_group_moments
+
+    def counted(f, a, t, *rest, **kw):
+        calls.append(len(t))
+        return one_pass(f, a, t, *rest, **kw)
+
+    monkeypatch.setattr(dr, "rollup_group_moments", counted)
+    cfg = dr.normalized_cfg(func, CFG)
+    t_full = tuple(torch.from_numpy(a) for a in (ts, vals, counts))
+    flat = dr.group_layout(gids, N_GROUPS, "cpu")
+    for aggr in dr.AGGR_FUNCS:
+        want = np.asarray(ref_mesh.sharded_rollup_aggregate(
+            rmesh, func, aggr, _ref_cfg(cfg), N_GROUPS)(
+            jnp.asarray(ts), jnp.asarray(vals), jnp.asarray(counts),
+            jnp.asarray(gids), np.int32(0), ref_dr.MIN_TS_NONE))
+        got = ml.sharded_rollup_aggregate(mesh, func, aggr, cfg, N_GROUPS)(
+            ts_s, v_s, c_s, layouts).numpy()
+        assert np.isfinite(got[0]).sum() > 10
+        _close_aggr(got, want, aggr, func)
+        if aggr in ("count", "group", "min", "max"):
+            np.testing.assert_array_equal(got, dr.rollup_aggregate_tile(
+                func, aggr, *t_full, flat, cfg).numpy())
+    assert calls == [8] * len(dr.AGGR_FUNCS)
+
+
 def test_combine_folds_shards_in_order():
     """The plain combine keeps the earlier of equal extrema, so -0.0 and
     +0.0 resolve by shard order, as the unsharded walk's order."""

@@ -32,7 +32,15 @@ without by (M = 8192) and the full width's instant quantile (one group of
 instance (256 groups of 32) and one group of every row (8 groups, the
 fleet's padding), with their bounds, and the one-group bucket at each
 chunk R of B9 (``FLEET_CHUNK``); K2 sum(rate) over one group of the
-dashboard tile beside them.
+dashboard tile beside them.  K2 rollup_aggregate_tile and B13
+sharded_rollup_aggregate (8 logical shards of the card) are timed on the
+raw tiles at four shapes: sum(rate) by instance and in one group at the
+dashboard, sum(rate) and avg(deriv) by instance at the full width (3125
+groups of 32); each call's device_ms, and its split: every launch of the
+rollup and mesh libraries timed alone by CUDA events (``launch_split``),
+so the row scan (vm_rollup_scan), the scratch pass (vm_rollup_prep, when
+a row needs it), the group pass (vm_rollup_groups) and B13's passes and
+combine show apart, in either checkout.
 ``--root`` imports the port from another checkout (a parent commit
 unpacked under a gitignored directory), so two versions compare in one
 chip call: parent, change, change, parent.  Prints one JSON line with the
@@ -42,9 +50,12 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -177,6 +188,112 @@ def chunk_sweep(tm, dr, cfg, ts, vals, counts, shift, min_ts, v0,
     return out
 
 
+# a device sleep before each timed launch, so its events span the
+# kernel and not the host's launch: ~60 us at the H100's boost clock
+_SLEEP_CYCLES = 100_000
+
+
+class _TimedLib:
+    """A loaded kernel library whose vm_* calls each run between two CUDA
+    events, after a device sleep that keeps the card busy while the host
+    launches; `spans` collects (name, start, end)."""
+
+    def __init__(self, lib, spans: list):
+        self._lib, self._spans = lib, spans
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not name.startswith("vm_") or name == "vm_cuda_error_string":
+            return fn
+
+        def timed(*args):
+            torch.cuda._sleep(_SLEEP_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            rc = fn(*args)
+            b.record()
+            self._spans.append((name, a, b))
+            return rc
+        return timed
+
+
+@contextlib.contextmanager
+def _timed_libs(kernels, names, spans):
+    libs = {n: kernels.lib(n) for n in names}
+    try:
+        for n, h in libs.items():
+            kernels._libs[n] = _TimedLib(h, spans)
+        yield
+    finally:
+        kernels._libs.update(libs)
+
+
+def launch_split(kernels, fn, reps: int = 5) -> dict:
+    """fn's launches of the rollup and mesh libraries, each timed alone:
+    per C entry point, its launches per call and the median over `reps`
+    calls of their summed ms.  The wrapper's own host syncs run as
+    always."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        spans = []
+        with _timed_libs(kernels, ("rollup", "mesh"), spans):
+            fn()
+        torch.cuda.synchronize()
+        per = collections.defaultdict(lambda: [0, 0.0])
+        for name, a, b in spans:
+            per[name][0] += 1
+            per[name][1] += a.elapsed_time(b)
+        runs.append(per)
+    return {name: {"calls": runs[0][name][0],
+                   "ms": statistics.median(r[name][1] for r in runs)}
+            for name in runs[0]}
+
+
+def k2_times(tm, dr, kernels, meshlib, split_rows, ts, vals, counts, cfg,
+             func: str, aggr: str, groups: int, n: int) -> dict:
+    """K2 func/aggr over rows grouped by row % groups, and B13 on 8
+    logical shards of the card (by instance only): device_ms, the launch
+    split, the bound."""
+    S = ts.shape[0]
+    dev = ts.device
+    gids = (torch.arange(S, device=dev) % groups).to(torch.int32)
+    layout = dr.group_layout(gids, groups, dev)
+    T = dr.num_steps(cfg)
+
+    def k2():
+        return dr.rollup_aggregate_tile(func, aggr, ts, vals, counts, layout,
+                                        cfg)
+
+    out = {"S": S, "N": ts.shape[1], "G": groups, "T": T,
+           "device_ms": tm.device_ms(k2, n),
+           "split": launch_split(kernels, k2),
+           "bound_ms": tm.k2_bound(int(counts.sum()), S, groups, T)[
+               "bound_ms"]}
+    if hasattr(dr, "k2_plan"):  # a port with K2's staged plan
+        N = ts.shape[1]
+        out["plan"] = dr.k2_plan(
+            S, N, T, cfg.step, cfg.lookback,
+            dr.scrape_hint(N, T, cfg.step, cfg.lookback),
+            kernels.sm_count(dev))._asdict()
+    if groups == 1:
+        return out
+    mesh = meshlib.make_mesh(8, 1, [dev] * 8)
+    shards = [split_rows(mesh, "series", x) for x in (ts, vals, counts)]
+    layouts = [dr.group_layout(g, groups, dev)
+               for g in split_rows(mesh, "series", gids)]
+    b13 = meshlib.sharded_rollup_aggregate(mesh, func, aggr, cfg, groups)
+
+    def run():
+        return b13(*shards, layouts)
+
+    out["b13"] = {"shards": 8, "device_ms": tm.device_ms(run, n),
+                  "split": launch_split(kernels, run)}
+    return out
+
+
 def shape_times(tm, dr, rolled: torch.Tensor, ks, n: int) -> dict:
     S, T = rolled.shape
     out = {"S": S, "T": T, "topk": {}, "take_rows": {}}
@@ -243,12 +360,14 @@ def main(argv=None) -> int:
     from victoriametrics_tpu_torch import kernels
     from victoriametrics_tpu_torch.ops import device_rollup as dr
     from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
+    from victoriametrics_tpu_torch.parallel import mesh as meshlib
+    from victoriametrics_tpu_torch.parallel.partition import split_rows
     dev = torch.device("cuda", 0)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    kernels.build(("rollup", "select", "quantile"))
+    kernels.build(("rollup", "select", "quantile", "mesh"))
     res = {"label": args.label, "root": args.root, "gpu": gpu,
            "build_s": time.perf_counter() - t0}
     gen = torch.Generator(device=dev)
@@ -258,17 +377,18 @@ def main(argv=None) -> int:
     end = T_START + -(-((n - 1) * SCRAPE + JITTER) // 60_000) * 60_000
     k2 = {}
 
-    def k2_one_group(ts, vals, counts, cfg):  # sum(rate) over every row
-        one = dr.group_layout(torch.zeros(8192, dtype=torch.int32,
-                                          device=dev), 1, dev)
-        k2.update(tm.three_ms(lambda: dr.rollup_aggregate_tile(
-            "rate", "sum", ts, vals, counts, one, cfg), 10, reps=5))
+    def k2_dashboard(ts, vals, counts, cfg):
+        k2.update(by_instance=k2_times(
+            tm, dr, kernels, meshlib, split_rows, ts, vals, counts, cfg,
+            "rate", "sum", 256, 20),
+            one_group=k2_times(tm, dr, kernels, meshlib, split_rows, ts,
+                               vals, counts, cfg, "rate", "sum", 1, 20))
 
     rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n,
                        end - ((n - 1) * SCRAPE - WINDOW), end, 60_000,
-                       k2_one_group)
+                       k2_dashboard)
     res["dashboard"] = shape_times(tm, dr, rolled, (10, 20, 8192), 50)
-    res["dashboard"]["k2_one_group"] = k2
+    res["dashboard"]["k2"] = k2
     res["dashboard"]["quantile_m32"] = quantile_times(tm, dr, rolled, 256,
                                                       0.9, 50)
     res["dashboard"]["quantile_m8192"] = quantile_times(tm, dr, rolled, 1,
@@ -279,10 +399,19 @@ def main(argv=None) -> int:
             tm, dr, kernels, rolled, (10, 20), (1, 2, 4, 8, 16))
     del rolled
     n = 5760
+    k2 = {}
+
+    def k2_full(ts, vals, counts, cfg):
+        for func, aggr in (("rate", "sum"), ("deriv", "avg")):
+            k2[f"{aggr}_{func}"] = k2_times(
+                tm, dr, kernels, meshlib, split_rows, ts, vals, counts, cfg,
+                func, aggr, 3125, 5)
+
     rolled = rate_tile(dr, RollupConfig, dev, gen, 100_000, n, T_START,
-                       T_START + n * SCRAPE, SCRAPE)
+                       T_START + n * SCRAPE, SCRAPE, k2_full)
     torch.cuda.empty_cache()
     res["full_width"] = shape_times(tm, dr, rolled, (10, 20), 10)
+    res["full_width"]["k2"] = k2
     if sweep:
         res["full_width"]["clusters"] = cluster_sweep(
             tm, dr, kernels, rolled, (10, 20), (1, 2, 4, 8))

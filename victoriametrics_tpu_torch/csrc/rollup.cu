@@ -2,7 +2,7 @@
 // B5 rollup_tile: the per-series rollup -> [S, T], B9
 // fleet_rollup_aggregate_tile: K2 over a stack of B streams -> [B, G, T],
 // B12 decode_and_rollup: K1's row decode fused into B5 -> [S, T], and
-// B13's per-shard pass: K2's group walk writing its moments -> [M, G, T].
+// B13's per-shard pass: K2's group walk writing its moments -> [D, M, G, T].
 //
 // K2 replaces victoriametrics_tpu/ops/device_rollup.py:rollup_aggregate_tile
 // and B5 victoriametrics_tpu/ops/device_rollup.py:rollup_tile, jax.jit
@@ -15,12 +15,13 @@
 // fetch bound min_ts, rebase offsets v0 and aggregate code.  On the TPU
 // the window reduce is a dense [S, 256-chunk, T] compare-and-reduce,
 // because gathers are slow there.  Here each (series, step) finds its
-// window by binary search on the sorted row and reads the samples it needs
-// directly; one device function, series_value, computes every func for
-// all three kernels.
+// window by a search of the sorted row and reads the samples it needs
+// directly; one device function, window_value, computes every func for
+// all of them.
 //
 // Launches:
-//  1. rollup_scan, one warp per row: the row's maxPrevInterval mpi
+//  1. rollup_scan, one warp per row (of one tile, or of the D row blocks
+//     of B13's shards on one card): the row's maxPrevInterval mpi
 //     (_max_prev_interval_tile); for the counter funcs (rate, increase,
 //     increase_pure, irate) whether the row is regular: no NaN, no -0.0
 //     and no decrease on its valid prefix; for stddev/stdvar_over_time the
@@ -34,40 +35,50 @@
 //     row writes cv and cmax into its slot of an [irregular rows, N]
 //     scratch pair.  Clean counters need no scratch at all; a row with a
 //     reset or a NaN costs 16 B per column.
-//  3. K2: rollup_groups, one block per (group, 128-step tile), one thread
-//     per step: loops over the group's member rows in ascending row order
-//     (a stable sort of the group ids, computed once per tile by the
-//     caller), evaluates series_value and accumulates cnt/s1/s2/min/max in
-//     registers, then finalizes.  No [S, T] intermediate is written and no
-//     float atomics are used, so a result is the same on every run.
+//  3. K2 and B13's per-shard pass: group_pass, one block per (group or
+//     chunk, tile of 128-512 steps) over D row blocks (D = 1 for K2; B13's
+//     shards of one card in one launch, at most kMaxShards), thread i
+//     taking steps i, i + 128, ... of the tile.  It walks the members in
+//     ascending row order (a stable sort of the group ids, computed once
+//     per layout by the caller), accumulates cnt/s1/s2/min/max per step in
+//     registers, then finalizes (K2), stores the moments (B13) or writes
+//     them to a chunk's partial slot.  On the staged path (the plan,
+//     ops/device_rollup.k2_plan) the block finds each member's span for
+//     its tile once, streams the spans through a shared-memory ring by
+//     cp.async, and finds each step's window in the staged span from an
+//     interpolated guess: a couple of shared-memory probes where the
+//     global search made 2 log2(N) dependent loads (26 at full width).
+//     No [S, T] intermediate is written and no float atomics are used, so
+//     a result is the same on every run.
+//     A group of more than R = chunk members (FLEET_CHUNK, 64) is split
+//     into chunks of R consecutive members, one block each (one group of
+//     8192 rows was 3 blocks, each thread walking 8192 rows); group_fold,
+//     a second launch, merges a group's chunks in ascending chunk order
+//     with B9's fold_chunks and finalizes or stores them.
 //     B5: rollup_series, one block per (row, 128-step tile), writes
 //     series_value to [S, T].
-//     B9: fleet_rollup_groups, K2's pass with a stream axis: one block per
-//     (stream, group, 128-step tile).  The block reads its stream's shift,
-//     min_ts and aggregate code from [B] arrays and walks the stream's
-//     group members from a [B, S] order and [B, G + 1] starts (built once
-//     per upload of the bucket: a member's group ids are fixed while it
-//     lives).  The row scan and the scratch pass take the B x S rows as one
-//     tile, with the shift and min_ts of each row's stream.  The reference
-//     computes all eight aggregates and gathers one (:694-700); the block
-//     finalizes only its stream's, with the same NaN where cnt is 0, so
-//     padded rows (counts 0), padded groups and padded slots come out NaN.
-//     A group of more than R = chunk members (FLEET_CHUNK, 64) is split
-//     into chunks of R consecutive members, one block each: one group of
-//     8192 rows was 8 x 3 blocks on 132 SMs, each thread walking 8192 rows;
-//     in chunks it is 8 x 128 x 3, as many (row, step) walks as the
-//     by-instance bucket's 8 x 256 x 3 blocks of 32 rows.  A chunk's block writes its moments to a partial slot
-//     (wrapper-allocated [5, B x slots, T]; the layout numbers each
-//     stream's chunks, slot0) and fleet_fold, a second launch, merges a
-//     group's chunks in ascending chunk order with moments_merge and
-//     finalizes them, B13's combine (mesh.cu).  A second launch rather than
-//     a cluster fold: a group's chunk count is not bounded by a cluster's
-//     16 blocks, and the fold reads ~1 MB.  Chunk boundaries depend only on
-//     the group's own size, so a stream shard (B14) gets B9's bits; count,
-//     group, min and max equal K2's single pass bit for bit (extrema keep
-//     the first of equal values in ascending order), the sums differ only
-//     in association.  Groups of at most R members keep the single pass,
-//     and a bucket with none larger launches no fold.
+//     B9: fleet_rollup_groups, the same walk with a stream axis and the
+//     global search: one block per (stream, group, 128-step tile).  The
+//     block reads its stream's shift, min_ts and aggregate code from [B]
+//     arrays and walks the stream's group members from a [B, S] order and
+//     [B, G + 1] starts (built once per upload of the bucket: a member's
+//     group ids are fixed while it lives).  The row scan and the scratch
+//     pass take the B x S rows as one tile, with the shift and min_ts of
+//     each row's stream.  The reference computes all eight aggregates and
+//     gathers one (:694-700); the block finalizes only its stream's, with
+//     the same NaN where cnt is 0, so padded rows (counts 0), padded groups
+//     and padded slots come out NaN.  It chunks a group as K2 does (the
+//     layout numbers each stream's chunks, slot0, into a wrapper-allocated
+//     [5, B x slots, T]) and fleet_fold merges the chunks as group_fold
+//     does, a second launch rather than a cluster fold: a group's chunk
+//     count is not bounded by a cluster's 16 blocks, and the fold reads ~1
+//     MB.  Chunk boundaries depend only on the group's own size, so a
+//     stream shard (B14) gets B9's bits and B9 and the per-stream K2 fold
+//     alike; count, group, min and max equal an unchunked walk bit for bit
+//     (extrema keep the first of equal values in ascending order), the
+//     sums differ from it only in association.  Groups of at most R
+//     members keep the single pass, and a layout with none larger
+//     launches no fold.
 //
 //  4. B12 (replaces victoriametrics_tpu/ops/device_decode.py:
 //     decode_and_rollup, decode_tiles then rollup_tile in one jit):
@@ -84,10 +95,9 @@
 //     resident block; cv and cmax always sit in the block's scratch slot,
 //     so the scratch is blocks x n columns, never S x n.
 //  5. B13's per-shard pass (replaces the partial_group_moments half of
-//     victoriametrics_tpu/parallel/mesh.py:sharded_rollup_aggregate):
-//     rollup_group_moments, K2's block and group walk, writing the
-//     aggregate's moments (moments.cuh, in MOMENTS order) to [M, G, T];
-//     mesh.cu combines the shards.
+//     victoriametrics_tpu/parallel/mesh.py:sharded_rollup_aggregate): K2's
+//     group_pass writing the aggregate's moments (moments.cuh, in MOMENTS
+//     order) to [D, M, G, T]; mesh.cu combines the shards.
 //
 // Faithfulness to the reference:
 //  * c_last and c_prev are max-reductions of cv over "ts <= bound" in the
@@ -128,13 +138,16 @@
 // Bound: bytes.  The function must read each valid sample's timestamp and
 // value once (12 B/sample) and write [G, T] (K2), [S, T] (B5) or
 // [B, G, T] (B9) float64; B12 reads the delta planes instead (1-4 B per
-// column and plane) and writes [S, T]; B13's pass writes [M, G, T].
+// column and plane) and writes [S, T]; B13's pass writes [D, M, G, T].
 // The scan pass reads the values once (8 B/sample) for the counter funcs
-// and stddev/stdvar only; the series pass reads about 2 log2(N) + window
-// timestamps and values per (series, step) from L1/L2, since a block's 128
-// threads walk the same row.  The design keeps every intermediate of the
-// [S, T] rollup in registers; its distance from the byte bound is recorded
-// in PERF.md.
+// and stddev/stdvar only.  B5, B9 and B12's series passes read about
+// 2 log2(N) + window timestamps and values per (series, step) from L1/L2,
+// since a block's 128 threads walk the same row; K2's staged pass reads
+// each sample of a tile's span once from global memory (the spans of
+// neighbouring tiles overlap by a window) and a few shared-memory words
+// per (series, step).  The design keeps every intermediate of the [S, T]
+// rollup in registers; its distance from the byte bound is recorded in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -142,6 +155,7 @@
 
 #include <utility>
 
+#include "async_copy.cuh"
 #include "decode.cuh"
 #include "moments.cuh"
 
@@ -175,13 +189,12 @@ __device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
                               static_cast<uint32_t>(b));
 }
 
-// True when a value breaks regularity: NaN, -0.0, or below its
-// predecessor (a counter reset).
-__device__ __forceinline__ bool irregular_at(const double* __restrict__ vrow,
-                                             int i) {
-  const double v = vrow[i];
+// True when sample i's value v breaks regularity: NaN, -0.0, or below
+// its predecessor `prev` (a counter reset).
+__device__ __forceinline__ bool irregular_value(double v, double prev,
+                                                int i) {
   if (v != v || __double_as_longlong(v) == kNegZeroBits) return true;
-  return i >= 1 && v < vrow[i - 1];
+  return i >= 1 && v < prev;
 }
 
 // The row scan of one row, run by every lane of one warp: returns (on
@@ -197,9 +210,21 @@ __device__ bool scan_row(const int32_t* trow, const double* vrow, int c,
   const unsigned full = 0xffffffffu;
   bool irregular = false;
   if (counter) {
-    for (int base = 0; base < c && !irregular; base += 32) {
-      const int i = base + lane;
-      irregular = __any_sync(full, i < c && irregular_at(vrow, i));
+    // 4 x 32 samples a round, each lane's loads issued before its checks
+    for (int base = 0; base < c && !irregular; base += 128) {
+      double v[4], prev[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = base + 32 * k + lane;
+        v[k] = i < c ? vrow[i] : 0.0;
+        prev[k] = i >= 1 && i < c ? vrow[i - 1] : 0.0;
+      }
+      bool bad = false;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        bad |= base + 32 * k + lane < c &&
+               irregular_value(v[k], prev[k], base + 32 * k + lane);
+      irregular = __any_sync(full, bad);
     }
   }
   if (mean != nullptr) {
@@ -260,14 +285,34 @@ __device__ bool scan_row(const int32_t* trow, const double* vrow, int c,
   return irregular;
 }
 
+// D row blocks of N columns, the rows of the passes below: one tile
+// (D = 1; B9's [B, S, N] stack is one block of B x S rows), or the series
+// shards of a mesh whose shards share a card (B13).  Row r of the
+// concatenation lies in block d with row0[d] <= r < row0[d + 1]; the row
+// scan's outputs (mpi, slots, mean) are indexed by r.
+constexpr int kMaxShards = 16;
+
+struct RowBlocks {
+  const int32_t* ts[kMaxShards];
+  const double* vals[kMaxShards];
+  const int32_t* counts[kMaxShards];
+  long long row0[kMaxShards + 1];
+  int D;
+};
+
+__device__ __forceinline__ int block_of(const RowBlocks& rb, long long r) {
+  int d = 0;
+  while (d + 1 < rb.D && r >= rb.row0[d + 1]) ++d;
+  return d;
+}
+
 // One warp per row: regularity (slot -1, or a scratch slot) when
 // `counter`, the row mean when `mean` is given, and mpi.
 // `shifts` / `min_tss` (B9): the values of each stream of rows_per_stream
 // rows, in place of the scalars.
 __global__ void __launch_bounds__(kPrepThreads)
-rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
-            const int32_t* __restrict__ counts, long long S, int N,
-            int32_t shift, int32_t min_ts, const int32_t* __restrict__ shifts,
+rollup_scan(RowBlocks rb, int N, int32_t shift, int32_t min_ts,
+            const int32_t* __restrict__ shifts,
             const int32_t* __restrict__ min_tss, long long rows_per_stream,
             int32_t step, int instant, int counter,
             int32_t* __restrict__ mpi, int32_t* __restrict__ slots,
@@ -276,17 +321,19 @@ rollup_scan(const int32_t* __restrict__ ts, const double* __restrict__ vals,
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
       (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= S) return;  // uniform across the warp
+  if (row >= rb.row0[rb.D]) return;  // uniform across the warp
   if (shifts != nullptr) {
     const long long b = row / rows_per_stream;
     shift = shifts[b];
     min_ts = min_tss[b];
   }
-  const int c = min(counts[row], N);
-  const long long off = row * static_cast<long long>(N);
+  const int d = block_of(rb, row);
+  const long long local = row - rb.row0[d];
+  const int c = min(rb.counts[d][local], N);
+  const long long off = local * static_cast<long long>(N);
   const bool irregular = scan_row(
-      ts + off, vals + off, c, N, shift, min_ts, step, instant, counter,
-      mean != nullptr ? mean + row : nullptr, mpi + row);
+      rb.ts[d] + off, rb.vals[d] + off, c, N, shift, min_ts, step, instant,
+      counter, mean != nullptr ? mean + row : nullptr, mpi + row);
   if (lane == 0) slots[row] = irregular ? atomicAdd(n_irregular, 1) : -1;
 }
 
@@ -335,21 +382,21 @@ __device__ void prep_row(const double* vrow, int c, bool rebased, double v0r,
 // into the row's scratch slot.  `v0` (B9, one per row) makes the reset
 // threshold and the restarted base absolute.
 __global__ void __launch_bounds__(kPrepThreads)
-rollup_prep(const double* __restrict__ vals,
-            const int32_t* __restrict__ counts,
-            const int32_t* __restrict__ slots,
-            const double* __restrict__ v0, long long S, int N,
-            double* __restrict__ cv, double* __restrict__ cmax) {
+rollup_prep(RowBlocks rb, const int32_t* __restrict__ slots,
+            const double* __restrict__ v0, int N, double* __restrict__ cv,
+            double* __restrict__ cmax) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
       (threadIdx.x >> 5);
-  if (row >= S) return;  // uniform across the warp
+  if (row >= rb.row0[rb.D]) return;  // uniform across the warp
   const int slot = slots[row];
   if (slot < 0) return;  // regular row: cv = cmax = values
+  const int d = block_of(rb, row);
+  const long long local = row - rb.row0[d];
   const long long soff = static_cast<long long>(slot) * N;
-  prep_row(vals + row * static_cast<long long>(N), min(counts[row], N),
-           v0 != nullptr, v0 != nullptr ? v0[row] : 0.0, cv + soff,
-           cmax + soff);
+  prep_row(rb.vals[d] + local * static_cast<long long>(N),
+           min(rb.counts[d][local], N), v0 != nullptr,
+           v0 != nullptr ? v0[row] : 0.0, cv + soff, cmax + soff);
 }
 
 // #{i in [lo, hi) : ts[i] - shift <= x} + lo, on a sorted row.
@@ -362,6 +409,59 @@ __device__ __forceinline__ int count_le(const int32_t* __restrict__ trow,
     else hi = mid;
   }
   return lo;
+}
+
+// #{i in [0, L) : shifted(a[i]) <= x} on a sorted row, from a guess g of
+// the answer: probes at distances 1, 2, 4, ... from g bracket the answer,
+// then count_le finishes inside the bracket.  The same count for any g;
+// two probes when g is right, O(log |answer - g|) when it is not.
+__device__ __forceinline__ int count_le_from(const int32_t* a, int L,
+                                             int32_t shift, int32_t x,
+                                             int g) {
+  g = g < 0 ? 0 : (g > L ? L : g);
+  int lo, hi;
+  if (g < L && shifted(a[g], shift) <= x) {  // the answer lies past g
+    lo = g + 1;
+    hi = L;
+    for (int d = 1; lo + d - 1 < L; d <<= 1) {
+      const int p = lo + d - 1;
+      if (shifted(a[p], shift) > x) {
+        hi = p;
+        break;
+      }
+      lo = p + 1;
+    }
+  } else {  // at or before g
+    lo = 0;
+    hi = g;
+    for (int d = 1; hi - d >= 0; d <<= 1) {
+      const int p = hi - d;
+      if (shifted(a[p], shift) <= x) {
+        lo = p + 1;
+        break;
+      }
+      hi = p;
+    }
+  }
+  return count_le(a, lo, hi, shift, x);
+}
+
+// Samples per ms on the line through a row's first and last (shifted)
+// timestamps f0 and f1, L samples apart; 0 for a row of one timestamp.
+__device__ __forceinline__ float per_ms_of(int32_t f0, int32_t f1, int L) {
+  return L > 1 && f1 > f0
+             ? static_cast<float>(L - 1) /
+                   static_cast<float>(static_cast<long long>(f1) - f0)
+             : 0.0f;
+}
+
+// The guess of count_le_from: x's place on that line, in [0, L].
+__device__ __forceinline__ int guess_count(int32_t x, int32_t f0,
+                                           float per_ms, int L) {
+  // wrapping int32: a span far wider than int32 only spoils the guess
+  const float f = static_cast<float>(wsub(x, f0)) * per_ms;
+  if (!(f >= 0.0f)) return 0;
+  return f >= static_cast<float>(L) ? L : static_cast<int>(f) + 1;
 }
 
 // One row of the tile as series_value reads it.
@@ -407,47 +507,99 @@ __device__ __forceinline__ Row row_at(long long r, int N,
   return row;
 }
 
-// The per-series rollup value at step t: the branches of
-// device_rollup.py:rollup_tile, operation for operation.  NaN = no value.
-// The func is a template argument, so each kernel instance reads only the
-// samples its func needs.
-template <int F>
-__device__ __forceinline__ double series_value(const Row& r, const Grid& g,
-                                               int t) {
+// A row's window reads, from the tile in global memory (B5, B9, B12, K2's
+// global path): the timestamps shifted onto the grid, the values, the
+// reset-corrected counter cv and its running maximum cm (both the values
+// on a regular row), each sample's time in seconds and its value less
+// the row mean (stddev/stdvar).
+struct GlobalRow {
+  const int32_t* ts;
+  const double *v, *cv, *cm;
+  int32_t shift;
+  double mean;
+  __device__ __forceinline__ int32_t t(int i) const {
+    return shifted(ts[i], shift);
+  }
+  __device__ __forceinline__ int32_t first() const {
+    return shifted(ts[0], shift);
+  }
+  __device__ __forceinline__ double val(int i) const { return v[i]; }
+  __device__ __forceinline__ double cval(int i) const { return cv[i]; }
+  __device__ __forceinline__ double cmax(int i) const { return cm[i]; }
+  __device__ __forceinline__ double secs(int i) const {
+    return static_cast<double>(t(i)) / 1e3;
+  }
+  __device__ __forceinline__ double centred(int i) const {
+    return v[i] - mean;
+  }
+};
+
+// The same reads from a span of the row staged in shared memory from
+// sample `base` on (K2's staged path): the timestamps, plane a (the
+// values; cv; or the values less the row mean, computed once per sample)
+// and plane b (cmax; or the time in seconds, computed once per sample),
+// as the func needs them.  The row's first sample (lifetime) stays a read
+// of the tile.
+struct StagedRow {
+  const int32_t* ts;
+  const double *a, *b;
+  int base;
+  int32_t shift;
+  const int32_t* row_ts;
+  __device__ __forceinline__ int32_t t(int i) const {
+    return shifted(ts[i - base], shift);
+  }
+  __device__ __forceinline__ int32_t first() const {
+    return shifted(row_ts[0], shift);
+  }
+  __device__ __forceinline__ double val(int i) const { return a[i - base]; }
+  __device__ __forceinline__ double cval(int i) const { return a[i - base]; }
+  __device__ __forceinline__ double cmax(int i) const { return b[i - base]; }
+  __device__ __forceinline__ double secs(int i) const { return b[i - base]; }
+  __device__ __forceinline__ double centred(int i) const {
+    return a[i - base];
+  }
+};
+
+// The rollup value at step t of a row whose window at t is samples
+// [lo, hi): the branches of device_rollup.py:rollup_tile, operation for
+// operation.  NaN = no value.  The func is a template argument, so each
+// kernel instance reads only the samples its func needs; `R` is where
+// the reads go (GlobalRow or StagedRow), so a value has the same bits
+// from either.
+template <int F, class R>
+__device__ __forceinline__ double window_value(const R& r, const Grid& g,
+                                               int t, int lo, int hi,
+                                               int32_t mpi, double v0) {
   const int32_t grid = static_cast<int32_t>(static_cast<uint32_t>(t) *
                                             static_cast<uint32_t>(g.step));
   const int32_t lo_t = wsub(grid, g.lookback);
-  const int32_t sh = g.shift;
-  const int hi = count_le(r.ts, 0, r.c, sh, grid);
-  const int lo = count_le(r.ts, 0, hi, sh, lo_t);
   if (hi <= lo) return qnan();  // empty window
   const int n = hi - lo;
-  const int32_t t_prev_i = lo >= 1 ? shifted(r.ts[lo - 1], sh) : kI32Min;
+  const int32_t t_prev_i = lo >= 1 ? r.t(lo - 1) : kI32Min;
   const bool has_prev = lo >= 1 && t_prev_i >= g.min_ts;
   const bool two = n >= 2;
   const double nw = static_cast<double>(n);
-  const double t_last = static_cast<double>(shifted(r.ts[hi - 1], sh));
+  const double t_last = static_cast<double>(r.t(hi - 1));
   // read only on the branches that use it
-  const auto t_first = [&]() {
-    return static_cast<double>(shifted(r.ts[lo], sh));
-  };
+  const auto t_first = [&]() { return static_cast<double>(r.t(lo)); };
   const double t_prev = static_cast<double>(t_prev_i);
   // prevValue only within maxPrevInterval of the window start
-  const bool has_gprev = has_prev && t_prev_i > wsub(lo_t, r.mpi);
+  const bool has_gprev = has_prev && t_prev_i > wsub(lo_t, mpi);
   switch (F) {
     case kCount: return nw;
     case kPresent: return 1.0;
     case kSum:
     case kAvg: {
       double s = 0.0;
-      for (int i = lo; i < hi; ++i) s += r.v[i];
+      for (int i = lo; i < hi; ++i) s += r.val(i);
       return F == kSum ? s : s / nw;
     }
     case kStddev:
     case kStdvar: {
       double s1 = 0.0, s2 = 0.0;
       for (int i = lo; i < hi; ++i) {
-        const double x = r.v[i] - r.mean;
+        const double x = r.centred(i);
         s1 += x;
         s2 += x * x;
       }
@@ -459,53 +611,54 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
     case kMax: {
       double m = F == kMin ? INFINITY : -INFINITY;
       for (int i = lo; i < hi; ++i)
-        m = F == kMin ? nan_min(m, r.v[i]) : nan_max(m, r.v[i]);
+        m = F == kMin ? nan_min(m, r.val(i)) : nan_max(m, r.val(i));
       return m;
     }
     case kTfirst: return t_first() / 1e3 + g.start_s;
     case kTlast:
     case kTimestamp: return t_last / 1e3 + g.start_s;
     case kLag: return (static_cast<double>(grid) - t_last) / 1e3;
-    case kFirst: return r.v[lo];
+    case kFirst: return r.val(lo);
     case kLast:
-    case kDefault: return r.v[hi - 1];
+    case kDefault: return r.val(hi - 1);
     case kChanges: {
       double s = 0.0;
       for (int i = lo; i < hi; ++i)
-        if (i >= 1 && r.v[i] != r.v[i - 1]) s += 1.0;
-      const double boundary = lo >= 1 && r.v[lo] != r.v[lo - 1] ? 1.0 : 0.0;
+        if (i >= 1 && r.val(i) != r.val(i - 1)) s += 1.0;
+      const double boundary =
+          lo >= 1 && r.val(lo) != r.val(lo - 1) ? 1.0 : 0.0;
       return s - (has_prev ? 0.0 : boundary);
     }
     case kDelta: {
-      const double v_first = r.v[lo];
-      const double d = two ? r.v[lo + 1] - v_first : 0.0;
-      const bool born = fabs(v_first + r.v0) < 10.0 * (fabs(d) + 1.0);
-      const double base = has_prev ? r.v[lo - 1] : (born ? -r.v0 : v_first);
-      return r.v[hi - 1] - base;
+      const double v_first = r.val(lo);
+      const double d = two ? r.val(lo + 1) - v_first : 0.0;
+      const bool born = fabs(v_first + v0) < 10.0 * (fabs(d) + 1.0);
+      const double base = has_prev ? r.val(lo - 1) : (born ? -v0 : v_first);
+      return r.val(hi - 1) - base;
     }
     case kIdelta: {
       if (!(two || has_gprev)) return qnan();
-      const double prev = two ? r.v[hi - 2] : r.v[lo - 1];
-      return r.v[hi - 1] - prev;
+      const double prev = two ? r.val(hi - 2) : r.val(lo - 1);
+      return r.val(hi - 1) - prev;
     }
     case kDerivFast: {
       if (!(has_gprev || two)) return qnan();
-      const double base_v = has_gprev ? r.v[lo - 1] : r.v[lo];
+      const double base_v = has_gprev ? r.val(lo - 1) : r.val(lo);
       const double base_t = has_gprev ? t_prev : t_first();
       const double dt = (t_last - base_t) / 1e3;
-      return dt > 0.0 ? (r.v[hi - 1] - base_v) / dt : qnan();
+      return dt > 0.0 ? (r.val(hi - 1) - base_v) / dt : qnan();
     }
     case kDeriv: {
       if (!two) return qnan();
       double st = 0.0, stt = 0.0, sv = 0.0, stv = 0.0;
       for (int i = lo; i < hi; ++i) {
-        const double ts_s = static_cast<double>(shifted(r.ts[i], sh)) / 1e3;
+        const double ts_s = r.secs(i);
         st += ts_s;
         stt += ts_s * ts_s;
-        sv += r.v[i];
-        stv += ts_s * r.v[i];
+        sv += r.val(i);
+        stv += ts_s * r.val(i);
       }
-      const double t0 = t_first() / 1e3;
+      const double t0 = r.secs(lo);
       const double st_ = st - nw * t0;
       const double stt_ = stt - 2.0 * t0 * st + nw * t0 * t0;
       const double stv_ = stv - t0 * sv;
@@ -514,7 +667,7 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
     }
     case kLifetime: {
       const double tf =
-          has_prev ? static_cast<double>(shifted(r.ts[0], sh)) : t_first();
+          has_prev ? static_cast<double>(r.first()) : t_first();
       return (t_last - tf) / 1e3;
     }
     case kScrapeInterval: {
@@ -526,17 +679,17 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
     }
     default: break;  // the counter funcs below
   }
-  const double c_last = r.cm[hi - 1];
-  const double c_prev = lo >= 1 ? r.cm[lo - 1] : -INFINITY;
+  const double c_last = r.cmax(hi - 1);
+  const double c_prev = lo >= 1 ? r.cmax(lo - 1) : -INFINITY;
   if (F == kIncrease || F == kIncreasePure) {
     if (has_prev) return c_last - c_prev;
-    if (F == kIncreasePure) return c_last - (-r.v0);
+    if (F == kIncreasePure) return c_last - (-v0);
     // new-series baseline: a counter born inside the window counts from 0
     double c_first = INFINITY;
-    for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cv[i]);
-    const double d = two ? r.cv[lo + 1] - c_first : 0.0;
-    const bool born = fabs(c_first + r.v0) < 10.0 * (fabs(d) + 1.0);
-    return c_last - (born ? -r.v0 : c_first);
+    for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cval(i));
+    const double d = two ? r.cval(lo + 1) - c_first : 0.0;
+    const bool born = fabs(c_first + v0) < 10.0 * (fabs(d) + 1.0);
+    return c_last - (born ? -v0 : c_first);
   }
   if (!(has_gprev || two)) return qnan();
   if (F == kRate) {
@@ -546,18 +699,31 @@ __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
       dv = c_last - c_prev;
     } else {
       double c_first = INFINITY;
-      for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cv[i]);
+      for (int i = lo; i < hi; ++i) c_first = nan_min(c_first, r.cval(i));
       dt = (t_last - t_first()) / 1e3;
       dv = c_last - c_first;
     }
     return dt > 0.0 ? dv / dt : qnan();
   }
   // irate: the last two samples
-  const double c_l2 = two ? r.cv[hi - 2] : c_prev;
-  const double t_l2 =
-      two ? static_cast<double>(shifted(r.ts[hi - 2], sh)) : t_prev;
+  const double c_l2 = two ? r.cval(hi - 2) : c_prev;
+  const double t_l2 = two ? static_cast<double>(r.t(hi - 2)) : t_prev;
   const double dt = (t_last - t_l2) / 1e3;
   return dt > 0.0 ? (c_last - c_l2) / dt : qnan();
+}
+
+// The per-series rollup value at step t, its window found by two binary
+// searches of the row in global memory (B5, B9, B12 and K2's global
+// path).
+template <int F>
+__device__ __forceinline__ double series_value(const Row& r, const Grid& g,
+                                               int t) {
+  const int32_t grid = static_cast<int32_t>(static_cast<uint32_t>(t) *
+                                            static_cast<uint32_t>(g.step));
+  const int hi = count_le(r.ts, 0, r.c, g.shift, grid);
+  const int lo = count_le(r.ts, 0, hi, g.shift, wsub(grid, g.lookback));
+  return window_value<F>(GlobalRow{r.ts, r.v, r.cv, r.cm, g.shift, r.mean},
+                         g, t, lo, hi, r.mpi, r.v0);
 }
 
 // The arguments of the series passes: the tile's rows and their row-scan
@@ -598,18 +764,6 @@ __device__ __forceinline__ double group_value(
     long long row0, const Grid& g, int aggr, int t) {
   return finalize_moments(group_moments<F>(a, order, k0, k1, row0, g, t),
                           aggr);
-}
-
-template <int F>
-__global__ void __launch_bounds__(kGroupThreads)
-rollup_groups(Tile a, const int32_t* __restrict__ order,
-              const int32_t* __restrict__ starts, int T, Grid g, int aggr,
-              double* __restrict__ out) {
-  const long long grp = blockIdx.x;
-  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
-  if (t >= T) return;
-  out[grp * T + t] = group_value<F>(a, order, starts[grp], starts[grp + 1], 0,
-                                    g, aggr, t);
 }
 
 // The arguments of B9's chunked groups: a group of more than `chunk`
@@ -663,9 +817,34 @@ fleet_rollup_groups(Tile a, const int32_t* __restrict__ order,
   p[4 * ch.plane] = m.mx;
 }
 
+// A chunked group's moments at one step: its n chunks' moments, chunk c at
+// p[c * stride] (moment k a plane `pl` further on), merged in ascending
+// chunk order as B13's combine folds its shards (mesh.cu
+// combine_moments).  B9's fold and K2's (group_fold) share it, so a fleet
+// stream and the per-stream K2 fold a group alike.
+__device__ __forceinline__ Moments fold_chunks(const double* p,
+                                               long long stride,
+                                               long long pl, int n) {
+  Moments acc = moments_empty();
+  int c = 0;
+  // kFoldBatch chunks' loads in flight before their merges, in order
+  for (; c + kFoldBatch <= n; c += kFoldBatch, p += kFoldBatch * stride) {
+    Moments q[kFoldBatch];
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) {
+      const double* x = p + u * stride;
+      q[u] = Moments{x[0], x[pl], x[2 * pl], x[3 * pl], x[4 * pl]};
+    }
+#pragma unroll
+    for (int u = 0; u < kFoldBatch; ++u) moments_merge(acc, q[u]);
+  }
+  for (; c < n; ++c, p += stride)
+    moments_merge(acc, Moments{p[0], p[pl], p[2 * pl], p[3 * pl], p[4 * pl]});
+  return acc;
+}
+
 // B9's fold, one thread per (stream, group, step) of a chunked group: its
-// chunks' moments merged in ascending chunk order, as B13's combine folds
-// its shards (mesh.cu combine_moments), then finalized by the stream's
+// chunks' moments folded in chunk order, then finalized by the stream's
 // aggregate.  Groups of at most `chunk` members were finalized already.
 __global__ void __launch_bounds__(kPrepThreads)
 fleet_fold(const int32_t* __restrict__ starts,
@@ -681,42 +860,369 @@ fleet_fold(const int32_t* __restrict__ starts,
   const int m = st[1] - st[0];
   if (m <= ch.chunk) return;
   const int n = (m + ch.chunk - 1) / ch.chunk;
-  const long long pl = ch.plane;
-  const double* p = ch.partial + (b * ch.slots + ch.slot0[bg]) * T + t;
-  Moments acc = moments_empty();
-  int c = 0;
-  // kFoldBatch chunks' loads in flight before their merges, in order
-  for (; c + kFoldBatch <= n; c += kFoldBatch, p += kFoldBatch * T) {
-    Moments q[kFoldBatch];
-#pragma unroll
-    for (int u = 0; u < kFoldBatch; ++u) {
-      const double* x = p + u * T;
-      q[u] = Moments{x[0], x[pl], x[2 * pl], x[3 * pl], x[4 * pl]};
-    }
-#pragma unroll
-    for (int u = 0; u < kFoldBatch; ++u) moments_merge(acc, q[u]);
-  }
-  for (; c < n; ++c, p += T)
-    moments_merge(acc, Moments{p[0], p[pl], p[2 * pl], p[3 * pl], p[4 * pl]});
-  out[bg * T + t] = finalize_moments(acc, aggrs[b]);
+  out[bg * T + t] = finalize_moments(
+      fold_chunks(ch.partial + (b * ch.slots + ch.slot0[bg]) * T + t, T,
+                  ch.plane, n),
+      aggrs[b]);
 }
 
-// B13's per-shard pass: K2's group walk, writing the aggregate's moments
-// (moment_count of them, in their stored order) as [M, G, T] instead of
-// finalizing them.
+// ---------------------------------------------------------------------------
+// K2 and B13's per-shard pass: the group walk over D row blocks.
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;       // member rows in flight in a block's ring
+constexpr int kSpanBatch = 64;   // member rows whose spans a block finds at once
+constexpr int kMaxStepsPerThread = 4;  // a block's steps: 128, 256 or 512
+// Resident blocks an SM is compiled for (at most 80 registers a thread):
+// the pass waits on each step's searches and divisions, so more resident
+// warps help until registers spill (PERF.md records the sweep)
+constexpr int kGroupBlocksPerSm = 6;
+
+// The group layouts of the row blocks (ops/device_rollup.py GroupLayout):
+// block d's group grp owns rows order[d][starts[d][grp] : starts[d][grp +
+// 1]] of the block, ascending; a group of more than `chunk` members is
+// walked in chunks of `chunk` consecutive members, chunk c writing partial
+// slot pslot0[d] + slot0[d][grp] + c.  The grid's x axis enumerates, block
+// by block, the G groups then the block's slots: unit0[d] is block d's
+// first.
+struct Layouts {
+  const int32_t* order[kMaxShards];
+  const int32_t* starts[kMaxShards];
+  const int32_t* slot0[kMaxShards];
+  long long unit0[kMaxShards + 1];
+  long long pslot0[kMaxShards + 1];
+  int chunk;
+};
+
+// The arguments of the group pass and its fold.
+struct GroupArgs {
+  RowBlocks rb;
+  Layouts ly;
+  const double *cv, *cmax, *mean;  // the row scan's scratch and row means
+  const int32_t *slots, *mpi;      // ... its slots and maxPrevIntervals
+  int N, G, T;
+  Grid g;
+  int aggr;
+  int moments;                     // B13: the moments [D, M, G, T]
+  int staged, steps, cap;          // the plan (ops/device_rollup.k2_plan)
+  double* partial;                 // chunks' moments [5, pslot0[D], T]
+  double* out;                     // K2 [G, T]; B13 [D, M, G, T]
+};
+
+// One member row of a block's batch: where it lies, its row-scan outputs,
+// and the first window's lo and the last window's hi of the block's step
+// tile (a window of the tile reads samples [lo_first - 1, hi_last) only).
+struct MemberRow {
+  long long row;  // in the concatenation: the row scan's outputs
+  double mean;
+  int local, c, lo_first, hi_last, slot;
+  int32_t mpi;
+};
+
+// A member's staged span: samples [*s0, *s0 + *n) of its row.  *n = 0:
+// no window of the tile holds a sample (every value NaN); *n = -1: the
+// span overflows a stage and the row takes the global search.
+__device__ __forceinline__ void span_of(const MemberRow& m, int cap, int* s0,
+                                        int* n) {
+  *s0 = m.lo_first > 0 ? m.lo_first - 1 : 0;
+  const int len = m.hi_last - *s0;
+  *n = m.hi_last <= m.lo_first ? 0 : (len <= cap ? len : -1);
+}
+
+__host__ __device__ __forceinline__ long long align16(long long b) {
+  return (b + 15) / 16 * 16;
+}
+
+// A stage of the ring: cap timestamps, then planes a and b of cap doubles.
+__host__ __device__ __forceinline__ long long stage_bytes(int cap) {
+  return align16(4LL * cap) + 2 * align16(8LL * cap);
+}
+
+// Funcs that read values (or cv): plane a of a stage.
 template <int F>
-__global__ void __launch_bounds__(kGroupThreads)
-rollup_group_moments(Tile a, const int32_t* __restrict__ order,
-                     const int32_t* __restrict__ starts, int G, int T,
-                     Grid g, int aggr, double* __restrict__ out) {
-  const long long grp = blockIdx.x;
-  const int t = blockIdx.y * kGroupThreads + threadIdx.x;
-  if (t >= T) return;
-  const Moments m = group_moments<F>(a, order, starts[grp], starts[grp + 1],
-                                     0, g, t);
-  const long long plane = static_cast<long long>(G) * T;
-  for (int k = 0; k < moment_count(aggr); ++k)
-    out[k * plane + grp * T + t] = moment_get(m, aggr, k);
+__host__ __device__ constexpr bool reads_values() {
+  return !(F == kCount || F == kPresent || F == kTfirst || F == kTlast ||
+           F == kTimestamp || F == kLag || F == kLifetime ||
+           F == kScrapeInterval);
+}
+
+__device__ __forceinline__ Row member_row(const GroupArgs& a, int d,
+                                          const MemberRow& m) {
+  const long long off = static_cast<long long>(m.local) * a.N;
+  const double* v = a.rb.vals[d] + off;
+  const int slot = a.slots[m.row];
+  const long long soff = static_cast<long long>(slot) * a.N;
+  return Row{a.rb.ts[d] + off, v, slot < 0 ? v : a.cv + soff,
+             slot < 0 ? v : a.cmax + soff, m.c, m.mpi, m.mean, 0.0};
+}
+
+// Start member m's copies into stage st: its span's timestamps and the
+// planes the func reads (values, or cv and cmax of an irregular counter
+// row), thread i taking samples i, i + 128, ...
+template <int F>
+__device__ __forceinline__ void stage_row(const GroupArgs& a, int d,
+                                          const MemberRow& m,
+                                          unsigned char* st) {
+  int s0, n;
+  span_of(m, a.cap, &s0, &n);
+  if (n <= 0) return;
+  const long long off = static_cast<long long>(m.local) * a.N + s0;
+  int32_t* sts = reinterpret_cast<int32_t*>(st);
+  double* sa = reinterpret_cast<double*>(st + align16(4LL * a.cap));
+  double* sb = sa + align16(8LL * a.cap) / 8;
+  const int32_t* tsrc = a.rb.ts[d] + off;
+  for (int i = threadIdx.x; i < n; i += kGroupThreads)
+    copy4_async(sts + i, tsrc + i);
+  constexpr bool kCounter = F <= kIrate;
+  if (!reads_values<F>()) return;
+  const long long soff = static_cast<long long>(m.slot) * a.N + s0;
+  const double* asrc =
+      kCounter && m.slot >= 0 ? a.cv + soff : a.rb.vals[d] + off;
+  for (int i = threadIdx.x; i < n; i += kGroupThreads)
+    copy8_async(sa + i, asrc + i);
+  if (kCounter && m.slot >= 0)
+    for (int i = threadIdx.x; i < n; i += kGroupThreads)
+      copy8_async(sb + i, a.cmax + soff + i);
+}
+
+// K2 rollup_aggregate_tile and B13's per-shard pass.  Block (x, y): a
+// group or a chunk of row block d (see Layouts) and y's tile of `steps`
+// steps; thread i takes steps i, i + 128, ... of the tile.  Members are
+// walked in ascending order, each step's moments summed in registers.
+//
+// Staged path (a.staged): per batch of up to 64 members, two threads a
+// member find its span for the tile by count_le_from on its row (from a
+// guess on the line through the row's ends); then members stream through
+// a ring of kStages stages by cp.async, kStages - 1 rows ahead of the one
+// evaluated.  A thread finds each of its steps' window in the staged span
+// by count_le_from from the same kind of guess (a regular scrape puts the
+// guess on the answer: two probes, where the global search makes 2
+// log2(N)); per-sample conversions (deriv's seconds, stddev/stdvar's
+// centred values) are made once per staged sample.  A member whose span
+// overflows a stage, and every member on the global path, is evaluated
+// by series_value (binary searches of the row in global memory).  Both
+// find the same window, and window_value is one function: a member's
+// value at a step has the same bits on either path.
+//
+// A group finalizes its moments (K2), stores them (B13: [D, M, G, T]), or,
+// as a chunk, writes them to its partial slot for group_fold.
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads, kGroupBlocksPerSm)
+group_pass(GroupArgs a) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ MemberRow rows[kSpanBatch];
+  constexpr bool kCounter = F <= kIrate;
+  constexpr bool kCentred = F == kStddev || F == kStdvar;
+  const long long x = blockIdx.x;
+  int d = 0;
+  while (d + 1 < a.rb.D && x >= a.ly.unit0[d + 1]) ++d;
+  const int u = static_cast<int>(x - a.ly.unit0[d]);
+  const int32_t* starts = a.ly.starts[d];
+  const int chunk = a.ly.chunk;
+  int grp, k0, k1;
+  long long pslot = -1;  // a chunk's partial slot; -1: a whole group
+  if (u < a.G) {
+    grp = u;
+    k0 = starts[grp];
+    k1 = starts[grp + 1];
+    if (k1 - k0 > chunk) return;  // its chunks' blocks walk it
+  } else {
+    const int p = u - a.G;
+    const int32_t* slot0 = a.ly.slot0[d];
+    int lo = 0, hi = a.G;  // the chunked group of slot p: the last whose
+    while (lo < hi) {      // first slot is at most p
+      const int mid = (lo + hi) >> 1;
+      if (slot0[mid] <= p) lo = mid + 1;
+      else hi = mid;
+    }
+    grp = lo - 1;
+    k0 = starts[grp] + (p - slot0[grp]) * chunk;
+    k1 = min(k0 + chunk, starts[grp + 1]);
+    pslot = a.ly.pslot0[d] + p;
+  }
+  const int32_t* order = a.ly.order[d];
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.y * a.steps;
+  const int nst = min(a.steps, a.T - t0);
+  const int32_t shift = a.g.shift;
+  Moments m[kMaxStepsPerThread];
+#pragma unroll
+  for (int j = 0; j < kMaxStepsPerThread; ++j) m[j] = moments_empty();
+
+  // every step of member mr by the global search
+  const auto global_member = [&](const MemberRow& mr) {
+    const Row r = member_row(a, d, mr);
+#pragma unroll
+    for (int j = 0; j < kMaxStepsPerThread; ++j) {
+      const int i = j * kGroupThreads + tid;
+      if (i < nst) {
+        const double v = series_value<F>(r, a.g, t0 + i);
+        if (v == v) moments_add(m[j], v);
+      }
+    }
+  };
+
+  if (!a.staged) {
+    for (int k = k0; k < k1; ++k) {
+      MemberRow mr;
+      mr.local = order[k];
+      mr.row = a.rb.row0[d] + mr.local;
+      mr.c = min(a.rb.counts[d][mr.local], a.N);
+      mr.mpi = a.mpi[mr.row];
+      mr.mean = kCentred ? a.mean[mr.row] : 0.0;
+      global_member(mr);
+    }
+  } else {
+    // the tile's first window start and last grid point
+    const int32_t lo_t0 = wsub(
+        static_cast<int32_t>(static_cast<uint32_t>(t0) *
+                             static_cast<uint32_t>(a.g.step)),
+        a.g.lookback);
+    const int32_t grid1 =
+        static_cast<int32_t>(static_cast<uint32_t>(t0 + nst - 1) *
+                             static_cast<uint32_t>(a.g.step));
+    const long long sbytes = stage_bytes(a.cap);
+    for (int kb = k0; kb < k1; kb += kSpanBatch) {
+      const int nb = min(kSpanBatch, k1 - kb);
+      __syncthreads();  // the last batch's members are read no more
+      if (tid < 2 * nb) {
+        MemberRow& mr = rows[tid >> 1];
+        const int local = order[kb + (tid >> 1)];
+        const int32_t* trow =
+            a.rb.ts[d] + static_cast<long long>(local) * a.N;
+        const int c = min(a.rb.counts[d][local], a.N);
+        int32_t f0 = 0, f1 = 0;
+        if (c > 0) {
+          f0 = shifted(trow[0], shift);
+          f1 = shifted(trow[c - 1], shift);
+        }
+        const float per = per_ms_of(f0, f1, c);
+        if (tid & 1) {
+          mr.hi_last = count_le_from(trow, c, shift, grid1,
+                                     guess_count(grid1, f0, per, c));
+        } else {
+          mr.lo_first = count_le_from(trow, c, shift, lo_t0,
+                                      guess_count(lo_t0, f0, per, c));
+          mr.local = local;
+          mr.row = a.rb.row0[d] + local;
+          mr.c = c;
+          mr.slot = kCounter ? a.slots[mr.row] : -1;
+          mr.mpi = a.mpi[mr.row];
+          mr.mean = kCentred ? a.mean[mr.row] : 0.0;
+        }
+      }
+      __syncthreads();
+      for (int j = 0; j < kStages - 1; ++j) {
+        if (j < nb) stage_row<F>(a, d, rows[j], ring + j * sbytes);
+        commit_async();
+      }
+      for (int j = 0; j < nb; ++j) {
+        const int ahead = j + kStages - 1;
+        if (ahead < nb)
+          stage_row<F>(a, d, rows[ahead], ring + (ahead % kStages) * sbytes);
+        commit_async();
+        wait_async<kStages - 1>();  // member j's copies have landed
+        const MemberRow& mr = rows[j];
+        int s0, n;
+        span_of(mr, a.cap, &s0, &n);
+        unsigned char* st = ring + (j % kStages) * sbytes;
+        const int32_t* sts = reinterpret_cast<const int32_t*>(st);
+        double* sa = reinterpret_cast<double*>(st + align16(4LL * a.cap));
+        double* sb = sa + align16(8LL * a.cap) / 8;
+        // once per sample, each thread on the samples it copied
+        if (kCentred)
+          for (int i = tid; i < n; i += kGroupThreads) sa[i] = sa[i] - mr.mean;
+        if (F == kDeriv)
+          for (int i = tid; i < n; i += kGroupThreads)
+            sb[i] = static_cast<double>(shifted(sts[i], shift)) / 1e3;
+        __syncthreads();
+        if (n > 0) {
+          const StagedRow r{sts, sa, kCounter && mr.slot < 0 ? sa : sb, s0,
+                            shift,
+                            a.rb.ts[d] + static_cast<long long>(mr.local) *
+                                             a.N};
+          const int32_t f0 = shifted(sts[0], shift);
+          const float per = per_ms_of(f0, shifted(sts[n - 1], shift), n);
+#pragma unroll
+          for (int jj = 0; jj < kMaxStepsPerThread; ++jj) {
+            const int i = jj * kGroupThreads + tid;
+            if (i < nst) {
+              const int t = t0 + i;
+              const int32_t grid = static_cast<int32_t>(
+                  static_cast<uint32_t>(t) * static_cast<uint32_t>(a.g.step));
+              const int32_t lo_t = wsub(grid, a.g.lookback);
+              const int hi = count_le_from(sts, n, shift, grid,
+                                           guess_count(grid, f0, per, n));
+              const int lo = count_le_from(sts, hi, shift, lo_t,
+                                           guess_count(lo_t, f0, per, hi));
+              const double v = window_value<F>(r, a.g, t, s0 + lo, s0 + hi,
+                                               mr.mpi, 0.0);
+              if (v == v) moments_add(m[jj], v);
+            }
+          }
+        } else if (n < 0) {
+          global_member(mr);
+        }
+        __syncthreads();  // stage j % kStages is refilled next
+      }
+    }
+  }
+
+  const long long T = a.T;
+#pragma unroll
+  for (int j = 0; j < kMaxStepsPerThread; ++j) {
+    const int i = j * kGroupThreads + tid;
+    if (i >= nst) continue;
+    const int t = t0 + i;
+    if (pslot >= 0) {
+      const long long pl = a.ly.pslot0[a.rb.D] * T;
+      double* p = a.partial + pslot * T + t;
+      p[0] = m[j].cnt;
+      p[pl] = m[j].s1;
+      p[2 * pl] = m[j].s2;
+      p[3 * pl] = m[j].mn;
+      p[4 * pl] = m[j].mx;
+    } else if (a.moments) {
+      const int M = moment_count(a.aggr);
+      for (int k = 0; k < M; ++k)
+        a.out[((static_cast<long long>(d) * M + k) * a.G + grp) * T + t] =
+            moment_get(m[j], a.aggr, k);
+    } else {
+      a.out[grp * T + t] = finalize_moments(m[j], a.aggr);
+    }
+  }
+}
+
+// K2's and B13's fold, one thread per (row block, group, step) of a
+// chunked group: its chunks' moments folded in chunk order (B9's
+// fold_chunks), then finalized (K2) or stored as the block's moments
+// (B13, whose combine then folds the blocks in order).
+__global__ void __launch_bounds__(kPrepThreads)
+group_fold(GroupArgs a) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * kPrepThreads + threadIdx.x;
+  const long long GT = static_cast<long long>(a.G) * a.T;
+  if (e >= a.rb.D * GT) return;
+  const int d = static_cast<int>(e / GT);
+  const int grp = static_cast<int>((e - d * GT) / a.T);
+  const int t = static_cast<int>(e - d * GT - static_cast<long long>(grp) *
+                                              a.T);
+  const int32_t* st = a.ly.starts[d] + grp;
+  const int n_members = st[1] - st[0];
+  if (n_members <= a.ly.chunk) return;
+  const int n = (n_members + a.ly.chunk - 1) / a.ly.chunk;
+  const Moments acc = fold_chunks(
+      a.partial + (a.ly.pslot0[d] + a.ly.slot0[d][grp]) * a.T + t, a.T,
+      a.ly.pslot0[a.rb.D] * a.T, n);
+  if (a.moments) {
+    const int M = moment_count(a.aggr);
+    for (int k = 0; k < M; ++k)
+      a.out[((static_cast<long long>(d) * M + k) * a.G + grp) * a.T + t] =
+          moment_get(acc, a.aggr, k);
+  } else {
+    a.out[static_cast<long long>(grp) * a.T + t] =
+        finalize_moments(acc, a.aggr);
+  }
 }
 
 // B5: row r's steps go to out[r * ldo + t] (ldo = T for a whole [S, T]
@@ -837,7 +1343,7 @@ Tile make_tile(const void* ts, const void* vals, const void* cv,
 
 constexpr int kFuncs = kScrapeInterval + 1;
 
-// The arguments of one series pass, K2's, B5's or B9's.
+// The arguments of one series pass, B5's or B9's.
 struct PassArgs {
   Tile tile;
   const int32_t *order, *starts;
@@ -852,12 +1358,6 @@ struct PassArgs {
 };
 
 template <int F>
-void launch_groups(dim3 grid, cudaStream_t st, const PassArgs& a) {
-  rollup_groups<F><<<grid, kGroupThreads, 0, st>>>(
-      a.tile, a.order, a.starts, a.T, a.g, a.aggr, a.out);
-}
-
-template <int F>
 void launch_fleet(dim3 grid, cudaStream_t st, const PassArgs& a) {
   fleet_rollup_groups<F><<<grid, kGroupThreads, 0, st>>>(
       a.tile, a.order, a.starts, a.shifts, a.min_tss, a.aggrs, a.S, a.G, a.T,
@@ -870,21 +1370,33 @@ void launch_series(dim3 grid, cudaStream_t st, const PassArgs& a) {
                                                    a.out);
 }
 
+// K2's and B13's group pass (and its fold when some group is chunked),
+// the ring's shared memory opted into above 48 KB.
 template <int F>
-void launch_moments(dim3 grid, cudaStream_t st, const PassArgs& a) {
-  rollup_group_moments<F><<<grid, kGroupThreads, 0, st>>>(
-      a.tile, a.order, a.starts, a.G, a.T, a.g, a.aggr, a.out);
+cudaError_t launch_group_pass(dim3 grid, size_t smem, cudaStream_t st,
+                              const GroupArgs& a) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&group_pass<F>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  group_pass<F><<<grid, kGroupThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+using GroupLaunch = cudaError_t (*)(dim3, size_t, cudaStream_t,
+                                    const GroupArgs&);
+
+template <int... F>
+const GroupLaunch* group_table(std::integer_sequence<int, F...>) {
+  static const GroupLaunch table[] = {&launch_group_pass<F>...};
+  return table;
 }
 
 using Launch = void (*)(dim3, cudaStream_t, const PassArgs&);
 
 // One launcher per func code, indexed by the code.
-template <int... F>
-const Launch* groups_table(std::integer_sequence<int, F...>) {
-  static const Launch table[] = {&launch_groups<F>...};
-  return table;
-}
-
 template <int... F>
 const Launch* fleet_table(std::integer_sequence<int, F...>) {
   static const Launch table[] = {&launch_fleet<F>...};
@@ -894,12 +1406,6 @@ const Launch* fleet_table(std::integer_sequence<int, F...>) {
 template <int... F>
 const Launch* series_table(std::integer_sequence<int, F...>) {
   static const Launch table[] = {&launch_series<F>...};
-  return table;
-}
-
-template <int... F>
-const Launch* moments_table(std::integer_sequence<int, F...>) {
-  static const Launch table[] = {&launch_moments<F>...};
   return table;
 }
 
@@ -966,48 +1472,85 @@ unsigned step_tiles(int T) {
   return static_cast<unsigned>((T + kGroupThreads - 1) / kGroupThreads);
 }
 
-int scan(const void* ts, const void* vals, const void* counts, long long S,
-         int N, int shift, int min_ts, const void* shifts,
-         const void* min_tss, long long rows_per_stream, int step,
-         int instant, int counter, void* mpi, void* slots, void* n_irregular,
-         void* mean, void* stream) {
-  if (S <= 0) return 0;
+// RowBlocks of D blocks from the host arrays of their pointers and row
+// counts; false when D is outside [1, kMaxShards].  `ts` may be null (the
+// scratch pass reads no timestamps).
+bool make_blocks(int D, const void* const* ts, const void* const* vals,
+                 const void* const* counts, const long long* rows,
+                 RowBlocks* rb) {
+  if (D < 1 || D > kMaxShards) return false;
+  *rb = RowBlocks{};
+  rb->D = D;
+  for (int d = 0; d < D; ++d) {
+    rb->ts[d] = ts != nullptr ? static_cast<const int32_t*>(ts[d]) : nullptr;
+    rb->vals[d] = static_cast<const double*>(vals[d]);
+    rb->counts[d] = static_cast<const int32_t*>(counts[d]);
+    if (rows[d] < 0) return false;
+    rb->row0[d + 1] = rb->row0[d] + rows[d];
+  }
+  return true;
+}
+
+// One block of S rows from one base pointer each (B9's stack).
+RowBlocks one_block(const void* ts, const void* vals, const void* counts,
+                    long long S) {
+  RowBlocks rb{};
+  rb.D = 1;
+  rb.ts[0] = static_cast<const int32_t*>(ts);
+  rb.vals[0] = static_cast<const double*>(vals);
+  rb.counts[0] = static_cast<const int32_t*>(counts);
+  rb.row0[1] = S;
+  return rb;
+}
+
+unsigned warp_blocks(long long S) {
   const long long per_block = kPrepThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
-                                                per_block);
-  rollup_scan<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ts), static_cast<const double*>(vals),
-      static_cast<const int32_t*>(counts), S, N, shift, min_ts,
-      static_cast<const int32_t*>(shifts),
+  return static_cast<unsigned>((S + per_block - 1) / per_block);
+}
+
+int scan(const RowBlocks& rb, int N, int shift, int min_ts,
+         const void* shifts, const void* min_tss, long long rows_per_stream,
+         int step, int instant, int counter, void* mpi, void* slots,
+         void* n_irregular, void* mean, void* stream) {
+  const long long S = rb.row0[rb.D];
+  if (S <= 0) return 0;
+  rollup_scan<<<warp_blocks(S), kPrepThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      rb, N, shift, min_ts, static_cast<const int32_t*>(shifts),
       static_cast<const int32_t*>(min_tss), rows_per_stream, step, instant,
       counter, static_cast<int32_t*>(mpi), static_cast<int32_t*>(slots),
       static_cast<int32_t*>(n_irregular), static_cast<double*>(mean));
   return static_cast<int>(cudaGetLastError());
 }
 
-int prep(const void* vals, const void* counts, const void* slots,
-         const void* v0, long long S, int N, void* cv, void* cmax,
-         void* stream) {
+int prep(const RowBlocks& rb, const void* slots, const void* v0, int N,
+         void* cv, void* cmax, void* stream) {
+  const long long S = rb.row0[rb.D];
   if (S <= 0) return 0;
-  const long long per_block = kPrepThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
-                                                per_block);
-  rollup_prep<<<blocks, kPrepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(vals), static_cast<const int32_t*>(counts),
-      static_cast<const int32_t*>(slots), static_cast<const double*>(v0), S,
-      N, static_cast<double*>(cv), static_cast<double*>(cmax));
+  rollup_prep<<<warp_blocks(S), kPrepThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      rb, static_cast<const int32_t*>(slots),
+      static_cast<const double*>(v0), N, static_cast<double*>(cv),
+      static_cast<double*>(cmax));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int vm_rollup_scan(const void* ts, const void* vals,
-                              const void* counts, long long S, int N,
-                              int shift, int min_ts, int step, int instant,
-                              int counter, void* mpi, void* slots,
-                              void* n_irregular, void* mean, void* stream) {
-  return scan(ts, vals, counts, S, N, shift, min_ts, nullptr, nullptr, 1,
-              step, instant, counter, mpi, slots, n_irregular, mean, stream);
+// The row scan of D row blocks (host arrays of their pointers and row
+// counts): mpi, slots and mean per row of the concatenation.
+extern "C" int vm_rollup_scan(int D, const void* const* ts,
+                              const void* const* vals,
+                              const void* const* counts,
+                              const long long* rows, int N, int shift,
+                              int min_ts, int step, int instant, int counter,
+                              void* mpi, void* slots, void* n_irregular,
+                              void* mean, void* stream) {
+  RowBlocks rb;
+  if (!make_blocks(D, ts, vals, counts, rows, &rb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return scan(rb, N, shift, min_ts, nullptr, nullptr, 1, step, instant,
+              counter, mpi, slots, n_irregular, mean, stream);
 }
 
 // The row scan of a [B, S, N] stack: each stream's shift and min_ts.
@@ -1019,14 +1562,22 @@ extern "C" int vm_fleet_rollup_scan(const void* ts, const void* vals,
                                     void* slots, void* n_irregular,
                                     void* mean, void* stream) {
   if (S <= 0) return 0;
-  return scan(ts, vals, counts, B * S, N, 0, 0, shifts, min_tss, S, step,
-              instant, counter, mpi, slots, n_irregular, mean, stream);
+  return scan(one_block(ts, vals, counts, B * S), N, 0, 0, shifts, min_tss,
+              S, step, instant, counter, mpi, slots, n_irregular, mean,
+              stream);
 }
 
-extern "C" int vm_rollup_prep(const void* vals, const void* counts,
-                              const void* slots, long long S, int N,
-                              void* cv, void* cmax, void* stream) {
-  return prep(vals, counts, slots, nullptr, S, N, cv, cmax, stream);
+// The scratch pass of D row blocks' irregular rows (slots of the row
+// scan of the same blocks).
+extern "C" int vm_rollup_prep(int D, const void* const* vals,
+                              const void* const* counts,
+                              const long long* rows, int N,
+                              const void* slots, void* cv, void* cmax,
+                              void* stream) {
+  RowBlocks rb;
+  if (!make_blocks(D, nullptr, vals, counts, rows, &rb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return prep(rb, slots, nullptr, N, cv, cmax, stream);
 }
 
 // The scratch pass of a [B, S, N] stack, rebased by the [B, S] v0 plane.
@@ -1034,33 +1585,73 @@ extern "C" int vm_fleet_rollup_prep(const void* vals, const void* counts,
                                     const void* slots, const void* v0,
                                     long long B, long long S, int N, void* cv,
                                     void* cmax, void* stream) {
-  return prep(vals, counts, slots, v0, B * S, N, cv, cmax, stream);
+  return prep(one_block(nullptr, vals, counts, B * S), slots, v0, N, cv,
+              cmax, stream);
 }
 
-extern "C" int vm_rollup_groups(const void* ts, const void* vals,
-                                const void* cv, const void* cmax,
-                                const void* slots, const void* counts,
-                                const void* mpi, const void* mean,
-                                const void* order, const void* starts,
-                                long long G, int N, int T, int shift,
-                                int min_ts, int step, int lookback,
-                                double start_s, int func, int aggr, void* out,
-                                void* stream) {
+// K2 (moments = 0: D = 1, out [G, T]) or B13's per-shard pass over D
+// row blocks on one card (moments = 1: out [D, M, G, T], M =
+// moment_count(aggr)): the group pass and, when some group has more than
+// `chunk` members, the fold of its chunks' moments [5, sum(pslots), T] in
+// `partial`.  Host arrays of D: the blocks' pointers and rows, their
+// layouts' order, starts and slot0, and their partial slots (the
+// layouts': ops/device_rollup.group_layout); cv ... mean are the row scan
+// of the same blocks; staged, steps and cap the plan
+// (ops/device_rollup.k2_plan).
+extern "C" int vm_rollup_groups(
+    int D, const void* const* ts, const void* const* vals,
+    const void* const* counts, const long long* rows, const void* cv,
+    const void* cmax, const void* slots, const void* mpi, const void* mean,
+    const void* const* order, const void* const* starts,
+    const void* const* slot0, const long long* pslots, int G, int N, int T,
+    int shift, int min_ts, int step, int lookback, double start_s, int func,
+    int aggr, int moments, int chunk, void* partial, int staged, int steps,
+    int cap, void* out, void* stream) {
   if (G <= 0 || T <= 0) return 0;
-  if (func < 0 || func >= kFuncs)
+  GroupArgs a{};
+  if (!make_blocks(D, ts, vals, counts, rows, &a.rb) || func < 0 ||
+      func >= kFuncs || aggr < aSum || aggr > aGroup || chunk < 1 ||
+      (!moments && D != 1) || steps < kGroupThreads ||
+      steps > kMaxStepsPerThread * kGroupThreads ||
+      steps % kGroupThreads != 0 || (staged && cap < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  PassArgs a{};
-  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
-                     N);
-  a.order = static_cast<const int32_t*>(order);
-  a.starts = static_cast<const int32_t*>(starts);
+  a.ly.chunk = chunk;
+  for (int d = 0; d < D; ++d) {
+    if (pslots[d] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    a.ly.order[d] = static_cast<const int32_t*>(order[d]);
+    a.ly.starts[d] = static_cast<const int32_t*>(starts[d]);
+    a.ly.slot0[d] = static_cast<const int32_t*>(slot0[d]);
+    a.ly.unit0[d + 1] = a.ly.unit0[d] + G + pslots[d];
+    a.ly.pslot0[d + 1] = a.ly.pslot0[d] + pslots[d];
+  }
+  const long long tiles = (T + steps - 1) / steps;
+  if (a.ly.unit0[D] > 0x7fffffffLL || tiles > 65535 ||
+      (a.ly.pslot0[D] > 0 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.cv = static_cast<const double*>(cv);
+  a.cmax = static_cast<const double*>(cmax);
+  a.mean = static_cast<const double*>(mean);
+  a.slots = static_cast<const int32_t*>(slots);
+  a.mpi = static_cast<const int32_t*>(mpi);
+  a.N = N;
+  a.G = G;
   a.T = T;
   a.g = make_grid(shift, min_ts, step, lookback, start_s);
   a.aggr = aggr;
+  a.moments = moments;
+  a.staged = staged;
+  a.steps = steps;
+  a.cap = cap;
+  a.partial = static_cast<double*>(partial);
   a.out = static_cast<double*>(out);
-  groups_table(std::make_integer_sequence<int, kFuncs>())[func](
-      dim3(static_cast<unsigned>(G), step_tiles(T)),
-      static_cast<cudaStream_t>(stream), a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = group_table(std::make_integer_sequence<int, kFuncs>())[func](
+      dim3(static_cast<unsigned>(a.ly.unit0[D]), static_cast<unsigned>(tiles)),
+      staged ? static_cast<size_t>(kStages * stage_bytes(cap)) : 0, st, a);
+  if (e != cudaSuccess || a.ly.pslot0[D] == 0) return static_cast<int>(e);
+  const long long n = D * static_cast<long long>(G) * T;
+  group_fold<<<static_cast<unsigned>((n + kPrepThreads - 1) / kPrepThreads),
+               kPrepThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1129,33 +1720,6 @@ extern "C" int vm_rollup_series(const void* ts, const void* vals,
   a.out = static_cast<double*>(out);
   series_table(std::make_integer_sequence<int, kFuncs>())[func](
       dim3(static_cast<unsigned>(S), step_tiles(T)),
-      static_cast<cudaStream_t>(stream), a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// B13's per-shard pass over one shard's tile -> out [M, G, T], M =
-// moment_count(aggr).
-extern "C" int vm_rollup_group_moments(
-    const void* ts, const void* vals, const void* cv, const void* cmax,
-    const void* slots, const void* counts, const void* mpi, const void* mean,
-    const void* order, const void* starts, long long G, int N, int T,
-    int shift, int min_ts, int step, int lookback, double start_s, int func,
-    int aggr, void* out, void* stream) {
-  if (G <= 0 || T <= 0) return 0;
-  if (func < 0 || func >= kFuncs || aggr < aSum || aggr > aGroup)
-    return static_cast<int>(cudaErrorInvalidValue);
-  PassArgs a{};
-  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
-                     N);
-  a.order = static_cast<const int32_t*>(order);
-  a.starts = static_cast<const int32_t*>(starts);
-  a.G = static_cast<int>(G);
-  a.T = T;
-  a.g = make_grid(shift, min_ts, step, lookback, start_s);
-  a.aggr = aggr;
-  a.out = static_cast<double*>(out);
-  moments_table(std::make_integer_sequence<int, kFuncs>())[func](
-      dim3(static_cast<unsigned>(G), step_tiles(T)),
       static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }

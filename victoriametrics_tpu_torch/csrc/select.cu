@@ -70,6 +70,7 @@
 
 #include <atomic>
 
+#include "async_copy.cuh"
 #include "order_stats.cuh"
 
 namespace cg = cooperative_groups;
@@ -194,19 +195,6 @@ __device__ __forceinline__ void list_take(double (&key)[NE],
   }
 }
 
-__device__ __forceinline__ void copy8_async(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void commit_async() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_async_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kRing - 1) : "memory");
-}
-
 // Start buffer b's copies (rows b * kBufRows + w + 8i of the range, this
 // lane's step) into its ring slot, then commit a group (empty past the
 // last buffer, so that group counts stay aligned).
@@ -279,7 +267,7 @@ topk_scan(const double* __restrict__ rolled, int S, int T, int k, int bottom,
     issue_buffer(my_ring, my_src + nb * buf_src,
                  r_end - r_begin - w - static_cast<long long>(nb) * kBufRows,
                  nb, n_buf, step_ok, T);
-    wait_async_ring();
+    wait_async<kRing - 1>();
     __syncthreads();
     const double* buf = ring + (b % kRing) * kBufRows * kBufStride;
 #pragma unroll

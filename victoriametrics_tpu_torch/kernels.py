@@ -43,6 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _D = ctypes.c_double
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 
 # exported C functions per source, with their ctypes argument types
 SIGNATURES = {
@@ -52,31 +54,32 @@ SIGNATURES = {
         "vm_decode_plane": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
     },
     "rollup": {
-        # ts, vals, counts, S, N, shift, min_ts, step, instant, counter, mpi,
-        # slots, n_irregular, mean, stream
-        "vm_rollup_scan": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
-                           _P, _P, _P],
-        # vals, counts, slots, S, N, cv, cmax, stream
-        "vm_rollup_prep": [_P, _P, _P, _LL, _I, _P, _P, _P],
+        # D, ts[D], vals[D], counts[D], rows[D], N, shift, min_ts, step,
+        # instant, counter, mpi, slots, n_irregular, mean, stream ([D]: host
+        # arrays over D row blocks)
+        "vm_rollup_scan": [_I, _PP, _PP, _PP, _LLP, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P],
+        # D, vals[D], counts[D], rows[D], N, slots, cv, cmax, stream
+        "vm_rollup_prep": [_I, _PP, _PP, _LLP, _I, _P, _P, _P, _P],
         # ts, vals, counts, B, S, N, shifts, min_tss, step, instant,
         # counter, mpi, slots, n_irregular, mean, stream
         "vm_fleet_rollup_scan": [_P, _P, _P, _LL, _LL, _I, _P, _P, _I, _I,
                                  _I, _P, _P, _P, _P, _P],
         # vals, counts, slots, v0, B, S, N, cv, cmax, stream
         "vm_fleet_rollup_prep": [_P, _P, _P, _P, _LL, _LL, _I, _P, _P, _P],
-        # ts, vals, cv, cmax, slots, counts, mpi, mean, order, starts, G, N,
-        # T, shift, min_ts, step, lookback, start_s, func, aggr, out, stream
-        "vm_rollup_groups": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I,
-                             _I, _I, _I, _I, _I, _D, _I, _I, _P, _P],
+        # D, ts[D], vals[D], counts[D], rows[D], cv, cmax, slots, mpi, mean,
+        # order[D], starts[D], slot0[D], pslots[D], G, N, T, shift, min_ts,
+        # step, lookback, start_s, func, aggr, moments, chunk, partial,
+        # staged, steps, cap, out, stream (K2, and B13's per-shard pass with
+        # moments = 1; the plan's fields: ops/device_rollup.k2_plan)
+        "vm_rollup_groups": [_I, _PP, _PP, _PP, _LLP, _P, _P, _P, _P, _P,
+                             _PP, _PP, _PP, _LLP, _I, _I, _I, _I, _I, _I,
+                             _I, _D, _I, _I, _I, _I, _P, _I, _I, _I, _P,
+                             _P],
         # ts, vals, cv, cmax, slots, counts, mpi, mean, S, N, T, shift,
         # min_ts, step, lookback, start_s, func, out, ldo, stream
         "vm_rollup_series": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                              _I, _I, _I, _D, _I, _P, _LL, _P],
-        # ts, vals, cv, cmax, slots, counts, mpi, mean, order, starts, G, N,
-        # T, shift, min_ts, step, lookback, start_s, func, aggr, out, stream
-        "vm_rollup_group_moments": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _LL, _I, _I, _I, _I, _I, _I, _D, _I, _I,
-                                    _P, _P],
         # S, n, func, force_global, blocks (out), scratch_bytes (out)
         "vm_decode_rollup_plan": [_LL, _I, _I, _I, ctypes.POINTER(_I),
                                   ctypes.POINTER(_LL)],

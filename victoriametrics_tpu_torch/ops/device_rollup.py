@@ -25,6 +25,7 @@ version for CPU tensors; they never fall back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import NamedTuple
@@ -426,20 +427,43 @@ def aggregate_groups(aggr: str, rolled: torch.Tensor, group_ids: torch.Tensor,
 # K2 and B5: the rollup kernels.
 # ---------------------------------------------------------------------------
 
+#: The chunk R of K2, B9 and B13's per-shard pass: a group of more members
+#: is walked in chunks of R consecutive members, one block each, whose
+#: moments fold in chunk order; a one-group bucket of 8192 rows a stream
+#: then runs 128 blocks a stream and step tile where it ran one.  A smaller
+#: R gives more blocks and a longer serial fold (tools/select_timing.py
+#: sweeps R for B9).  Layouts read it when they are built.
+FLEET_CHUNK = 64
+
+
 @dataclasses.dataclass(frozen=True)
 class GroupLayout:
     """Group ids of a tile's rows plus the member lists the group kernels
-    walk: group g owns rows order[starts[g]:starts[g+1]], ascending."""
+    walk: group g owns rows order[starts[g]:starts[g+1]], ascending.  K2
+    and B13 walk a group of more than `chunk` members in chunks of `chunk`
+    consecutive members, the last one shorter, as B9 does (FleetLayout):
+    chunk c of group g writes partial slot slot0[g] + c of `slots`."""
     gids: torch.Tensor     # int32 [S]
     order: torch.Tensor    # int32 [S], rows stably sorted by group id
     starts: torch.Tensor   # int32 [G + 1]
     num_groups: int
-    max_group: int = 0     # members of the largest group
+    max_group: int         # members of the largest group
+    slot0: torch.Tensor    # int32 [G], read for chunked groups only
+    slots: int             # partial slots: the chunked groups' chunks
+    chunk: int             # FLEET_CHUNK when the layout was built
+
+
+def _chunk_numbering(sizes: torch.Tensor, chunk: int):
+    """Each chunked group's first partial slot (its chunks numbered in
+    group order along the last axis) and the chunks per group (0 for a
+    group of at most `chunk` members)."""
+    n_chunks = torch.where(sizes > chunk, -(-sizes // chunk), 0)
+    return torch.cumsum(n_chunks, -1) - n_chunks, n_chunks
 
 
 def group_layout(gids, num_groups: int, device) -> GroupLayout:
     """Build a GroupLayout from host or device group ids (validated to lie
-    in [0, num_groups))."""
+    in [0, num_groups)), chunked by FLEET_CHUNK."""
     g = torch.as_tensor(np.asarray(gids) if not torch.is_tensor(gids)
                         else gids).to(device=device, dtype=torch.int64)
     if g.dim() != 1:
@@ -450,9 +474,14 @@ def group_layout(gids, num_groups: int, device) -> GroupLayout:
     sizes = torch.bincount(g, minlength=num_groups)
     starts = torch.zeros(num_groups + 1, dtype=torch.int64, device=g.device)
     starts[1:] = torch.cumsum(sizes, 0)
+    chunk = FLEET_CHUNK
+    slot0, n_chunks = _chunk_numbering(sizes, chunk)
+    max_group, slots = (torch.stack([sizes.max(), n_chunks.sum()]).tolist()
+                        if num_groups else (0, 0))
     return GroupLayout(g.to(torch.int32), order.to(torch.int32),
                        starts.to(torch.int32), int(num_groups),
-                       int(sizes.max()) if num_groups else 0)
+                       int(max_group), slot0.to(torch.int32), int(slots),
+                       int(chunk))
 
 
 def _check_shift(func: str, shift: int) -> None:
@@ -471,36 +500,68 @@ def _check_tile(ts, values, counts) -> tuple[int, int]:
     return S, N
 
 
+class _Scan(NamedTuple):
+    """The row scan's outputs over a pass's rows: the cv and cmax scratch
+    [irregular rows, N], each row's scratch slot (-1: none), its
+    maxPrevInterval and, for stddev/stdvar_over_time, its mean."""
+    cv: torch.Tensor
+    cmax: torch.Tensor
+    slots: torch.Tensor
+    mpi: torch.Tensor
+    mean: torch.Tensor | None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _c_array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _blocks(tensors):
+    """Host arrays of the data pointers of D row blocks' tensors."""
+    return _c_array(ctypes.c_void_p, [t.data_ptr() for t in tensors])
+
+
 def _scan_rows(h, func: str, ts, values, counts, cfg: RollupConfig,
-               shift: int, min_ts, stream: int, fleet=None):
-    """The row passes K2, B5 and B9 share: maxPrevInterval per row, the
-    row mean for stddev/stdvar_over_time, and the reset-corrected counter
-    scratch of the irregular rows for the counter funcs.  `fleet` is B9's
-    (shift [B], min_ts [B], v0 [B, S]) for a [B, S, N] stack: each row
-    takes its stream's shift and min_ts, and v0 rebases the scratch.
-    Returns the series pass's row pointers and the tensors behind them."""
-    B, S, N = (1, *ts.shape) if fleet is None else ts.shape
-    dev = ts.device
+               shift: int, min_ts, stream: int, fleet=None) -> _Scan:
+    """The row passes K2, B5, B9 and B13 share: maxPrevInterval per row,
+    the row mean for stddev/stdvar_over_time, and the reset-corrected
+    counter scratch of the irregular rows for the counter funcs.  `ts`,
+    `values`, `counts` are lists of D row blocks' tensors ([S_d, N]; one
+    sync for all of them), or, with `fleet`, B9's [B, S, N] stack: fleet is
+    (shift [B], min_ts [B], v0 [B, S]), each row taking its stream's shift
+    and min_ts, v0 rebasing the scratch.  The pass's row pointers stay
+    valid while the returned tensors live."""
+    if fleet is None:
+        N = ts[0].shape[1]
+        rows = [int(t.shape[0]) for t in ts]
+    else:
+        B, S, N = ts.shape
+        rows = [B * S]
+    dev = (ts[0] if fleet is None else ts).device
+    total = sum(rows)
     counter = func in COUNTER_FUNCS
     instant = int(cfg.start >= cfg.end)
-    mpi = torch.empty((B * S,), dtype=torch.int32, device=dev)
-    slots = torch.empty((B * S,), dtype=torch.int32, device=dev)
+    mpi = torch.empty((total,), dtype=torch.int32, device=dev)
+    slots = torch.empty((total,), dtype=torch.int32, device=dev)
     n_irregular = torch.zeros((1,), dtype=torch.int32, device=dev)
-    mean = torch.empty((B * S,), dtype=torch.float64, device=dev) \
+    mean = torch.empty((total,), dtype=torch.float64, device=dev) \
         if func in CENTRED_FUNCS else None
-    mean_p = None if mean is None else mean.data_ptr()
     if fleet is None:
+        D = len(ts)
         rc = h.vm_rollup_scan(
-            ts.data_ptr(), values.data_ptr(), counts.data_ptr(), S, N,
-            int(shift), int(min_ts), cfg.step, instant, int(counter),
-            mpi.data_ptr(), slots.data_ptr(), n_irregular.data_ptr(), mean_p,
-            stream)
+            D, _blocks(ts), _blocks(values), _blocks(counts),
+            _c_array(ctypes.c_longlong, rows), N, int(shift), int(min_ts),
+            cfg.step, instant, int(counter), mpi.data_ptr(), slots.data_ptr(),
+            n_irregular.data_ptr(), _ptr(mean), stream)
     else:
         rc = h.vm_fleet_rollup_scan(
             ts.data_ptr(), values.data_ptr(), counts.data_ptr(), B, S, N,
             fleet[0].data_ptr(), fleet[1].data_ptr(), cfg.step, instant,
             int(counter), mpi.data_ptr(), slots.data_ptr(),
-            n_irregular.data_ptr(), mean_p, stream)
+            n_irregular.data_ptr(), _ptr(mean), stream)
     kernels.check(h, rc, "rollup (row scan)")
     # scratch only for counter rows with a reset, a NaN or -0.0: on the
     # others the reset-corrected counter and its running maximum are the
@@ -510,19 +571,15 @@ def _scan_rows(h, func: str, ts, values, counts, cfg: RollupConfig,
     cmax = torch.empty((n, N), dtype=torch.float64, device=dev)
     if n and fleet is None:
         kernels.check(h, h.vm_rollup_prep(
-            values.data_ptr(), counts.data_ptr(), slots.data_ptr(), S, N,
+            D, _blocks(values), _blocks(counts),
+            _c_array(ctypes.c_longlong, rows), N, slots.data_ptr(),
             cv.data_ptr(), cmax.data_ptr(), stream), "rollup (row prep)")
     elif n:
         kernels.check(h, h.vm_fleet_rollup_prep(
             values.data_ptr(), counts.data_ptr(), slots.data_ptr(),
             fleet[2].data_ptr(), B, S, N, cv.data_ptr(), cmax.data_ptr(),
             stream), "rollup (row prep)")
-    # the caller keeps `keep` alive until the series pass is queued: the
-    # pointers alone would let the allocator reuse these tensors' memory
-    return (cv.data_ptr(), cmax.data_ptr(), slots.data_ptr(),
-            counts.data_ptr(), mpi.data_ptr(),
-            None if mean is None else mean.data_ptr()), \
-        (cv, cmax, slots, mpi, mean)
+    return _Scan(cv, cmax, slots, mpi, mean)
 
 
 def _out_block(out, shape, dev) -> torch.Tensor:
@@ -565,28 +622,188 @@ def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
     out = _out_block(out, (S, T), dev)
     h = kernels.lib("rollup")
     stream = kernels.stream_of(dev)
-    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
-                            stream)
+    sc = _scan_rows(h, func, [ts], [values], [counts], cfg, shift, min_ts,
+                    stream)
+    # `sc` holds the row tensors until the launch is queued: the pointers
+    # alone would let the allocator reuse their memory
     kernels.check(h, h.vm_rollup_series(
-        ts.data_ptr(), values.data_ptr(), *rows, S, N, T, int(shift),
-        int(min_ts), cfg.step, cfg.lookback, float(cfg.start) / 1e3,
-        FUNC_CODES[func], out.data_ptr(), out.stride(0) if S else T, stream),
-        "rollup_tile")
-    del keep  # the row tensors live until the launch is queued
+        ts.data_ptr(), values.data_ptr(), sc.cv.data_ptr(),
+        sc.cmax.data_ptr(), sc.slots.data_ptr(), counts.data_ptr(),
+        sc.mpi.data_ptr(), _ptr(sc.mean), S, N, T, int(shift), int(min_ts),
+        cfg.step, cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
+        out.data_ptr(), out.stride(0) if S else T, stream), "rollup_tile")
     kernels.LAUNCHES["rollup_tile"] += 1
     return out
+
+
+def chunked_group_moments(aggr: str, rolled: torch.Tensor,
+                          groups: GroupLayout) -> dict[str, torch.Tensor]:
+    """partial_group_moments as K2 and B13 fold them: a group of at most
+    `groups.chunk` members in one segment; a larger one in chunks of that
+    many consecutive members (in the layout's ascending order), whose
+    moments merge in chunk order from the empty moments (sums add; an
+    extremum keeps the earlier of equal values) -> {name: [G, T]}."""
+    G = groups.num_groups
+    if groups.slots == 0:
+        return partial_group_moments(aggr, rolled, groups.gids, G)
+    dev = rolled.device
+    S = rolled.shape[0]
+    order = groups.order.long()
+    starts = groups.starts.long()
+    gid_sorted = groups.gids.long()[order]
+    sizes = starts[1:] - starts[:-1]
+    slot0 = groups.slot0.long()
+    chunk = groups.chunk
+    pos = torch.arange(S, device=dev) - starts[gid_sorted]
+    seg_sorted = torch.where(sizes[gid_sorted] > chunk,
+                             G + slot0[gid_sorted] + pos // chunk,
+                             gid_sorted)
+    seg = torch.empty_like(seg_sorted)
+    seg[order] = seg_sorted
+    m = partial_group_moments(aggr, rolled, seg, G + groups.slots)
+    n_chunks = torch.where(sizes > chunk, -(-sizes // chunk), 0)
+    chunked = n_chunks > 0
+    acc = {}
+    for k, v in m.items():
+        acc[k] = v[:G].clone()
+        acc[k][chunked] = torch.inf if k == "min" else \
+            -torch.inf if k == "max" else 0.0
+    for c in range(int(n_chunks.max())):
+        has = n_chunks > c
+        idx = G + slot0[has] + c
+        for k in acc:
+            p, a = m[k][idx], acc[k][has]
+            acc[k][has] = (torch.where(p < a, p, a) if k == "min" else
+                           torch.where(p > a, p, a) if k == "max" else a + p)
+    return acc
 
 
 def rollup_aggregate_tile_plain(func: str, aggr: str, ts, values, counts,
                                 groups: GroupLayout, cfg: RollupConfig,
                                 shift: int = 0,
                                 min_ts=MIN_TS_NONE) -> torch.Tensor:
-    """Plain PyTorch version of K2: rollup_tile_plain, then
-    aggregate_groups."""
+    """Plain PyTorch version of K2: rollup_tile_plain, then the layout's
+    chunked_group_moments, finalized."""
     _check_shift(func, shift)
     rolled = rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
                                min_ts)
-    return aggregate_groups(aggr, rolled, groups.gids, groups.num_groups)
+    return finalize_group_moments(
+        aggr, chunked_group_moments(aggr, rolled, groups))
+
+
+#: K2's paths (csrc/rollup.cu group_pass): each step's window found by two
+#: binary searches of the row in global memory, or in the row's span for
+#: the block's step tile, staged in shared memory
+K2_GLOBAL, K2_STAGED = 0, 1
+K2_THREADS = 128            # kGroupThreads: a thread per step of a tile
+_K2_STEPS = (128, 256, 512)  # a tile: 1 to kMaxStepsPerThread steps a thread
+_K2_STAGES = 2              # kStages: member rows in flight in a block
+_K2_SMEM_MAX = 96 << 10     # a block's staging ring, at most
+_K2_BLOCK_ROWS = 64         # rows a block walks at most (FLEET_CHUNK)
+_K2_BLOCKS_PER_SM = 4       # blocks the grid keeps when a tile grows
+#: row blocks of one group pass (csrc/rollup.cu kMaxShards)
+MAX_SHARDS = 16
+
+
+class K2Plan(NamedTuple):
+    """How one K2 or B13 group pass runs (``k2_plan``)."""
+    path: int   # K2_GLOBAL or K2_STAGED
+    steps: int  # steps of a block's tile
+    cap: int    # samples of a row's span a stage holds (staged path)
+    smem: int   # bytes of a block's staging ring (staged path)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def scrape_hint(N: int, T: int, step: int, lookback: int) -> int:
+    """The scrape interval (ms) K2's plan sizes its stages for: the
+    query's span over the tile's N columns, the average spacing of a row
+    that fills its tile over the query.  A tile holding more history, or
+    a sparser row, stages fewer samples than planned; a denser row
+    overflows a stage and takes the global search."""
+    return max(((T - 1) * step + lookback) // max(N, 1), 1)
+
+
+@functools.lru_cache(maxsize=256)
+def k2_plan(S: int, N: int, T: int, step: int, lookback: int,
+            scrape_hint: int, sms: int = 132) -> K2Plan:
+    """K2's (and B13's per-shard pass's) plan for S rows of N columns over
+    T steps of `step` ms with windows of `lookback` ms, rows scraped every
+    `scrape_hint` ms, on a card of ``sms`` SMs.
+
+    Staged when the window grid is monotone in int32 (no step's grid point
+    or window start wraps) and a 128-step tile's span fits: a tile of
+    `steps` steps spans ((steps - 1) step + lookback) / scrape_hint samples
+    plus the one before; a stage holds a quarter more and 16 (jitter), at
+    most N, and the ring of 2 stages (cap x 20 B each) at most 96 KiB.
+    The tile doubles to 256 and 512 steps while the ring fits, the tile
+    does not outgrow T, and the grid keeps 4 blocks an SM (counting S / 64
+    groups or chunks).  Otherwise the global search, a step a thread."""
+    glob = K2Plan(K2_GLOBAL, K2_THREADS, 0, 0)
+    if T < 1 or step < 1 or not 0 <= lookback <= _I32_MAX or \
+            (T - 1) * step > _I32_MAX:
+        return glob
+    hint = max(int(scrape_hint), 1)
+    units = max(-(-S // _K2_BLOCK_ROWS), 1)
+    plan = glob
+    for steps in _K2_STEPS:
+        span = ((min(steps, T) - 1) * step + lookback) // hint + 2
+        cap = min(N, span + span // 4 + 16)
+        smem = _K2_STAGES * (_align16(4 * cap) + 2 * _align16(8 * cap))
+        if smem > _K2_SMEM_MAX:
+            break
+        if plan.path == K2_STAGED and (
+                plan.steps >= T or
+                units * -(-T // steps) < _K2_BLOCKS_PER_SM * sms):
+            break
+        plan = K2Plan(K2_STAGED, steps, cap, smem)
+    return plan
+
+
+def _check_layouts(layouts, rows) -> tuple[int, int]:
+    """(G, chunk) of the row blocks' layouts, validated before their
+    pointers cross into C."""
+    G, chunk = layouts[0].num_groups, layouts[0].chunk
+    for g, S in zip(layouts, rows):
+        if g.num_groups != G or g.chunk != chunk:
+            raise ValueError("row blocks' layouts differ in groups or chunk")
+        kernels.require(g.order, "order", torch.int32, (S,))
+        kernels.require(g.starts, "starts", torch.int32, (G + 1,))
+        kernels.require(g.slot0, "slot0", torch.int32, (G,))
+    return G, chunk
+
+
+def _group_pass(h, func: str, aggr: str, ts, values, counts, layouts,
+                sc: _Scan, cfg: RollupConfig, shift: int, min_ts, out,
+                moments: bool, stream: int, what: str) -> K2Plan:
+    """Launch K2's group pass (and fold) over D row blocks on one device:
+    out [G, T] (D = 1), or the blocks' moments [D, M, G, T]."""
+    rows = [int(t.shape[0]) for t in ts]
+    N = int(ts[0].shape[1])
+    G, chunk = _check_layouts(layouts, rows)
+    T = num_steps(cfg)
+    plan = k2_plan(sum(rows), N, T, cfg.step, cfg.lookback,
+                   scrape_hint(N, T, cfg.step, cfg.lookback),
+                   kernels.sm_count(out.device))
+    pslots = [g.slots for g in layouts]
+    # the chunks' moments (cnt, s1, s2, min, max), folded by a second launch
+    partial = (torch.empty((5, sum(pslots), T), dtype=torch.float64,
+                           device=out.device) if sum(pslots) else None)
+    kernels.check(h, h.vm_rollup_groups(
+        len(ts), _blocks(ts), _blocks(values), _blocks(counts),
+        _c_array(ctypes.c_longlong, rows), sc.cv.data_ptr(),
+        sc.cmax.data_ptr(), sc.slots.data_ptr(), sc.mpi.data_ptr(),
+        _ptr(sc.mean), _blocks([g.order for g in layouts]),
+        _blocks([g.starts for g in layouts]),
+        _blocks([g.slot0 for g in layouts]),
+        _c_array(ctypes.c_longlong, pslots), G, N, T, int(shift),
+        int(min_ts), cfg.step, cfg.lookback, float(cfg.start) / 1e3,
+        FUNC_CODES[func], AGGR_FUNCS[aggr], int(moments), chunk,
+        _ptr(partial), int(plan.path == K2_STAGED), plan.steps, plan.cap,
+        out.data_ptr(), stream), what)
+    return plan
 
 
 def rollup_aggregate_tile(func: str, aggr: str, ts: torch.Tensor,
@@ -600,34 +817,29 @@ def rollup_aggregate_tile(func: str, aggr: str, ts: torch.Tensor,
     keep timestamps relative to their original base while the query grid
     advances, so shift = query_start - tile_base.  `min_ts` is the query's
     fetch lower bound in the shifted frame.  cfg is the normalized (start
-    0) grid, or the absolute one for the time-valued funcs."""
+    0) grid, or the absolute one for the time-valued funcs.  The group
+    pass runs on k2_plan's path; groups of more than groups.chunk members
+    walk in chunks whose moments a second launch folds."""
     if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     if aggr not in AGGR_FUNCS:
         raise ValueError(f"unsupported aggregate {aggr!r}")
     _check_shift(func, shift)
     dev = kernels.placement(ts, values, counts, groups.gids, groups.order,
-                            groups.starts)
+                            groups.starts, groups.slot0)
     if dev.type == "cpu":
         return rollup_aggregate_tile_plain(func, aggr, ts, values, counts,
                                            groups, cfg, shift, min_ts)
-    S, N = _check_tile(ts, values, counts)
-    G = groups.num_groups
-    T = num_steps(cfg)
-    kernels.require(groups.order, "order", torch.int32, (S,))
-    kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
+    _check_tile(ts, values, counts)
     h = kernels.lib("rollup")
     stream = kernels.stream_of(dev)
-    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
-                            stream)
-    out = torch.empty((G, T), dtype=torch.float64, device=dev)
-    kernels.check(h, h.vm_rollup_groups(
-        ts.data_ptr(), values.data_ptr(), *rows, groups.order.data_ptr(),
-        groups.starts.data_ptr(), G, N, T, int(shift), int(min_ts), cfg.step,
-        cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
-        AGGR_FUNCS[aggr], out.data_ptr(), stream),
-        "rollup_aggregate_tile (group pass)")
-    del keep
+    sc = _scan_rows(h, func, [ts], [values], [counts], cfg, shift, min_ts,
+                    stream)
+    out = torch.empty((groups.num_groups, num_steps(cfg)),
+                      dtype=torch.float64, device=dev)
+    _group_pass(h, func, aggr, [ts], [values], [counts], [groups], sc, cfg,
+                shift, min_ts, out, False, stream,
+                "rollup_aggregate_tile (group pass)")
     kernels.LAUNCHES["rollup_aggregate_tile"] += 1
     return out
 
@@ -636,55 +848,61 @@ def rollup_group_moments_plain(func: str, aggr: str, ts, values, counts,
                                groups: GroupLayout, cfg: RollupConfig,
                                shift: int = 0,
                                min_ts=MIN_TS_NONE) -> torch.Tensor:
-    """Plain version of B13's per-shard pass: rollup_tile_plain, then
-    partial_group_moments stacked in MOMENTS order -> [M, G, T]."""
+    """Plain version of B13's per-shard pass over one shard's tile:
+    rollup_tile_plain, then chunked_group_moments stacked in MOMENTS order
+    -> [M, G, T]."""
     _check_shift(func, shift)
     rolled = rollup_tile_plain(func, ts - int(shift), values, counts, cfg,
                                min_ts)
-    m = partial_group_moments(aggr, rolled, groups.gids, groups.num_groups)
+    m = chunked_group_moments(aggr, rolled, groups)
     return torch.stack([m[k] for k in MOMENTS[aggr]])
 
 
-def rollup_group_moments(func: str, aggr: str, ts: torch.Tensor,
-                         values: torch.Tensor, counts: torch.Tensor,
-                         groups: GroupLayout, cfg: RollupConfig,
+def rollup_group_moments(func: str, aggr: str, ts: list, values: list,
+                         counts: list, groups: list, cfg: RollupConfig,
                          shift: int = 0, min_ts=MIN_TS_NONE,
                          out=None) -> torch.Tensor:
-    """B13's per-shard pass: K2's group walk over one shard's tile,
-    writing the aggregate's moments (MOMENTS[aggr]) -> float64 [M, G, T]
-    instead of finalizing them; `out`, when given, is the shard's block of
-    the [D, M, G, T] buffer the combine reads."""
+    """B13's per-shard pass over D series shards on one device (lists of
+    each shard's ts, values, counts and GroupLayout; D <= MAX_SHARDS):
+    K2's group walk over each shard's row block, writing the aggregate's
+    moments (MOMENTS[aggr]) -> float64 [D, M, G, T] instead of finalizing
+    them, in one row scan (one host sync) and one group pass (and fold)
+    for the D shards.  A shard's chunked groups fold within the shard, in
+    chunk order.  `out`, when given, is those D shards' block of the
+    [D', M, G, T] buffer the combine reads."""
     if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     if aggr not in AGGR_FUNCS:
         raise ValueError(f"unsupported aggregate {aggr!r}")
     _check_shift(func, shift)
-    dev = kernels.placement(ts, values, counts, groups.gids, groups.order,
-                            groups.starts)
+    D = len(ts)
+    if not 1 <= D <= MAX_SHARDS or not \
+            len(values) == len(counts) == len(groups) == D:
+        raise ValueError(f"1 to {MAX_SHARDS} shards of ts, values, counts "
+                         "and layouts expected")
+    dev = kernels.placement(*ts, *values, *counts,
+                            *(x for g in groups for x in (
+                                g.gids, g.order, g.starts, g.slot0)))
     if dev.type == "cpu":
-        res = rollup_group_moments_plain(func, aggr, ts, values, counts,
-                                         groups, cfg, shift, min_ts)
+        res = torch.stack([rollup_group_moments_plain(
+            func, aggr, *a, cfg, shift, min_ts)
+            for a in zip(ts, values, counts, groups)])
         return res if out is None else \
             _out_block(out, res.shape, dev).copy_(res)
-    S, N = _check_tile(ts, values, counts)
-    G = groups.num_groups
-    T = num_steps(cfg)
-    kernels.require(groups.order, "order", torch.int32, (S,))
-    kernels.require(groups.starts, "starts", torch.int32, (G + 1,))
-    out = _out_block(out, (len(MOMENTS[aggr]), G, T), dev)
+    N = _check_tile(ts[0], values[0], counts[0])[1]
+    for t, v, c in zip(ts, values, counts):
+        if _check_tile(t, v, c)[1] != N:
+            raise ValueError("shards differ in columns")
+    out = _out_block(out, (D, len(MOMENTS[aggr]), groups[0].num_groups,
+                           num_steps(cfg)), dev)
     if not out.is_contiguous():
         raise ValueError("out: must be contiguous")
     h = kernels.lib("rollup")
     stream = kernels.stream_of(dev)
-    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts,
-                            stream)
-    kernels.check(h, h.vm_rollup_group_moments(
-        ts.data_ptr(), values.data_ptr(), *rows, groups.order.data_ptr(),
-        groups.starts.data_ptr(), G, N, T, int(shift), int(min_ts), cfg.step,
-        cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
-        AGGR_FUNCS[aggr], out.data_ptr(), stream),
-        "sharded_rollup_aggregate (moments)")
-    del keep
+    sc = _scan_rows(h, func, ts, values, counts, cfg, shift, min_ts, stream)
+    _group_pass(h, func, aggr, ts, values, counts, groups, sc, cfg, shift,
+                min_ts, out, True, stream,
+                "sharded_rollup_aggregate (moments)")
     kernels.LAUNCHES["rollup_group_moments"] += 1
     return out
 
@@ -782,14 +1000,6 @@ def compact_tile(ts: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
 # B9 / B10 / B11: the fleet's passes over a bucket's [B, S, N] stack.
 # ---------------------------------------------------------------------------
 
-#: B9's chunk R: a group of more members is walked in chunks of R
-#: consecutive members, one block each, whose moments fold in chunk order;
-#: a one-group bucket of 8192 rows a stream then runs 128 blocks a stream
-#: and step tile where it ran one.  A smaller R gives more blocks and a
-#: longer serial fold (tools/select_timing.py sweeps R)
-FLEET_CHUNK = 64
-
-
 @dataclasses.dataclass(frozen=True)
 class FleetLayout:
     """Group ids of a fleet bucket's [B, S] rows plus each stream's member
@@ -835,8 +1045,7 @@ def fleet_layout(gids, num_groups: int, device) -> FleetLayout:
     starts[:, 1:] = torch.cumsum(sizes, 1)
     # each stream's chunked groups numbered in group order
     chunk = FLEET_CHUNK
-    n_chunks = torch.where(sizes > chunk, -(-sizes // chunk), 0)
-    slot0 = torch.cumsum(n_chunks, 1) - n_chunks
+    slot0, n_chunks = _chunk_numbering(sizes, chunk)
     max_group, slots = (torch.stack([sizes.max(), n_chunks.sum(1).max()])
                         .tolist() if sizes.numel() else (0, 0))
     return FleetLayout(g.to(torch.int32), order.to(torch.int32),
@@ -907,8 +1116,8 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
     kernels.require(v0, "v0", torch.float64, (B, S))
     h = kernels.lib("rollup")
     stream = kernels.stream_of(dev)
-    rows, keep = _scan_rows(h, func, ts, values, counts, cfg, 0, 0, stream,
-                            fleet=(shift, min_ts, v0))
+    sc = _scan_rows(h, func, ts, values, counts, cfg, 0, 0, stream,
+                    fleet=(shift, min_ts, v0))
     out = _out_block(out, (B, G, T), dev)
     if not out.is_contiguous():
         raise ValueError("out: must be contiguous")
@@ -917,14 +1126,16 @@ def fleet_rollup_aggregate_tile(func: str, cfg: RollupConfig,
     partial = (torch.empty((5, B * layout.slots, T), dtype=torch.float64,
                            device=dev) if chunks > 1 else None)
     kernels.check(h, h.vm_fleet_rollup_groups(
-        ts.data_ptr(), values.data_ptr(), *rows, v0.data_ptr(),
+        ts.data_ptr(), values.data_ptr(), sc.cv.data_ptr(),
+        sc.cmax.data_ptr(), sc.slots.data_ptr(), counts.data_ptr(),
+        sc.mpi.data_ptr(), _ptr(sc.mean), v0.data_ptr(),
         layout.order.data_ptr(), layout.starts.data_ptr(), shift.data_ptr(),
         min_ts.data_ptr(), aggr.data_ptr(), B, S, G, N, T, cfg.step,
         cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
         layout.slot0.data_ptr(), layout.chunk, chunks, layout.slots,
         None if partial is None else partial.data_ptr(), out.data_ptr(),
         stream), "fleet_rollup_aggregate_tile")
-    del keep, partial  # they live until the launch is queued
+    del sc, partial  # they live until the launch is queued
     kernels.LAUNCHES["fleet_rollup_aggregate_tile"] += 1
     return out
 

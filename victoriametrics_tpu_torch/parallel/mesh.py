@@ -15,11 +15,12 @@ logical shards on one card are views of one buffer, so nothing moves.
 Three parallel axes:
 
 - AXIS_SERIES: data-parallel over series.  B13
-  (``sharded_rollup_aggregate``): each shard runs K2's group walk over its
-  row block and writes the aggregate's moments [M, G, T] into one
-  [D, M, G, T] buffer on the first shard's device; the hand-written
-  combine kernel (``csrc/mesh.cu``) folds the shards in shard order and
-  finalizes, the work the reference's XLA-inserted all-reduce does.
+  (``sharded_rollup_aggregate``): K2's group walk over each shard's row
+  block writes the aggregate's moments [M, G, T] into one [D, M, G, T]
+  buffer on the first shard's device (one launch for the shards of one
+  card); the hand-written combine kernel (``csrc/mesh.cu``) folds the
+  shards in shard order and finalizes, the work the reference's
+  XLA-inserted all-reduce does.
 - AXIS_TIME: sequence-parallel over the sample axis.  B15
   (``time_sharded_rollup``): each device holds a contiguous time slice of
   every series' samples; its halo kernel reads the left neighbour's last
@@ -194,8 +195,11 @@ def sharded_rollup_aggregate(mesh: Mesh, rollup_func: str, aggr: str,
     per-shard GroupLayouts of each block's group ids (padded rows in
     group 0: their rollup is NaN and adds nothing).  Each shard's moments
     land in one [D, M, G, T] buffer on the first device; the combine
-    kernel folds them in shard order.  Output: float64 [G, T] on the first
-    device."""
+    kernel folds them in shard order.  Where every shard lies on one
+    device (logical shards of a card, at most 16), the shards' row scan
+    and group pass are one launch each with one host sync; shards on
+    different cards run them per card.  Output: float64 [G, T] on the
+    first device."""
     if rollup_func not in dr.FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {rollup_func!r}")
     if aggr not in dr.AGGR_FUNCS:
@@ -204,6 +208,7 @@ def sharded_rollup_aggregate(mesh: Mesh, rollup_func: str, aggr: str,
     dev0 = first_device(mesh)
     T = dr.num_steps(cfg)
     M = len(dr.MOMENTS[aggr])
+    one_device = len(set(devs)) == 1 and len(devs) <= dr.MAX_SHARDS
 
     def call(ts, values, counts, groups, shift: int = 0,
              min_ts=dr.MIN_TS_NONE) -> torch.Tensor:
@@ -217,13 +222,20 @@ def sharded_rollup_aggregate(mesh: Mesh, rollup_func: str, aggr: str,
             if ts[d].device != dev:
                 raise ValueError(f"shard {d} lies on {ts[d].device}, the "
                                  f"mesh puts it on {dev}")
-            with kernels.on_device(dev):
-                got = dr.rollup_group_moments(
-                    rollup_func, aggr, ts[d], values[d], counts[d],
-                    groups[d], cfg, shift, min_ts,
-                    out=moments[d] if dev == dev0 else None)
-            if dev != dev0:
-                moments[d].copy_(got, non_blocking=True)
+        args = (ts, values, counts, groups)
+        if one_device:  # one row scan and one group pass for every shard
+            with kernels.on_device(dev0):
+                dr.rollup_group_moments(rollup_func, aggr, *args, cfg,
+                                        shift, min_ts, out=moments)
+        else:
+            for d, dev in enumerate(devs):
+                with kernels.on_device(dev):
+                    got = dr.rollup_group_moments(
+                        rollup_func, aggr, *([a[d]] for a in args), cfg,
+                        shift, min_ts,
+                        out=moments[d:d + 1] if dev == dev0 else None)
+                if dev != dev0:
+                    moments[d:d + 1].copy_(got, non_blocking=True)
         with kernels.on_device(dev0):
             return combine_group_moments(aggr, moments)
 

@@ -115,6 +115,14 @@ def quantile_bound(S: int, T: int, G: int) -> dict:
     return bound(S * T * 8 + S * 4 + (G + 1) * 4 + G * T * 8, S * T)
 
 
+def k2_bound(live: int, S: int, G: int, T: int) -> dict:
+    """K2 (and B13, whose moments and combine move less than the tile) on
+    an [S, N] tile in G groups: each live sample read once (12 B), each
+    row's count, group id and order read, the [G, T] output written; 15
+    scalar operations per (row, step)."""
+    return bound(live * 12 + S * 12 + G * T * 8, 15 * S * T)
+
+
 def fleet_bound(live: int, B: int, S: int, G: int, T: int) -> dict:
     """B9 on a [B, S, N] bucket: each live sample read once (12 B), the
     per-row counts, order, group ids and v0 and the per-stream arrays, the
