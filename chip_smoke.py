@@ -13,7 +13,9 @@ each printing one JSON line:
               take_rows, B7 rank_tile and B8 rollup_quantile_tile against
               their plain PyTorch versions on the card: every rollup func
               (K2 under every aggregate) on ragged edge-case rows and the
-              dashboard tile, shifted and not; B6 at k in {1, 10, 16, 17,
+              dashboard tile, shifted and not, B5 on its plan's path
+              (staged) also against its global search bit for bit; B6 at
+              k in {1, 10, 16, 17,
               K_REG, K_REG + 1, S} (both of its paths and their
               boundaries) on the dashboard, ragged, tie and tall tiles,
               take_rows with int32 and int64 indices (out-of-range ones
@@ -80,7 +82,9 @@ each printing one JSON line:
               query with its own launch counts; K1 and K2 are checked
               against their plain versions in row chunks, and K2's count,
               group, min and max of rate and deriv against B5's rows
-              under the plain aggregate; then, on the
+              under the plain aggregate; B5's staged rate, deriv and
+              tlast_over_time against its global search bit for bit, in
+              row chunks, both paths timed; then, on the
               resident tile, topk(10, rate), topk_median(10, rate),
               avg by (instance)(deriv) and an instant quantile(0.99, rate)
               over every series, each with its launch counts and checked
@@ -108,7 +112,7 @@ each printing one JSON line:
               mesh, against the same streams on an unsharded fleet, bit
               for bit; (e) B12 decode_and_rollup on the dashboard's and
               the full width's delta planes, against K1 -> B5 bit for bit
-              and against its plain version
+              and against its plain version, timed beside K1 -> B5
   uploads     (inside kernels and full_width) both host->device paths of
               the tile cache, pinned-staged and direct, timed on a
               refresh's new columns and on cold delta planes
@@ -147,8 +151,9 @@ from victoriametrics_tpu_torch.query import fleet
 from victoriametrics_tpu_torch.storage.columnar import PAD_TS, ColumnarSeries
 from victoriametrics_tpu_torch.storage.storage import SeriesData
 from victoriametrics_tpu_torch.timing import (
-    MEM_BYTES_PER_S, SCALAR_OPS_PER_S, bound, cuda_ms, fleet_bound,
-    library_or_oom, quantile_bound, take_rows_bound, three_ms, topk_bound)
+    MEM_BYTES_PER_S, SCALAR_OPS_PER_S, bound, cuda_ms, device_ms,
+    fleet_bound, library_or_oom, quantile_bound, take_rows_bound, three_ms,
+    topk_bound)
 from victoriametrics_tpu_torch.utils import metrics as metricslib
 
 T_START = 1_753_700_000_000   # unix ms of the first scrape
@@ -718,6 +723,11 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
                 continue  # they refuse a shifted grid
             c = dr.normalized_cfg(func, cfg0)
             g = dr.rollup_tile(func, tsx, vx, cx, c, mt, off)
+            # the plan's path (staged on these shapes) against the global
+            # search, bit for bit
+            assert_equal(f"B5 {func} {what} shift {off} plan vs global", g,
+                         dr.rollup_tile(func, tsx, vx, cx, c, mt, off,
+                                        force_global=True))
             w = dr.rollup_tile_plain(func, tsx - off, vx, cx, c, mt)
             e = func_close(f"B5 {func} {what} shift {off}", func, g, w)
             if func not in dr.TIME_VALUED_FUNCS and \
@@ -728,8 +738,16 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
     rolled = b5()
     if not bool(torch.isfinite(rolled[:, WINDOW // DASH_STEP + 1:]).all()):
         raise AssertionError("B5 dashboard: non-finite rates")
+    plan5 = dr.b5_plan(S, int(ts_t.shape[1]), T, cfg.step, cfg.lookback,
+                       dr.scrape_hint(int(ts_t.shape[1]), T, cfg.step,
+                                      cfg.lookback), kernels.sm_count(dev))
+    if plan5.path != dr.K2_STAGED:
+        raise AssertionError(f"B5 dashboard: plan {plan5} is not staged")
     res["rollup_tile"] = dict(
-        max_abs_err=err5, ms=cuda_ms(b5),
+        max_abs_err=err5, ms=cuda_ms(b5), device_ms=device_ms(b5),
+        global_device_ms=device_ms(lambda: dr.rollup_tile(
+            "rate", ts_t, v_t, counts, cfg, force_global=True)),
+        plan=plan5._asdict(),
         plain_ms=cuda_ms(lambda: dr.rollup_tile_plain(
             "rate", ts_t, v_t, counts, cfg), reps=3),
         ms_by_func={f: cuda_ms(lambda f=f: dr.rollup_tile(
@@ -2261,6 +2279,37 @@ def decode_tap(planes: list):
     return lambda: setattr(dd, "decode_tiles", real)
 
 
+def full_width_b5(ts_t, v_t, counts, cfg, chunk: int) -> dict:
+    """B5 on the full-width tile: rate, deriv and tlast_over_time on the
+    plan's path (staged at this shape) against the global search bit for
+    bit, compared in row chunks, and the device ms of each path."""
+    S, N = ts_t.shape
+    res = {}
+    for func in ("rate", "deriv", "tlast_over_time"):
+        c = dr.normalized_cfg(func, cfg)
+        T = dr.num_steps(c)
+        plan = dr.b5_plan(S, N, T, c.step, c.lookback,
+                          dr.scrape_hint(N, T, c.step, c.lookback),
+                          kernels.sm_count(ts_t.device))
+        if plan.path != dr.K2_STAGED:
+            raise AssertionError(f"full width B5 {func}: plan {plan} is "
+                                 "not staged")
+        got = dr.rollup_tile(func, ts_t, v_t, counts, c)
+        for r0 in range(0, S, chunk):
+            sl = slice(r0, r0 + chunk)
+            assert_equal(f"full width B5 {func} rows {r0}+ plan vs global",
+                         got[sl], dr.rollup_tile(func, ts_t[sl], v_t[sl],
+                                                 counts[sl], c,
+                                                 force_global=True))
+        del got
+        res[func] = {"plan": plan._asdict(), "device_ms": device_ms(
+            lambda: dr.rollup_tile(func, ts_t, v_t, counts, c), 3),
+            "global_device_ms": device_ms(lambda: dr.rollup_tile(
+                func, ts_t, v_t, counts, c, force_global=True), 3)}
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_full_width(rng, dev, hours: float) -> dict:
     """BASELINE config 2 as one cold query, with its time split."""
     S, G = FULL_SERIES, FULL_SERIES // FULL_PER_GROUP
@@ -2360,6 +2409,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
                                          ncfg),
                 dr.finalize_group_moments(aggr, want))
         del want
+    b5 = full_width_b5(ts_t, v_t, counts, cfg, chunk)
     slice2 = full_width_queries(engine, series, cfg, key, gids, G, dev)
     res = {"phase": "full_width", "ok": True, "series": S, "groups": G,
            "samples_per_series": N, "hours": hours, "steps": T,
@@ -2372,7 +2422,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
            MEM_BYTES_PER_S * 1e3,
            "peak_device_bytes": peak, "launches": launches,
            "k1_bitwise_vs_plain": True, "max_abs_err_vs_plain": err,
-           "uploads": uploads, "slice2": slice2}
+           "uploads": uploads, "b5": b5, "slice2": slice2}
     emit(res)
     return res, {"engine": engine, "series": series, "cfg": cfg,
                  "gids": gids, "key": key, "out": out, "N": N,
@@ -2631,13 +2681,19 @@ def mesh_decode(dev, what, planes, cfg, aside, tiles=None,
             f"B12 {what} rows {r0}+", "rate", got[r0:r0 + chunk],
             dd.decode_and_rollup_plain(
                 "rate", *(a[r0:r0 + chunk] for a in args), ncfg, n_cap)))
+    del got
+    b12 = lambda: dd.decode_and_rollup("rate", *args, ncfg,  # noqa: E731
+                                       n_cap)
+    k1_b5 = lambda: dr.rollup_tile(  # noqa: E731
+        "rate", *dd.decode_tiles(*args, n_cap), args[7], ncfg)
     with aside():
-        ms = cuda_ms(lambda: dd.decode_and_rollup("rate", *args, ncfg,
-                                                  n_cap), reps=3)
-        k1_b5_ms = cuda_ms(lambda: dr.rollup_tile(
-            "rate", *dd.decode_tiles(*args, n_cap), args[7], ncfg), reps=3)
+        ms = cuda_ms(b12, reps=3)
+        k1_b5_ms = cuda_ms(k1_b5, reps=3)
+        dev_ms = device_ms(b12, 5)
+        k1_b5_dev_ms = device_ms(k1_b5, 5)
     return {"max_abs_err_vs_plain": err, "rows": S, "cols": int(n_cap),
-            "steps": int(got.shape[1]), "ms": ms, "k1_then_b5_ms": k1_b5_ms}
+            "steps": dr.num_steps(ncfg), "ms": ms, "k1_then_b5_ms": k1_b5_ms,
+            "device_ms": dev_ms, "k1_then_b5_device_ms": k1_b5_dev_ms}
 
 
 def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:

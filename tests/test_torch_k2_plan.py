@@ -18,9 +18,12 @@ staged window search's rule against the JAX package's window bounds.
     step, gappy rows and a grid that overflows int32: the staged path and
     its tile where a stage holds the rows' real spans, else the global
     search;
-  * the staged search (a transcription of csrc/rollup.cu's span_of,
-    count_le_from and guess_count) finds exactly the reference's window
-    bounds (_window_bounds) on regular, jittered, gappy, bursty and
+  * b5_plan (B5 rollup_tile on K2's staged walk) at the same shapes and
+    a time shard of B15's (2, 4) mesh: its path, rows a block and tile;
+  * the staged search (a transcription of csrc/rollup.cu's walk_rows:
+    span_of, count_le_from and guess_count), walked as K2 walks a group's
+    members and as B5 walks its row blocks, finds exactly the reference's
+    window bounds (_window_bounds) on regular, jittered, gappy, bursty and
     duplicate-timestamp rows, over every step tile of the plan.
 """
 
@@ -226,6 +229,48 @@ def test_k2_plan(name):
                   plan.steps) <= plan.cap
 
 
+# (S, N, T, step, lookback) of one time shard of B15's (2, 4) mesh over
+# the full width's tile: half the rows, a quarter of the columns and the
+# 32-column halo, a quarter of 1440 steps of 60 s
+B15_SHARD = (50_000, 5760 // 4 + 32, 360, 60_000, 300_000)
+
+
+@pytest.mark.parametrize("name", list(PLANS) + ["b15_shard"])
+def test_b5_plan(name):
+    if name == "b15_shard":
+        S, N, T, step, lookback = B15_SHARD
+    else:
+        S, N, T, step, lookback = PLANS[name][:5]
+    hint = dr.scrape_hint(N, T, step, lookback)
+    plan = dr.b5_plan(S, N, T, step, lookback, hint, 132)
+    if name in ("instant", "step_1h", "wrap"):
+        assert plan == dr.B5_GLOBAL
+        assert plan == (dr.K2_GLOBAL, 1, dr.K2_THREADS, 0, 0)
+        return
+    # the dashboard's 8192 rows in blocks of 32 keep 4 blocks an SM over
+    # three 128-step tiles; the full width's and a B15 shard's 64-row
+    # blocks take 512 steps (the shard's 360 in one tile)
+    want = {"dashboard": (32, 128), "gappy": (32, 128),
+            "full_width": (64, 512), "b15_shard": (64, 512)}[name]
+    assert (plan.path, plan.rows, plan.steps) == (dr.K2_STAGED, *want)
+    k2 = dr.k2_plan(-(-S // plan.rows) * dr._K2_BLOCK_ROWS, N, T, step,
+                    lookback, hint, 132)
+    # the tile, stages and path are K2's for S / rows blocks of rows
+    assert (plan.steps, plan.cap, plan.smem) == k2[1:]
+    blocks = -(-S // plan.rows) * -(-T // plan.steps)
+    assert blocks >= 4 * 132 and plan.smem <= 96 << 10
+    assert 8 <= plan.rows <= 64 and plan.cap <= N
+
+
+def test_b5_plan_small_tiles_keep_the_card_busy():
+    # a tile too small for 4 blocks an SM even at 8 rows a block stays
+    # staged with the fewest rows
+    plan = dr.b5_plan(256, 1440, 355, 60_000, 300_000,
+                      dr.scrape_hint(1440, 355, 60_000, 300_000), 132)
+    assert plan.path == dr.K2_STAGED and plan.rows == 8
+    assert plan.steps == 128
+
+
 # -- the staged window search against the reference's window bounds -------
 
 def _count_le(a, lo, hi, x):
@@ -272,13 +317,21 @@ def _per(f0, f1, L):
         if L > 1 and f1 > f0 else np.float32(0)
 
 
-def _staged_bounds(ts, counts, T, step, lookback, steps):
+def _staged_bounds(ts, counts, T, step, lookback, steps, rows=None):
     """(lo, hi) [S, T] the way the kernel finds them: a step tile's span of
     each row from guesses on the row's ends, then each step's window
-    inside the staged span."""
+    inside the staged span.  rows=None walks the rows one at a time, as
+    K2 walks a group's members; else in blocks of `rows` rows, B5's
+    (each block's rows over each step tile)."""
     S = ts.shape[0]
     lo = np.zeros((S, T), np.int64)
     hi = np.zeros((S, T), np.int64)
+    if rows is not None:
+        for r0 in range(0, S, rows):
+            sl = slice(r0, r0 + rows)
+            lo[sl], hi[sl] = _staged_bounds(ts[sl], counts[sl], T, step,
+                                            lookback, steps)
+        return lo, hi
     for r in range(S):
         c = int(counts[r])
         row = [int(x) for x in ts[r, :c]]
@@ -329,16 +382,19 @@ def _window_rows(kind):
     return ts, counts
 
 
-@pytest.mark.parametrize("steps", [128, 512])
+@pytest.mark.parametrize("walk,steps", [("k2", 128), ("k2", 512),
+                                        ("b5", 128), ("b5", 512)])
 @pytest.mark.parametrize("kind", ["regular", "jittered", "gappy", "bursty",
                                   "duplicates"])
-def test_staged_search_finds_the_reference_windows(kind, steps):
+def test_staged_search_finds_the_reference_windows(kind, walk, steps):
     ts, counts = _window_rows(kind)
     cfg = RollupConfig(0, 5_940_000, 15_000, 300_000)
     T = dr.num_steps(cfg)
     want_lo, want_hi, _ = ref._window_bounds(
         jnp.asarray(ts.astype(np.int32)), _ref_cfg(cfg))
-    lo, hi = _staged_bounds(ts, counts, T, cfg.step, cfg.lookback, steps)
+    # B5's blocks of rows: 4 rows a block splits the 6 rows unevenly
+    lo, hi = _staged_bounds(ts, counts, T, cfg.step, cfg.lookback, steps,
+                            4 if walk == "b5" else None)
     live = np.asarray(want_hi) > np.asarray(want_lo)
     assert live.sum() > 100
     # the kernel reads lo and hi only where a window holds a sample

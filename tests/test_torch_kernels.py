@@ -46,8 +46,8 @@ def test_the_mesh_and_fused_decode_entry_points_are_bound():
     assert set(kernels.SIGNATURES["mesh"]) == {
         "vm_combine_moments", "vm_halo_compact", "vm_add_seconds"}
     # B15 writes a time shard's block of a wider output: B5 takes a row
-    # stride
-    assert len(kernels.SIGNATURES["rollup"]["vm_rollup_series"]) == 20
+    # stride, then its plan (staged, rows, steps, cap: b5_plan)
+    assert len(kernels.SIGNATURES["rollup"]["vm_rollup_series"]) == 24
 
 
 def test_b6_is_one_entry_point_with_its_plan():

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time B6 topk_select and take_rows, B8 quantile_groups and B9
-fleet_rollup_aggregate_tile, and the PyTorch calls that compute the same
-functions where there is one, on one CUDA card, three ways each.
+"""Time B5 rollup_tile, B12 decode_and_rollup, K2 and B13, B6 topk_select
+and take_rows, B8 quantile_groups and B9 fleet_rollup_aggregate_tile, and
+the PyTorch calls that compute the same functions where there is one, on
+one CUDA card.
 
-    python3 tools/select_timing.py [--root DIR] [--seed N] [--label L]
+    python3 tools/select_timing.py [--root DIR] [--parts P,...] [--seed N]
+                                   [--label L]
 
   ms         CUDA events around one call, median of 10 after a warm-up
              (the span includes the wrapper's host time whenever the
@@ -41,10 +43,23 @@ rollup and mesh libraries timed alone by CUDA events (``launch_split``),
 so the row scan (vm_rollup_scan), the scratch pass (vm_rollup_prep, when
 a row needs it), the group pass (vm_rollup_groups) and B13's passes and
 combine show apart, in either checkout.
+B5 rollup_tile is timed on the raw tiles: rate and tlast_over_time at
+the dashboard, rate and deriv at the full width, each call's device_ms and
+launch split beside its bound, and, where the port has B5's plan
+(``b5_plan``), the same call forced onto the global search.  B12
+decode_and_rollup (rate) runs on delta planes made on the card from the
+same tiles at the engine's tile capacity (int16 timestamp and int8 value
+second differences, scale 1, zero-padded to tile_capacity(N) columns: 1856
+at the dashboard, 7232 at the full width; K1 rebuilds the tiles from them
+bit for bit), beside K1 alone and K1 then B5, and split into its phases
+by diagnostic builds of the checkout's csrc/rollup.cu that end each row
+after a phase (``-DVM_B12_STOP=1``: the decode; ``=2``: the row scan and
+scratch too; the full kernel less those is the series pass).
 ``--root`` imports the port from another checkout (a parent commit
 unpacked under a gitignored directory), so two versions compare in one
-chip call: parent, change, change, parent.  Prints one JSON line with the
-card's name and power limit.
+chip call: parent, change, change, parent.  ``--parts`` picks what runs
+(default: every part).  Prints one JSON line with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -52,6 +67,8 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
+import hashlib
 import importlib.util
 import json
 import os
@@ -59,11 +76,14 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 T_START, SCRAPE, JITTER, WINDOW = 1_753_700_000_000, 15_000, 2_000, 300_000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: what --parts picks from
+PARTS = ("b5", "b12", "k2", "topk", "quantile", "b9")
 
 
 def load_timing():
@@ -345,19 +365,182 @@ def cluster_sweep(tm, dr, kernels, rolled, ks, clusters) -> dict:
     return out
 
 
+def delta_planes(ts: torch.Tensor, vals: torch.Tensor, counts: torch.Tensor,
+                 n: int):
+    """The delta planes of a tile of whole rows of integer-valued samples,
+    made on the card and padded with zero second differences to n columns
+    (the engine's tile capacity): int16 timestamp and int8 value second
+    differences (the jittered counters' fit), scale 1 -> decode_tiles'
+    arguments."""
+    S, N = ts.shape
+    mant = vals.to(torch.int64)
+    planes = []
+    for x, d2type in ((ts.to(torch.int64), torch.int16), (mant, torch.int8)):
+        d1 = x[:, 1:] - x[:, :-1]
+        d2 = d1[:, 1:] - d1[:, :-1]
+        if d2.numel() and int(d2.abs().max()) > torch.iinfo(d2type).max:
+            raise AssertionError(f"second differences overflow {d2type}")
+        plane = torch.zeros((S, n - 2), dtype=d2type, device=ts.device)
+        plane[:, :N - 2] = d2
+        planes += [x[:, 0].to(torch.int32).contiguous(),
+                   d1[:, 0].to(torch.int32).contiguous(), plane]
+        del d1, d2
+    return (*planes, torch.ones(S, dtype=torch.float64, device=ts.device),
+            counts)
+
+
+# B12's phase hooks for a checkout whose decode_rollup has none (the
+# per-plane decode of earlier versions): VM_B12_STOP_AFTER(k) ends the row
+# after phase k in a build with -DVM_B12_STOP=k, inserted where that
+# version's phases end
+_B12_STOP_HOOK = (
+    "#ifndef VM_B12_STOP\n#define VM_B12_STOP 0\n#endif\n"
+    "#define VM_B12_STOP_AFTER(k) \\\n"
+    "  if (VM_B12_STOP == (k)) { \\\n"
+    "    if (threadIdx.x == 0) out[row * T] = v[0]; \\\n"
+    "    continue; \\\n"
+    "  }\n")
+_B12_ANCHORS = (
+    "n, 0, a.scale[row], nullptr, v, warp_sums);\n    __syncthreads();\n",
+    "if (threadIdx.x == 0) s_irregular = irregular;\n    }\n"
+    "    __syncthreads();\n")
+
+
+def b12_stop_libs(kernels, root: str, stops=(1, 2)) -> dict:
+    """Diagnostic builds of the checkout's csrc/rollup.cu, B12 ending each
+    row after phase k (1: decode; 2: the row scan and scratch), loaded
+    with the checkout's signatures: {k: library}.  Built once per source
+    under this checkout's _build/b12_stop, all stops at once."""
+    csrc = Path(root).resolve() / "victoriametrics_tpu_torch" / "csrc"
+    src = (csrc / "rollup.cu").read_text()
+    if "VM_B12_STOP_AFTER" not in src:
+        for k, anchor in enumerate(_B12_ANCHORS, 1):
+            if src.count(anchor) != 1:
+                raise RuntimeError(f"B12 phase {k}: anchor not found once")
+            src = src.replace(anchor, anchor + f"    VM_B12_STOP_AFTER({k});\n")
+        src = _B12_STOP_HOOK + src
+    out = Path(REPO) / "victoriametrics_tpu_torch" / "_build" / "b12_stop"
+    out.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.blake2b(src.encode(), digest_size=8).hexdigest()
+    cu = out / f"rollup-{digest}.cu"
+    cu.write_text(src)
+    procs = []
+    paths = {k: out / f"librollup-stop{k}-{digest}.so" for k in stops}
+    for k, so in paths.items():
+        if not so.exists():
+            procs.append((k, so, subprocess.Popen(
+                [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DVM_B12_STOP={k}",
+                 "-I", str(csrc), "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    for k, so, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"B12 stop {k} build failed:\n"
+                               f"{log.decode(errors='replace')}")
+    libs = {}
+    for k, so in paths.items():
+        h = ctypes.CDLL(str(so))
+        for fn, argtypes in kernels.SIGNATURES["rollup"].items():
+            getattr(h, fn).argtypes = argtypes
+            getattr(h, fn).restype = ctypes.c_int
+        h.vm_cuda_error_string.argtypes = [ctypes.c_int]
+        h.vm_cuda_error_string.restype = ctypes.c_char_p
+        libs[k] = h
+    return libs
+
+
+@contextlib.contextmanager
+def _rollup_lib(kernels, h):
+    """kernels.lib("rollup") is `h` inside the block."""
+    keep = kernels.lib("rollup")
+    kernels._libs["rollup"] = h
+    try:
+        yield
+    finally:
+        kernels._libs["rollup"] = keep
+
+
+def b5_times(tm, dr, kernels, ts, vals, counts, cfg, func: str,
+             n: int) -> dict:
+    """B5 func over the tile: device_ms, the launch split, the bound, and
+    (a port with B5's plan) the plan and the call forced onto the global
+    search."""
+    S, N = ts.shape
+    T = dr.num_steps(cfg)
+
+    def b5():
+        return dr.rollup_tile(func, ts, vals, counts, cfg)
+
+    out = {"S": S, "N": N, "T": T, "func": func,
+           "device_ms": tm.device_ms(b5, n),
+           "split": launch_split(kernels, b5),
+           "bound_ms": tm.bound(int(counts.sum()) * 12 + S * 4 + S * T * 8,
+                                15 * S * T)["bound_ms"]}
+    if hasattr(dr, "b5_plan"):  # a port with B5's staged path and plan
+        out["plan"] = dr.b5_plan(
+            S, N, T, cfg.step, cfg.lookback,
+            dr.scrape_hint(N, T, cfg.step, cfg.lookback),
+            kernels.sm_count(ts.device))._asdict()
+        out["global_device_ms"] = tm.device_ms(
+            lambda: dr.rollup_tile(func, ts, vals, counts, cfg,
+                                   force_global=True), n)
+    return out
+
+
+def b12_times(tm, dr, dd, kernels, stop_libs, ts, vals, counts, cfg,
+              n: int) -> dict:
+    """B12 rate on the tile's delta planes at the engine's tile capacity
+    beside K1 alone and K1 then B5 (device_ms), its phases from the
+    diagnostic builds, and its bound."""
+    from victoriametrics_tpu_torch.query.cuda_engine import tile_capacity
+    S, N_rows = ts.shape
+    N = tile_capacity(N_rows)
+    T = dr.num_steps(cfg)
+    planes = delta_planes(ts, vals, counts, N)
+    k1 = dd.decode_tiles(*planes, N)
+    if not (torch.equal(k1[0][:, :N_rows], ts) and
+            torch.equal(k1[1][:, :N_rows], vals)):
+        raise AssertionError("delta planes: K1 does not rebuild the tile")
+    del k1
+
+    def b12():
+        return dd.decode_and_rollup("rate", *planes, cfg, N)
+
+    plane_bytes = sum(t.numel() * t.element_size() for t in planes)
+    out = {"S": S, "n": N, "T": T, "device_ms": tm.device_ms(b12, n),
+           "k1_device_ms": tm.device_ms(
+               lambda: dd.decode_tiles(*planes, N), n),
+           "k1_then_b5_device_ms": tm.device_ms(
+               lambda: dr.rollup_tile("rate", *dd.decode_tiles(*planes, N),
+                                      counts, cfg), n),
+           "bound_ms": tm.bound(plane_bytes + S * T * 8,
+                                2 * 2 * S * N + 15 * S * T)["bound_ms"]}
+    for k, h in stop_libs.items():
+        with _rollup_lib(kernels, h):
+            out[f"stop{k}_device_ms"] = tm.device_ms(b12, n)
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO,
                     help="checkout to import the port from")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
+    if not parts <= set(PARTS):
+        ap.error(f"--parts: unknown {sorted(parts - set(PARTS))}")
     if not torch.cuda.is_available():
         print("select_timing: no CUDA device", file=sys.stderr)
         return 2
     tm = load_timing()
     sys.path.insert(0, os.path.abspath(args.root))
     from victoriametrics_tpu_torch import kernels
+    from victoriametrics_tpu_torch.ops import device_decode as dd
     from victoriametrics_tpu_torch.ops import device_rollup as dr
     from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
     from victoriametrics_tpu_torch.parallel import mesh as meshlib
@@ -367,59 +550,86 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    kernels.build(("rollup", "select", "quantile", "mesh"))
+    kernels.build(("decode", "rollup", "select", "quantile", "mesh"))
+    stop_libs = b12_stop_libs(kernels, args.root) if "b12" in parts else {}
     res = {"label": args.label, "root": args.root, "gpu": gpu,
-           "build_s": time.perf_counter() - t0}
+           "parts": sorted(parts), "build_s": time.perf_counter() - t0}
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     # the dashboard's grid (chip_smoke.dashboard_grid): 6 h at 15 s
     n = 1440
     end = T_START + -(-((n - 1) * SCRAPE + JITTER) // 60_000) * 60_000
-    k2 = {}
+    start = end - ((n - 1) * SCRAPE - WINDOW)
+    dash = {}
 
-    def k2_dashboard(ts, vals, counts, cfg):
-        k2.update(by_instance=k2_times(
-            tm, dr, kernels, meshlib, split_rows, ts, vals, counts, cfg,
-            "rate", "sum", 256, 20),
-            one_group=k2_times(tm, dr, kernels, meshlib, split_rows, ts,
-                               vals, counts, cfg, "rate", "sum", 1, 20))
+    def at_dashboard(ts, vals, counts, cfg):
+        if "b5" in parts:
+            dash["b5_rate"] = b5_times(tm, dr, kernels, ts, vals, counts,
+                                       cfg, "rate", 50)
+            dash["b5_tlast"] = b5_times(
+                tm, dr, kernels, ts, vals, counts,
+                RollupConfig(start, end, 60_000, WINDOW), "tlast_over_time",
+                50)
+        if "b12" in parts:
+            dash["b12"] = b12_times(tm, dr, dd, kernels, stop_libs, ts, vals,
+                                    counts, cfg, 20)
+        if "k2" in parts:
+            dash["k2"] = {
+                "by_instance": k2_times(
+                    tm, dr, kernels, meshlib, split_rows, ts, vals, counts,
+                    cfg, "rate", "sum", 256, 20),
+                "one_group": k2_times(
+                    tm, dr, kernels, meshlib, split_rows, ts, vals, counts,
+                    cfg, "rate", "sum", 1, 20)}
 
-    rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n,
-                       end - ((n - 1) * SCRAPE - WINDOW), end, 60_000,
-                       k2_dashboard)
-    res["dashboard"] = shape_times(tm, dr, rolled, (10, 20, 8192), 50)
-    res["dashboard"]["k2"] = k2
-    res["dashboard"]["quantile_m32"] = quantile_times(tm, dr, rolled, 256,
-                                                      0.9, 50)
-    res["dashboard"]["quantile_m8192"] = quantile_times(tm, dr, rolled, 1,
-                                                        0.5, 20)
-    sweep = hasattr(dr, "topk_plan")  # the scan path's plan (PR 5 on)
-    if sweep:
-        res["dashboard"]["clusters"] = cluster_sweep(
-            tm, dr, kernels, rolled, (10, 20), (1, 2, 4, 8, 16))
+    rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n, start, end,
+                       60_000, at_dashboard)
+    res["dashboard"] = dash
+    if "topk" in parts:
+        dash.update(shape_times(tm, dr, rolled, (10, 20, 8192), 50))
+    if "quantile" in parts:
+        dash["quantile_m32"] = quantile_times(tm, dr, rolled, 256, 0.9, 50)
+        dash["quantile_m8192"] = quantile_times(tm, dr, rolled, 1, 0.5, 20)
+    sweep = hasattr(dr, "topk_plan")  # a port with B6's scan-path plan
+    if sweep and "topk" in parts:
+        dash["clusters"] = cluster_sweep(tm, dr, kernels, rolled, (10, 20),
+                                         (1, 2, 4, 8, 16))
     del rolled
     n = 5760
-    k2 = {}
+    full = {}
 
-    def k2_full(ts, vals, counts, cfg):
-        for func, aggr in (("rate", "sum"), ("deriv", "avg")):
-            k2[f"{aggr}_{func}"] = k2_times(
+    def at_full_width(ts, vals, counts, cfg):
+        if "b5" in parts:
+            for func in ("rate", "deriv"):
+                full[f"b5_{func}"] = b5_times(
+                    tm, dr, kernels, ts, vals, counts,
+                    dr.normalized_cfg(func, cfg), func, 5)
+        if "b12" in parts:
+            full["b12"] = b12_times(tm, dr, dd, kernels, stop_libs, ts, vals,
+                                    counts, cfg, 5)
+            torch.cuda.empty_cache()
+        if "k2" in parts:
+            full["k2"] = {f"{aggr}_{func}": k2_times(
                 tm, dr, kernels, meshlib, split_rows, ts, vals, counts, cfg,
                 func, aggr, 3125, 5)
+                for func, aggr in (("rate", "sum"), ("deriv", "avg"))}
 
     rolled = rate_tile(dr, RollupConfig, dev, gen, 100_000, n, T_START,
-                       T_START + n * SCRAPE, SCRAPE, k2_full)
+                       T_START + n * SCRAPE, SCRAPE, at_full_width)
     torch.cuda.empty_cache()
-    res["full_width"] = shape_times(tm, dr, rolled, (10, 20), 10)
-    res["full_width"]["k2"] = k2
-    if sweep:
-        res["full_width"]["clusters"] = cluster_sweep(
-            tm, dr, kernels, rolled, (10, 20), (1, 2, 4, 8))
-    res["full_width"]["quantile_instant"] = quantile_times(
-        tm, dr, rolled[:, -1:].contiguous(), 1, 0.99, 50)
+    res["full_width"] = full
+    if "topk" in parts:
+        full.update(shape_times(tm, dr, rolled, (10, 20), 10))
+        if sweep:
+            full["clusters"] = cluster_sweep(tm, dr, kernels, rolled,
+                                             (10, 20), (1, 2, 4, 8))
+    if "quantile" in parts:
+        full["quantile_instant"] = quantile_times(
+            tm, dr, rolled[:, -1:].contiguous(), 1, 0.99, 50)
     del rolled
     torch.cuda.empty_cache()
-    res["fleet"] = fleet_times(tm, dr, RollupConfig, dev, gen, 10)
+    if "b9" in parts:
+        res["fleet"] = fleet_times(tm, dr, RollupConfig, dev, gen, 10)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(res), flush=True)
     return 0

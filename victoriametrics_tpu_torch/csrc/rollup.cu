@@ -55,8 +55,12 @@
 //     8192 rows was 3 blocks, each thread walking 8192 rows); group_fold,
 //     a second launch, merges a group's chunks in ascending chunk order
 //     with B9's fold_chunks and finalizes or stores them.
-//     B5: rollup_series, one block per (row, 128-step tile), writes
-//     series_value to [S, T].
+//     B5: series_pass, the same staged walk (walk_rows) over blocks of up
+//     to 64 consecutive rows (ops/device_rollup.b5_plan), each value
+//     written to [S, T] as it is found, a warp's stores consecutive in t;
+//     on the global path (a wrapping grid, or spans no stage holds)
+//     rollup_series, one block per (row, 128-step tile), writes
+//     series_value.
 //     B9: fleet_rollup_groups, the same walk with a stream axis and the
 //     global search: one block per (stream, group, 128-step tile).  The
 //     block reads its stream's shift, min_ts and aggregate code from [B]
@@ -82,18 +86,21 @@
 //
 //  4. B12 (replaces victoriametrics_tpu/ops/device_decode.py:
 //     decode_and_rollup, decode_tiles then rollup_tile in one jit):
-//     decode_rollup, one 256-thread block per row (grid-stride over the
-//     rows, as many blocks as the card holds at once).  The block decodes
-//     the row's two delta planes with K1's decode_row (decode.cuh) into a
-//     workspace, runs scan_row and, for an irregular counter row,
-//     prep_row on it (the functions rollup_scan and rollup_prep run), and
-//     its threads evaluate series_value<F> for the row's steps.  The
-//     decoded tile is never written, and the output equals K1 then B5 bit
-//     for bit.  The workspace is the row's values and timestamps (12 B
-//     per column) in dynamic shared memory up to the opt-in limit (above
-//     48 KB through cudaFuncSetAttribute), else a global scratch slot per
-//     resident block; cv and cmax always sit in the block's scratch slot,
-//     so the scratch is blocks x n columns, never S x n.
+//     decode_rollup, one 256- or 512-thread block per row (grid-stride
+//     over the rows, as many blocks as the card holds at once; 512 where
+//     the workspace lets fewer than four blocks of 256 share an SM).  The
+//     block decodes the row's two delta planes into a workspace
+//     (decode.cuh decode_row_pair: K1's values from two block scans a
+//     row), checks its regularity with every thread, runs scan_row
+//     (mpi, mean) and, for an irregular counter row, prep_row on warp 0,
+//     and its threads evaluate the row's steps, each window found in the
+//     decoded row from an interpolated guess.  The decoded tile is never
+//     written, and the output equals K1 then B5 bit for bit.  The
+//     workspace is the row's values and timestamps (12 B per column) in
+//     dynamic shared memory up to the opt-in limit (above 48 KB through
+//     cudaFuncSetAttribute), else a global scratch slot per resident
+//     block; cv and cmax always sit in the block's scratch slot, so the
+//     scratch is blocks x n columns, never S x n.
 //  5. B13's per-shard pass (replaces the partial_group_moments half of
 //     victoriametrics_tpu/parallel/mesh.py:sharded_rollup_aggregate): K2's
 //     group_pass writing the aggregate's moments (moments.cuh, in MOMENTS
@@ -140,14 +147,15 @@
 // [B, G, T] (B9) float64; B12 reads the delta planes instead (1-4 B per
 // column and plane) and writes [S, T]; B13's pass writes [D, M, G, T].
 // The scan pass reads the values once (8 B/sample) for the counter funcs
-// and stddev/stdvar only.  B5, B9 and B12's series passes read about
-// 2 log2(N) + window timestamps and values per (series, step) from L1/L2,
-// since a block's 128 threads walk the same row; K2's staged pass reads
-// each sample of a tile's span once from global memory (the spans of
-// neighbouring tiles overlap by a window) and a few shared-memory words
-// per (series, step).  The design keeps every intermediate of the [S, T]
-// rollup in registers; its distance from the byte bound is recorded in
-// PERF.md.
+// and stddev/stdvar only.  B9's series pass (and B5's global path) reads
+// about 2 log2(N) + window timestamps and values per (series, step) from
+// L1/L2, since a block's 128 threads walk the same row; the staged walk of
+// K2 and B5 reads each sample of a tile's span once from global memory
+// (the spans of neighbouring tiles overlap by a window) and a few
+// shared-memory words per (series, step); B12 finds its windows in the
+// decoded row in shared memory the same way.  The design keeps every
+// intermediate of the [S, T] rollup in registers; its distance from the
+// byte bound is recorded in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -200,7 +208,8 @@ __device__ __forceinline__ bool irregular_value(double v, double prev,
 // The row scan of one row, run by every lane of one warp: returns (on
 // every lane) whether the row is irregular when `counter`, writes the
 // mean of its valid samples to *mean when `mean` is given, and its
-// maxPrevInterval to *mpi (lane 0).  K2, B5 and B9 scan their rows with
+// maxPrevInterval to *mpi (lane 0), the quantile of its last intervals
+// found by the warp's lanes together.  K2, B5 and B9 scan their rows with
 // rollup_scan below, B12 the row it has just decoded.
 __device__ bool scan_row(const int32_t* trow, const double* vrow, int c,
                          int N, int32_t shift, int32_t min_ts, int32_t step,
@@ -233,43 +242,43 @@ __device__ bool scan_row(const int32_t* trow, const double* vrow, int c,
     for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(full, s, o);
     if (lane == 0) *mean = s / static_cast<double>(c > 1 ? c : 1);
   }
-  if (lane != 0) return irregular;
   if (instant) {
-    *mpi = step;
+    if (lane == 0) *mpi = step;
     return irregular;
   }
-  // 0.6 quantile of the last <= 20 intervals among samples >= min_ts
+  // 0.6 quantile of the last <= 20 intervals among samples >= min_ts:
+  // lane k reads sample base + k (k <= 20), and lane k < 20 holds interval
+  // k when both of its samples count.  An interval's rank among the valid
+  // ones (ties by lane) is its place in the ascending order, so the
+  // sorted list's entries at the quantile's two ranks are read from the
+  // lanes holding those ranks: an insertion sort's values.
   const int base = c - 21 > 0 ? c - 21 : 0;
-  int32_t tv[21];
-  bool ok[21];
-  for (int k = 0; k < 21; ++k) {
-    const int idx = base + k;
-    const int cl = idx < N - 1 ? idx : N - 1;
-    tv[k] = shifted(trow[cl], shift);
-    ok[k] = idx < c && tv[k] >= min_ts;
-  }
-  float d[20];
-  int n = 0;
+  const int idx = base + lane;
+  const int cl = idx < N - 1 ? idx : N - 1;
+  const int32_t tv = lane <= 20 ? shifted(trow[cl], shift) : 0;
+  const int ok = lane <= 20 && idx < c && tv >= min_ts;
+  const int32_t tv_next = __shfl_down_sync(full, tv, 1);
+  const int ok_next = __shfl_down_sync(full, ok, 1);
+  const bool valid = lane < 20 && ok && ok_next;
+  const float x = valid ? static_cast<float>(wsub(tv_next, tv)) : 0.0f;
+  const unsigned live = __ballot_sync(full, valid);
+  const int n = __popc(live);
+  int rank = 0;
   for (int k = 0; k < 20; ++k) {
-    if (ok[k] && ok[k + 1]) {
-      const float x = static_cast<float>(wsub(tv[k + 1], tv[k]));
-      int p = n++;
-      while (p > 0 && d[p - 1] > x) {  // insertion sort, ascending
-        d[p] = d[p - 1];
-        --p;
-      }
-      d[p] = x;
-    }
+    const float y = __shfl_sync(full, x, k);
+    if (((live >> k) & 1u) && (y < x || (y == x && k < lane))) ++rank;
   }
   int32_t si = 0;
-  if (n >= 1) {
-    const float rank = __double2float_rn(0.6 * static_cast<double>(n - 1));
-    const int lo_i = static_cast<int>(floorf(rank));
-    const int hi_i = static_cast<int>(ceilf(rank));
-    const float v_lo = d[lo_i];
-    const float v_hi = d[hi_i];
+  if (n >= 1) {  // uniform across the warp
+    const float rk = __double2float_rn(0.6 * static_cast<double>(n - 1));
+    const int lo_i = static_cast<int>(floorf(rk));
+    const int hi_i = static_cast<int>(ceilf(rk));
+    const unsigned at_lo = __ballot_sync(full, valid && rank == lo_i);
+    const unsigned at_hi = __ballot_sync(full, valid && rank == hi_i);
+    const float v_lo = __shfl_sync(full, x, __ffs(at_lo) - 1);
+    const float v_hi = __shfl_sync(full, x, __ffs(at_hi) - 1);
     const float q = __fadd_rn(
-        v_lo, __fmul_rn(__fsub_rn(rank, static_cast<float>(lo_i)),
+        v_lo, __fmul_rn(__fsub_rn(rk, static_cast<float>(lo_i)),
                         __fsub_rn(v_hi, v_lo)));
     si = __float2int_rz(q);
   }
@@ -281,7 +290,7 @@ __device__ bool scan_row(const int32_t* trow, const double* vrow, int c,
   else if (si <= 16000) r = si + si / 2;
   else if (si <= 32000) r = si + si / 4;
   else r = si + si / 8;
-  *mpi = r;
+  if (lane == 0) *mpi = r;
   return irregular;
 }
 
@@ -507,8 +516,9 @@ __device__ __forceinline__ Row row_at(long long r, int N,
   return row;
 }
 
-// A row's window reads, from the tile in global memory (B5, B9, B12, K2's
-// global path): the timestamps shifted onto the grid, the values, the
+// A row's window reads, from the tile in global memory (B9, the global
+// paths of K2 and B5) or B12's decoded row: the timestamps shifted onto
+// the grid, the values, the
 // reset-corrected counter cv and its running maximum cm (both the values
 // on a regular row), each sample's time in seconds and its value less
 // the row mean (stddev/stdvar).
@@ -535,7 +545,7 @@ struct GlobalRow {
 };
 
 // The same reads from a span of the row staged in shared memory from
-// sample `base` on (K2's staged path): the timestamps, plane a (the
+// sample `base` on (the staged walk of K2 and B5): the timestamps, plane a (the
 // values; cv; or the values less the row mean, computed once per sample)
 // and plane b (cmax; or the time in seconds, computed once per sample),
 // as the func needs them.  The row's first sample (lifetime) stays a read
@@ -713,8 +723,8 @@ __device__ __forceinline__ double window_value(const R& r, const Grid& g,
 }
 
 // The per-series rollup value at step t, its window found by two binary
-// searches of the row in global memory (B5, B9, B12 and K2's global
-// path).
+// searches of the row in global memory (B9, and the global paths of K2
+// and B5).
 template <int F>
 __device__ __forceinline__ double series_value(const Row& r, const Grid& g,
                                                int t) {
@@ -946,73 +956,223 @@ __host__ __device__ constexpr bool reads_values() {
            F == kScrapeInterval);
 }
 
-__device__ __forceinline__ Row member_row(const GroupArgs& a, int d,
+// One row block of the series passes and its row-scan outputs: rows
+// [0, rows) of an [rows, N] tile, whose scan outputs (slots, mpi, mean)
+// sit at row0 + row.
+struct RowSource {
+  const int32_t* ts;
+  const double* vals;
+  const int32_t* counts;
+  const double *cv, *cmax, *mean;  // the row scan's scratch and row means
+  const int32_t *slots, *mpi;      // ... its slots and maxPrevIntervals
+  long long row0;
+  int N;
+};
+
+__device__ __forceinline__ Row member_row(const RowSource& s,
                                           const MemberRow& m) {
-  const long long off = static_cast<long long>(m.local) * a.N;
-  const double* v = a.rb.vals[d] + off;
-  const int slot = a.slots[m.row];
-  const long long soff = static_cast<long long>(slot) * a.N;
-  return Row{a.rb.ts[d] + off, v, slot < 0 ? v : a.cv + soff,
-             slot < 0 ? v : a.cmax + soff, m.c, m.mpi, m.mean, 0.0};
+  const long long off = static_cast<long long>(m.local) * s.N;
+  const double* v = s.vals + off;
+  const int slot = s.slots[m.row];
+  const long long soff = static_cast<long long>(slot) * s.N;
+  return Row{s.ts + off, v, slot < 0 ? v : s.cv + soff,
+             slot < 0 ? v : s.cmax + soff, m.c, m.mpi, m.mean, 0.0};
 }
 
-// Start member m's copies into stage st: its span's timestamps and the
+// Start row m's copies into stage st: its span's timestamps and the
 // planes the func reads (values, or cv and cmax of an irregular counter
 // row), thread i taking samples i, i + 128, ...
 template <int F>
-__device__ __forceinline__ void stage_row(const GroupArgs& a, int d,
+__device__ __forceinline__ void stage_row(const RowSource& s, int cap,
                                           const MemberRow& m,
                                           unsigned char* st) {
   int s0, n;
-  span_of(m, a.cap, &s0, &n);
+  span_of(m, cap, &s0, &n);
   if (n <= 0) return;
-  const long long off = static_cast<long long>(m.local) * a.N + s0;
+  const long long off = static_cast<long long>(m.local) * s.N + s0;
   int32_t* sts = reinterpret_cast<int32_t*>(st);
-  double* sa = reinterpret_cast<double*>(st + align16(4LL * a.cap));
-  double* sb = sa + align16(8LL * a.cap) / 8;
-  const int32_t* tsrc = a.rb.ts[d] + off;
+  double* sa = reinterpret_cast<double*>(st + align16(4LL * cap));
+  double* sb = sa + align16(8LL * cap) / 8;
+  const int32_t* tsrc = s.ts + off;
   for (int i = threadIdx.x; i < n; i += kGroupThreads)
     copy4_async(sts + i, tsrc + i);
   constexpr bool kCounter = F <= kIrate;
   if (!reads_values<F>()) return;
-  const long long soff = static_cast<long long>(m.slot) * a.N + s0;
+  const long long soff = static_cast<long long>(m.slot) * s.N + s0;
   const double* asrc =
-      kCounter && m.slot >= 0 ? a.cv + soff : a.rb.vals[d] + off;
+      kCounter && m.slot >= 0 ? s.cv + soff : s.vals + off;
   for (int i = threadIdx.x; i < n; i += kGroupThreads)
     copy8_async(sa + i, asrc + i);
   if (kCounter && m.slot >= 0)
     for (int i = threadIdx.x; i < n; i += kGroupThreads)
-      copy8_async(sb + i, a.cmax + soff + i);
+      copy8_async(sb + i, s.cmax + soff + i);
+}
+
+// The walk K2's group pass and B5's series pass share: rows local_of(k),
+// k in [k0, k1), of one row source over the block's step tile [t0, t0 +
+// nst), thread i taking steps i, i + 128, ... (at most
+// kMaxStepsPerThread of them).  emit(mr, j, t, v) receives row mr's
+// value v at step t = t0 + j * 128 + i, rows in ascending k.
+//
+// Staged path (`staged`): per batch of up to 64 rows, two threads a row
+// find its span for the tile by count_le_from on its row (from a guess on
+// the line through the row's ends); then rows stream through a ring of
+// kStages stages by cp.async, kStages - 1 rows ahead of the one
+// evaluated.  A thread finds each of its steps' window in the staged span
+// by count_le_from from the same kind of guess (a regular scrape puts the
+// guess on the answer: two probes, where the global search makes 2
+// log2(N)); per-sample conversions (deriv's seconds, stddev/stdvar's
+// centred values) are made once per staged sample.  A row whose span
+// overflows a stage, and every row on the global path, is evaluated by
+// series_value (binary searches of the row in global memory).  Both find
+// the same window, and window_value is one function: a row's value at a
+// step has the same bits on either path.  `rows` holds kSpanBatch rows,
+// `ring` kStages stages of `cap` samples.
+template <int F, class LocalOf, class Emit>
+__device__ __forceinline__ void walk_rows(const RowSource& s, const Grid& g,
+                                          int staged, int cap, int k0,
+                                          int k1, int t0, int nst,
+                                          MemberRow* rows,
+                                          unsigned char* ring,
+                                          LocalOf local_of, Emit emit) {
+  constexpr bool kCounter = F <= kIrate;
+  constexpr bool kCentred = F == kStddev || F == kStdvar;
+  const int tid = threadIdx.x;
+  const int32_t shift = g.shift;
+
+  // every step of row mr by the global search
+  const auto global_member = [&](const MemberRow& mr) {
+    const Row r = member_row(s, mr);
+#pragma unroll
+    for (int j = 0; j < kMaxStepsPerThread; ++j) {
+      const int i = j * kGroupThreads + tid;
+      if (i < nst) emit(mr, j, t0 + i, series_value<F>(r, g, t0 + i));
+    }
+  };
+
+  if (!staged) {
+    for (int k = k0; k < k1; ++k) {
+      MemberRow mr;
+      mr.local = local_of(k);
+      mr.row = s.row0 + mr.local;
+      mr.c = min(s.counts[mr.local], s.N);
+      mr.mpi = s.mpi[mr.row];
+      mr.mean = kCentred ? s.mean[mr.row] : 0.0;
+      global_member(mr);
+    }
+    return;
+  }
+  // the tile's first window start and last grid point
+  const int32_t lo_t0 = wsub(
+      static_cast<int32_t>(static_cast<uint32_t>(t0) *
+                           static_cast<uint32_t>(g.step)),
+      g.lookback);
+  const int32_t grid1 =
+      static_cast<int32_t>(static_cast<uint32_t>(t0 + nst - 1) *
+                           static_cast<uint32_t>(g.step));
+  const long long sbytes = stage_bytes(cap);
+  for (int kb = k0; kb < k1; kb += kSpanBatch) {
+    const int nb = min(kSpanBatch, k1 - kb);
+    __syncthreads();  // the last batch's rows are read no more
+    if (tid < 2 * nb) {
+      MemberRow& mr = rows[tid >> 1];
+      const int local = local_of(kb + (tid >> 1));
+      const int32_t* trow = s.ts + static_cast<long long>(local) * s.N;
+      const int c = min(s.counts[local], s.N);
+      int32_t f0 = 0, f1 = 0;
+      if (c > 0) {
+        f0 = shifted(trow[0], shift);
+        f1 = shifted(trow[c - 1], shift);
+      }
+      const float per = per_ms_of(f0, f1, c);
+      if (tid & 1) {
+        mr.hi_last = count_le_from(trow, c, shift, grid1,
+                                   guess_count(grid1, f0, per, c));
+      } else {
+        mr.lo_first = count_le_from(trow, c, shift, lo_t0,
+                                    guess_count(lo_t0, f0, per, c));
+        mr.local = local;
+        mr.row = s.row0 + local;
+        mr.c = c;
+        mr.slot = kCounter ? s.slots[mr.row] : -1;
+        mr.mpi = s.mpi[mr.row];
+        mr.mean = kCentred ? s.mean[mr.row] : 0.0;
+      }
+    }
+    __syncthreads();
+    for (int j = 0; j < kStages - 1; ++j) {
+      if (j < nb) stage_row<F>(s, cap, rows[j], ring + j * sbytes);
+      commit_async();
+    }
+    for (int j = 0; j < nb; ++j) {
+      const int ahead = j + kStages - 1;
+      if (ahead < nb)
+        stage_row<F>(s, cap, rows[ahead], ring + (ahead % kStages) * sbytes);
+      commit_async();
+      wait_async<kStages - 1>();  // row j's copies have landed
+      const MemberRow& mr = rows[j];
+      int s0, n;
+      span_of(mr, cap, &s0, &n);
+      unsigned char* st = ring + (j % kStages) * sbytes;
+      const int32_t* sts = reinterpret_cast<const int32_t*>(st);
+      double* sa = reinterpret_cast<double*>(st + align16(4LL * cap));
+      double* sb = sa + align16(8LL * cap) / 8;
+      // once per sample, each thread on the samples it copied
+      if (kCentred)
+        for (int i = tid; i < n; i += kGroupThreads) sa[i] = sa[i] - mr.mean;
+      if (F == kDeriv)
+        for (int i = tid; i < n; i += kGroupThreads)
+          sb[i] = static_cast<double>(shifted(sts[i], shift)) / 1e3;
+      __syncthreads();
+      if (n > 0) {
+        const StagedRow r{sts, sa, kCounter && mr.slot < 0 ? sa : sb, s0,
+                          shift,
+                          s.ts + static_cast<long long>(mr.local) * s.N};
+        const int32_t f0 = shifted(sts[0], shift);
+        const float per = per_ms_of(f0, shifted(sts[n - 1], shift), n);
+#pragma unroll
+        for (int jj = 0; jj < kMaxStepsPerThread; ++jj) {
+          const int i = jj * kGroupThreads + tid;
+          if (i < nst) {
+            const int t = t0 + i;
+            const int32_t grid = static_cast<int32_t>(
+                static_cast<uint32_t>(t) * static_cast<uint32_t>(g.step));
+            const int32_t lo_t = wsub(grid, g.lookback);
+            const int hi = count_le_from(sts, n, shift, grid,
+                                         guess_count(grid, f0, per, n));
+            const int lo = count_le_from(sts, hi, shift, lo_t,
+                                         guess_count(lo_t, f0, per, hi));
+            emit(mr, jj, t,
+                 window_value<F>(r, g, t, s0 + lo, s0 + hi, mr.mpi, 0.0));
+          }
+        }
+      } else if (n < 0) {
+        global_member(mr);
+      } else {
+        // no window of the tile holds a sample: every value is NaN
+#pragma unroll
+        for (int jj = 0; jj < kMaxStepsPerThread; ++jj) {
+          const int i = jj * kGroupThreads + tid;
+          if (i < nst) emit(mr, jj, t0 + i, qnan());
+        }
+      }
+      __syncthreads();  // stage j % kStages is refilled next
+    }
+  }
 }
 
 // K2 rollup_aggregate_tile and B13's per-shard pass.  Block (x, y): a
 // group or a chunk of row block d (see Layouts) and y's tile of `steps`
 // steps; thread i takes steps i, i + 128, ... of the tile.  Members are
-// walked in ascending order, each step's moments summed in registers.
-//
-// Staged path (a.staged): per batch of up to 64 members, two threads a
-// member find its span for the tile by count_le_from on its row (from a
-// guess on the line through the row's ends); then members stream through
-// a ring of kStages stages by cp.async, kStages - 1 rows ahead of the one
-// evaluated.  A thread finds each of its steps' window in the staged span
-// by count_le_from from the same kind of guess (a regular scrape puts the
-// guess on the answer: two probes, where the global search makes 2
-// log2(N)); per-sample conversions (deriv's seconds, stddev/stdvar's
-// centred values) are made once per staged sample.  A member whose span
-// overflows a stage, and every member on the global path, is evaluated
-// by series_value (binary searches of the row in global memory).  Both
-// find the same window, and window_value is one function: a member's
-// value at a step has the same bits on either path.
-//
-// A group finalizes its moments (K2), stores them (B13: [D, M, G, T]), or,
-// as a chunk, writes them to its partial slot for group_fold.
+// walked in ascending order by walk_rows (staged or by the global search,
+// as the plan says), each step's moments summed in registers.  A group
+// finalizes its moments (K2), stores them (B13: [D, M, G, T]), or, as a
+// chunk, writes them to its partial slot for group_fold.
 template <int F>
 __global__ void __launch_bounds__(kGroupThreads, kGroupBlocksPerSm)
 group_pass(GroupArgs a) {
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ MemberRow rows[kSpanBatch];
-  constexpr bool kCounter = F <= kIrate;
-  constexpr bool kCentred = F == kStddev || F == kStdvar;
   const long long x = blockIdx.x;
   int d = 0;
   while (d + 1 < a.rb.D && x >= a.ly.unit0[d + 1]) ++d;
@@ -1044,129 +1204,17 @@ group_pass(GroupArgs a) {
   const int tid = threadIdx.x;
   const int t0 = blockIdx.y * a.steps;
   const int nst = min(a.steps, a.T - t0);
-  const int32_t shift = a.g.shift;
   Moments m[kMaxStepsPerThread];
 #pragma unroll
   for (int j = 0; j < kMaxStepsPerThread; ++j) m[j] = moments_empty();
-
-  // every step of member mr by the global search
-  const auto global_member = [&](const MemberRow& mr) {
-    const Row r = member_row(a, d, mr);
-#pragma unroll
-    for (int j = 0; j < kMaxStepsPerThread; ++j) {
-      const int i = j * kGroupThreads + tid;
-      if (i < nst) {
-        const double v = series_value<F>(r, a.g, t0 + i);
-        if (v == v) moments_add(m[j], v);
-      }
-    }
-  };
-
-  if (!a.staged) {
-    for (int k = k0; k < k1; ++k) {
-      MemberRow mr;
-      mr.local = order[k];
-      mr.row = a.rb.row0[d] + mr.local;
-      mr.c = min(a.rb.counts[d][mr.local], a.N);
-      mr.mpi = a.mpi[mr.row];
-      mr.mean = kCentred ? a.mean[mr.row] : 0.0;
-      global_member(mr);
-    }
-  } else {
-    // the tile's first window start and last grid point
-    const int32_t lo_t0 = wsub(
-        static_cast<int32_t>(static_cast<uint32_t>(t0) *
-                             static_cast<uint32_t>(a.g.step)),
-        a.g.lookback);
-    const int32_t grid1 =
-        static_cast<int32_t>(static_cast<uint32_t>(t0 + nst - 1) *
-                             static_cast<uint32_t>(a.g.step));
-    const long long sbytes = stage_bytes(a.cap);
-    for (int kb = k0; kb < k1; kb += kSpanBatch) {
-      const int nb = min(kSpanBatch, k1 - kb);
-      __syncthreads();  // the last batch's members are read no more
-      if (tid < 2 * nb) {
-        MemberRow& mr = rows[tid >> 1];
-        const int local = order[kb + (tid >> 1)];
-        const int32_t* trow =
-            a.rb.ts[d] + static_cast<long long>(local) * a.N;
-        const int c = min(a.rb.counts[d][local], a.N);
-        int32_t f0 = 0, f1 = 0;
-        if (c > 0) {
-          f0 = shifted(trow[0], shift);
-          f1 = shifted(trow[c - 1], shift);
-        }
-        const float per = per_ms_of(f0, f1, c);
-        if (tid & 1) {
-          mr.hi_last = count_le_from(trow, c, shift, grid1,
-                                     guess_count(grid1, f0, per, c));
-        } else {
-          mr.lo_first = count_le_from(trow, c, shift, lo_t0,
-                                      guess_count(lo_t0, f0, per, c));
-          mr.local = local;
-          mr.row = a.rb.row0[d] + local;
-          mr.c = c;
-          mr.slot = kCounter ? a.slots[mr.row] : -1;
-          mr.mpi = a.mpi[mr.row];
-          mr.mean = kCentred ? a.mean[mr.row] : 0.0;
-        }
-      }
-      __syncthreads();
-      for (int j = 0; j < kStages - 1; ++j) {
-        if (j < nb) stage_row<F>(a, d, rows[j], ring + j * sbytes);
-        commit_async();
-      }
-      for (int j = 0; j < nb; ++j) {
-        const int ahead = j + kStages - 1;
-        if (ahead < nb)
-          stage_row<F>(a, d, rows[ahead], ring + (ahead % kStages) * sbytes);
-        commit_async();
-        wait_async<kStages - 1>();  // member j's copies have landed
-        const MemberRow& mr = rows[j];
-        int s0, n;
-        span_of(mr, a.cap, &s0, &n);
-        unsigned char* st = ring + (j % kStages) * sbytes;
-        const int32_t* sts = reinterpret_cast<const int32_t*>(st);
-        double* sa = reinterpret_cast<double*>(st + align16(4LL * a.cap));
-        double* sb = sa + align16(8LL * a.cap) / 8;
-        // once per sample, each thread on the samples it copied
-        if (kCentred)
-          for (int i = tid; i < n; i += kGroupThreads) sa[i] = sa[i] - mr.mean;
-        if (F == kDeriv)
-          for (int i = tid; i < n; i += kGroupThreads)
-            sb[i] = static_cast<double>(shifted(sts[i], shift)) / 1e3;
-        __syncthreads();
-        if (n > 0) {
-          const StagedRow r{sts, sa, kCounter && mr.slot < 0 ? sa : sb, s0,
-                            shift,
-                            a.rb.ts[d] + static_cast<long long>(mr.local) *
-                                             a.N};
-          const int32_t f0 = shifted(sts[0], shift);
-          const float per = per_ms_of(f0, shifted(sts[n - 1], shift), n);
-#pragma unroll
-          for (int jj = 0; jj < kMaxStepsPerThread; ++jj) {
-            const int i = jj * kGroupThreads + tid;
-            if (i < nst) {
-              const int t = t0 + i;
-              const int32_t grid = static_cast<int32_t>(
-                  static_cast<uint32_t>(t) * static_cast<uint32_t>(a.g.step));
-              const int32_t lo_t = wsub(grid, a.g.lookback);
-              const int hi = count_le_from(sts, n, shift, grid,
-                                           guess_count(grid, f0, per, n));
-              const int lo = count_le_from(sts, hi, shift, lo_t,
-                                           guess_count(lo_t, f0, per, hi));
-              const double v = window_value<F>(r, a.g, t, s0 + lo, s0 + hi,
-                                               mr.mpi, 0.0);
-              if (v == v) moments_add(m[jj], v);
-            }
-          }
-        } else if (n < 0) {
-          global_member(mr);
-        }
-        __syncthreads();  // stage j % kStages is refilled next
-      }
-    }
-  }
+  const RowSource src{a.rb.ts[d], a.rb.vals[d], a.rb.counts[d], a.cv,
+                      a.cmax,     a.mean,       a.slots,        a.mpi,
+                      a.rb.row0[d], a.N};
+  walk_rows<F>(src, a.g, a.staged, a.cap, k0, k1, t0, nst, rows, ring,
+               [&](int k) { return order[k]; },
+               [&](const MemberRow&, int j, int, double v) {
+                 if (v == v) moments_add(m[j], v);
+               });
 
   const long long T = a.T;
 #pragma unroll
@@ -1225,8 +1273,10 @@ group_fold(GroupArgs a) {
   }
 }
 
-// B5: row r's steps go to out[r * ldo + t] (ldo = T for a whole [S, T]
-// output; B15 writes a time shard's block of a wider one).
+// B5 on the global path (the plan's, for a grid that wraps or spans no
+// stage holds): one block per (row, 128-step tile), each step's window by
+// series_value.  Row r's steps go to out[r * ldo + t] (ldo = T for a
+// whole [S, T] output; B15 writes a time shard's block of a wider one).
 template <int F>
 __global__ void __launch_bounds__(kGroupThreads)
 rollup_series(Tile a, int T, long long ldo, Grid g,
@@ -1237,16 +1287,57 @@ rollup_series(Tile a, int T, long long ldo, Grid g,
   out[r * ldo + t] = series_value<F>(tile_row(a, r), g, t);
 }
 
-// B12 decode_and_rollup: one block of kDecodeThreads threads per row
-// (grid-stride over the rows).  The block decodes the row's two delta
-// planes with K1's row decode into a workspace, scans it (mpi, mean,
-// regularity) and, for an irregular counter row, writes cv and cmax, each
-// with the functions K2 and B5 use; then its threads compute
-// series_value<F> for the row's steps.  The workspace is the row's
-// values and timestamps in dynamic shared memory (12 B per column) when
-// they fit the opt-in limit, else a global scratch slot per block; cv and
-// cmax (counter funcs only) always sit in the block's scratch slot, so
-// the scratch is blocks x n, never S x n.
+// The arguments of B5's staged pass (the plan: ops/device_rollup.b5_plan).
+struct SeriesArgs {
+  RowSource src;
+  Grid g;
+  long long S, ldo;
+  int T, rows, steps, cap;
+  double* out;
+};
+
+// B5 on the staged path: block (x, y) walks rows [x * rows, (x + 1) *
+// rows) over y's tile of `steps` steps with walk_rows, K2's staged walk,
+// and writes each value to out[r * ldo + t], a warp's stores consecutive
+// in t.  The same windows and window_value as the global path: the same
+// bits.
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads, kGroupBlocksPerSm)
+series_pass(SeriesArgs a) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ MemberRow rows[kSpanBatch];
+  const long long r0 = static_cast<long long>(blockIdx.x) * a.rows;
+  const int nr = static_cast<int>(min(static_cast<long long>(a.rows),
+                                      a.S - r0));
+  const int t0 = blockIdx.y * a.steps;
+  double* __restrict__ out = a.out;
+  const long long ldo = a.ldo;
+  walk_rows<F>(a.src, a.g, 1, a.cap, static_cast<int>(r0),
+               static_cast<int>(r0) + nr, t0, min(a.steps, a.T - t0), rows,
+               ring, [](int k) { return k; },
+               [&](const MemberRow& mr, int, int t, double v) {
+                 out[mr.local * ldo + t] = v;
+               });
+}
+
+// B12 decode_and_rollup: one block of 256 or 512 threads per row
+// (grid-stride over the rows), in three phases a row:
+//  1. decode: the row's two delta planes by decode_row_pair (K1's values
+//     from two block scans a row) into a workspace;
+//  2. scan: every thread checks its samples' regularity (counter funcs;
+//     one __syncthreads_or), warp 0 finds mpi and, for stddev/stdvar, the
+//     mean (scan_row: the row scan's own order of the sum, so the same
+//     bits) and, for an irregular counter row, cv and cmax (prep_row);
+//  3. series: thread i takes steps i, i + blockDim.x, ..., each window
+//     found in the decoded row by count_le_from from a guess on the line
+//     through the row's ends (two probes on a regular scrape, where a
+//     binary search makes 2 log2(n)), then window_value reads the row.
+// The decoded tile is never written, and the output equals K1 then B5 bit
+// for bit.  The workspace is the row's values and timestamps (12 B per
+// column) in dynamic shared memory when they fit the opt-in limit, else a
+// global scratch slot per block; cv and cmax (counter funcs only) always
+// sit in the block's scratch slot, so the scratch is blocks x n, never
+// S x n.
 struct DecodeArgs {
   const int32_t *ts_first, *ts_fd;
   const void* ts_d2;
@@ -1260,19 +1351,37 @@ struct DecodeArgs {
   int n;
 };
 
+// Diagnostic builds (tools/select_timing.py, -DVM_B12_STOP=k) end each
+// row of B12 after phase k (1: decode, 2: scan); 0 runs every phase.
+#ifndef VM_B12_STOP
+#define VM_B12_STOP 0
+#endif
+#define VM_B12_STOP_AFTER(k)                              \
+  if (VM_B12_STOP == (k)) {                               \
+    if (threadIdx.x == 0) out[row * T] = v[0];            \
+    __syncthreads();                                      \
+    continue;                                             \
+  }
+
+// B12's block: 256 threads, or 512 where fewer than four 256-thread
+// blocks fit an SM (decode_plan: a row's workspace is 87 KB at full
+// width, so 2 blocks of 16 warps); at most 64 registers a thread
+constexpr int kB12Threads = 512;
+
 template <int F>
-__global__ void __launch_bounds__(kDecodeThreads)
+__global__ void __launch_bounds__(kB12Threads, 2)
 decode_rollup(DecodeArgs a, int T, Grid g, int instant, int smem_ws,
               unsigned char* __restrict__ scratch, long long slot_bytes,
               double* __restrict__ out) {
   extern __shared__ double smem[];
-  __shared__ uint32_t warp_sums[kDecodeWarps];
+  __shared__ uint2 warp_sums[kB12Threads / 32];
   __shared__ int32_t s_mpi;
   __shared__ double s_mean;
-  __shared__ int s_irregular;
   constexpr bool kCounter = F <= kIrate;
   constexpr bool kCentred = F == kStddev || F == kStdvar;
   const int n = a.n;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
   unsigned char* slot = scratch + blockIdx.x * slot_bytes;
   double* cv = reinterpret_cast<double*>(slot);
   double* cmax = cv + n;
@@ -1281,37 +1390,53 @@ decode_rollup(DecodeArgs a, int T, Grid g, int instant, int smem_ws,
   int32_t* tsr = reinterpret_cast<int32_t*>(v + n);
   for (long long row = blockIdx.x; row < a.S; row += gridDim.x) {
     const int cnt = a.counts[row];
-    decode_row_any(a.ts_d2_bytes, static_cast<uint32_t>(a.ts_first[row]),
-                   static_cast<uint32_t>(a.ts_fd[row]),
-                   static_cast<const unsigned char*>(a.ts_d2) +
-                       row * a.ts_d2w * a.ts_d2_bytes,
-                   n, cnt, 0.0, tsr, nullptr, warp_sums);
-    decode_row_any(a.val_d2_bytes, static_cast<uint32_t>(a.val_first[row]),
-                   static_cast<uint32_t>(a.val_fd[row]),
-                   static_cast<const unsigned char*>(a.val_d2) +
-                       row * a.val_d2w * a.val_d2_bytes,
-                   n, 0, a.scale[row], nullptr, v, warp_sums);
+    decode_row_pair(
+        PlaneRow{static_cast<uint32_t>(a.ts_first[row]),
+                 static_cast<uint32_t>(a.ts_fd[row]),
+                 static_cast<const unsigned char*>(a.ts_d2) +
+                     row * a.ts_d2w * a.ts_d2_bytes,
+                 a.ts_d2_bytes},
+        PlaneRow{static_cast<uint32_t>(a.val_first[row]),
+                 static_cast<uint32_t>(a.val_fd[row]),
+                 static_cast<const unsigned char*>(a.val_d2) +
+                     row * a.val_d2w * a.val_d2_bytes,
+                 a.val_d2_bytes},
+        n, cnt, a.scale[row], tsr, v, warp_sums);
     __syncthreads();
+    VM_B12_STOP_AFTER(1);
     const int c = min(cnt, n);
-    if (threadIdx.x < 32) {
-      const bool irregular = scan_row(tsr, v, c, n, g.shift, g.min_ts,
-                                      g.step, instant, kCounter,
-                                      kCentred ? &s_mean : nullptr, &s_mpi);
+    bool bad = false;
+    if (kCounter)
+      for (int i = tid; i < c; i += threads)
+        bad |= irregular_value(v[i], i >= 1 ? v[i - 1] : 0.0, i);
+    const bool irregular = kCounter && __syncthreads_or(bad);
+    if (tid < 32) {
+      scan_row(tsr, v, c, n, g.shift, g.min_ts, g.step, instant, 0,
+               kCentred ? &s_mean : nullptr, &s_mpi);
       if (kCounter && irregular) prep_row(v, c, false, 0.0, cv, cmax);
-      if (threadIdx.x == 0) s_irregular = irregular;
     }
     __syncthreads();
-    Row r;
-    r.ts = tsr;
-    r.v = v;
-    r.cv = kCounter && s_irregular ? cv : v;
-    r.cm = kCounter && s_irregular ? cmax : v;
-    r.c = c;
-    r.mpi = s_mpi;
-    r.mean = kCentred ? s_mean : 0.0;
-    r.v0 = 0.0;
-    for (int t = threadIdx.x; t < T; t += kDecodeThreads)
-      out[row * T + t] = series_value<F>(r, g, t);
+    VM_B12_STOP_AFTER(2);
+    const GlobalRow r{tsr,
+                      v,
+                      kCounter && irregular ? cv : v,
+                      kCounter && irregular ? cmax : v,
+                      g.shift,
+                      kCentred ? s_mean : 0.0};
+    const int32_t mpi = s_mpi;
+    const int32_t f0 = c > 0 ? shifted(tsr[0], g.shift) : 0;
+    const float per =
+        per_ms_of(f0, c > 0 ? shifted(tsr[c - 1], g.shift) : 0, c);
+    for (int t = tid; t < T; t += threads) {
+      const int32_t grid = static_cast<int32_t>(static_cast<uint32_t>(t) *
+                                                static_cast<uint32_t>(g.step));
+      const int32_t lo_t = wsub(grid, g.lookback);
+      const int hi = count_le_from(tsr, c, g.shift, grid,
+                                   guess_count(grid, f0, per, c));
+      const int lo = count_le_from(tsr, hi, g.shift, lo_t,
+                                   guess_count(lo_t, f0, per, hi));
+      out[row * T + t] = window_value<F>(r, g, t, lo, hi, mpi, 0.0);
+    }
     __syncthreads();  // the workspace is rewritten for the next row
   }
 }
@@ -1370,6 +1495,20 @@ void launch_series(dim3 grid, cudaStream_t st, const PassArgs& a) {
                                                    a.out);
 }
 
+// B5's staged pass, the ring's shared memory opted into above 48 KB.
+template <int F>
+cudaError_t launch_series_pass(dim3 grid, size_t smem, cudaStream_t st,
+                               const SeriesArgs& a) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&series_pass<F>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  series_pass<F><<<grid, kGroupThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 // K2's and B13's group pass (and its fold when some group is chunked),
 // the ring's shared memory opted into above 48 KB.
 template <int F>
@@ -1409,12 +1548,21 @@ const Launch* series_table(std::integer_sequence<int, F...>) {
   return table;
 }
 
+using SeriesLaunch = cudaError_t (*)(dim3, size_t, cudaStream_t,
+                                     const SeriesArgs&);
+
+template <int... F>
+const SeriesLaunch* series_pass_table(std::integer_sequence<int, F...>) {
+  static const SeriesLaunch table[] = {&launch_series_pass<F>...};
+  return table;
+}
+
 // B12's launch plan: the workspace in shared memory when the row's values
-// and timestamps fit the opt-in limit (and `force_global` is 0), the grid
-// the blocks resident on the card at once (at most S), and the global
-// scratch those blocks need.
+// and timestamps fit the opt-in limit (and `force_global` is 0), the
+// block's threads, the grid the blocks resident on the card at once (at
+// most S), and the global scratch those blocks need.
 struct DecodePlan {
-  int blocks, smem_ws;
+  int blocks, threads, smem_ws;
   size_t smem_bytes;
   long long slot_bytes;
 };
@@ -1458,10 +1606,15 @@ int decode_plan(long long S, int n, int func, int force_global,
                              static_cast<int>(p->smem_bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, reinterpret_cast<const void*>(k), kDecodeThreads,
-      p->smem_bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  // 256 threads a block, or 512 where fewer than four blocks of 256 fit
+  // an SM (the workspace's shared memory limits them): 32 warps either way
+  for (p->threads = kB12Threads / 2;; p->threads = kB12Threads) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reinterpret_cast<const void*>(k), p->threads,
+        p->smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (p->threads == kB12Threads || per_sm >= 4) break;
+  }
   const long long resident = static_cast<long long>(sms) *
                              (per_sm > 0 ? per_sm : 1);
   p->blocks = static_cast<int>(S < resident ? S : resident);
@@ -1700,6 +1853,10 @@ extern "C" int vm_fleet_rollup_groups(
   return static_cast<int>(cudaGetLastError());
 }
 
+// B5 over an [S, N] tile -> out rows of stride ldo: the staged pass
+// (staged = 1: `rows` rows and `steps` steps a block, stages of `cap`
+// samples) or the global search (staged = 0), as the plan says
+// (ops/device_rollup.b5_plan).  cv ... mean are the row scan's.
 extern "C" int vm_rollup_series(const void* ts, const void* vals,
                                 const void* cv, const void* cmax,
                                 const void* slots, const void* counts,
@@ -1707,21 +1864,55 @@ extern "C" int vm_rollup_series(const void* ts, const void* vals,
                                 long long S, int N, int T, int shift,
                                 int min_ts, int step, int lookback,
                                 double start_s, int func, void* out,
-                                long long ldo, void* stream) {
+                                long long ldo, int staged, int rows,
+                                int steps, int cap, void* stream) {
   if (S <= 0 || T <= 0) return 0;
   if (func < 0 || func >= kFuncs)
     return static_cast<int>(cudaErrorInvalidValue);
-  PassArgs a{};
-  a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean, nullptr,
-                     N);
-  a.T = T;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Grid g = make_grid(shift, min_ts, step, lookback, start_s);
+  if (!staged) {
+    PassArgs a{};
+    a.tile = make_tile(ts, vals, cv, cmax, slots, counts, mpi, mean,
+                       nullptr, N);
+    a.T = T;
+    a.ldo = ldo;
+    a.g = g;
+    a.out = static_cast<double*>(out);
+    series_table(std::make_integer_sequence<int, kFuncs>())[func](
+        dim3(static_cast<unsigned>(S), step_tiles(T)), st, a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long blocks = rows >= 1 ? (S + rows - 1) / rows : 0;
+  const long long tiles = steps >= 1 ? (T + steps - 1) / steps : 0;
+  if (rows < 1 || rows > kSpanBatch || steps < kGroupThreads ||
+      steps > kMaxStepsPerThread * kGroupThreads ||
+      steps % kGroupThreads != 0 || cap < 1 || cap > N ||
+      blocks > 0x7fffffffLL || tiles > 65535 || S > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SeriesArgs a{};
+  a.src = RowSource{static_cast<const int32_t*>(ts),
+                    static_cast<const double*>(vals),
+                    static_cast<const int32_t*>(counts),
+                    static_cast<const double*>(cv),
+                    static_cast<const double*>(cmax),
+                    static_cast<const double*>(mean),
+                    static_cast<const int32_t*>(slots),
+                    static_cast<const int32_t*>(mpi),
+                    0,
+                    N};
+  a.g = g;
+  a.S = S;
   a.ldo = ldo;
-  a.g = make_grid(shift, min_ts, step, lookback, start_s);
+  a.T = T;
+  a.rows = rows;
+  a.steps = steps;
+  a.cap = cap;
   a.out = static_cast<double*>(out);
-  series_table(std::make_integer_sequence<int, kFuncs>())[func](
-      dim3(static_cast<unsigned>(S), step_tiles(T)),
-      static_cast<cudaStream_t>(stream), a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      series_pass_table(std::make_integer_sequence<int, kFuncs>())[func](
+          dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles)),
+          static_cast<size_t>(kStages * stage_bytes(cap)), st, a));
 }
 
 // B12's plan for S rows of n columns: *blocks to launch and the global
@@ -1777,7 +1968,7 @@ extern "C" int vm_decode_rollup(
   a.n = n;
   const DecodeKernel k =
       decode_table(std::make_integer_sequence<int, kFuncs>())[func];
-  k<<<static_cast<unsigned>(p.blocks), kDecodeThreads, p.smem_bytes,
+  k<<<static_cast<unsigned>(p.blocks), p.threads, p.smem_bytes,
       static_cast<cudaStream_t>(stream)>>>(
       a, T, make_grid(0, min_ts, step, lookback, start_s), instant, p.smem_ws,
       static_cast<unsigned char*>(scratch), p.slot_bytes,

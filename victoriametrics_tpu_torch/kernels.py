@@ -77,9 +77,11 @@ SIGNATURES = {
                              _I, _D, _I, _I, _I, _I, _P, _I, _I, _I, _P,
                              _P],
         # ts, vals, cv, cmax, slots, counts, mpi, mean, S, N, T, shift,
-        # min_ts, step, lookback, start_s, func, out, ldo, stream
+        # min_ts, step, lookback, start_s, func, out, ldo, staged, rows,
+        # steps, cap, stream (the plan's fields: ops/device_rollup.b5_plan)
         "vm_rollup_series": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                             _I, _I, _I, _D, _I, _P, _LL, _P],
+                             _I, _I, _I, _D, _I, _P, _LL, _I, _I, _I, _I,
+                             _P],
         # S, n, func, force_global, blocks (out), scratch_bytes (out)
         "vm_decode_rollup_plan": [_LL, _I, _I, _I, ctypes.POINTER(_I),
                                   ctypes.POINTER(_LL)],

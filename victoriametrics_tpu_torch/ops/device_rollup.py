@@ -599,7 +599,8 @@ def _out_block(out, shape, dev) -> torch.Tensor:
 
 def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
                 counts: torch.Tensor, cfg: RollupConfig, min_ts=MIN_TS_NONE,
-                shift: int = 0, out=None) -> torch.Tensor:
+                shift: int = 0, out=None,
+                force_global: bool = False) -> torch.Tensor:
     """B5: windowed rollup over a tile -> float64 [S, T] (NaN = gap).
 
     `shift` (ms) rebases tile timestamps onto the cfg grid (rolling tiles:
@@ -607,7 +608,9 @@ def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
     bound in the shifted frame, gating only previous-sample accesses.
     Time-valued funcs refuse a shift.  `out`, when given, is the [S, T]
     block written (a row block of a gathered tile, or a time shard's
-    columns of a wider one)."""
+    columns of a wider one).  The pass runs on b5_plan's path;
+    `force_global` takes the global search whatever the plan (to hold the
+    staged path against it: both give the same bits)."""
     if func not in FUNC_CODES:
         raise ValueError(f"unsupported device rollup func {func!r}")
     _check_shift(func, shift)
@@ -620,6 +623,9 @@ def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
             _out_block(out, res.shape, dev).copy_(res)
     S, N = _check_tile(ts, values, counts)
     out = _out_block(out, (S, T), dev)
+    plan = B5_GLOBAL if force_global else b5_plan(
+        S, N, T, cfg.step, cfg.lookback,
+        scrape_hint(N, T, cfg.step, cfg.lookback), kernels.sm_count(dev))
     h = kernels.lib("rollup")
     stream = kernels.stream_of(dev)
     sc = _scan_rows(h, func, [ts], [values], [counts], cfg, shift, min_ts,
@@ -631,7 +637,9 @@ def rollup_tile(func: str, ts: torch.Tensor, values: torch.Tensor,
         sc.cmax.data_ptr(), sc.slots.data_ptr(), counts.data_ptr(),
         sc.mpi.data_ptr(), _ptr(sc.mean), S, N, T, int(shift), int(min_ts),
         cfg.step, cfg.lookback, float(cfg.start) / 1e3, FUNC_CODES[func],
-        out.data_ptr(), out.stride(0) if S else T, stream), "rollup_tile")
+        out.data_ptr(), out.stride(0) if S else T,
+        int(plan.path == K2_STAGED), plan.rows, plan.steps, plan.cap,
+        stream), "rollup_tile")
     kernels.LAUNCHES["rollup_tile"] += 1
     return out
 
@@ -726,6 +734,31 @@ def scrape_hint(N: int, T: int, step: int, lookback: int) -> int:
     return max(((T - 1) * step + lookback) // max(N, 1), 1)
 
 
+def _staged_plan(units: int, N: int, T: int, step: int, lookback: int,
+                 scrape_hint: int, sms: int) -> K2Plan:
+    """The staged walk's plan (csrc/rollup.cu walk_rows) for `units`
+    blocks' worth of rows, each walking its rows over a step tile; see
+    k2_plan."""
+    glob = K2Plan(K2_GLOBAL, K2_THREADS, 0, 0)
+    if T < 1 or step < 1 or not 0 <= lookback <= _I32_MAX or \
+            (T - 1) * step > _I32_MAX:
+        return glob
+    hint = max(int(scrape_hint), 1)
+    plan = glob
+    for steps in _K2_STEPS:
+        span = ((min(steps, T) - 1) * step + lookback) // hint + 2
+        cap = min(N, span + span // 4 + 16)
+        smem = _K2_STAGES * (_align16(4 * cap) + 2 * _align16(8 * cap))
+        if smem > _K2_SMEM_MAX:
+            break
+        if plan.path == K2_STAGED and (
+                plan.steps >= T or
+                units * -(-T // steps) < _K2_BLOCKS_PER_SM * sms):
+            break
+        plan = K2Plan(K2_STAGED, steps, cap, smem)
+    return plan
+
+
 @functools.lru_cache(maxsize=256)
 def k2_plan(S: int, N: int, T: int, step: int, lookback: int,
             scrape_hint: int, sms: int = 132) -> K2Plan:
@@ -741,25 +774,42 @@ def k2_plan(S: int, N: int, T: int, step: int, lookback: int,
     The tile doubles to 256 and 512 steps while the ring fits, the tile
     does not outgrow T, and the grid keeps 4 blocks an SM (counting S / 64
     groups or chunks).  Otherwise the global search, a step a thread."""
-    glob = K2Plan(K2_GLOBAL, K2_THREADS, 0, 0)
-    if T < 1 or step < 1 or not 0 <= lookback <= _I32_MAX or \
-            (T - 1) * step > _I32_MAX:
-        return glob
-    hint = max(int(scrape_hint), 1)
-    units = max(-(-S // _K2_BLOCK_ROWS), 1)
-    plan = glob
-    for steps in _K2_STEPS:
-        span = ((min(steps, T) - 1) * step + lookback) // hint + 2
-        cap = min(N, span + span // 4 + 16)
-        smem = _K2_STAGES * (_align16(4 * cap) + 2 * _align16(8 * cap))
-        if smem > _K2_SMEM_MAX:
-            break
-        if plan.path == K2_STAGED and (
-                plan.steps >= T or
-                units * -(-T // steps) < _K2_BLOCKS_PER_SM * sms):
-            break
-        plan = K2Plan(K2_STAGED, steps, cap, smem)
-    return plan
+    return _staged_plan(max(-(-S // _K2_BLOCK_ROWS), 1), N, T, step,
+                        lookback, scrape_hint, sms)
+
+
+class B5Plan(NamedTuple):
+    """How one B5 rollup_tile call runs (``b5_plan``)."""
+    path: int   # K2_GLOBAL or K2_STAGED
+    rows: int   # rows a block walks (staged path; 1 on the global path)
+    steps: int  # steps of a block's tile
+    cap: int    # samples of a row's span a stage holds (staged path)
+    smem: int   # bytes of a block's staging ring (staged path)
+
+
+#: B5's global path: a block per (row, 128-step tile), binary searches
+B5_GLOBAL = B5Plan(K2_GLOBAL, 1, K2_THREADS, 0, 0)
+_B5_MIN_ROWS = 8            # rows a staged block walks, at least
+
+
+@functools.lru_cache(maxsize=256)
+def b5_plan(S: int, N: int, T: int, step: int, lookback: int,
+            scrape_hint: int, sms: int = 132) -> B5Plan:
+    """B5's plan for S rows of N columns over T steps (k2_plan's
+    arguments): K2's staged walk over blocks of `rows` consecutive rows,
+    or B5_GLOBAL.  A block walks 64 rows, halved (to 8 at least) while
+    the grid of 128-step tiles keeps fewer than 4 blocks an SM; the tile,
+    the stages and the choice of path are k2_plan's for S / rows blocks
+    of rows."""
+    rows = _K2_BLOCK_ROWS
+    while rows > _B5_MIN_ROWS and \
+            -(-S // rows) * -(-T // K2_THREADS) < _K2_BLOCKS_PER_SM * sms:
+        rows //= 2
+    p = _staged_plan(max(-(-S // rows), 1), N, T, step, lookback,
+                     scrape_hint, sms)
+    if p.path != K2_STAGED:
+        return B5_GLOBAL
+    return B5Plan(K2_STAGED, rows, p.steps, p.cap, p.smem)
 
 
 def _check_layouts(layouts, rows) -> tuple[int, int]:
