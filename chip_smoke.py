@@ -20,7 +20,11 @@ each printing one JSON line:
               boundaries) on the dashboard, ragged, tie and tall tiles,
               take_rows with int32 and int64 indices (out-of-range ones
               among them), every rank kind (and a tile wider than the
-              kernels' shared-memory staging), every quantile phi at
+              kernels' shared-memory staging, and B7's edge rows at step
+              counts on and around each median path's limits: no live
+              step, one, two, ties straddling the median, signed zeros
+              at j0 and j1, infinities, constant rows), every quantile
+              phi at
               groups of 32 and of all rows, on rates and on a tile of
               ties, and on B8's cluster and block paths at their edges
               (one group of 100,000 rows, groups at and above what a
@@ -55,8 +59,13 @@ each printing one JSON line:
               bit for bit against a sequential walk of B5's rows, the
               8 shards one launch), B14 cached_fleet_rollup_aggregate (both
               fleet buckets, bit for bit against B9) and B15
-              time_sharded_rollup (every func but lifetime), each against
-              its plain version and against the unsharded kernels
+              time_sharded_rollup (every func but lifetime, and at a halo
+              as wide as a shard, with gaps in the first time shard and in
+              a halo; its halo pass row by row against the plain
+              compaction, rows read in place and compacted rows both;
+              one launch per phase for the card's 8 shards and at most
+              one host sync), each against its plain version and against
+              the unsharded kernels
   dashboard   the main path: a cold ``sum by (instance)(rate(m[5m]))``
               over 8192 counters x 6 h at 15 s (256 instances, step 60 s),
               then the other panels on its resident tile (per-series
@@ -91,7 +100,8 @@ each printing one JSON line:
               against the plain versions (B8's instant at every phi on its
               cluster path, timed three ways beside torch.nanquantile;
               B6 also at k = 20 and, its sort
-              path, at K_REG + 1 on a 512-step slice); the library calls
+              path, at K_REG + 1 on a 512-step slice; B7's five kinds in
+              row chunks, avg beside torch.nanmean); the library calls
               beside B6-B8 (torch.topk, torch.index_select,
               torch.nanquantile) at this width; a range quantile at this
               width is declined by the dense-budget gate, as in the
@@ -107,7 +117,8 @@ each printing one JSON line:
               cold rebuild; (b) the full-width cold query through the
               sharded engine, held against the full_width phase's K2 the
               same way; (c) B15 time_sharded_rollup on a (2, 4) mesh over
-              the full-width tile's columns, against B5 at 1e-9; (d) B14:
+              the full-width tile's columns, against B5 at 1e-9, each call
+              one launch per phase; (d) B14:
               16 standing queries in 2 buckets of 8 on an 8-way stream
               mesh, against the same streams on an unsharded fleet, bit
               for bit; (e) B12 decode_and_rollup on the dashboard's and
@@ -594,6 +605,28 @@ def check_ranks(what: str, rolled) -> None:
                          1e-12 if kind == "avg" else 0.0, 0.0)
 
 
+def rank_edge_rows(T: int, rng, dev) -> torch.Tensor:
+    """Rows of T steps holding B7's edge cases at shuffled steps (NaN
+    elsewhere): no live step, one, two; ties straddling the median; -0.0
+    and +0.0 at j0 and j1; infinities; constant rows; a run of ties with
+    one outlier; and random rows (tests/test_torch_rank_rows.py holds the
+    plain version against the reference on the same cases)."""
+    h = T // 2
+    cases = [
+        [], [1.5], [2.0, -3.0],
+        [1.0] * h + [2.0] * (T - h), [1.0] * (h + 1) + [2.0] * (T - h - 1),
+        [-0.0, 0.0], [0.0, -0.0, 0.0], [-0.0] * h + [0.0] * (T - h),
+        [np.inf, -np.inf] * h, [np.inf] * T, [-np.inf] * 3 + [np.inf] * 2,
+        [7.25] * T, [7.25] * (T - 1), [-0.0] * T,
+        [0.0] * (T - 1) + [1e300], [-1e300] + [5.0] * (T - 1),
+        list(rng.normal(0, 1, T)), list(rng.integers(0, 3, T) * 1.0)]
+    out = np.full((len(cases), T), np.nan)
+    for r, vals in enumerate(cases):
+        vals = np.asarray(vals[:T], dtype=np.float64)
+        out[r, rng.permutation(T)[:vals.size]] = vals
+    return torch.from_numpy(out).to(dev)
+
+
 def topk_ks(S: int) -> list[int]:
     """B6's k at every path boundary: the old register path's 16 | 17,
     the scan path's K_REG | K_REG + 1 (the sort path), and S."""
@@ -785,6 +818,11 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
             raise AssertionError(f"B6 {rows} rows: plan {plan} splits evenly")
         check_topk(f"{what} rows :{rows}", r[:rows], (10, dr.K_REG))
     check_ranks("wide", wide)
+    # B7's edge rows on each median path and its boundaries: the warp path
+    # (T <= 1024, below, at and above a warp's 32), a block per row (the
+    # full width's 5761, the most a block stages) and global memory
+    for T_e in (1, 2, 31, 32, 33, 355, 1024, 1025, 5761, 24576, 24577):
+        check_ranks(f"edge rows T={T_e}", rank_edge_rows(T_e, rng, dev))
     quantile_plans = check_quantile_paths(rng, dev)
 
     # times: cuda_ms as in earlier runs, device_ms (back-to-back calls)
@@ -824,6 +862,13 @@ def kernels_slice2(rng, dev, ts_t, v_t, counts, ragged) -> dict:
         library_ms=cuda_ms(lambda: torch.nanquantile(rolled, 0.5, dim=1)),
         ms_by_kind={k: cuda_ms(lambda k=k: dr.rank_rows(rolled, k))
                     for k in dr.RANK_KINDS},
+        device_ms_by_kind={k: device_ms(lambda k=k: dr.rank_rows(rolled, k))
+                           for k in dr.RANK_KINDS},
+        # avg's one PyTorch call (NaN on an all-NaN row, as B7)
+        library_avg_ms=cuda_ms(lambda: torch.nanmean(rolled, dim=1)),
+        library_avg_device_ms=device_ms(
+            lambda: torch.nanmean(rolled, dim=1)),
+        plan=dr.rank_plan(S, T, kernels.sm_count(dev))._asdict(),
         ms_wide_median=cuda_ms(lambda: dr.rank_rows(wide, "median"), reps=3),
         **bound(S * T * 8 + S * 8, S * T))
     gids = (torch.arange(S, device=dev) % DASH_GROUPS).to(torch.int32)
@@ -1052,6 +1097,107 @@ def sharded_plain(mesh, func, aggr, shards, layouts, cfg, shift=0,
     return meshlib.combine_group_moments_plain(aggr, mom)
 
 
+class _CountingLib:
+    """A loaded kernel library whose vm_* calls count into `calls`."""
+
+    def __init__(self, lib, calls: collections.Counter):
+        self._lib, self._calls = lib, calls
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not name.startswith("vm_") or name == "vm_cuda_error_string":
+            return fn
+
+        def counted(*args):
+            self._calls[name] += 1
+            return fn(*args)
+        return counted
+
+
+def b15_phase_calls(step, parts) -> dict:
+    """The C launchers one B15 call runs, with how often, and its host
+    syncs (Tensor.item)."""
+    calls = collections.Counter()
+    libs = {n: kernels.lib(n) for n in ("mesh", "rollup")}
+    item = torch.Tensor.item
+
+    def counted_item(self):
+        calls["syncs"] += 1
+        return item(self)
+
+    try:
+        for n, h in libs.items():
+            kernels._libs[n] = _CountingLib(h, calls)
+        torch.Tensor.item = counted_item
+        step(*parts)
+    finally:
+        kernels._libs.update(libs)
+        torch.Tensor.item = item
+    return dict(calls)
+
+
+def check_b15_phases(what: str, func: str, step, parts, cards: int) -> dict:
+    """One B15 call launches the halo pass, the row scan and the series
+    pass once per card (the scratch pass at most once), and syncs with the
+    host at most once (the counter funcs' irregular rows), whatever the
+    shards a card holds."""
+    got = b15_phase_calls(step, parts)
+    want = {"vm_halo_compact": cards, "vm_time_shards_scan": cards,
+            "vm_time_shards_series": cards}
+    if {k: got.get(k, 0) for k in want} != want or \
+            got.get("vm_time_shards_prep", 0) > cards or \
+            got.get("syncs", 0) > (1 if func in dr.COUNTER_FUNCS else 0) or \
+            set(got) - set(want) - {"vm_time_shards_prep", "syncs"}:
+        raise AssertionError(f"{what}: launches {got}, want {want} on "
+                             f"{cards} card(s)")
+    return got
+
+
+def check_halo_rows(what: str, mesh, parts, halo: int, cfg) -> dict:
+    """B15's halo pass over the mesh's (one card's) shards against
+    halo_compact_plain, row by row: a row read in place is its tile
+    segment (halo then columns), every sample valid; a compacted row holds
+    the plain compaction's valid prefix.  Both kinds must occur.  Returns
+    the count of each."""
+    ((dev, batch),) = meshlib.time_shard_batches(mesh)
+    n_time = len(parts[0][0])
+    T = dr.num_steps(cfg) // n_time
+    out = torch.empty((sum(int(p[0].shape[0]) for p in parts[0]),
+                       T * n_time), dtype=torch.float64, device=dev)
+    shards = []
+    for i, j in batch:
+        H = min(halo, int(parts[0][i][j].shape[1])) if j else 0
+        left = tuple(x[i][j - 1] for x in parts) if H else None
+        shards.append(meshlib.TimeShard(*(x[i][j] for x in parts), left, H,
+                                        0, out))
+    hr = meshlib.halo_rows(shards)
+    r0, n = 0, collections.Counter()
+    for sh in shards:
+        R, C = sh.ts.shape
+        H = sh.halo
+        hal = tuple(x[:, -H:] for x in sh.left) if H else (None,) * 3
+        wt, wv, wc = meshlib.halo_compact_plain(*sh[:3], *hal, 0)
+        rows = slice(r0, r0 + R)
+        src = hr.src[rows].bool()
+        assert_equal(f"B15 {what} counts", hr.counts[rows], wc)
+        seg = [torch.cat([h, x], 1) if H else x for h, x in zip(hal, sh[:2])]
+        live = torch.arange(H + C, device=dev)[None, :] < wc[:, None]
+        for name, comp, s_, w in (("ts", hr.ts, seg[0], wt),
+                                  ("values", hr.values, seg[1], wv)):
+            g = torch.where(src[:, None], comp[rows, :H + C], s_)
+            assert_equal(f"B15 {what} {name}", torch.where(live, g, 0),
+                         torch.where(live, w, 0))
+        # in place only where every sample is valid
+        if not bool((wc[~src] == H + C).all()):
+            raise AssertionError(f"B15 {what}: a row with a gap in place")
+        n["in_place"] += int((~src).sum())
+        n["compacted"] += int(src.sum())
+        r0 += R
+    if not n["in_place"] or not n["compacted"]:
+        raise AssertionError(f"B15 {what}: one source only ({dict(n)})")
+    return dict(n)
+
+
 def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
     """B12-B15 against their plain versions and the unsharded kernels on
     the card, timed at the dashboard shape.  B12: every func on the edge
@@ -1241,12 +1387,18 @@ def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
                 B * 12 + B * G * T9 * 8, 15 * B * S9 * T9))
 
     # B15 over the dashboard tile's first DASH_SAMPLES columns, rebased to
-    # the first scrape so the grid's chunks line up with the columns'
+    # the first scrape so the grid's chunks line up with the columns: gaps
+    # in the first time shard, in the second one's halo (the first one's
+    # tail) and in the second shard itself, so that both sources, rows
+    # read in place and compacted rows, run on the card
     base = T_START - start
     ts15 = ts_t[:, :DASH_SAMPLES] - base
     v15 = v_t[:, :DASH_SAMPLES].contiguous()
+    C15 = DASH_SAMPLES // B15_MESH[1]
     valid = torch.ones_like(ts15, dtype=torch.bool)
     valid[::7, 100:103] = False  # gaps
+    valid[1::5, C15 - 5:C15 - 2] = False
+    valid[2::9, C15 + 3] = False
     mesh15 = meshlib.make_mesh(*B15_MESH, [dev] * MESH_SHARDS)
     parts = [meshlib.split_2d(mesh15, x) for x in (ts15, v15, valid)]
     cfg15 = RollupConfig(0, DASH_SAMPLES * SCRAPE - B15_STEP, B15_STEP,
@@ -1257,42 +1409,43 @@ def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
     v5 = torch.where(valid, v15, 0.0).gather(1, order)
     c5 = valid.sum(dim=1).to(torch.int32)
     err15 = 0.0
-    for func in dr.FUNC_CODES:
-        if func == "lifetime":
-            continue
-        step = meshlib.time_sharded_rollup(mesh15, func, cfg15, B15_HALO)
-        got = step(*parts)
-        want = dr.rollup_tile(func, ts5, v5, c5, cfg15)
-        if not bool(torch.isfinite(got).any()):
-            raise AssertionError(f"B15 {func}: no finite value")
-        # stddev/stdvar_over_time centre by the row mean, which a time
-        # shard takes over its own samples (the reference's semantics):
-        # they are held at the reference oracle's bound
-        assert_close(f"B15 {func} vs B5", got, want,
-                     *((1e-6, 1e-4) if func in dr.CENTRED_FUNCS
-                       else (1e-9, 1e-9)))
-        e = func_close(f"B15 {func} plain", func, got,
-                       meshlib.time_sharded_rollup_plain(
-                           mesh15, func, cfg15, B15_HALO)(*parts))
-        if func in dr.COUNTER_FUNCS:
-            err15 = max(err15, e)
-    # the halo kernel itself against its plain transcription
-    hal = tuple(x[0][0][:, -B15_HALO:] for x in parts)
-    for h in (hal, (None, None, None)):
-        g = meshlib.halo_compact(parts[0][0][1], parts[1][0][1],
-                                 parts[2][0][1], *h, 77_000)
-        w = meshlib.halo_compact_plain(parts[0][0][1], parts[1][0][1],
-                                       parts[2][0][1], *h, 77_000)
-        assert_equal("B15 halo counts", g[2], w[2])
-        live = torch.arange(g[0].shape[1], device=dev)[None, :] < g[2][:, None]
-        assert_equal("B15 halo ts", torch.where(live, g[0], 0),
-                     torch.where(live, w[0], 0))
-        assert_equal("B15 halo values", g[1], w[1])
+    for halo in (B15_HALO, C15):  # H = C: the halo is the whole shard
+        for func in dr.FUNC_CODES:
+            if func == "lifetime" or (halo == C15 and func not in (
+                    "rate", "timestamp", "deriv", "stddev_over_time")):
+                continue
+            step = meshlib.time_sharded_rollup(mesh15, func, cfg15, halo)
+            got = step(*parts)
+            want = dr.rollup_tile(func, ts5, v5, c5, cfg15)
+            if not bool(torch.isfinite(got).any()):
+                raise AssertionError(f"B15 {func}: no finite value")
+            # stddev/stdvar_over_time centre by the row mean, which a time
+            # shard takes over its own samples (the reference's
+            # semantics): they are held at the reference oracle's bound
+            assert_close(f"B15 {func} halo {halo} vs B5", got, want,
+                         *((1e-6, 1e-4) if func in dr.CENTRED_FUNCS
+                           else (1e-9, 1e-9)))
+            e = func_close(f"B15 {func} halo {halo} plain", func, got,
+                           meshlib.time_sharded_rollup_plain(
+                               mesh15, func, cfg15, halo)(*parts))
+            if func in dr.COUNTER_FUNCS:
+                err15 = max(err15, e)
+        # one launch per phase for the card's 8 shards, at most one sync
+        for func in ("rate", "timestamp"):
+            check_b15_phases(f"B15 {func} halo {halo}", func,
+                             meshlib.time_sharded_rollup(
+                                 mesh15, func, cfg15, halo), parts, 1)
+    # the halo pass itself: every row's source against the plain
+    # transcription, both sources on the card
+    halo15 = {h: check_halo_rows(f"halo {h}", mesh15, parts, h, cfg15)
+              for h in (B15_HALO, C15)}
     step = meshlib.time_sharded_rollup(mesh15, "rate", cfg15, B15_HALO)
     T15 = dr.num_steps(cfg15)
     res["time_sharded_rollup"] = dict(
         max_abs_err=err15, mesh=list(B15_MESH), halo=B15_HALO,
-        ms=cuda_ms(lambda: step(*parts)),
+        halo_rows=halo15,
+        ms=cuda_ms(lambda: step(*parts)), device_ms=device_ms(
+            lambda: step(*parts)),
         plain_ms=cuda_ms(lambda: meshlib.time_sharded_rollup_plain(
             mesh15, "rate", cfg15, B15_HALO)(*parts), reps=3),
         library_ms=None,
@@ -2152,7 +2305,8 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
     rolled = dr.rollup_tile("rate", ts_t, v_t, counts, ncfg)
     drv = torch.zeros((G, T), dtype=torch.float64, device=dev)
     drv_n = torch.zeros_like(drv)
-    rank = dr.rank_rows(rolled, "median")
+    ranks = {k: dr.rank_rows(rolled, k) for k in dr.RANK_KINDS}
+    rank = ranks["median"]
     chunk = 4096
     err5 = 0.0
     for r0 in range(0, S, chunk):
@@ -2160,8 +2314,14 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
         w = dr.rollup_tile_plain("rate", ts_t[sl], v_t[sl], counts[sl], ncfg)
         err5 = max(err5, func_close(f"full width B5 rows {r0}+", "rate",
                                     rolled[sl], w))
-        assert_exact(f"full width B7 median rows {r0}+", rank[sl],
-                     dr.rank_rows_plain(rolled[sl], "median"))
+        # B7, every kind, as check_ranks holds them
+        for k, r in ranks.items():
+            w = dr.rank_rows_plain(rolled[sl], k)
+            if k in ("median", "last"):
+                assert_exact(f"full width B7 {k} rows {r0}+", r[sl], w)
+            else:
+                assert_close(f"full width B7 {k} rows {r0}+", r[sl], w,
+                             1e-12 if k == "avg" else 0.0, 0.0)
         d = dr.rollup_tile_plain("deriv", ts_t[sl], v_t[sl], counts[sl],
                                  ncfg)
         live = ~torch.isnan(d)
@@ -2232,22 +2392,33 @@ def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
             **take_rows_bound(int(sel_t.numel()), T)},
         "rank_median_ms": cuda_ms(lambda: dr.rank_rows(rolled, "median"),
                                   reps=3),
+        "rank_device_ms": {k: device_ms(lambda k=k: dr.rank_rows(rolled, k),
+                                        5) for k in dr.RANK_KINDS},
+        "nanmean_device_ms": device_ms(
+            lambda: torch.nanmean(rolled, dim=1), 5),
         "k2_deriv_avg_ms": cuda_ms(lambda: dr.rollup_aggregate_tile(
             "deriv", "avg", ts_t, v_t, counts,
             dr.group_layout(gids, G, dev), ncfg), reps=3),
     }
     del rolled
+    # the plain instant rollup on the CPU, where torch divides by a
+    # scalar as the kernels do (on the card it multiplies by the
+    # reciprocal, an ulp away): the engine's quantile and B5's rates are
+    # held to it bit for bit
+    cpu = torch.device("cpu")
     inst = torch.cat([dr.rollup_tile_plain(
-        "rate", ts_t[r0:r0 + chunk] - shift, v_t[r0:r0 + chunk],
-        counts[r0:r0 + chunk], dr.normalized_cfg("rate", icfg), i_min_ts)
-        for r0 in range(0, S, chunk)])
-    q_plain = dr.quantile_groups_plain(inst, one, 0.99)
-    assert_exact("full width instant quantile", torch.from_numpy(
-        got["instant_quantile"]), q_plain.cpu())
-    if not np.isfinite(got["instant_quantile"]).all():
-        raise AssertionError("full width instant quantile: not finite")
+        "rate", ts_t[r0:r0 + chunk].cpu() - shift, v_t[r0:r0 + chunk].cpu(),
+        counts[r0:r0 + chunk].cpu(), dr.normalized_cfg("rate", icfg),
+        i_min_ts) for r0 in range(0, S, chunk)])
     inst_k = dr.rollup_tile("rate", ts_t, v_t, counts,
                             dr.normalized_cfg("rate", icfg), i_min_ts, shift)
+    assert_exact("full width instant rate", inst_k.cpu(), inst)
+    q_plain = dr.quantile_groups_plain(
+        inst, dr.group_layout(np.zeros(S, np.int32), 1, cpu), 0.99)
+    assert_exact("full width instant quantile", torch.from_numpy(
+        got["instant_quantile"]), q_plain)
+    if not np.isfinite(got["instant_quantile"]).all():
+        raise AssertionError("full width instant quantile: not finite")
     # B8's cluster path on the instant's one group of every series, bit
     # for bit at every phi
     events["instant_quantile_plan"] = check_quantile(
@@ -2756,11 +2927,14 @@ def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:
         if not bool(torch.isfinite(got[:, WINDOW // B15_STEP + 1:]).all()):
             raise AssertionError(f"full width B15 {func}: not finite")
         c[func] = {"max_abs_err_vs_b5": assert_close(
-            f"full width B15 {func}", got, want, 1e-9, 1e-9)}
+            f"full width B15 {func}", got, want, 1e-9, 1e-9),
+            "calls": check_b15_phases(f"full width B15 {func}", func, step,
+                                      parts, 1)}
         del got, want
     step = meshlib.time_sharded_rollup(mesh15, "rate", cfg15, B15_HALO)
     with aside():
         c["rate"]["ms"] = cuda_ms(lambda: step(*parts), reps=3)
+        c["rate"]["device_ms"] = device_ms(lambda: step(*parts), 5)
         c["rate"]["b5_ms"] = cuda_ms(lambda: dr.rollup_tile(
             "rate", ts_t, v_t, counts, cfg15), reps=3)
     c.update(mesh=list(B15_MESH), halo=B15_HALO, step=B15_STEP,

@@ -39,12 +39,14 @@ def test_bindings_match_the_source(name):
 
 def test_the_mesh_and_fused_decode_entry_points_are_bound():
     # B12 (rollup.cu), B13's moments pass (rollup.cu: K2's group pass
-    # with moments = 1) and the mesh layer's combine, halo and add-back
-    # (mesh.cu)
-    assert {"vm_decode_rollup_plan", "vm_decode_rollup",
-            "vm_rollup_groups"} <= set(kernels.SIGNATURES["rollup"])
+    # with moments = 1), B15's passes over a card's time shards
+    # (rollup.cu) and the mesh layer's combine and halo pass (mesh.cu;
+    # B15's add-back is in its series pass's store)
+    assert {"vm_decode_rollup_plan", "vm_decode_rollup", "vm_rollup_groups",
+            "vm_time_shards_scan", "vm_time_shards_prep",
+            "vm_time_shards_series"} <= set(kernels.SIGNATURES["rollup"])
     assert set(kernels.SIGNATURES["mesh"]) == {
-        "vm_combine_moments", "vm_halo_compact", "vm_add_seconds"}
+        "vm_combine_moments", "vm_halo_compact"}
     # B15 writes a time shard's block of a wider output: B5 takes a row
     # stride, then its plan (staged, rows, steps, cap: b5_plan)
     assert len(kernels.SIGNATURES["rollup"]["vm_rollup_series"]) == 24

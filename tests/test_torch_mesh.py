@@ -363,12 +363,13 @@ def test_halo_compaction_keeps_time_order():
     h_ts = torch.tensor([[5, 7]], dtype=torch.int32)
     h_vals = torch.tensor([[0.5, 0.7]], dtype=torch.float64)
     h_valid = torch.tensor([[False, True]])
-    t, v, c = ml.halo_compact(ts, vals, valid, h_ts, h_vals, h_valid, 3)
+    t, v, c = ml.halo_compact_plain(ts, vals, valid, h_ts, h_vals, h_valid,
+                                    3)
     assert c.tolist() == [4]
     assert t[0, :4].tolist() == [4, 7, 27, 37]
     assert v[0].tolist() == [0.7, 1.0, 3.0, 4.0, 0.0, 0.0]
     assert t[0, 4:].tolist() == [2**31 - 4] * 2
-    t0, _, c0 = ml.halo_compact(ts, vals, valid, None, None, None, 0)
+    t0, _, c0 = ml.halo_compact_plain(ts, vals, valid, None, None, None, 0)
     assert c0.tolist() == [3] and t0[0, :3].tolist() == [10, 30, 40]
 
 

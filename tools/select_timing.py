@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time B5 rollup_tile, B12 decode_and_rollup, K2 and B13, B6 topk_select
-and take_rows, B8 quantile_groups and B9 fleet_rollup_aggregate_tile, and
+and take_rows, B7 rank_rows, B8 quantile_groups, B9
+fleet_rollup_aggregate_tile and B15 time_sharded_rollup, and
 the PyTorch calls that compute the same functions where there is one, on
 one CUDA card.
 
@@ -55,6 +56,18 @@ bit for bit), beside K1 alone and K1 then B5, and split into its phases
 by diagnostic builds of the checkout's csrc/rollup.cu that end each row
 after a phase (``-DVM_B12_STOP=1``: the decode; ``=2``: the row scan and
 scratch too; the full kernel less those is the series pass).
+B15 time_sharded_rollup (rate and timestamp on a (2, 4) mesh of 8
+logical shards of the card, halo 32, steps of 60 s) runs over 1440
+columns of 8192 counters with gaps in every seventh row and over the full
+width's 100,000 x 5760, all valid: device_ms, ms and host_ms, each launch
+timed alone, its host syncs (every Tensor.item), the gap between its
+device time and its launches' sum, and B5 over the same valid samples on
+the same grid.  B7 rank_tile runs its five kinds on both rolled tiles
+(three ways each), avg beside torch.nanmean and the median beside
+torch.nanquantile, the median's phases from diagnostic builds of the
+checkout's csrc/select.cu (``-DVM_B7_STOP=1``: staged; ``=2``: the radix
+passes; a source without the hooks, whose median is one block_select
+then block_min_above, is patched at two anchors).
 ``--root`` imports the port from another checkout (a parent commit
 unpacked under a gitignored directory), so two versions compare in one
 chip call: parent, change, change, parent.  ``--parts`` picks what runs
@@ -83,7 +96,7 @@ import torch
 T_START, SCRAPE, JITTER, WINDOW = 1_753_700_000_000, 15_000, 2_000, 300_000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: what --parts picks from
-PARTS = ("b5", "b12", "k2", "topk", "quantile", "b9")
+PARTS = ("b5", "b12", "k2", "topk", "quantile", "b9", "b15", "b7")
 
 
 def load_timing():
@@ -249,17 +262,18 @@ def _timed_libs(kernels, names, spans):
         kernels._libs.update(libs)
 
 
-def launch_split(kernels, fn, reps: int = 5) -> dict:
-    """fn's launches of the rollup and mesh libraries, each timed alone:
-    per C entry point, its launches per call and the median over `reps`
-    calls of their summed ms.  The wrapper's own host syncs run as
-    always."""
+def launch_split(kernels, fn, reps: int = 5,
+                 libs=("rollup", "mesh")) -> dict:
+    """fn's launches of the `libs` libraries, each timed alone: per C
+    entry point, its launches per call and the median over `reps` calls
+    of their summed ms (the kernel's device time, whatever the wrapper's
+    host time).  The wrapper's own host syncs run as always."""
     fn()
     torch.cuda.synchronize()
     runs = []
     for _ in range(reps):
         spans = []
-        with _timed_libs(kernels, ("rollup", "mesh"), spans):
+        with _timed_libs(kernels, libs, spans):
             fn()
         torch.cuda.synchronize()
         per = collections.defaultdict(lambda: [0, 0.0])
@@ -389,10 +403,10 @@ def delta_planes(ts: torch.Tensor, vals: torch.Tensor, counts: torch.Tensor,
             counts)
 
 
-# B12's phase hooks for a checkout whose decode_rollup has none (the
-# per-plane decode of earlier versions): VM_B12_STOP_AFTER(k) ends the row
-# after phase k in a build with -DVM_B12_STOP=k, inserted where that
-# version's phases end
+# Phase hooks for a checkout whose kernels have none: `macro`_AFTER(k)
+# (B12) or a bare `macro` test (B7) ends a row after phase k in a build
+# with -D`macro`=k, inserted after anchors where that version's phases end.
+# B12 (rollup.cu decode_rollup, the per-plane decode of earlier versions):
 _B12_STOP_HOOK = (
     "#ifndef VM_B12_STOP\n#define VM_B12_STOP 0\n#endif\n"
     "#define VM_B12_STOP_AFTER(k) \\\n"
@@ -400,47 +414,64 @@ _B12_STOP_HOOK = (
     "    if (threadIdx.x == 0) out[row * T] = v[0]; \\\n"
     "    continue; \\\n"
     "  }\n")
-_B12_ANCHORS = (
-    "n, 0, a.scale[row], nullptr, v, warp_sums);\n    __syncthreads();\n",
-    "if (threadIdx.x == 0) s_irregular = irregular;\n    }\n"
-    "    __syncthreads();\n")
+_B12_PATCHES = tuple(
+    (anchor, f"    VM_B12_STOP_AFTER({k});\n") for k, anchor in enumerate((
+        "n, 0, a.scale[row], nullptr, v, warp_sums);\n    __syncthreads();\n",
+        "if (threadIdx.x == 0) s_irregular = irregular;\n    }\n"
+        "    __syncthreads();\n"), 1))
+# B7 (select.cu rank_median of PRs 2-8: a block per row, block_select
+# then block_min_above): 1 ends after the staging loop, 2 after the radix
+# select (no block_min_above)
+_B7_STOP_HOOK = "#ifndef VM_B7_STOP\n#define VM_B7_STOP 0\n#endif\n"
+_B7_PATCHES = (
+    ("    live += block_count(v == v);\n  }\n",
+     "  if (VM_B7_STOP == 1) {\n    if (threadIdx.x == 0) rank[s] = live;\n"
+     "    return;\n  }\n"),
+    ("  const unsigned long long k0 = block_select(key, T, j0, &less, "
+     "&equal);\n",
+     "  if (VM_B7_STOP == 2) return key_value(k0);\n"))
+#: (source, macro, hook prepended, anchor patches) of each stop build
+STOPS = {"b12": ("rollup", "VM_B12_STOP", _B12_STOP_HOOK, _B12_PATCHES),
+         "b7": ("select", "VM_B7_STOP", _B7_STOP_HOOK, _B7_PATCHES)}
 
 
-def b12_stop_libs(kernels, root: str, stops=(1, 2)) -> dict:
-    """Diagnostic builds of the checkout's csrc/rollup.cu, B12 ending each
-    row after phase k (1: decode; 2: the row scan and scratch), loaded
-    with the checkout's signatures: {k: library}.  Built once per source
-    under this checkout's _build/b12_stop, all stops at once."""
+def stop_libs(kernels, root: str, part: str, stops=(1, 2)) -> dict:
+    """Diagnostic builds of the checkout's csrc source of `part` (STOPS),
+    each row ending after phase k, loaded with the checkout's signatures:
+    {k: library}.  A source without the macro is patched at its anchors.
+    Built once per source under this checkout's _build/<part>_stop, all
+    stops at once."""
+    name, macro, hook, patches = STOPS[part]
     csrc = Path(root).resolve() / "victoriametrics_tpu_torch" / "csrc"
-    src = (csrc / "rollup.cu").read_text()
-    if "VM_B12_STOP_AFTER" not in src:
-        for k, anchor in enumerate(_B12_ANCHORS, 1):
+    src = (csrc / f"{name}.cu").read_text()
+    if macro not in src:
+        for anchor, insert in patches:
             if src.count(anchor) != 1:
-                raise RuntimeError(f"B12 phase {k}: anchor not found once")
-            src = src.replace(anchor, anchor + f"    VM_B12_STOP_AFTER({k});\n")
-        src = _B12_STOP_HOOK + src
-    out = Path(REPO) / "victoriametrics_tpu_torch" / "_build" / "b12_stop"
+                raise RuntimeError(f"{part} stop: anchor not found once")
+            src = src.replace(anchor, anchor + insert)
+        src = hook + src
+    out = Path(REPO) / "victoriametrics_tpu_torch" / "_build" / f"{part}_stop"
     out.mkdir(parents=True, exist_ok=True)
     digest = hashlib.blake2b(src.encode(), digest_size=8).hexdigest()
-    cu = out / f"rollup-{digest}.cu"
+    cu = out / f"{name}-{digest}.cu"
     cu.write_text(src)
     procs = []
-    paths = {k: out / f"librollup-stop{k}-{digest}.so" for k in stops}
+    paths = {k: out / f"lib{name}-stop{k}-{digest}.so" for k in stops}
     for k, so in paths.items():
         if not so.exists():
             procs.append((k, so, subprocess.Popen(
-                [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DVM_B12_STOP={k}",
+                [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-D{macro}={k}",
                  "-I", str(csrc), "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     for k, so, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"B12 stop {k} build failed:\n"
+            raise RuntimeError(f"{part} stop {k} build failed:\n"
                                f"{log.decode(errors='replace')}")
     libs = {}
     for k, so in paths.items():
         h = ctypes.CDLL(str(so))
-        for fn, argtypes in kernels.SIGNATURES["rollup"].items():
+        for fn, argtypes in kernels.SIGNATURES[name].items():
             getattr(h, fn).argtypes = argtypes
             getattr(h, fn).restype = ctypes.c_int
         h.vm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -450,14 +481,14 @@ def b12_stop_libs(kernels, root: str, stops=(1, 2)) -> dict:
 
 
 @contextlib.contextmanager
-def _rollup_lib(kernels, h):
-    """kernels.lib("rollup") is `h` inside the block."""
-    keep = kernels.lib("rollup")
-    kernels._libs["rollup"] = h
+def _use_lib(kernels, name: str, h):
+    """kernels.lib(name) is `h` inside the block."""
+    keep = kernels.lib(name)
+    kernels._libs[name] = h
     try:
         yield
     finally:
-        kernels._libs["rollup"] = keep
+        kernels._libs[name] = keep
 
 
 def b5_times(tm, dr, kernels, ts, vals, counts, cfg, func: str,
@@ -487,7 +518,7 @@ def b5_times(tm, dr, kernels, ts, vals, counts, cfg, func: str,
     return out
 
 
-def b12_times(tm, dr, dd, kernels, stop_libs, ts, vals, counts, cfg,
+def b12_times(tm, dr, dd, kernels, stops, ts, vals, counts, cfg,
               n: int) -> dict:
     """B12 rate on the tile's delta planes at the engine's tile capacity
     beside K1 alone and K1 then B5 (device_ms), its phases from the
@@ -515,9 +546,111 @@ def b12_times(tm, dr, dd, kernels, stop_libs, ts, vals, counts, cfg,
                                       counts, cfg), n),
            "bound_ms": tm.bound(plane_bytes + S * T * 8,
                                 2 * 2 * S * N + 15 * S * T)["bound_ms"]}
-    for k, h in stop_libs.items():
-        with _rollup_lib(kernels, h):
+    for k, h in stops.items():
+        with _use_lib(kernels, "rollup", h):
             out[f"stop{k}_device_ms"] = tm.device_ms(b12, n)
+    return out
+
+
+@contextlib.contextmanager
+def _timed_items(waits: list):
+    """Every Tensor.item() inside the block appends its host seconds to
+    `waits`: the wrappers' host syncs."""
+    item = torch.Tensor.item
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return item(self)
+        finally:
+            waits.append(time.perf_counter() - t0)
+
+    torch.Tensor.item = timed
+    try:
+        yield
+    finally:
+        torch.Tensor.item = item
+
+
+def sync_waits(fn, reps: int = 5) -> dict:
+    """The host syncs of one fn() call: their count and the median over
+    `reps` calls of their summed host ms."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        waits = []
+        with _timed_items(waits):
+            fn()
+        torch.cuda.synchronize()
+        runs.append(waits)
+    return {"calls": len(runs[0]),
+            "ms": statistics.median(sum(w) for w in runs) * 1e3}
+
+
+def b15_times(tm, dr, kernels, meshlib, RollupConfig, ts, vals, valid,
+              func: str, n: int) -> dict:
+    """B15 func over a tile's columns on the (2, 4) mesh of 8 logical
+    shards of the card, halo 32, steps of 60 s: device_ms, ms, host_ms,
+    its launch split (each launch alone), its host syncs, the gap between
+    its device time and its launches' sum (host gaps between launches),
+    its bound, and B5 over the same valid samples (compacted per row) on
+    the same grid."""
+    S, N = ts.shape
+    dev = ts.device
+    mesh = meshlib.make_mesh(2, 4, [dev] * 8)
+    parts = [meshlib.split_2d(mesh, x) for x in (ts, vals, valid)]
+    cfg = RollupConfig(0, N * SCRAPE - 60_000, 60_000, WINDOW)
+    T = dr.num_steps(cfg)
+    step = meshlib.time_sharded_rollup(mesh, func, cfg, 32)
+
+    def b15():
+        return step(*parts)
+
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)
+    ts5 = torch.where(valid, ts, 2**31 - 1).gather(1, order)
+    v5 = torch.where(valid, vals, 0.0).gather(1, order)
+    c5 = valid.sum(dim=1).to(torch.int32)
+    del order
+    out = {"S": S, "N": N, "T": T, "func": func, "mesh": [2, 4],
+           "halo": 32, **tm.three_ms(b15, n, reps=5),
+           "split": launch_split(kernels, b15),
+           "syncs": sync_waits(b15),
+           "b5_device_ms": tm.device_ms(
+               lambda: dr.rollup_tile(func, ts5, v5, c5, cfg), n),
+           "bound_ms": tm.bound(S * N * 13 + S * T * 8, 15 * S * T)[
+               "bound_ms"]}
+    out["launch_ms"] = sum(v["ms"] for v in out["split"].values())
+    out["gap_ms"] = out["device_ms"] - out["launch_ms"]
+    return out
+
+
+def b7_times(tm, dr, kernels, stops, rolled, n: int) -> dict:
+    """B7's five kinds over a rolled tile (three ways each, and the
+    kernel alone after a device sleep: kernel_ms), avg beside
+    torch.nanmean and the median beside torch.nanquantile, the median's
+    phases from the diagnostic builds (stop 1: staged; stop 2: selected),
+    the bound and, for a port with B7's plan, the plan."""
+    S, T = rolled.shape
+    out = {"S": S, "T": T,
+           "bound_ms": tm.bound(S * T * 8 + S * 8, S * T)["bound_ms"]}
+    for kind in dr.RANK_KINDS:
+        def fn(kind=kind):
+            return dr.rank_rows(rolled, kind)
+        out[kind] = {**tm.three_ms(fn, n),
+                     "kernel_ms": launch_split(kernels, fn, 10, ("select",))[
+                         "vm_rank_rows"]["ms"]}
+    out["avg"]["library"] = tm.library_or_oom(
+        lambda: torch.nanmean(rolled, dim=1), n)
+    out["median"]["library"] = tm.library_or_oom(
+        lambda: torch.nanquantile(rolled, 0.5, dim=1), 3)
+    for k, h in stops.items():
+        with _use_lib(kernels, "select", h):
+            out["median"][f"stop{k}_device_ms"] = tm.device_ms(
+                lambda: dr.rank_rows(rolled, "median"), n)
+    if hasattr(dr, "rank_plan"):  # a port with B7's plan
+        out["plan"] = dr.rank_plan(S, T, kernels.sm_count(
+            rolled.device))._asdict()
     return out
 
 
@@ -551,7 +684,8 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
     kernels.build(("decode", "rollup", "select", "quantile", "mesh"))
-    stop_libs = b12_stop_libs(kernels, args.root) if "b12" in parts else {}
+    stop = {p: stop_libs(kernels, args.root, p) if p in parts else {}
+            for p in STOPS}
     res = {"label": args.label, "root": args.root, "gpu": gpu,
            "parts": sorted(parts), "build_s": time.perf_counter() - t0}
     gen = torch.Generator(device=dev)
@@ -571,7 +705,7 @@ def main(argv=None) -> int:
                 RollupConfig(start, end, 60_000, WINDOW), "tlast_over_time",
                 50)
         if "b12" in parts:
-            dash["b12"] = b12_times(tm, dr, dd, kernels, stop_libs, ts, vals,
+            dash["b12"] = b12_times(tm, dr, dd, kernels, stop["b12"], ts, vals,
                                     counts, cfg, 20)
         if "k2" in parts:
             dash["k2"] = {
@@ -584,12 +718,23 @@ def main(argv=None) -> int:
 
     rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n, start, end,
                        60_000, at_dashboard)
+    if "b15" in parts:  # 1440 columns from 0, gaps in every seventh row
+        ts, vals, _ = counter_tile(dev, gen, (8192,), n, 0)
+        valid = torch.ones_like(ts, dtype=torch.bool)
+        valid[::7, 100:103] = False
+        dash["b15"] = {func: b15_times(tm, dr, kernels, meshlib,
+                                       RollupConfig, ts, vals, valid, func,
+                                       50)
+                       for func in ("rate", "timestamp")}
+        del ts, vals, valid
     res["dashboard"] = dash
     if "topk" in parts:
         dash.update(shape_times(tm, dr, rolled, (10, 20, 8192), 50))
     if "quantile" in parts:
         dash["quantile_m32"] = quantile_times(tm, dr, rolled, 256, 0.9, 50)
         dash["quantile_m8192"] = quantile_times(tm, dr, rolled, 1, 0.5, 20)
+    if "b7" in parts:
+        dash["b7"] = b7_times(tm, dr, kernels, stop["b7"], rolled, 50)
     sweep = hasattr(dr, "topk_plan")  # a port with B6's scan-path plan
     if sweep and "topk" in parts:
         dash["clusters"] = cluster_sweep(tm, dr, kernels, rolled, (10, 20),
@@ -605,8 +750,16 @@ def main(argv=None) -> int:
                     tm, dr, kernels, ts, vals, counts,
                     dr.normalized_cfg(func, cfg), func, 5)
         if "b12" in parts:
-            full["b12"] = b12_times(tm, dr, dd, kernels, stop_libs, ts, vals,
+            full["b12"] = b12_times(tm, dr, dd, kernels, stop["b12"], ts, vals,
                                     counts, cfg, 5)
+            torch.cuda.empty_cache()
+        if "b15" in parts:  # every sample valid; from 0 (start = T_START)
+            valid = torch.ones_like(ts, dtype=torch.bool)
+            full["b15"] = {func: b15_times(tm, dr, kernels, meshlib,
+                                           RollupConfig, ts, vals, valid,
+                                           func, 5)
+                           for func in ("rate", "timestamp")}
+            del valid
             torch.cuda.empty_cache()
         if "k2" in parts:
             full["k2"] = {f"{aggr}_{func}": k2_times(
@@ -623,6 +776,8 @@ def main(argv=None) -> int:
         if sweep:
             full["clusters"] = cluster_sweep(tm, dr, kernels, rolled,
                                              (10, 20), (1, 2, 4, 8))
+    if "b7" in parts:
+        full["b7"] = b7_times(tm, dr, kernels, stop["b7"], rolled, 5)
     if "quantile" in parts:
         full["quantile_instant"] = quantile_times(
             tm, dr, rolled[:, -1:].contiguous(), 1, 0.99, 50)

@@ -1,5 +1,5 @@
 // The mesh layer's own kernels: B13's cross-shard combine and B15's halo
-// compaction and time add-back.
+// pass.
 //
 // B13 replaces victoriametrics_tpu/parallel/mesh.py:sharded_rollup_aggregate
 // (with its memoised form cached_sharded_rollup_aggregate): K2 jitted with
@@ -18,27 +18,28 @@
 // B15 replaces victoriametrics_tpu/parallel/mesh.py:time_sharded_rollup
 // (shard_map over (series, time): a ring halo by lax.ppermute, a stable
 // argsort that compacts the valid samples, then rollup_tile_shifted).
-// halo_compact, one block per row of a (series, time) shard: the left
-// neighbour's last H columns (none for the first time shard, whose ring
-// halo the reference masks) and the shard's own C columns, read through
-// row strides (views of one tile need no copy), keep their valid samples
-// in time order (a block scan of the valid flags gives each sample its
-// place: the stable argsort's order), written as ts - shift in wrapping
-// int32 arithmetic; past the count the row is TS_PAD / 0.0 and counts[r]
-// is the count.  B5 then rolls the compacted tile up with shift 0 on the
-// shard's grid.  add_seconds adds shift / 1e3 (one float64 division, as
-// the reference's shift.astype(f64) / 1e3) to the time-valued funcs'
-// output block in place.
+// The shards of one card run as one launch per phase: halo_compact here,
+// then rollup.cu's row scan, scratch pass and series pass over the same
+// D shards (ShardBlocks).  halo_compact decides per row, on the card,
+// whether the row can be read in place (its halo and columns one segment
+// of a tile row, every flag valid: the compacted row would be that
+// segment) or must be compacted (a gap, or a halo copied from another
+// card); only the latter is written.  The passes shift either source's
+// timestamps by the shard's grid offset in registers, which is the
+// reference's ts - shift in wrapping int32 arithmetic, and the series
+// pass adds shift / 1e3 (one float64 division, as the reference's
+// shift.astype(f64) / 1e3) to the time-valued funcs' values as it
+// stores them.
 //
 // Bound: bytes.  The combine reads D x M x G x T float64 and writes G x T;
-// halo_compact reads H + C samples per row (13 B each: ts, value, flag)
-// and writes H + C columns (12 B each); add_seconds reads and writes its
-// block once.
+// B15 must read each of a row's H + C samples once (13 B: ts, value,
+// flag) and write its [rows, T] block.  halo_compact reads the flags
+// (1 B a column) of a row it leaves in place, and reads 13 B and writes
+// 12 B a valid sample of a row it compacts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "decode.cuh"
 #include "moments.cuh"
 
 namespace {
@@ -62,63 +63,119 @@ combine_moments(const double* __restrict__ moments, int D, int M,
   out[e] = finalize_moments(m, aggr);
 }
 
-__global__ void __launch_bounds__(kDecodeThreads)
-halo_compact(const int32_t* __restrict__ ts, long long ts_ld,
-             const double* __restrict__ vals, long long vals_ld,
-             const bool* __restrict__ valid, long long valid_ld,
-             const int32_t* __restrict__ h_ts, long long h_ts_ld,
-             const double* __restrict__ h_vals, long long h_vals_ld,
-             const bool* __restrict__ h_valid, long long h_valid_ld, int C,
-             int H, int32_t shift, int32_t* __restrict__ ts_out,
-             double* __restrict__ vals_out, int32_t* __restrict__ counts) {
-  __shared__ uint32_t warp_sums[kDecodeWarps];
-  const long long r = blockIdx.x;
-  const int W = H + C;
-  const long long o = r * W;
-  uint32_t carry = 0u;
-  for (int base = 0; base < W; base += kDecodeThreads) {
-    const int j = base + threadIdx.x;
-    bool ok = false;
-    int32_t t = 0;
-    double v = 0.0;
-    if (j < H) {
-      if (h_valid != nullptr && h_valid[r * h_valid_ld + j]) {
-        ok = true;
-        t = h_ts[r * h_ts_ld + j];
-        v = h_vals[r * h_vals_ld + j];
-      }
-    } else if (j < W && valid[r * valid_ld + (j - H)]) {
-      ok = true;
-      t = ts[r * ts_ld + (j - H)];
-      v = vals[r * vals_ld + (j - H)];
-    }
-    uint32_t tot;
-    const uint32_t incl = block_scan(ok ? 1u : 0u, warp_sums, &tot);
-    if (ok) {
-      const long long p = o + carry + incl - 1u;
-      ts_out[p] = static_cast<int32_t>(static_cast<uint32_t>(t) -
-                                       static_cast<uint32_t>(shift));
-      vals_out[p] = v;
-    }
-    carry += tot;
-  }
-  for (int p = static_cast<int>(carry) + threadIdx.x; p < W;
-       p += kDecodeThreads) {
-    ts_out[o + p] = kTsPad;
-    vals_out[o + p] = 0.0;
-  }
-  if (threadIdx.x == 0) counts[r] = static_cast<int32_t>(carry);
+// B15's halo pass over the D (series, time) shards of one card, one warp
+// per row: shard d's row reads its halo's H[d] columns (the left
+// neighbour's last ones; none for the first time shard) then its C own
+// columns, each array through its row stride.  Where the shard's halo and
+// columns are one segment of each row of one tile (inplace[d]) and all
+// H[d] + C flags of the row are valid, the row is read in place by the
+// passes: src[r] = 0, counts[r] = H[d] + C, nothing written.  Any other
+// row is compacted: its valid samples in time order (a ballot a 32
+// columns gives each its place: the stable argsort's order) into row r
+// of cts / cvals (N columns, raw timestamps: the passes shift them),
+// src[r] = 1, counts[r] = the valid samples.
+constexpr int kHaloFields = 15;  // desc values per shard (parallel/mesh.py)
+constexpr int kMaxShards = 16;   // rollup.cu's
+
+struct HaloShard {
+  const int32_t* ts;
+  const double* vals;
+  const bool* valid;
+  const int32_t* h_ts;
+  const double* h_vals;
+  const bool* h_valid;
+  long long ts_ld, vals_ld, valid_ld, h_ts_ld, h_vals_ld, h_valid_ld;
+  int H, inplace;
+};
+
+struct HaloArgs {
+  HaloShard sh[kMaxShards];
+  long long row0[kMaxShards + 1];
+  int D, C, N;
+  int32_t* cts;
+  double* cvals;
+  int32_t* counts;
+  int32_t* src;
+};
+
+// Whether any byte of x is 0 (a false flag among four).
+__device__ __forceinline__ bool has_zero_byte(unsigned x) {
+  return ((x - 0x01010101u) & ~x & 0x80808080u) != 0u;
 }
 
 __global__ void __launch_bounds__(kCombineThreads)
-add_seconds(double* __restrict__ out, long long ld, long long R, int cols,
-            int32_t shift) {
-  const long long e =
-      static_cast<long long>(blockIdx.x) * kCombineThreads + threadIdx.x;
-  if (e >= R * cols) return;
-  const long long r = e / cols;
-  const double add = static_cast<double>(shift) / 1e3;  // a true division
-  out[r * ld + (e - r * cols)] += add;
+halo_compact(HaloArgs a) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kCombineThreads / 32) +
+      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
+  if (r >= a.row0[a.D]) return;  // uniform across the warp
+  int d = 0;
+  while (d + 1 < a.D && r >= a.row0[d + 1]) ++d;
+  const HaloShard& h = a.sh[d];
+  const long long local = r - a.row0[d];
+  const int H = h.H, W = h.H + a.C;
+  const bool* hv = h.h_valid + local * h.h_valid_ld;
+  const bool* lv = h.valid + local * h.valid_ld;
+  bool in_place = h.inplace != 0;
+  if (in_place) {  // every flag valid?  The segment is one run of W bytes
+    const unsigned char* seg =
+        reinterpret_cast<const unsigned char*>(H ? hv : lv);
+    const int head = static_cast<int>(
+        min(static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(seg) &
+                                          15)) & 15),
+            static_cast<long long>(W)));
+    const int nvec = (W - head) / 16;  // 16-byte words after the head
+    const int tail = head + 16 * nvec;
+    bool ok = true;
+    if (lane < head) ok = seg[lane] != 0;
+    if (lane < W - tail) ok = ok && seg[tail + lane] != 0;
+    const uint4* vec = reinterpret_cast<const uint4*>(seg + head);
+    for (int c0 = 0; c0 < nvec; c0 += 128) {  // 4 loads a lane in flight
+      uint4 x[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = c0 + 32 * k + lane;
+        x[k] = c < nvec ? vec[c] : make_uint4(~0u, ~0u, ~0u, ~0u);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        ok = ok && !has_zero_byte(x[k].x) && !has_zero_byte(x[k].y) &&
+             !has_zero_byte(x[k].z) && !has_zero_byte(x[k].w);
+    }
+    in_place = __all_sync(full, ok);
+  }
+  if (in_place) {
+    if (lane == 0) {
+      a.counts[r] = W;
+      a.src[r] = 0;
+    }
+    return;
+  }
+  const int32_t* ht = h.h_ts + local * h.h_ts_ld;
+  const double* hx = h.h_vals + local * h.h_vals_ld;
+  const int32_t* lt = h.ts + local * h.ts_ld;
+  const double* lx = h.vals + local * h.vals_ld;
+  int32_t* ct = a.cts + r * a.N;
+  double* cx = a.cvals + r * a.N;
+  const unsigned below = (1u << lane) - 1u;
+  int carry = 0;
+  for (int base = 0; base < W; base += 32) {
+    const int j = base + lane;
+    const bool ok = j < W && (j < H ? hv[j] : lv[j - H]);
+    const unsigned m = __ballot_sync(full, ok);
+    if (ok) {
+      const int p = carry + __popc(m & below);
+      ct[p] = j < H ? ht[j] : lt[j - H];
+      cx[p] = j < H ? hx[j] : lx[j - H];
+    }
+    carry += __popc(m);
+  }
+  if (lane == 0) {
+    a.counts[r] = carry;
+    a.src[r] = 1;
+  }
 }
 
 unsigned blocks_for(long long n) {
@@ -141,38 +198,52 @@ extern "C" int vm_combine_moments(const void* moments, int D, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B15's halo compaction of R rows: local columns [R, C] and halo columns
-// [R, H] (h_* null: masked), each with its row stride -> ts_out, vals_out
-// [R, H + C] and counts [R].
-extern "C" int vm_halo_compact(
-    const void* ts, long long ts_ld, const void* vals, long long vals_ld,
-    const void* valid, long long valid_ld, const void* h_ts,
-    long long h_ts_ld, const void* h_vals, long long h_vals_ld,
-    const void* h_valid, long long h_valid_ld, long long R, int C, int H,
-    int shift, void* ts_out, void* vals_out, void* counts, void* stream) {
-  if (R <= 0 || C + H <= 0) return 0;
-  if (C < 0 || H < 0) return static_cast<int>(cudaErrorInvalidValue);
-  halo_compact<<<static_cast<unsigned>(R), kDecodeThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(ts), ts_ld,
-      static_cast<const double*>(vals), vals_ld,
-      static_cast<const bool*>(valid), valid_ld,
-      static_cast<const int32_t*>(h_ts), h_ts_ld,
-      static_cast<const double*>(h_vals), h_vals_ld,
-      static_cast<const bool*>(h_valid), h_valid_ld, C, H, shift,
-      static_cast<int32_t*>(ts_out), static_cast<double*>(vals_out),
-      static_cast<int32_t*>(counts));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// B15's add-back for the time-valued funcs: out[r * ld + c] += shift / 1e3
-// over an [R, cols] block, in place.
-extern "C" int vm_add_seconds(void* out, long long ld, long long R, int cols,
-                              int shift, void* stream) {
-  if (R <= 0 || cols <= 0) return 0;
-  add_seconds<<<blocks_for(R * cols), kCombineThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<double*>(out), ld, R, cols, shift);
+// B15's halo pass over the D shards of one card: `desc` holds
+// kHaloFields values per shard (parallel/mesh.py _halo_desc): ts, its row
+// stride, vals, its stride, valid, its stride, the halo's three arrays
+// and strides (null with H = 0), the rows, H and inplace.  Outputs over
+// the concatenation of the shards' rows: counts, src, and the compacted
+// rows in cts / cvals [rows, N] (N >= H + C).
+extern "C" int vm_halo_compact(int D, const long long* desc, int C, int N,
+                               void* cts, void* cvals, void* counts,
+                               void* src, void* stream) {
+  if (D < 1 || D > kMaxShards || C < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  HaloArgs a{};
+  a.D = D;
+  a.C = C;
+  a.N = N;
+  for (int d = 0; d < D; ++d) {
+    const long long* f = desc + static_cast<long long>(d) * kHaloFields;
+    HaloShard& h = a.sh[d];
+    h.ts = reinterpret_cast<const int32_t*>(f[0]);
+    h.ts_ld = f[1];
+    h.vals = reinterpret_cast<const double*>(f[2]);
+    h.vals_ld = f[3];
+    h.valid = reinterpret_cast<const bool*>(f[4]);
+    h.valid_ld = f[5];
+    h.h_ts = reinterpret_cast<const int32_t*>(f[6]);
+    h.h_ts_ld = f[7];
+    h.h_vals = reinterpret_cast<const double*>(f[8]);
+    h.h_vals_ld = f[9];
+    h.h_valid = reinterpret_cast<const bool*>(f[10]);
+    h.h_valid_ld = f[11];
+    h.H = static_cast<int>(f[13]);
+    h.inplace = static_cast<int>(f[14]);
+    if (f[12] < 0 || f[13] < 0 || f[13] + C > N ||
+        (f[13] > 0 && (f[6] == 0 || f[8] == 0 || f[10] == 0)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.row0[d + 1] = a.row0[d] + f[12];
+  }
+  a.cts = static_cast<int32_t*>(cts);
+  a.cvals = static_cast<double*>(cvals);
+  a.counts = static_cast<int32_t*>(counts);
+  a.src = static_cast<int32_t*>(src);
+  const long long R = a.row0[D];
+  if (R <= 0 || C + N <= 0) return 0;
+  const long long per = kCombineThreads / 32;
+  halo_compact<<<static_cast<unsigned>((R + per - 1) / per),
+                 kCombineThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

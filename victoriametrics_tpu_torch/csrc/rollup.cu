@@ -958,7 +958,8 @@ __host__ __device__ constexpr bool reads_values() {
 
 // One row block of the series passes and its row-scan outputs: rows
 // [0, rows) of an [rows, N] tile, whose scan outputs (slots, mpi, mean)
-// sit at row0 + row.
+// sit at row0 + row.  walk_rows reads a row through row_ts / row_vals
+// (B15's ShardSource picks each row's source there).
 struct RowSource {
   const int32_t* ts;
   const double* vals;
@@ -967,40 +968,44 @@ struct RowSource {
   const int32_t *slots, *mpi;      // ... its slots and maxPrevIntervals
   long long row0;
   int N;
+  __device__ __forceinline__ const int32_t* row_ts(int local) const {
+    return ts + static_cast<long long>(local) * N;
+  }
+  __device__ __forceinline__ const double* row_vals(int local) const {
+    return vals + static_cast<long long>(local) * N;
+  }
 };
 
-__device__ __forceinline__ Row member_row(const RowSource& s,
-                                          const MemberRow& m) {
-  const long long off = static_cast<long long>(m.local) * s.N;
-  const double* v = s.vals + off;
+template <class Src>
+__device__ __forceinline__ Row member_row(const Src& s, const MemberRow& m) {
+  const double* v = s.row_vals(m.local);
   const int slot = s.slots[m.row];
   const long long soff = static_cast<long long>(slot) * s.N;
-  return Row{s.ts + off, v, slot < 0 ? v : s.cv + soff,
+  return Row{s.row_ts(m.local), v, slot < 0 ? v : s.cv + soff,
              slot < 0 ? v : s.cmax + soff, m.c, m.mpi, m.mean, 0.0};
 }
 
 // Start row m's copies into stage st: its span's timestamps and the
 // planes the func reads (values, or cv and cmax of an irregular counter
 // row), thread i taking samples i, i + 128, ...
-template <int F>
-__device__ __forceinline__ void stage_row(const RowSource& s, int cap,
+template <int F, class Src>
+__device__ __forceinline__ void stage_row(const Src& s, int cap,
                                           const MemberRow& m,
                                           unsigned char* st) {
   int s0, n;
   span_of(m, cap, &s0, &n);
   if (n <= 0) return;
-  const long long off = static_cast<long long>(m.local) * s.N + s0;
   int32_t* sts = reinterpret_cast<int32_t*>(st);
   double* sa = reinterpret_cast<double*>(st + align16(4LL * cap));
   double* sb = sa + align16(8LL * cap) / 8;
-  const int32_t* tsrc = s.ts + off;
+  const int32_t* tsrc = s.row_ts(m.local) + s0;
   for (int i = threadIdx.x; i < n; i += kGroupThreads)
     copy4_async(sts + i, tsrc + i);
   constexpr bool kCounter = F <= kIrate;
   if (!reads_values<F>()) return;
   const long long soff = static_cast<long long>(m.slot) * s.N + s0;
   const double* asrc =
-      kCounter && m.slot >= 0 ? s.cv + soff : s.vals + off;
+      kCounter && m.slot >= 0 ? s.cv + soff : s.row_vals(m.local) + s0;
   for (int i = threadIdx.x; i < n; i += kGroupThreads)
     copy8_async(sa + i, asrc + i);
   if (kCounter && m.slot >= 0)
@@ -1028,8 +1033,8 @@ __device__ __forceinline__ void stage_row(const RowSource& s, int cap,
 // the same window, and window_value is one function: a row's value at a
 // step has the same bits on either path.  `rows` holds kSpanBatch rows,
 // `ring` kStages stages of `cap` samples.
-template <int F, class LocalOf, class Emit>
-__device__ __forceinline__ void walk_rows(const RowSource& s, const Grid& g,
+template <int F, class Src, class LocalOf, class Emit>
+__device__ __forceinline__ void walk_rows(const Src& s, const Grid& g,
                                           int staged, int cap, int k0,
                                           int k1, int t0, int nst,
                                           MemberRow* rows,
@@ -1077,7 +1082,7 @@ __device__ __forceinline__ void walk_rows(const RowSource& s, const Grid& g,
     if (tid < 2 * nb) {
       MemberRow& mr = rows[tid >> 1];
       const int local = local_of(kb + (tid >> 1));
-      const int32_t* trow = s.ts + static_cast<long long>(local) * s.N;
+      const int32_t* trow = s.row_ts(local);
       const int c = min(s.counts[local], s.N);
       int32_t f0 = 0, f1 = 0;
       if (c > 0) {
@@ -1126,8 +1131,7 @@ __device__ __forceinline__ void walk_rows(const RowSource& s, const Grid& g,
       __syncthreads();
       if (n > 0) {
         const StagedRow r{sts, sa, kCounter && mr.slot < 0 ? sa : sb, s0,
-                          shift,
-                          s.ts + static_cast<long long>(mr.local) * s.N};
+                          shift, s.row_ts(mr.local)};
         const int32_t f0 = shifted(sts[0], shift);
         const float per = per_ms_of(f0, shifted(sts[n - 1], shift), n);
 #pragma unroll
@@ -1317,6 +1321,169 @@ series_pass(SeriesArgs a) {
                ring, [](int k) { return k; },
                [&](const MemberRow& mr, int, int t, double v) {
                  out[mr.local * ldo + t] = v;
+               });
+}
+
+// B15's passes over the D (series, time) shards of one card: the row
+// scan, the scratch pass and B5's staged series pass, one launch each.
+// Shard d's rows r in [row0[d], row0[d + 1]) of the concatenation: a row
+// whose halo and local columns are all valid is read in place, from the
+// tile (ts[d] + local * ts_ld[d], width[d] columns, the shard's halo
+// first); any other row from its compacted copy (cts + r * N, counts[r]
+// valid samples), as src[r] says (mesh.cu halo_compact wrote both).
+// Timestamps are raw in either source: the passes shift them by shift[d]
+// in registers.  Shard d writes its [rows, T] block at out[d], row stride
+// ldo[d].
+struct ShardBlocks {
+  const int32_t* ts[kMaxShards];
+  const double* vals[kMaxShards];
+  long long ts_ld[kMaxShards], vals_ld[kMaxShards];
+  double* out[kMaxShards];
+  long long ldo[kMaxShards];
+  int width[kMaxShards];
+  int32_t shift[kMaxShards];
+  long long row0[kMaxShards + 1];
+  long long unit0[kMaxShards + 1];  // the series pass's first block of d
+  int D;
+  const int32_t* cts;  // compacted rows [row0[D], N]
+  const double* cvals;
+  const int32_t* counts;  // [row0[D]]
+  const int32_t* src;     // [row0[D]]: 1 = compacted
+  int N;
+};
+
+__device__ __forceinline__ int shard_of(const ShardBlocks& b, long long r) {
+  int d = 0;
+  while (d + 1 < b.D && r >= b.row0[d + 1]) ++d;
+  return d;
+}
+
+// Row r's timestamps and values, from its source.
+__device__ __forceinline__ void shard_row(const ShardBlocks& b, int d,
+                                          long long r, const int32_t** t,
+                                          const double** v) {
+  if (b.src[r]) {
+    *t = b.cts + r * b.N;
+    *v = b.cvals + r * b.N;
+  } else {
+    const long long local = r - b.row0[d];
+    *t = b.ts[d] + local * b.ts_ld[d];
+    *v = b.vals[d] + local * b.vals_ld[d];
+  }
+}
+
+// walk_rows' row source over shard d of ShardBlocks (local rows of the
+// shard; the scan's outputs at row0 + local).
+struct ShardSource {
+  const int32_t* ts;
+  const double* vals;
+  long long ts_ld, vals_ld;
+  const int32_t* cts;  // the shard's compacted rows
+  const double* cvals;
+  const int32_t* src;
+  const int32_t* counts;
+  const double *cv, *cmax, *mean;
+  const int32_t *slots, *mpi;
+  long long row0;
+  int N;
+  __device__ __forceinline__ const int32_t* row_ts(int local) const {
+    return src[local] ? cts + static_cast<long long>(local) * N
+                      : ts + local * ts_ld;
+  }
+  __device__ __forceinline__ const double* row_vals(int local) const {
+    return src[local] ? cvals + static_cast<long long>(local) * N
+                      : vals + local * vals_ld;
+  }
+};
+
+// B15's row scan: one warp per row of the D shards, each with its
+// shard's shift (rollup_scan's outputs, from scan_row).
+__global__ void __launch_bounds__(kPrepThreads)
+shard_scan(ShardBlocks b, int32_t min_ts, int32_t step, int instant,
+           int counter, int32_t* __restrict__ mpi,
+           int32_t* __restrict__ slots, int32_t* __restrict__ n_irregular,
+           double* __restrict__ mean) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
+      (threadIdx.x >> 5);
+  if (r >= b.row0[b.D]) return;  // uniform across the warp
+  const int d = shard_of(b, r);
+  const int32_t* t;
+  const double* v;
+  shard_row(b, d, r, &t, &v);
+  const bool irregular = scan_row(
+      t, v, min(b.counts[r], b.width[d]), b.width[d], b.shift[d], min_ts,
+      step, instant, counter, mean != nullptr ? mean + r : nullptr, mpi + r);
+  if ((threadIdx.x & 31) == 0)
+    slots[r] = irregular ? atomicAdd(n_irregular, 1) : -1;
+}
+
+// B15's scratch pass: one warp per irregular row (rollup_prep's).
+__global__ void __launch_bounds__(kPrepThreads)
+shard_prep(ShardBlocks b, const int32_t* __restrict__ slots,
+           double* __restrict__ cv, double* __restrict__ cmax) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * (kPrepThreads / 32) +
+      (threadIdx.x >> 5);
+  if (r >= b.row0[b.D]) return;  // uniform across the warp
+  const int slot = slots[r];
+  if (slot < 0) return;
+  const int d = shard_of(b, r);
+  const int32_t* t;
+  const double* v;
+  shard_row(b, d, r, &t, &v);
+  const long long soff = static_cast<long long>(slot) * b.N;
+  prep_row(v, min(b.counts[r], b.width[d]), false, 0.0, cv + soff,
+           cmax + soff);
+}
+
+// The arguments of B15's series pass.
+struct ShardArgs {
+  ShardBlocks b;
+  const double *cv, *cmax, *mean;
+  const int32_t *slots, *mpi;
+  Grid g;
+  int T, staged, rows, steps, cap;
+};
+
+// B15's series pass: B5's series_pass over the D shards.  Block (x, y):
+// rows [u * rows, (u + 1) * rows) of the shard d whose blocks hold x (u
+// = x - unit0[d]) over y's tile of `steps` steps, walked by walk_rows on
+// the staged path or by the global search (the plan's), each value
+// stored into the shard's output block.  The time-valued funcs add the
+// shard's shift / 1e3 (a float64 division) to the final value in the
+// store: B5's value, then the reference's add-back.
+template <int F>
+__global__ void __launch_bounds__(kGroupThreads, kGroupBlocksPerSm)
+shard_pass(ShardArgs a) {
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ MemberRow rows[kSpanBatch];
+  constexpr bool kTimeValued = F == kTfirst || F == kTlast || F == kTimestamp;
+  const long long x = blockIdx.x;
+  const ShardBlocks& b = a.b;
+  int d = 0;
+  while (d + 1 < b.D && x >= b.unit0[d + 1]) ++d;
+  const long long r0 = (x - b.unit0[d]) * a.rows;
+  const int nr = static_cast<int>(
+      min(static_cast<long long>(a.rows), b.row0[d + 1] - b.row0[d] - r0));
+  const int t0 = blockIdx.y * a.steps;
+  Grid g = a.g;
+  g.shift = b.shift[d];
+  const long long row0 = b.row0[d];
+  const ShardSource src{b.ts[d],         b.vals[d],        b.ts_ld[d],
+                        b.vals_ld[d],    b.cts + row0 * b.N,
+                        b.cvals + row0 * b.N,              b.src + row0,
+                        b.counts + row0, a.cv,             a.cmax,
+                        a.mean,          a.slots,          a.mpi,
+                        row0,            b.N};
+  double* __restrict__ out = b.out[d];
+  const long long ldo = b.ldo[d];
+  const double add = static_cast<double>(g.shift) / 1e3;
+  walk_rows<F>(src, g, a.staged, a.cap, static_cast<int>(r0),
+               static_cast<int>(r0) + nr, t0, min(a.steps, a.T - t0), rows,
+               ring, [](int k) { return k; },
+               [&](const MemberRow& mr, int, int t, double v) {
+                 out[mr.local * ldo + t] = kTimeValued ? v + add : v;
                });
 }
 
@@ -1557,6 +1724,29 @@ const SeriesLaunch* series_pass_table(std::integer_sequence<int, F...>) {
   return table;
 }
 
+// B15's series pass, the ring's shared memory opted into above 48 KB.
+template <int F>
+cudaError_t launch_shard_pass(dim3 grid, size_t smem, cudaStream_t st,
+                              const ShardArgs& a) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(&shard_pass<F>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  shard_pass<F><<<grid, kGroupThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+using ShardLaunch = cudaError_t (*)(dim3, size_t, cudaStream_t,
+                                    const ShardArgs&);
+
+template <int... F>
+const ShardLaunch* shard_pass_table(std::integer_sequence<int, F...>) {
+  static const ShardLaunch table[] = {&launch_shard_pass<F>...};
+  return table;
+}
+
 // B12's launch plan: the workspace in shared memory when the row's values
 // and timestamps fit the opt-in limit (and `force_global` is 0), the
 // block's threads, the grid the blocks resident on the card at once (at
@@ -1686,6 +1876,46 @@ int prep(const RowBlocks& rb, const void* slots, const void* v0, int N,
       static_cast<const double*>(v0), N, static_cast<double*>(cv),
       static_cast<double*>(cmax));
   return static_cast<int>(cudaGetLastError());
+}
+
+// B15's shards of one card as ShardBlocks: `desc` holds kShardFields
+// values per shard (ops-side layout: parallel/mesh.py _shard_desc): the
+// in-place ts and vals (the tile at the shard's first column) and their
+// row strides, the width, the rows, the shift, the output block and its
+// row stride.  `rows_per_unit` > 0 numbers the series pass's blocks.
+constexpr int kShardFields = 9;
+
+bool make_shards(int D, const long long* desc, const void* cts,
+                 const void* cvals, const void* counts, const void* src,
+                 int N, int rows_per_unit, ShardBlocks* b) {
+  if (D < 1 || D > kMaxShards || N < 1) return false;
+  *b = ShardBlocks{};
+  b->D = D;
+  for (int d = 0; d < D; ++d) {
+    const long long* f = desc + static_cast<long long>(d) * kShardFields;
+    b->ts[d] = reinterpret_cast<const int32_t*>(f[0]);
+    b->ts_ld[d] = f[1];
+    b->vals[d] = reinterpret_cast<const double*>(f[2]);
+    b->vals_ld[d] = f[3];
+    b->width[d] = static_cast<int>(f[4]);
+    const long long rows = f[5];
+    b->shift[d] = static_cast<int32_t>(f[6]);
+    b->out[d] = reinterpret_cast<double*>(f[7]);
+    b->ldo[d] = f[8];
+    if (rows < 0 || f[4] < 1 || f[4] > N || f[6] < kI32Min ||
+        f[6] > 2147483647LL)
+      return false;
+    b->row0[d + 1] = b->row0[d] + rows;
+    b->unit0[d + 1] =
+        b->unit0[d] +
+        (rows_per_unit > 0 ? (rows + rows_per_unit - 1) / rows_per_unit : 0);
+  }
+  b->cts = static_cast<const int32_t*>(cts);
+  b->cvals = static_cast<const double*>(cvals);
+  b->counts = static_cast<const int32_t*>(counts);
+  b->src = static_cast<const int32_t*>(src);
+  b->N = N;
+  return true;
 }
 
 }  // namespace
@@ -1913,6 +2143,90 @@ extern "C" int vm_rollup_series(const void* ts, const void* vals,
       series_pass_table(std::make_integer_sequence<int, kFuncs>())[func](
           dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles)),
           static_cast<size_t>(kStages * stage_bytes(cap)), st, a));
+}
+
+// B15's row scan over the D shards of one card (desc: make_shards):
+// mpi, slots and mean per row of the concatenation, n_irregular (zeroed
+// here first) counting the counter funcs' irregular rows.
+extern "C" int vm_time_shards_scan(int D, const long long* desc,
+                                   const void* cts, const void* cvals,
+                                   const void* counts, const void* src,
+                                   int N, int min_ts, int step, int instant,
+                                   int counter, void* mpi, void* slots,
+                                   void* n_irregular, void* mean,
+                                   void* stream) {
+  ShardBlocks b;
+  if (!make_shards(D, desc, cts, cvals, counts, src, N, 0, &b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long S = b.row0[D];
+  const cudaError_t e = cudaMemsetAsync(n_irregular, 0, sizeof(int32_t),
+                                        static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess || S <= 0) return static_cast<int>(e);
+  shard_scan<<<warp_blocks(S), kPrepThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      b, min_ts, step, instant, counter, static_cast<int32_t*>(mpi),
+      static_cast<int32_t*>(slots), static_cast<int32_t*>(n_irregular),
+      static_cast<double*>(mean));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B15's scratch pass over the same shards' irregular rows.
+extern "C" int vm_time_shards_prep(int D, const long long* desc,
+                                   const void* cts, const void* cvals,
+                                   const void* counts, const void* src,
+                                   int N, const void* slots, void* cv,
+                                   void* cmax, void* stream) {
+  ShardBlocks b;
+  if (!make_shards(D, desc, cts, cvals, counts, src, N, 0, &b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long S = b.row0[D];
+  if (S <= 0) return 0;
+  shard_prep<<<warp_blocks(S), kPrepThreads, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+      b, static_cast<const int32_t*>(slots), static_cast<double*>(cv),
+      static_cast<double*>(cmax));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B15's series pass over the same shards -> each shard's [rows, T] block
+// (desc's output and row stride): B5's staged pass (staged = 1: `rows`
+// rows and `steps` steps a block, stages of `cap` samples) or the global
+// search (staged = 0: rows 1, steps kGroupThreads), as b5_plan says for
+// the card's rows of N columns; cv ... mean are the scan's.
+extern "C" int vm_time_shards_series(
+    int D, const long long* desc, const void* cts, const void* cvals,
+    const void* counts, const void* src, int N, const void* cv,
+    const void* cmax, const void* slots, const void* mpi, const void* mean,
+    int T, int min_ts, int step, int lookback, double start_s, int func,
+    int staged, int rows, int steps, int cap, void* stream) {
+  if (T <= 0) return 0;
+  ShardArgs a{};
+  if (func < 0 || func >= kFuncs || rows < 1 || rows > kSpanBatch ||
+      steps < kGroupThreads || steps > kMaxStepsPerThread * kGroupThreads ||
+      steps % kGroupThreads != 0 || (staged && (cap < 1 || cap > N)) ||
+      !make_shards(D, desc, cts, cvals, counts, src, N, rows, &a.b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = a.b.unit0[D];
+  const long long tiles = (T + steps - 1) / steps;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL || tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.cv = static_cast<const double*>(cv);
+  a.cmax = static_cast<const double*>(cmax);
+  a.mean = static_cast<const double*>(mean);
+  a.slots = static_cast<const int32_t*>(slots);
+  a.mpi = static_cast<const int32_t*>(mpi);
+  a.g = make_grid(0, min_ts, step, lookback, start_s);
+  a.T = T;
+  a.staged = staged;
+  a.rows = rows;
+  a.steps = steps;
+  a.cap = cap;
+  return static_cast<int>(
+      shard_pass_table(std::make_integer_sequence<int, kFuncs>())[func](
+          dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles)),
+          staged ? static_cast<size_t>(kStages * stage_bytes(cap)) : 0,
+          static_cast<cudaStream_t>(stream), a));
 }
 
 // B12's plan for S rows of n columns: *blocks to launch and the global

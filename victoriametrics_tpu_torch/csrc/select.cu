@@ -47,21 +47,39 @@
 // int32 or int64 indices as the caller has them.
 //
 // B7 replaces device_rollup.py:rank_tile's statistic: per series, over its
-// non-NaN steps, max / min / avg (sum in ascending step order over
-// max(n, 1)) / last (the last non-NaN value) / median (NaN as +inf, the
-// interpolation a + (pos - j0) (b - a) at pos = 0.5 (n - 1)); NaN where
-// n = 0.  max/min/avg/last take one thread per row.  median takes one
-// block per row: the row's order-preserving 64-bit keys are staged in
-// shared memory when T <= kStageMax (else read from global memory) and a
-// radix select (8 passes of 8 bits, warp-aggregated shared-memory
-// histograms) finds the j0-th key; the j1-th is the same key when enough
-// keys equal it, else the least larger key.  The interpolation's result
-// is +0.0 whichever zero sits at j0 or j1, so keys fold -0.0 into +0.0.
+// non-NaN steps, max / min / avg (the sum over max(n, 1)) / last (the
+// last non-NaN value) / median (NaN as +inf, the interpolation a + (pos -
+// j0) (b - a) at pos = 0.5 (n - 1)); NaN where n = 0.  max/min/avg/last
+// take a warp per row (rank_simple): coalesced 32-step loads, a lane's
+// steps folded in order and the lanes by shuffles (avg a tree sum, within
+// rtol 1e-12 of the serial one), last by a ballot from the row's end.
+// The median takes the wrapper's plan (ops/device_rollup.rank_plan): a
+// warp per row, several rows a block, for short rows (the dashboard's
+// 355 steps); a block per row for long ones (5761 at full width); a block
+// per row reading global memory above kStageMax steps.  The row is staged
+// by 8-byte cp.async (rows are 8-byte aligned only), each thread turning
+// the values it copied into order-preserving 64-bit keys and counting the
+// live ones and their least and greatest key in registers, one reduction
+// a row.  A radix select (select_pair) then runs passes of 256 digits
+// over the candidates' key range [lo, hi], digit (key - lo) >> shift with
+// the least shift that spans it (the first pass spreads the live keys
+// over every bin), each pass's histogram built in a private one per warp;
+// once the keys of the buckets holding j0 and j1 number at most the
+// team's threads, they are compacted into shared memory and ranked one a
+// thread, which gives j0 and j1 both.  A row of distinct rates gets there
+// in one or two passes; a pass that splits nothing narrows the range to
+// the candidates' own, so a run of ties ends at once; a j1 that starts
+// the bucket after a large j0 bucket is the least key above j0's (one
+// more read).  The
+// interpolation's result is +0.0 whichever zero sits at j0 or j1, so keys
+// fold -0.0 into +0.0, and the selected keys are those of the plain sort:
+// the same bits.
 //
 // Bound: bytes.  B6 must read the rolled tile once (8 B per (series,
 // step)) and write [T, k] picks; take_rows reads and writes each picked
 // row once; B7 reads the tile once and writes [S]; the radix passes
-// re-read the keys staged in scratch or shared memory.
+// re-read the keys staged in scratch or shared memory (B7's global path
+// re-reads the row).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -695,42 +713,124 @@ cudaError_t launch_scan(const double* r, int S, int T, int k, int bottom,
 }
 
 enum Kind { kMax = 0, kMin = 1, kAvg = 2, kMedian = 3, kLast = 4 };
+// the median's paths (RANK_WARP, RANK_BLOCK, RANK_GLOBAL in
+// ops/device_rollup.py, chosen by rank_plan)
+enum RankPath { kRankWarp = 0, kRankBlock = 1, kRankGlobal = 2 };
+constexpr int kRankWarps = kRankThreads / 32;  // rows a warp-path block
+constexpr int kHistBins = 256;                 // a radix pass's digits
 
-// One thread per row: max / min / avg / last over the non-NaN steps.
-__global__ void __launch_bounds__(128)
+// Diagnostic builds (tools/select_timing.py, -DVM_B7_STOP=k) end the
+// median after phase k: 1 the staging (rank = live count), 2 the radix
+// passes (rank = the selected prefix's value).
+#ifndef VM_B7_STOP
+#define VM_B7_STOP 0
+#endif
+
+// A warp per row: max / min / avg / last over the non-NaN steps.  The
+// row is read 128 steps at a time, 32 consecutive doubles a load; a lane
+// folds its steps in ascending order, then the lanes fold by shuffles
+// (avg's sum is a tree, as jnp.sum's is); last is the highest set lane
+// of a ballot of the non-NaN flags, from the row's end.
+__global__ void __launch_bounds__(kRankThreads)
 rank_simple(const double* __restrict__ rolled, long long S, int T, int kind,
             double* __restrict__ rank) {
-  const long long s = static_cast<long long>(blockIdx.x) * 128 + threadIdx.x;
-  if (s >= S) return;
+  const long long s =
+      static_cast<long long>(blockIdx.x) * kRankWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
+  if (s >= S) return;  // uniform across the warp
   const double* row = rolled + s * T;
+  if (kind == kLast) {
+    for (int base = (T - 1) / 32 * 32; base >= 0; base -= 32) {
+      const int t = base + lane;
+      const double v = t < T ? row[t] : qnan();
+      const unsigned live = __ballot_sync(full, v == v);
+      if (live != 0u) {  // uniform across the warp
+        const double r = __shfl_sync(full, v, 31 - __clz(live));
+        if (lane == 0) rank[s] = r;
+        return;
+      }
+    }
+    if (lane == 0) rank[s] = qnan();
+    return;
+  }
   int n = 0;
   double r = kind == kMin ? INFINITY : (kind == kMax ? -INFINITY : 0.0);
-  for (int t = 0; t < T; ++t) {
-    const double v = row[t];
-    if (v != v) continue;
-    ++n;
-    if (kind == kMax) r = v > r ? v : r;
-    else if (kind == kMin) r = v < r ? v : r;
-    else if (kind == kAvg) r += v;
-    else r = v;  // last
+  for (int base = 0; base < T; base += 128) {
+    double v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = base + 32 * k + lane;
+      v[k] = t < T ? row[t] : qnan();
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (v[k] != v[k]) continue;
+      ++n;
+      if (kind == kMax) r = v[k] > r ? v[k] : r;
+      else if (kind == kMin) r = v[k] < r ? v[k] : r;
+      else r += v[k];
+    }
   }
-  if (kind == kAvg) r = r / static_cast<double>(n > 1 ? n : 1);
-  rank[s] = n == 0 ? qnan() : r;
+  for (int o = 16; o > 0; o >>= 1) {
+    n += __shfl_xor_sync(full, n, o);
+    const double y = __shfl_xor_sync(full, r, o);
+    if (kind == kMax) r = y > r ? y : r;
+    else if (kind == kMin) r = y < r ? y : r;
+    else r += y;
+  }
+  if (lane == 0) {
+    if (kind == kAvg) r = r / static_cast<double>(n > 1 ? n : 1);
+    rank[s] = n == 0 ? qnan() : r;
+  }
 }
 
-__device__ int block_count(bool x) {
-  __shared__ int s_cnt[32];
-  int c = __popc(__ballot_sync(0xffffffffu, x));
-  if ((threadIdx.x & 31) == 0) s_cnt[threadIdx.x >> 5] = c;
-  __syncthreads();
-  int total = 0;
-  for (int w = 0; w < static_cast<int>(blockDim.x / 32); ++w)
-    total += s_cnt[w];
-  __syncthreads();
-  return total;
+// The shared state of one row's median, for a team of NT threads: a warp
+// (NT = 32, the warp path) or a block (NT = kRankThreads).
+template <int NT>
+struct Team {
+  static constexpr int kWarps = NT / 32;
+  unsigned hist[kWarps][kHistBins];  // a private histogram per warp
+  unsigned long long cand[NT];       // the candidates around j0 and j1
+  unsigned long long cand2[32];      // ... narrowed again (a block)
+  unsigned long long red_min[kWarps], red_max[kWarps];
+  int red_live[kWarps];
+  unsigned warp_tot[kWarps];
+  // j0's bucket, the keys before it, the keys in it; j1's bucket, every
+  // candidate, the keys in j1's bucket
+  int pick[6];
+  int n_cand, n_cand2;
+  unsigned long long key0, key1;
+};
+
+template <int NT>
+__device__ __forceinline__ void team_sync() {
+  if (NT == 32) __syncwarp();
+  else __syncthreads();
 }
 
-struct RowKeys {  // a rolled row, NaN as +inf
+// The exclusive prefix sum of x over the team's threads in order.
+template <int NT>
+__device__ __forceinline__ unsigned team_excl_scan(unsigned x,
+                                                   Team<NT>& tm) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  unsigned incl = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(full, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (NT == 32) return incl - x;
+  const int w = threadIdx.x >> 5;
+  if (lane == 31) tm.warp_tot[w] = incl;
+  __syncthreads();
+  unsigned off = 0;
+  for (int k = 0; k < w; ++k) off += tm.warp_tot[k];
+  return off + incl - x;
+}
+
+// A row's keys from global memory (T > kStageMax): NaN as +inf.
+struct RowKeys {
   const double* row;
   __device__ unsigned long long operator()(int i) const {
     const double v = row[i];
@@ -738,39 +838,336 @@ struct RowKeys {  // a rolled row, NaN as +inf
   }
 };
 
-// The median of one row from its keys; n = non-NaN steps.
-template <class KeyFn>
-__device__ double median_of(KeyFn key, int T, int n) {
-  const int nm1 = n - 1 > 0 ? n - 1 : 0;
+// The least key above `floor` among the team's nk keys (the exact path of
+// a median whose j0 and j1 lie in two large buckets).
+template <int NT, class KeyFn>
+__device__ unsigned long long team_min_above(KeyFn key, int nk,
+                                             unsigned long long floor,
+                                             Team<NT>& tm, int tid) {
+  unsigned long long m = kDead;
+  for (int i = tid; i < nk; i += NT) {
+    const unsigned long long u = key(i);
+    if (u > floor && u < m) m = u;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long y = __shfl_xor_sync(0xffffffffu, m, o);
+    m = y < m ? y : m;
+  }
+  if (NT == 32) return m;
+  if ((threadIdx.x & 31) == 0) tm.red_min[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = tm.red_min[0];
+  for (int w = 1; w < Team<NT>::kWarps; ++w)
+    m = tm.red_min[w] < m ? tm.red_min[w] : m;
+  return m;
+}
+
+// The least and greatest of the team's (mn, mx), on every thread.
+template <int NT>
+__device__ __forceinline__ void team_minmax(unsigned long long* mn,
+                                            unsigned long long* mx,
+                                            Team<NT>& tm) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const unsigned long long a = __shfl_xor_sync(0xffffffffu, *mn, o);
+    const unsigned long long b = __shfl_xor_sync(0xffffffffu, *mx, o);
+    *mn = a < *mn ? a : *mn;
+    *mx = b > *mx ? b : *mx;
+  }
+  if (NT == 32) return;
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    tm.red_min[w] = *mn;
+    tm.red_max[w] = *mx;
+  }
+  __syncthreads();
+  for (int k = 0; k < Team<NT>::kWarps; ++k) {
+    *mn = tm.red_min[k] < *mn ? tm.red_min[k] : *mn;
+    *mx = tm.red_max[k] > *mx ? tm.red_max[k] : *mx;
+  }
+  __syncthreads();  // red_min / red_max are rewritten next
+}
+
+// A radix select's state: the candidates are the keys in [lo, hi],
+// `below` keys lie under lo, and the wanted ranks are want0 <= want1
+// (want1 = want0 once j1 is left to the exact path, min_above).  done:
+// k0 and k1 are found.
+struct Select {
+  unsigned long long lo, hi, k0, k1;
+  unsigned below, want0, want1;
+  bool min_above, done;
+};
+
+// Radix passes over the team's nk keys key(i) until the keys of the
+// buckets holding want0 and want1 (one bucket, or two neighbouring ones)
+// are at most `limit` (then [lo, hi] is their range), or k0 and k1 are
+// found.  A pass takes 256 digits (k - lo) >> shift with the least shift
+// that spans [lo, hi], so the first one spreads the live keys over every
+// bin whatever their magnitudes (rates in [1, 2.2] share their sign and
+// most of their exponent), each histogram built in a private one per
+// warp.  A pass that leaves every candidate in one bucket narrows to the
+// candidates' own least and greatest key, so a run of ties ends at once.
+// `ncand`: the candidates, at most.
+template <int NT, class KeyFn>
+__device__ void narrow(KeyFn key, int nk, int ncand, int limit, Select& s,
+                       Team<NT>& tm, int tid, int wid) {
+  constexpr int kBins = kHistBins / NT;  // bins a thread totals
+  while (ncand > limit) {
+    const unsigned long long lo = s.lo, hi = s.hi;
+    const int shift = max(0, 56 - __clzll(static_cast<long long>(hi - lo)));
+    unsigned long long cmin = kDead, cmax = 0;
+    for (int i = tid; i < nk; i += NT) {
+      const unsigned long long k = key(i);
+      if (k >= lo && k <= hi) {
+        atomicAdd(&tm.hist[wid][static_cast<int>((k - lo) >> shift)], 1u);
+        cmin = k < cmin ? k : cmin;
+        cmax = k > cmax ? k : cmax;
+      }
+    }
+    team_sync<NT>();
+    unsigned c[kBins];
+    unsigned tot = 0;
+#pragma unroll
+    for (int q = 0; q < kBins; ++q) {
+      const int b = tid * kBins + q;
+      c[q] = 0;
+      for (int w = 0; w < Team<NT>::kWarps; ++w) {
+        c[q] += tm.hist[w][b];
+        tm.hist[w][b] = 0;
+      }
+      tot += c[q];
+    }
+    const unsigned excl = team_excl_scan<NT>(tot, tm);
+    if (tid == NT - 1) tm.pick[4] = static_cast<int>(excl + tot);
+    const unsigned r0 = s.want0 - s.below, r1 = s.want1 - s.below;
+    if (r0 >= excl && r0 < excl + tot) {
+      unsigned acc = excl;
+      int q = 0;
+      while (acc + c[q] <= r0) acc += c[q++];
+      tm.pick[0] = tid * kBins + q;
+      tm.pick[1] = static_cast<int>(acc);
+      tm.pick[2] = static_cast<int>(c[q]);
+    }
+    if (r1 >= excl && r1 < excl + tot) {
+      unsigned acc = excl;
+      int q = 0;
+      while (acc + c[q] <= r1) acc += c[q++];
+      tm.pick[3] = tid * kBins + q;
+      tm.pick[5] = static_cast<int>(c[q]);
+    }
+    team_sync<NT>();
+    const int b0 = tm.pick[0], acc0 = tm.pick[1], cnt0 = tm.pick[2];
+    const int b1 = tm.pick[3], cnt1 = tm.pick[5], total = tm.pick[4];
+    if (cnt0 == total) {  // nothing split: the candidates' own range
+      team_minmax<NT>(&cmin, &cmax, tm);
+      if (cmin == cmax) {  // a run of ties
+        s.k0 = s.k1 = cmin;
+        s.done = true;
+        return;
+      }
+      s.lo = cmin;
+      s.hi = cmax;
+      ncand = total;
+      continue;
+    }
+    // bucket b's keys: lo + (b << shift) .. lo + last(b), within hi
+    const auto last = [&](int b) {
+      const unsigned long long off =
+          (static_cast<unsigned long long>(b) << shift) +
+          ((1ULL << shift) - 1);
+      return off >= hi - lo ? hi : lo + off;
+    };
+    s.lo = lo + (static_cast<unsigned long long>(b0) << shift);
+    s.below += static_cast<unsigned>(acc0);
+    if ((b0 == b1 ? cnt0 : cnt0 + cnt1) <= limit) {  // j0's and j1's keys
+      s.hi = last(b1);
+      return;
+    }
+    if (b0 != b1) {  // j0 ends its bucket, j1 starts the next: exact path
+      s.min_above = true;
+      s.want1 = s.want0;
+    }
+    s.hi = last(b0);
+    ncand = cnt0;
+    if (shift == 0) {  // a bucket of one key
+      s.k0 = s.k1 = s.lo;
+      s.done = true;
+      return;
+    }
+  }
+}
+
+// The team's keys key(i), i < nk, within [s.lo, s.hi] (at most NT of
+// them) into `out`, in any order; returns their count.
+template <int NT, class KeyFn>
+__device__ int compact(KeyFn key, int nk, const Select& s,
+                       unsigned long long* out, int* count) {
+  for (int i = threadIdx.x % NT; i < nk; i += NT) {
+    const unsigned long long k = key(i);
+    if (k >= s.lo && k <= s.hi) out[atomicAdd(count, 1)] = k;
+  }
+  team_sync<NT>();
+  return *count;
+}
+
+// The j0-th and j1-th smallest of the team's nk keys (j1 - j0 <= 1),
+// whose live keys lie in [kmin, kmax], kmin < kmax: narrow until the
+// keys around them are at most NT, compact those into shared memory; on
+// a block, narrow those (one key a thread) until at most 32 and compact
+// again; then each of the last candidates is ranked by one thread, which
+// gives j0 and j1 both.  A j1 that starts the bucket after a large j0
+// bucket is the least key above j0's (a read of every key).
+template <int NT, class KeyFn>
+__device__ void select_pair(KeyFn key, int nk, unsigned j0, unsigned j1,
+                            unsigned long long kmin, unsigned long long kmax,
+                            Team<NT>& tm, int tid, int wid,
+                            unsigned long long* k0, unsigned long long* k1) {
+  Select s{kmin, kmax, 0, 0, 0, j0, j1, false, false};
+  narrow<NT>(key, nk, nk, NT, s, tm, tid, wid);
+#if VM_B7_STOP == 2
+  *k0 = *k1 = s.done ? s.k0 : s.lo;
+  return;
+#endif
+  if (!s.done) {
+    const unsigned long long* last = tm.cand;
+    int m = compact<NT>(key, nk, s, tm.cand, &tm.n_cand);
+    if (NT > 32 && m > 32) {
+      narrow<NT>(StagedKeys{tm.cand}, m, m, 32, s, tm, tid, wid);
+      if (!s.done) {
+        m = compact<NT>(StagedKeys{tm.cand}, m, s, tm.cand2, &tm.n_cand2);
+        last = tm.cand2;
+      }
+    }
+    if (!s.done) {
+      const unsigned w0 = s.want0 - s.below, w1 = s.want1 - s.below;
+      if (tid < m) {  // this thread's candidate's place among them
+        const unsigned long long k = last[tid];
+        unsigned r = 0;
+        for (int q = 0; q < m; ++q) {
+          const unsigned long long y = last[q];
+          r += y < k || (y == k && q < tid);
+        }
+        if (r == w0) tm.key0 = k;
+        if (r == w1) tm.key1 = k;
+      }
+      team_sync<NT>();
+      s.k0 = tm.key0;
+      s.k1 = tm.key1;
+    }
+  }
+  *k0 = s.k0;
+  *k1 = s.min_above ? team_min_above<NT>(key, nk, s.k0, tm, tid) : s.k1;
+}
+
+// The median of one row by a team (a warp, or a block): the row's T
+// values staged into `keys` by 8-byte cp.async (rows are 8-byte aligned
+// only) and turned into keys in place by the thread that copied them,
+// which counts its live steps and their least and greatest key in
+// registers (one reduction), then select_pair over the staged keys.  With
+// keys == nullptr (T > kStageMax) the passes read the row from global
+// memory.  Returns the interpolation a + (pos - j0) (b - a) at pos = 0.5
+// (n - 1), NaN where n = 0, on every thread.
+template <int NT>
+__device__ double median_row(const double* __restrict__ row, int T,
+                             unsigned long long* keys, Team<NT>& tm,
+                             int tid, int wid) {
+  const unsigned full = 0xffffffffu;
+  for (int b = tid; b < Team<NT>::kWarps * kHistBins; b += NT)
+    (&tm.hist[0][0])[b] = 0;
+  if (tid == 0) tm.n_cand = tm.n_cand2 = 0;
+  int live = 0;
+  unsigned long long kmin = kDead, kmax = 0;
+  if (keys != nullptr) {
+    for (int t = tid; t < T; t += NT) copy8_async(keys + t, row + t);
+    commit_async();
+    wait_async<0>();
+  }
+  for (int t = tid; t < T; t += NT) {
+    const double v = keys != nullptr
+                         ? __longlong_as_double(static_cast<long long>(keys[t]))
+                         : row[t];
+    const unsigned long long k = order_key(v != v ? INFINITY : v);
+    if (keys != nullptr) keys[t] = k;
+    if (v == v) {
+      ++live;
+      kmin = k < kmin ? k : kmin;
+      kmax = k > kmax ? k : kmax;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    live += __shfl_xor_sync(full, live, o);
+    const unsigned long long a = __shfl_xor_sync(full, kmin, o);
+    const unsigned long long b = __shfl_xor_sync(full, kmax, o);
+    kmin = a < kmin ? a : kmin;
+    kmax = b > kmax ? b : kmax;
+  }
+  if (NT > 32) {
+    if ((threadIdx.x & 31) == 0) {
+      tm.red_live[wid] = live;
+      tm.red_min[wid] = kmin;
+      tm.red_max[wid] = kmax;
+    }
+  }
+  team_sync<NT>();  // the keys, the cleared histograms and n_cand
+  if (NT > 32) {
+    live = tm.red_live[0];
+    kmin = tm.red_min[0];
+    kmax = tm.red_max[0];
+    for (int w = 1; w < Team<NT>::kWarps; ++w) {
+      live += tm.red_live[w];
+      kmin = tm.red_min[w] < kmin ? tm.red_min[w] : kmin;
+      kmax = tm.red_max[w] > kmax ? tm.red_max[w] : kmax;
+    }
+  }
+#if VM_B7_STOP == 1
+  return static_cast<double>(live);
+#endif
+  if (live == 0) return qnan();
+  const int nm1 = live - 1;
   const double pos = 0.5 * static_cast<double>(nm1);
   const int j0 = static_cast<int>(floor(pos));
   const int j1 = j0 + 1 < nm1 ? j0 + 1 : nm1;
-  int less, equal;
-  const unsigned long long k0 = block_select(key, T, j0, &less, &equal);
-  unsigned long long k1 = k0;
-  if (j1 != j0 && less + equal <= j1) k1 = block_min_above(key, T, k0);
+  unsigned long long k0 = kmin, k1 = kmin;
+  if (kmin != kmax) {  // else every live key is kmin: j0 and j1 lie there
+    if (keys != nullptr)
+      select_pair<NT>(StagedKeys{keys}, T, j0, j1, kmin, kmax, tm, tid, wid,
+                      &k0, &k1);
+    else
+      select_pair<NT>(RowKeys{row}, T, j0, j1, kmin, kmax, tm, tid, wid,
+                      &k0, &k1);
+  }
   const double a = key_value(k0);
   const double b = key_value(k1);
   return a + (pos - static_cast<double>(j0)) * (b - a);
 }
 
+// The warp path: `rows` rows a block, one warp each, each warp's keys in
+// its own T-key slice of the block's shared memory.
 __global__ void __launch_bounds__(kRankThreads)
-rank_median(const double* __restrict__ rolled, int T, int staged,
-            double* __restrict__ rank) {
-  extern __shared__ unsigned long long s_stage[];
+rank_median_warp(const double* __restrict__ rolled, long long S, int T,
+                 int rows, double* __restrict__ rank) {
+  extern __shared__ __align__(16) unsigned long long s_keys[];
+  __shared__ Team<32> teams[kRankWarps];
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long s = static_cast<long long>(blockIdx.x) * rows + w;
+  if (s >= S) return;  // a whole warp: nothing below waits for it
+  const double r = median_row<32>(rolled + s * T, T,
+                                  s_keys + static_cast<long long>(w) * T,
+                                  teams[w], lane, 0);
+  if (lane == 0) rank[s] = r;
+}
+
+// The block and global paths: a block per row.
+__global__ void __launch_bounds__(kRankThreads)
+rank_median_block(const double* __restrict__ rolled, int T, int staged,
+                  double* __restrict__ rank) {
+  extern __shared__ __align__(16) unsigned long long s_keys[];
+  __shared__ Team<kRankThreads> team;
   const long long s = blockIdx.x;
-  const double* row = rolled + s * T;
-  int live = 0;
-  for (int base = 0; base < T; base += kRankThreads) {
-    const int t = base + threadIdx.x;
-    const double v = t < T ? row[t] : qnan();
-    if (staged && t < T) s_stage[t] = order_key(v != v ? INFINITY : v);
-    live += block_count(v == v);
-  }
-  double r;
-  if (staged) r = median_of(StagedKeys{s_stage}, T, live);
-  else r = median_of(RowKeys{row}, T, live);
-  if (threadIdx.x == 0) rank[s] = live == 0 ? qnan() : r;
+  const double r = median_row<kRankThreads>(
+      rolled + s * T, T, staged ? s_keys : nullptr, team, threadIdx.x,
+      threadIdx.x >> 5);
+  if (threadIdx.x == 0) rank[s] = r;
 }
 
 }  // namespace
@@ -849,28 +1246,51 @@ extern "C" int vm_take_rows(const void* rolled, long long S, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
+// B7 over S rows of T steps -> rank [S].  The median takes the
+// wrapper's plan (ops/device_rollup.rank_plan): the warp path with `rows`
+// rows a block (rows x T keys staged), a block a row with its T keys
+// staged (T <= kStageMax), or a block a row reading the row from global
+// memory.
 extern "C" int vm_rank_rows(const void* rolled, long long S, int T, int kind,
-                            void* rank, void* stream) {
+                            int path, int rows, void* rank, void* stream) {
   if (S <= 0 || T <= 0) return 0;
+  if (kind < kMax || kind > kLast || S > 2147483647LL * kRankWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const double* r = static_cast<const double*>(rolled);
   double* out = static_cast<double*>(rank);
   if (kind != kMedian) {
-    rank_simple<<<static_cast<unsigned>((S + 127) / 128), 128, 0, st>>>(
-        r, S, T, kind, out);
+    rank_simple<<<static_cast<unsigned>((S + kRankWarps - 1) / kRankWarps),
+                  kRankThreads, 0, st>>>(r, S, T, kind, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const int staged = T <= kStageMax;
-  const size_t smem =
-      staged ? static_cast<size_t>(T) * sizeof(unsigned long long) : 0;
-  if (smem > 40 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rank_median, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  cudaError_t e = cudaSuccess;
+  if (path == kRankWarp) {
+    const long long smem = 8LL * rows * T;
+    if (rows < 1 || rows > kRankWarps || smem > 8LL * kStageMax ||
+        (S + rows - 1) / rows > 2147483647LL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the opt-in covers the static teams too: above 48 KB in all
+    static std::atomic<int> smem_set[kMaxDevices];
+    e = ensure_smem(rank_median_warp, smem_set,
+                    static_cast<int>(smem + sizeof(Team<32>) * kRankWarps));
     if (e != cudaSuccess) return static_cast<int>(e);
+    rank_median_warp<<<static_cast<unsigned>((S + rows - 1) / rows),
+                       rows * 32, static_cast<size_t>(smem), st>>>(
+        r, S, T, rows, out);
+    return static_cast<int>(cudaGetLastError());
   }
-  rank_median<<<static_cast<unsigned>(S), kRankThreads, smem, st>>>(
-      r, T, staged, out);
+  if ((path != kRankBlock && path != kRankGlobal) ||
+      (path == kRankBlock && T > kStageMax) || S > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int staged = path == kRankBlock;
+  const int smem = staged ? 8 * T : 0;
+  static std::atomic<int> smem_set[kMaxDevices];
+  e = ensure_smem(rank_median_block, smem_set,
+                  smem + static_cast<int>(sizeof(Team<kRankThreads>)));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rank_median_block<<<static_cast<unsigned>(S), kRankThreads,
+                      static_cast<size_t>(smem), st>>>(r, T, staged, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -82,6 +82,22 @@ SIGNATURES = {
         "vm_rollup_series": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                              _I, _I, _I, _D, _I, _P, _LL, _I, _I, _I, _I,
                              _P],
+        # B15 over the D time shards of one card: D, desc[D x 9] (per
+        # shard: in-place ts, its row stride, vals, stride, width, rows,
+        # shift, out, its row stride: parallel/mesh.py _shard_desc), cts,
+        # cvals, counts, src (the halo pass's), N, then
+        # scan: min_ts, step, instant, counter, mpi, slots, n_irregular,
+        # mean, stream
+        "vm_time_shards_scan": [_I, _LLP, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _P, _P, _P, _P, _P],
+        # prep: slots, cv, cmax, stream
+        "vm_time_shards_prep": [_I, _LLP, _P, _P, _P, _P, _I, _P, _P, _P,
+                                _P],
+        # series: cv, cmax, slots, mpi, mean, T, min_ts, step, lookback,
+        # start_s, func, staged, rows, steps, cap, stream (b5_plan's)
+        "vm_time_shards_series": [_I, _LLP, _P, _P, _P, _P, _I, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _I, _D, _I, _I, _I,
+                                  _I, _I, _P],
         # S, n, func, force_global, blocks (out), scratch_bytes (out)
         "vm_decode_rollup_plan": [_LL, _I, _I, _I, ctypes.POINTER(_I),
                                   ctypes.POINTER(_LL)],
@@ -108,8 +124,9 @@ SIGNATURES = {
                            _P, _P, _P],
         # rolled, S, T, sel, M, idx64, out, stream
         "vm_take_rows": [_P, _LL, _I, _P, _LL, _I, _P, _P],
-        # rolled, S, T, kind, rank, stream
-        "vm_rank_rows": [_P, _LL, _I, _I, _P, _P],
+        # rolled, S, T, kind, path, rows, rank, stream (the median's plan:
+        # ops/device_rollup.rank_plan)
+        "vm_rank_rows": [_P, _LL, _I, _I, _I, _I, _P, _P],
     },
     "quantile": {
         # rolled, T, order, starts, G, path, cluster, slice, staged, phi,
@@ -120,13 +137,11 @@ SIGNATURES = {
     "mesh": {
         # moments, D, M, GT, aggr, out, stream
         "vm_combine_moments": [_P, _I, _I, _LL, _I, _P, _P],
-        # ts, ts_ld, vals, vals_ld, valid, valid_ld, h_ts, h_ts_ld, h_vals,
-        # h_vals_ld, h_valid, h_valid_ld, R, C, H, shift, ts_out, vals_out,
-        # counts, stream
-        "vm_halo_compact": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _LL, _P,
-                            _LL, _LL, _I, _I, _I, _P, _P, _P, _P],
-        # out, ld, R, cols, shift, stream
-        "vm_add_seconds": [_P, _LL, _LL, _I, _I, _P],
+        # D, desc[D x 15] (per shard: ts, its row stride, vals, stride,
+        # valid, stride, halo ts, stride, halo vals, stride, halo valid,
+        # stride, rows, H, inplace: parallel/mesh.py _halo_desc), C, N,
+        # cts, cvals, counts, src, stream (B15's halo pass)
+        "vm_halo_compact": [_I, _LLP, _I, _I, _P, _P, _P, _P, _P],
     },
     "tile": {
         # ts, vals, counts, new_ts, new_vals, new_counts, S, N, K, stream

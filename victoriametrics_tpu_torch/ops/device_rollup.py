@@ -1452,8 +1452,42 @@ def rank_rows_plain(rolled: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.where(n == 0, torch.nan, r)
 
 
+#: B7's median paths (csrc/select.cu RankPath): a warp per row, several
+#: rows a block; a block per row with the row staged; a block per row
+#: reading global memory
+RANK_WARP, RANK_BLOCK, RANK_GLOBAL = 0, 1, 2
+_RANK_WARP_MAX = 1024        # steps of the warp path's longest row
+_RANK_WARP_ROWS = 8          # rows a warp-path block, at most (kRankWarps)
+_RANK_STAGE_MAX = 24576      # steps a block stages (kStageMax)
+
+
+class RankPlan(NamedTuple):
+    """How B7's median runs over [S, T] (``rank_plan``)."""
+    path: int   # RANK_WARP, RANK_BLOCK or RANK_GLOBAL
+    rows: int   # rows a block (a warp each on the warp path; else 1)
+    smem: int   # bytes of staged keys a block
+
+
+@functools.lru_cache(maxsize=256)
+def rank_plan(S: int, T: int, sms: int = 132) -> RankPlan:
+    """B7's median plan for S rows of T steps on a card of `sms` SMs.  Up
+    to _RANK_WARP_MAX steps a warp takes a row (its radix passes need no
+    block barrier, and its last candidates fit its 32 lanes), 8 rows a
+    block (64 KiB of keys at most), fewer where that would leave SMs
+    without a block; longer rows take a block each, staged up to
+    _RANK_STAGE_MAX steps (192 KiB of keys), read from global memory
+    above."""
+    if T <= _RANK_WARP_MAX:
+        rows = max(1, min(_RANK_WARP_ROWS, -(-S // max(sms, 1))))
+        return RankPlan(RANK_WARP, rows, 8 * rows * T)
+    if T <= _RANK_STAGE_MAX:
+        return RankPlan(RANK_BLOCK, 1, 8 * T)
+    return RankPlan(RANK_GLOBAL, 1, 0)
+
+
 def rank_rows(rolled: torch.Tensor, kind: str) -> torch.Tensor:
-    """B7 statistic over a rolled tile [S, T] -> float64 [S]."""
+    """B7 statistic over a rolled tile [S, T] -> float64 [S]; the median
+    on rank_plan's path."""
     if kind not in RANK_KINDS:
         raise ValueError(f"unknown rank kind {kind!r}")
     dev = kernels.placement(rolled)
@@ -1462,10 +1496,11 @@ def rank_rows(rolled: torch.Tensor, kind: str) -> torch.Tensor:
     S, T = rolled.shape
     kernels.require(rolled, "rolled", torch.float64, (S, T))
     rank = torch.empty((S,), dtype=torch.float64, device=dev)
+    plan = rank_plan(S, T, kernels.sm_count(dev))
     h = kernels.lib("select")
     kernels.check(h, h.vm_rank_rows(
-        rolled.data_ptr(), S, T, RANK_KINDS[kind], rank.data_ptr(),
-        kernels.stream_of(dev)), "rank_tile")
+        rolled.data_ptr(), S, T, RANK_KINDS[kind], plan.path, plan.rows,
+        rank.data_ptr(), kernels.stream_of(dev)), "rank_tile")
     kernels.LAUNCHES["rank_tile"] += 1
     return rank
 

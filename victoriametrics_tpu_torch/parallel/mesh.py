@@ -40,7 +40,9 @@ and CUDA devices is refused.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -329,81 +331,173 @@ def halo_compact_plain(ts, values, valid, h_ts, h_values, h_valid,
     return ts_c.to(torch.int32), v_c, counts
 
 
-def halo_compact(ts, values, valid, h_ts, h_values, h_valid, shift: int):
-    """B15's halo compaction of one (series, time) shard: local columns
-    ts int32 / values float64 / valid bool [R, C], and the left
-    neighbour's last H columns (None for the first time shard), each
-    2-D with unit column stride (views of a wider tile are read through
-    their row stride, not copied) -> (ts int32 [R, H + C], values
-    float64, counts int32 [R]): the valid samples in time order,
-    timestamps minus `shift`, then TS_PAD / 0.0."""
-    tensors = [ts, values, valid] + ([] if h_ts is None else
-                                     [h_ts, h_values, h_valid])
-    dev = kernels.placement(*tensors)
-    if dev.type == "cpu":
-        return halo_compact_plain(ts, values, valid, h_ts, h_values,
-                                  h_valid, shift)
-    R, C = ts.shape
-    H = 0 if h_ts is None else int(h_ts.shape[1])
-    for name, t, dtype, width in (
-            ("ts", ts, torch.int32, C), ("values", values, torch.float64, C),
-            ("valid", valid, torch.bool, C),
-            ("halo ts", h_ts, torch.int32, H),
-            ("halo values", h_values, torch.float64, H),
-            ("halo valid", h_valid, torch.bool, H)):
-        if t is None:
-            continue
-        if t.dtype != dtype or tuple(t.shape) != (R, width):
-            raise ValueError(f"{name}: expected {dtype} [{R}, {width}], got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if width and t.stride(1) != 1:
-            raise ValueError(f"{name}: columns must be contiguous")
+class TimeShard(NamedTuple):
+    """One (series, time) shard of B15 on its card: its own columns ts
+    int32 / values float64 / valid bool [R, C], each 2-D with unit column
+    stride; `left`, whose last `halo` columns are its halo: the left
+    neighbour's three arrays when they lie on this card (the first time
+    shard: None, halo 0), else copies of their last `halo` columns from
+    another card; its grid shift (ms); and where it writes its [R, T]
+    block: rows out_row0 and on, columns out_col0 and on, of the float64
+    `out` (unit column stride)."""
+    ts: torch.Tensor
+    values: torch.Tensor
+    valid: torch.Tensor
+    left: tuple | None
+    halo: int
+    shift: int
+    out: torch.Tensor
+    out_row0: int = 0
+    out_col0: int = 0
 
-    def ptr(t):
-        return (None, 0) if t is None else (t.data_ptr(), t.stride(0))
 
-    ts_out = torch.empty((R, H + C), dtype=torch.int32, device=dev)
-    v_out = torch.empty((R, H + C), dtype=torch.float64, device=dev)
-    counts = torch.empty((R,), dtype=torch.int32, device=dev)
+class HaloRows(NamedTuple):
+    """B15's halo pass over the shards of one card, per row of their
+    concatenation: `src` 0 for a row read in place (its halo and columns
+    one segment of the tile, every sample valid: counts = H + C) and 1
+    for a row compacted into `ts` / `values` [rows, N] (raw timestamps,
+    `counts` valid samples, anything past them)."""
+    ts: torch.Tensor
+    values: torch.Tensor
+    counts: torch.Tensor
+    src: torch.Tensor
+
+
+_DTYPES = ((torch.int32, 4), (torch.float64, 8), (torch.bool, 1))
+
+
+def _halo_desc(shards, dev) -> list[int]:
+    """csrc/mesh.cu vm_halo_compact's kHaloFields values per shard, each
+    tensor checked before its pointer crosses into C: a shard reads its
+    all-valid rows in place where every array's halo (`left`'s last H
+    columns) ends where its own columns start, at the same row stride."""
+    desc = []
+    C = int(shards[0].ts.shape[1])
+    index = -1 if dev.type == "cpu" else dev.index
+    for sh in shards:
+        R, H = int(sh.ts.shape[0]), sh.halo
+        local, halo, inplace = [], [0] * 6, 1
+        for k, (dtype, size) in enumerate(_DTYPES):
+            t = sh[k]
+            st = t.stride()
+            if t.dtype is not dtype or t.get_device() != index or \
+                    t.shape != (R, C) or (C > 1 and st[1] != 1):
+                raise ValueError(f"time shard: {dtype} [{R}, {C}] with "
+                                 f"unit column stride on {dev} expected, "
+                                 f"got {t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}")
+            ptr = t.data_ptr()
+            local += [ptr, st[0]]
+            if not H:
+                continue
+            x = sh.left[k]
+            xs, w = x.stride(), int(x.shape[-1])
+            if x.dtype is not dtype or x.get_device() != index or \
+                    x.shape != (R, w) or w < H or (w > 1 and xs[1] != 1):
+                raise ValueError(f"halo: {dtype} [{R}, >= {H}] on {dev} "
+                                 f"expected, got {x.dtype} "
+                                 f"{tuple(x.shape)} on {x.device}")
+            end = x.data_ptr() + w * size
+            halo[2 * k:2 * k + 2] = [end - H * size, xs[0]]
+            inplace &= int(end == ptr and xs[0] == st[0])
+        desc += local + halo + [R, H, inplace]
+    return desc
+
+
+def _shard_desc(shards, T: int) -> list[int]:
+    """csrc/rollup.cu make_shards' kShardFields values per shard: a row
+    read in place starts H columns before the shard's own (the halo's
+    first column, in the same tile row).  The shard's tensors are
+    _halo_desc's to check."""
+    desc = []
+    index = shards[0].ts.get_device()
+    for sh in shards:
+        R, C = sh.ts.shape
+        o = sh.out
+        os_ = o.stride()
+        if o.dtype is not torch.float64 or o.get_device() != index or \
+                o.dim() != 2 or \
+                o.shape[0] < sh.out_row0 + R or \
+                o.shape[1] < sh.out_col0 + T or (T > 1 and os_[1] != 1):
+            raise ValueError(f"out: float64 on the shard's device with "
+                             f"room for [{R}, {T}] at ({sh.out_row0}, "
+                             f"{sh.out_col0}) expected")
+        desc += [sh.ts.data_ptr() - 4 * sh.halo, sh.ts.stride(0),
+                 sh.values.data_ptr() - 8 * sh.halo, sh.values.stride(0),
+                 sh.halo + C, R, int(sh.shift),
+                 o.data_ptr() + 8 * (sh.out_row0 * os_[0] + sh.out_col0),
+                 os_[0]]
+    return desc
+
+
+def halo_rows(shards) -> HaloRows:
+    """B15's halo pass (csrc/mesh.cu halo_compact) over the time shards of
+    one card (TimeShards, at most dr.MAX_SHARDS, all of C columns): one
+    launch."""
+    dev = shards[0].ts.device
+    desc = _halo_desc(shards, dev)
+    C = int(shards[0].ts.shape[1])
+    N = max(sh.halo for sh in shards) + C
+    R = sum(int(sh.ts.shape[0]) for sh in shards)
+    rows = torch.empty((2, R), dtype=torch.int32, device=dev)
+    out = HaloRows(torch.empty((R, N), dtype=torch.int32, device=dev),
+                   torch.empty((R, N), dtype=torch.float64, device=dev),
+                   rows[0], rows[1])
     h = kernels.lib("mesh")
     kernels.check(h, h.vm_halo_compact(
-        *ptr(ts), *ptr(values), *ptr(valid), *ptr(h_ts), *ptr(h_values),
-        *ptr(h_valid), R, C, H, int(shift), ts_out.data_ptr(),
-        v_out.data_ptr(), counts.data_ptr(), kernels.stream_of(dev)),
+        len(shards), dr._c_array(ctypes.c_longlong, desc), C, N,
+        out.ts.data_ptr(), out.values.data_ptr(), out.counts.data_ptr(),
+        out.src.data_ptr(), kernels.stream_of(dev)),
         "time_sharded_rollup (halo)")
+    return out
+
+
+def rollup_time_shards(func: str, cfg: RollupConfig, shards) -> None:
+    """B15's kernels over the time shards of one card (TimeShards, at most
+    dr.MAX_SHARDS, all on one CUDA device, of C columns each): the halo
+    pass, then the row scan, the scratch pass (counter funcs with an
+    irregular row) and B5's series pass over every shard at once, one
+    launch each, with one host sync (the counter funcs' irregular rows);
+    each shard's [R, T] block written in place.  `cfg` is the shard's
+    local grid."""
+    if not 1 <= len(shards) <= dr.MAX_SHARDS:
+        raise ValueError(f"1 to {dr.MAX_SHARDS} shards a launch")
+    T = dr.num_steps(cfg)
+    desc = dr._c_array(ctypes.c_longlong, _shard_desc(shards, T))
+    hr = halo_rows(shards)
+    dev = hr.ts.device
+    R, N = hr.ts.shape
+    D = len(shards)
+    rows = (hr.ts.data_ptr(), hr.values.data_ptr(), hr.counts.data_ptr(),
+            hr.src.data_ptr())
+    h = kernels.lib("rollup")
+    stream = kernels.stream_of(dev)
+    counter = func in dr.COUNTER_FUNCS
+    # mpi, slots, then the irregular rows' count (zeroed by the scan)
+    ints = torch.empty((2 * R + 1,), dtype=torch.int32, device=dev)
+    mpi, slots, n_irregular = (ints.data_ptr() + 4 * k * R for k in range(3))
+    mean = torch.empty((R,), dtype=torch.float64, device=dev) \
+        if func in dr.CENTRED_FUNCS else None
+    kernels.check(h, h.vm_time_shards_scan(
+        D, desc, *rows, N, int(dr.MIN_TS_NONE), cfg.step,
+        int(cfg.start >= cfg.end), int(counter), mpi, slots, n_irregular,
+        dr._ptr(mean), stream), "time_sharded_rollup (row scan)")
+    n = int(ints[2 * R].item()) if counter else 0
+    cvm = torch.empty((2, n, N), dtype=torch.float64, device=dev)
+    if n:
+        kernels.check(h, h.vm_time_shards_prep(
+            D, desc, *rows, N, slots, cvm[0].data_ptr(), cvm[1].data_ptr(),
+            stream), "time_sharded_rollup (row prep)")
+    plan = dr.b5_plan(R, N, T, cfg.step, cfg.lookback,
+                      dr.scrape_hint(N, T, cfg.step, cfg.lookback),
+                      kernels.sm_count(dev))
+    kernels.check(h, h.vm_time_shards_series(
+        D, desc, *rows, N, cvm.data_ptr(), cvm.data_ptr() + 8 * n * N,
+        slots, mpi, dr._ptr(mean), T, int(dr.MIN_TS_NONE), cfg.step,
+        cfg.lookback, float(cfg.start) / 1e3, dr.FUNC_CODES[func],
+        int(plan.path == dr.K2_STAGED), plan.rows, plan.steps, plan.cap,
+        stream), "time_sharded_rollup (series pass)")
     kernels.LAUNCHES["time_sharded_rollup"] += 1
-    return ts_out, v_out, counts
-
-
-def add_seconds(out: torch.Tensor, shift: int) -> torch.Tensor:
-    """B15's add-back for the time-valued funcs, in place on a 2-D block
-    with unit column stride: out += shift / 1e3 (one float64 division, in
-    the kernel: torch divides a CUDA tensor by a scalar through its
-    reciprocal)."""
-    dev = kernels.placement(out)
-    if dev.type == "cpu":
-        return out.add_(float(shift) / 1e3)
-    if out.dtype != torch.float64 or out.dim() != 2 or \
-            (out.shape[1] and out.stride(1) != 1):
-        raise ValueError("out: float64 [R, T] with contiguous columns")
-    h = kernels.lib("mesh")
-    kernels.check(h, h.vm_add_seconds(
-        out.data_ptr(), out.stride(0), out.shape[0], out.shape[1],
-        int(shift), kernels.stream_of(dev)), "time_sharded_rollup (add)")
-    return out
-
-
-def rollup_tile_shifted(func, ts, values, counts, cfg, shift: int,
-                        out=None) -> torch.Tensor:
-    """rollup_tile on timestamps already rebased by `shift` onto the
-    shard's grid slice, with the shift re-added for the time-valued funcs
-    (which read absolute time).  B5 runs with shift 0, so the time-valued
-    funcs take it too.  `out`: the [S, T] block to write (B5's output row
-    stride)."""
-    out = dr.rollup_tile(func, ts, values, counts, cfg, out=out)
-    if func in _TIME_VALUED:
-        add_seconds(out, shift)
-    return out
 
 
 def time_sharded_rollup(mesh: Mesh, rollup_func: str, cfg: RollupConfig,
@@ -417,18 +511,35 @@ def time_sharded_rollup(mesh: Mesh, rollup_func: str, cfg: RollupConfig,
     whole tensor).  Shard (i, j) reads the last `halo` columns of shard
     (i, j - 1) (the reference's ring; the first time shard's halo is
     masked), compacts its valid samples and rolls up the output steps of
-    its own contiguous grid slice.  Output: float64 [S, T] on the first
-    device.  As in the reference, nothing checks that `halo` covers a
-    window or that the grid lines up with the column chunks: the caller's
-    data must."""
+    its own contiguous grid slice.  The shards of one card run as one
+    launch per phase (rollup_time_shards: up to dr.MAX_SHARDS a launch);
+    a card's shards write their blocks of the output where it lies there,
+    else blocks that are copied to it.  Output: float64 [S, T] on the
+    first device.  As in the reference, nothing checks that `halo` covers
+    a window or that the grid lines up with the column chunks: the
+    caller's data must."""
     return _time_sharded(mesh, rollup_func, cfg, halo, plain=False)
 
 
 def time_sharded_rollup_plain(mesh: Mesh, rollup_func: str,
                               cfg: RollupConfig, halo: int):
-    """Plain version of B15: the same shards through halo_compact_plain,
+    """Plain version of B15: each shard through halo_compact_plain,
     rollup_tile_plain and a torch add-back, on any device."""
     return _time_sharded(mesh, rollup_func, cfg, halo, plain=True)
+
+
+def time_shard_batches(mesh: Mesh) -> list[tuple[torch.device, list]]:
+    """How B15 launches over `mesh`: per device, in the order devices
+    first appear, the (series, time) positions of its shards in
+    row-major order, cut into batches of at most dr.MAX_SHARDS; one
+    batch is one launch per phase."""
+    cards: dict = {}
+    n_s, n_t = mesh.shape[AXIS_SERIES], mesh.shape[AXIS_TIME]
+    for i in range(n_s):
+        for j in range(n_t):
+            cards.setdefault(mesh.devices[i, j], []).append((i, j))
+    return [(dev, pos[k:k + dr.MAX_SHARDS]) for dev, pos in cards.items()
+            for k in range(0, len(pos), dr.MAX_SHARDS)]
 
 
 def _time_sharded(mesh: Mesh, rollup_func: str, cfg: RollupConfig,
@@ -447,49 +558,67 @@ def _time_sharded(mesh: Mesh, rollup_func: str, cfg: RollupConfig,
                              end=cfg.start + (t_shard - 1) * cfg.step,
                              step=cfg.step, window=cfg.window)
     dev0 = first_device(mesh)
+    plain = plain or dev0.type == "cpu"
 
-    def shard(ts, values, valid, h_ts, h_values, h_valid, shift, block):
-        """One shard's rollup, into `block` where it is on this device."""
-        if plain:
-            ts_c, v_c, counts = halo_compact_plain(
-                ts, values, valid, h_ts, h_values, h_valid, shift)
-            out = dr.rollup_tile_plain(rollup_func, ts_c, v_c, counts,
-                                       local_cfg)
-            if rollup_func in _TIME_VALUED:
-                out = out + float(shift) / 1e3
-            return out
-        ts_c, v_c, counts = halo_compact(ts, values, valid, h_ts, h_values,
-                                         h_valid, shift)
-        return rollup_tile_shifted(rollup_func, ts_c, v_c, counts,
-                                   local_cfg, shift, out=block)
+    def shard_plain(ts, values, valid, hal, shift):
+        ts_c, v_c, counts = halo_compact_plain(ts, values, valid, *hal,
+                                               shift)
+        out = dr.rollup_tile_plain(rollup_func, ts_c, v_c, counts,
+                                   local_cfg)
+        if rollup_func in _TIME_VALUED:
+            out = out + float(shift) / 1e3
+        return out
 
     def step(ts, values, valid) -> torch.Tensor:
         rows = [int(ts[i][0].shape[0]) for i in range(n_series)]
-        out = torch.empty((sum(rows), T_total), dtype=torch.float64,
+        r0 = np.cumsum([0] + rows)
+        out = torch.empty((int(r0[-1]), T_total), dtype=torch.float64,
                           device=dev0)
-        r0 = 0
         for i in range(n_series):
             for j in range(n_time):
-                dev = mesh.devices[i, j]
-                if ts[i][j].device != dev:
+                if ts[i][j].device != mesh.devices[i, j]:
                     raise ValueError(f"shard ({i}, {j}) lies on "
                                      f"{ts[i][j].device}, the mesh puts it "
-                                     f"on {dev}")
-                H = min(int(halo), int(ts[i][j].shape[1]))
-                hal = (None, None, None)
-                if j and H:
-                    # the left neighbour's tail: a view on this device, a
-                    # peer copy from another
-                    hal = tuple(x[i][j - 1][:, -H:].to(dev, non_blocking=True)
-                                for x in (ts, values, valid))
-                block = out[r0:r0 + rows[i], j * t_shard:(j + 1) * t_shard]
-                with kernels.on_device(dev):
-                    got = shard(ts[i][j], values[i][j], valid[i][j], *hal,
-                                j * t_shard * cfg.step,
-                                block if dev == dev0 and not plain else None)
-                if got is not block:
-                    block.copy_(got, non_blocking=True)
-            r0 += rows[i]
+                                     f"on {mesh.devices[i, j]}")
+
+        def shard(i, j, dev):
+            """Shard (i, j)'s halo source and width (its left
+            neighbour's arrays on this device, copies of their tail from
+            another; none for the first time shard) and shift."""
+            H = min(int(halo), int(ts[i][j].shape[1])) if j else 0
+            left = None
+            if H:
+                left = tuple(x[i][j - 1] for x in (ts, values, valid))
+                if left[0].device != dev:  # a peer copy of the tail
+                    left = tuple(x[:, -H:].to(dev, non_blocking=True)
+                                 for x in left)
+            return left, H, j * t_shard * cfg.step
+
+        for dev, batch in time_shard_batches(mesh):
+            shards = []
+            for i, j in batch:
+                left, H, shift = shard(i, j, dev)
+                if plain:
+                    hal = (None, None, None) if left is None else \
+                        tuple(x[:, -H:] for x in left)
+                    out[int(r0[i]):int(r0[i + 1]),
+                        j * t_shard:(j + 1) * t_shard] = shard_plain(
+                        ts[i][j], values[i][j], valid[i][j], hal, shift)
+                    continue
+                at = (out, int(r0[i]), j * t_shard) if dev == dev0 else \
+                    (torch.empty((rows[i], t_shard), dtype=torch.float64,
+                                 device=dev), 0, 0)
+                shards.append(TimeShard(ts[i][j], values[i][j], valid[i][j],
+                                        left, H, shift, *at))
+            if not shards:
+                continue
+            with kernels.on_device(dev):
+                rollup_time_shards(rollup_func, local_cfg, shards)
+            for (i, j), sh in zip(batch, shards):
+                if sh.out is not out:
+                    out[int(r0[i]):int(r0[i + 1]),
+                        j * t_shard:(j + 1) * t_shard].copy_(
+                        sh.out, non_blocking=True)
         return out
 
     return step
