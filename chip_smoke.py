@@ -8,7 +8,11 @@ each printing one JSON line:
 
   build       compile csrc/*.cu with nvcc for sm_90a, one process per
               source, all started together
-  kernels     K1 decode_tiles, K2 rollup_aggregate_tile, K3 append_tile,
+  kernels     K1 decode_tiles (also at its edge rows: n of 1, 2 and odd
+              widths, each d2 width, planes wider than n - 2 or at an
+              offset from a 16-byte word, count-0 rows, wrapping tails,
+              rows cut in chunks), K2
+              rollup_aggregate_tile, K3 append_tile,
               K4 compact_tile, B5 rollup_tile, B6 topk_select_tile and
               take_rows, B7 rank_tile and B8 rollup_quantile_tile against
               their plain PyTorch versions on the card: every rollup func
@@ -44,7 +48,9 @@ each printing one JSON line:
               against B5's rows, the rest against the chunked plain
               version); B9
               fleet_rollup_aggregate_tile, B10
-              fleet_append_tile and B11 fleet_compact_tile at a fleet
+              fleet_append_tile (at K 8, 16 and 24 and at the resume's
+              K 120) and
+              B11 fleet_compact_tile at a fleet
               bucket's shape (nine live streams of the dashboard tile with
               their own shifts, fetch bounds and the eight aggregates
               mixed, three padded slots, padded rows and groups), B9 also
@@ -89,7 +95,8 @@ each printing one JSON line:
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
               query with its own launch counts; K1 and K2 are checked
-              against their plain versions in row chunks, and K2's count,
+              against their plain versions in row chunks (K1's device ms
+              on the query's planes recorded), and K2's count,
               group, min and max of rate and deriv against B5's rows
               under the plain aggregate; B5's staged rate, deriv and
               tlast_over_time against its global search bit for bit, in
@@ -1038,6 +1045,43 @@ def kernels_fleet(rng, dev, ts_t, v_t, counts) -> dict:
                                       new_ts, new_vals, new_counts)
     for g, w, what in zip(got, want, ("ts", "values", "counts")):
         assert_equal(f"B10 {what}", g, w)
+    # at K 16 and 24 (8 and 16 lanes a row: a refresh after a gap, a fleet
+    # interval of 9 or more scrapes), from a generator of their own so the
+    # checks after them see the same data
+    krng = np.random.default_rng(1024)
+    for K in (16, 24):
+        new_ts = (ts.gather(2, (cnt.long() - 1).clamp(min=0)[..., None]) +
+                  SCRAPE * (1 + torch.arange(K, device=dev))).to(torch.int32)
+        new_vals = torch.from_numpy(krng.normal(0, 1e3, (B, S, K))).to(dev)
+        new_counts = torch.from_numpy(krng.integers(0, K + 1, (B, S))).to(
+            device=dev, dtype=torch.int32)
+        new_counts[0] = 0
+        new_counts[1] = K
+        tail = cnt.clone()
+        tail[4, 1::3] = N - K // 2
+        got = dr.fleet_append_tile(ts.clone(), vals.clone(), tail.clone(),
+                                   new_ts, new_vals, new_counts)
+        want = dr.fleet_append_tile_plain(ts.clone(), vals.clone(),
+                                          tail.clone(), new_ts, new_vals,
+                                          new_counts)
+        for g, w, what in zip(got, want, ("ts", "values", "counts")):
+            assert_equal(f"B10 K={K} {what}", g, w)
+    # and at the 30-minute resume's K (a warp a row)
+    K = 120
+    new_ts = (ts.gather(2, (cnt.long() - 1).clamp(min=0)[..., None]) +
+              SCRAPE * (1 + torch.arange(K, device=dev))).to(torch.int32)
+    new_vals = torch.from_numpy(rng.normal(0, 1e3, (B, S, K))).to(dev)
+    new_counts = torch.from_numpy(rng.integers(0, K + 1, (B, S))).to(
+        device=dev, dtype=torch.int32)
+    new_counts[0] = 0
+    new_counts[1] = K
+    near[4, 1::3] = N - 60
+    got = dr.fleet_append_tile(ts.clone(), vals.clone(), near.clone(),
+                               new_ts, new_vals, new_counts)
+    want = dr.fleet_append_tile_plain(ts.clone(), vals.clone(), near.clone(),
+                                      new_ts, new_vals, new_counts)
+    for g, w, what in zip(got, want, ("ts", "values", "counts")):
+        assert_equal(f"B10 K={K} {what}", g, w)
     del got, want
     # B11: per-slot cutoffs; slots 2 and 5 are not compacted (cutoff 0),
     # yet every slot's live samples below 0 (the lookback prefix of the
@@ -1455,6 +1499,77 @@ def kernels_mesh(dev, dash_planes, edge_planes, tile, ragged, bucket) -> dict:
 
 
 
+def k1_edge_planes(rng, S: int, n: int, d2type, dev) -> list:
+    """K1's arguments for S rows of n columns: random first values, first
+    deltas and d2 entries of `d2type` in a plane 5 columns wider than
+    n - 2; row 0 has count 0 and scale 1 (a mesh's padded row), row 1 a
+    linear tail that wraps int32 at once, the rest counts in [0, n]."""
+    info = np.iinfo(d2type)
+    lo, hi = max(int(info.min), -2**20), min(int(info.max), 2**20)
+    d2 = [rng.integers(lo, hi + 1, (S, max(n - 2, 1) + 5)).astype(d2type)
+          for _ in range(2)]
+    first = [rng.integers(-2**31, 2**31, S).astype(np.int32)
+             for _ in range(4)]
+    scale = 10.0 ** rng.integers(-6, 4, S).astype(np.float64)
+    counts = rng.integers(0, n + 1, S).astype(np.int32)
+    counts[0], scale[0] = 0, 1.0
+    for x in first:
+        x[1] = 2_000_000_000
+    d2[0][1] = d2[1][1] = 0
+    return [torch.from_numpy(a).to(dev) for a in (
+        first[0], first[1], d2[0], first[2], first[3], d2[1], scale, counts)]
+
+
+@contextlib.contextmanager
+def k1_chunk(chunk: int):
+    """decode_tiles inside the block cuts its rows in chunks of `chunk`
+    columns, whatever k1_plan would pick."""
+    keep = dd.k1_plan
+    dd.k1_plan = lambda n, tb, vb, *_: dd.K1Plan(chunk,
+                                                 dd.k1_smem(chunk, tb, vb))
+    try:
+        yield
+    finally:
+        dd.k1_plan = keep
+
+
+def check_k1_edges(dev) -> None:
+    """K1 bit for bit against its plain version at its edge rows: n of 1,
+    2 and odd widths, each d2 width, planes wider than n - 2, count-0 rows
+    and wrapping tails; planes at an offset from a 16-byte word; rows
+    wider than one chunk (int32 planes at 7233 columns, which k1_plan cuts
+    in two) and rows forced into other chunks, so b and x carry from chunk
+    to chunk."""
+    rng = np.random.default_rng(10)
+    for n in (1, 2, 3, 5, 1857, 7233):
+        for d2type in (np.int8, np.int16, np.int32):
+            a = k1_edge_planes(rng, 64, n, d2type, dev)
+            g, w = dd.decode_tiles(*a, n), dd.decode_tiles_plain(*a, n)
+            what = f"K1 edge n={n} {d2type.__name__}"
+            assert_equal(f"{what} ts", g[0], w[0])
+            assert_equal(f"{what} values", g[1], w[1])
+    if dd.k1_plan(7233, 4, 4, kernels.smem_per_sm(dev)).chunk >= 7233:
+        raise AssertionError("K1: 7233 int32 columns are not chunked")
+    # planes that start 1 to 15 bytes past a 16-byte word (views into a
+    # buffer that ends with them): staged with no byte outside them
+    for n, off in ((1857, 1), (38, 7), (7233, 15)):
+        a = k1_edge_planes(rng, 64, n, np.int8, dev)
+        for i in (2, 5):
+            buf = torch.empty(off + a[i].numel(), dtype=torch.int8,
+                              device=dev)
+            a[i] = buf[off:].view(a[i].shape).copy_(a[i])
+        g, w = dd.decode_tiles(*a, n), dd.decode_tiles_plain(*a, n)
+        assert_equal(f"K1 planes at +{off} B, n={n} ts", g[0], w[0])
+        assert_equal(f"K1 planes at +{off} B, n={n} values", g[1], w[1])
+    a = k1_edge_planes(rng, 64, 1000, np.int16, dev)
+    w = dd.decode_tiles_plain(*a, 1000)
+    for chunk in (96, 7, 999, 1000):
+        with k1_chunk(chunk):
+            g = dd.decode_tiles(*a, 1000)
+        assert_equal(f"K1 chunk {chunk} ts", g[0], w[0])
+        assert_equal(f"K1 chunk {chunk} values", g[1], w[1])
+
+
 def phase_kernels(rng, dev):
     """Each kernel against its plain version on the card: the dashboard
     shapes (timed), ragged edge-case rows and a fleet bucket.  Returns the
@@ -1483,6 +1598,7 @@ def phase_kernels(rng, dev):
         assert_equal(f"K1 ts edge {p.ts_d2.dtype}", g[0], w[0])
         assert_equal(f"K1 values edge {p.val_d2.dtype}", g[1], w[1])
         edge_planes.append((a, nc))
+    check_k1_edges(dev)
     in_bytes = sum(t.numel() * t.element_size() for t in args)
     out_bytes = DASH_SERIES * n_cap * 12
     res["decode_tiles"] = dict(
@@ -2534,6 +2650,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
         assert_equal(f"full width K1 values rows {r0}+", v_t[r0:r0 + chunk],
                      w_v)
         del w_ts, w_v
+    k1_device_ms = device_ms(lambda: dd.decode_tiles(*args, n_cap), n=3)
     uploads = upload_paths(
         "full_width_planes", [a.cpu().numpy() for a in args], dev, reps=3)
     del planes  # `args` stay for the mesh phase's B12
@@ -2592,7 +2709,11 @@ def phase_full_width(rng, dev, hours: float) -> dict:
            "k2_bound_ms": (int(counts.sum()) * 12 + S * 12 + G * T * 8) /
            MEM_BYTES_PER_S * 1e3,
            "peak_device_bytes": peak, "launches": launches,
-           "k1_bitwise_vs_plain": True, "max_abs_err_vs_plain": err,
+           "k1_bitwise_vs_plain": True, "k1_device_ms": k1_device_ms,
+           "k1_plan": dd.k1_plan(n_cap, args[2].element_size(),
+                                 args[5].element_size(),
+                                 kernels.smem_per_sm(dev))._asdict(),
+           "max_abs_err_vs_plain": err,
            "uploads": uploads, "b5": b5, "slice2": slice2}
     emit(res)
     return res, {"engine": engine, "series": series, "cfg": cfg,

@@ -59,3 +59,13 @@ def test_b6_is_one_entry_point_with_its_plan():
         "vm_topk_select", "vm_take_rows", "vm_rank_rows"}
     assert len(kernels.SIGNATURES["select"]["vm_topk_select"]) == 14
     assert len(kernels.SIGNATURES["select"]["vm_take_rows"]) == 8
+
+
+def test_k1_is_one_entry_point_and_the_append_takes_its_lanes():
+    # K1 decodes both planes in one launch with its plan's chunk and
+    # workspace (k1_plan); K3 and B10 share one kernel whose lanes a row
+    # follow K (append_plan)
+    assert set(kernels.SIGNATURES["decode"]) == {"vm_decode_tiles"}
+    assert len(kernels.SIGNATURES["decode"]["vm_decode_tiles"]) == 19
+    assert len(kernels.SIGNATURES["tile"]["vm_append_tile"]) == 11
+    assert len(kernels.SIGNATURES["tile"]["vm_fleet_append_tile"]) == 12

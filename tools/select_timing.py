@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time B5 rollup_tile, B12 decode_and_rollup, K2 and B13, B6 topk_select
 and take_rows, B7 rank_rows, B8 quantile_groups, B9
-fleet_rollup_aggregate_tile and B15 time_sharded_rollup, and
+fleet_rollup_aggregate_tile, B15 time_sharded_rollup, K1 decode_tiles and
+K3 append_tile / B10 fleet_append_tile, and
 the PyTorch calls that compute the same functions where there is one, on
 one CUDA card.
 
@@ -68,6 +69,16 @@ torch.nanquantile, the median's phases from diagnostic builds of the
 checkout's csrc/select.cu (``-DVM_B7_STOP=1``: staged; ``=2``: the radix
 passes; a source without the hooks, whose median is one block_select
 then block_min_above, is patched at two anchors).
+K1 decode_tiles runs on B12's delta planes (int16 and int8), with the
+value plane widened to int16 and both to int32 (K1 chunks these rows at
+the full width), device_ms beside its bound, and, for a port with K1's
+plan (``k1_plan``), with its rows forced into other chunks.  K3 append_tile (the
+dashboard's refresh: [8192, 1856], K 8, one new sample a row) and B10
+fleet_append_tile (the fleet's steady interval, [8, 8192, 384], K 8, four
+a row, and its 30-minute resume, K 120) run in place on a tile restored
+before each call, each call alone between CUDA events after a device
+sleep, beside a one-element PyTorch add timed the same way: the launch
+floor.
 ``--root`` imports the port from another checkout (a parent commit
 unpacked under a gitignored directory), so two versions compare in one
 chip call: parent, change, change, parent.  ``--parts`` picks what runs
@@ -96,7 +107,8 @@ import torch
 T_START, SCRAPE, JITTER, WINDOW = 1_753_700_000_000, 15_000, 2_000, 300_000
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: what --parts picks from
-PARTS = ("b5", "b12", "k2", "topk", "quantile", "b9", "b15", "b7")
+PARTS = ("b5", "b12", "k2", "topk", "quantile", "b9", "b15", "b7", "k1",
+         "b10")
 
 
 def load_timing():
@@ -552,6 +564,153 @@ def b12_times(tm, dr, dd, kernels, stops, ts, vals, counts, cfg,
     return out
 
 
+def k1_times(tm, dd, ts, vals, counts, n: int, chunks=()) -> dict:
+    """K1 on the tile's delta planes at the engine's tile capacity, as made
+    (int16 timestamp and int8 value planes), with the value plane widened
+    to int16 and with both widened to int32: device_ms beside the bound,
+    for a port with K1's plan its plan, and the call with its rows forced
+    into each of `chunks` on the planes as made."""
+    from victoriametrics_tpu_torch.query.cuda_engine import tile_capacity
+    S, N_rows = ts.shape
+    N = tile_capacity(N_rows)
+    planes = list(delta_planes(ts, vals, counts, N))
+    got = dd.decode_tiles(*planes, N)
+    if not (torch.equal(got[0][:, :N_rows], ts) and
+            torch.equal(got[1][:, :N_rows], vals)):
+        raise AssertionError("delta planes: K1 does not rebuild the tile")
+    del got
+    out = {"S": S, "n": N}
+    for name, tt, vt in (("int16_int8", None, None),
+                         ("int16_int16", None, torch.int16),
+                         ("int32_int32", torch.int32, torch.int32)):
+        args = list(planes)
+        if tt is not None:
+            args[2] = args[2].to(tt)
+        if vt is not None:
+            args[5] = args[5].to(vt)
+        nbytes = sum(t.numel() * t.element_size() for t in args)
+        row = {"device_ms": tm.device_ms(lambda: dd.decode_tiles(*args, N),
+                                         n),
+               **tm.bound(nbytes + S * N * 12, 4 * S * N)}
+        if hasattr(dd, "k1_plan"):
+            row["plan"] = dd.k1_plan(
+                N, args[2].element_size(), args[5].element_size(),
+                dd.kernels.smem_per_sm(ts.device))._asdict()
+        out[name] = row
+        del args
+    if hasattr(dd, "k1_plan"):
+        for chunk in chunks:
+            with _k1_chunk(dd, chunk):
+                out[f"chunk_{chunk}"] = tm.device_ms(
+                    lambda: dd.decode_tiles(*planes, N), n)
+    return out
+
+
+@contextlib.contextmanager
+def _k1_chunk(dd, chunk: int):
+    """dd.k1_plan picks `chunk` columns inside the block."""
+    keep = dd.k1_plan
+    dd.k1_plan = lambda n, tb, vb, *_: dd.K1Plan(chunk,
+                                                 dd.k1_smem(chunk, tb, vb))
+    try:
+        yield
+    finally:
+        dd.k1_plan = keep
+
+
+_ALONE_SLEEP_CYCLES = 1_000_000
+_L2_CLEAN = {}
+
+
+def alone_ms(fn, setup=None, reps: int = 21) -> float:
+    """Median device ms of what fn launches, each call between two CUDA
+    events after a device sleep (the host's launch time hidden); `setup`
+    runs before each call, outside the span, then a 256 MB read leaves the
+    L2 cache clean (setup's own dirty lines written back)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _L2_CLEAN:
+        _L2_CLEAN[dev] = torch.ones(64 << 20, dtype=torch.int32, device=dev)
+    times = []
+    for i in range(reps + 1):
+        if setup is not None:
+            setup()
+        _L2_CLEAN[dev].sum()
+        torch.cuda._sleep(_ALONE_SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        if i:  # the first call warms up
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def _lanes(dr, lanes):
+    """dr.append_plan picks `lanes` inside the block (None: the plan's)."""
+    keep = getattr(dr, "append_plan", None)
+    if lanes is not None:
+        dr.append_plan = lambda K: lanes
+    try:
+        yield
+    finally:
+        if keep is not None:
+            dr.append_plan = keep
+
+
+def append_times(tm, dr, dev, gen, sweep=(4, 8, 16, 32)) -> dict:
+    """K3 and B10 in place, each call alone after a device sleep on a tile
+    restored before it: K3 at the dashboard's refresh ([8192, 1856], K 8,
+    one new scrape a row), B10 at the fleet's steady interval ([8, 8192,
+    384], K 8, four live a row) and its 30-minute resume (K 120, all
+    live), with their bounds; beside them a one-element PyTorch add, the
+    launch floor; for a port with append_plan, each shape also at each of
+    `sweep`'s lanes a row."""
+    floor_t = torch.zeros(1, device=dev)
+    out = {"launch_floor_ms": alone_ms(lambda: floor_t.add_(1))}
+
+    def case(shape, N, K, live, fleet):
+        ts = torch.randint(0, 10**6, (*shape, N), generator=gen, device=dev,
+                           dtype=torch.int32)
+        vals = torch.rand((*shape, N), generator=gen, device=dev,
+                          dtype=torch.float64)
+        counts = torch.full(shape, N - K - 8, dtype=torch.int32, device=dev)
+        new_ts = torch.randint(10**6, 2 * 10**6, (*shape, K), generator=gen,
+                               device=dev, dtype=torch.int32)
+        new_vals = torch.rand((*shape, K), generator=gen, device=dev,
+                              dtype=torch.float64)
+        new_counts = torch.full(shape, live, dtype=torch.int32, device=dev)
+        bufs = [t.clone() for t in (ts, vals, counts)]
+        fn = dr.fleet_append_tile if fleet else dr.append_tile
+
+        def fresh():
+            for b, t in zip(bufs, (ts, vals, counts)):
+                b.copy_(t)
+
+        def call():
+            fn(*bufs, new_ts, new_vals, new_counts)
+
+        rows = counts.numel()
+        n_new = rows * live
+        row = {"shape": [*shape, N, K], "live": live,
+               "lanes": dr.append_plan(K) if hasattr(dr, "append_plan")
+               else 32,
+               "alone_ms": alone_ms(call, fresh),
+               **tm.bound(n_new * 24 + rows * 12, n_new)}
+        if hasattr(dr, "append_plan"):
+            for lanes in sweep:
+                with _lanes(dr, lanes):
+                    row[f"lanes_{lanes}_ms"] = alone_ms(call, fresh)
+        return row
+
+    out["k3_dashboard"] = case((8192,), 1856, 8, 1, False)
+    out["b10_steady"] = case((8, 8192), 384, 8, 4, True)
+    out["b10_resume"] = case((8, 8192), 384, 120, 120, True)
+    return out
+
+
 @contextlib.contextmanager
 def _timed_items(waits: list):
     """Every Tensor.item() inside the block appends its host seconds to
@@ -683,7 +842,9 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    kernels.build(("decode", "rollup", "select", "quantile", "mesh"))
+    tiles = bool(parts - {"b9", "b10"})  # parts on the rolled tiles
+    kernels.build(("decode", "rollup", "select", "quantile", "mesh", "tile")
+                  if tiles or "b9" in parts else ("tile",))
     stop = {p: stop_libs(kernels, args.root, p) if p in parts else {}
             for p in STOPS}
     res = {"label": args.label, "root": args.root, "gpu": gpu,
@@ -707,6 +868,9 @@ def main(argv=None) -> int:
         if "b12" in parts:
             dash["b12"] = b12_times(tm, dr, dd, kernels, stop["b12"], ts, vals,
                                     counts, cfg, 20)
+        if "k1" in parts:
+            dash["k1"] = k1_times(tm, dd, ts, vals, counts, 20,
+                                  chunks=(1856, 928))
         if "k2" in parts:
             dash["k2"] = {
                 "by_instance": k2_times(
@@ -716,75 +880,82 @@ def main(argv=None) -> int:
                     tm, dr, kernels, meshlib, split_rows, ts, vals, counts,
                     cfg, "rate", "sum", 1, 20)}
 
-    rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n, start, end,
-                       60_000, at_dashboard)
-    if "b15" in parts:  # 1440 columns from 0, gaps in every seventh row
-        ts, vals, _ = counter_tile(dev, gen, (8192,), n, 0)
-        valid = torch.ones_like(ts, dtype=torch.bool)
-        valid[::7, 100:103] = False
-        dash["b15"] = {func: b15_times(tm, dr, kernels, meshlib,
-                                       RollupConfig, ts, vals, valid, func,
-                                       50)
-                       for func in ("rate", "timestamp")}
-        del ts, vals, valid
-    res["dashboard"] = dash
-    if "topk" in parts:
-        dash.update(shape_times(tm, dr, rolled, (10, 20, 8192), 50))
-    if "quantile" in parts:
-        dash["quantile_m32"] = quantile_times(tm, dr, rolled, 256, 0.9, 50)
-        dash["quantile_m8192"] = quantile_times(tm, dr, rolled, 1, 0.5, 20)
-    if "b7" in parts:
-        dash["b7"] = b7_times(tm, dr, kernels, stop["b7"], rolled, 50)
-    sweep = hasattr(dr, "topk_plan")  # a port with B6's scan-path plan
-    if sweep and "topk" in parts:
-        dash["clusters"] = cluster_sweep(tm, dr, kernels, rolled, (10, 20),
-                                         (1, 2, 4, 8, 16))
-    del rolled
-    n = 5760
-    full = {}
-
-    def at_full_width(ts, vals, counts, cfg):
-        if "b5" in parts:
-            for func in ("rate", "deriv"):
-                full[f"b5_{func}"] = b5_times(
-                    tm, dr, kernels, ts, vals, counts,
-                    dr.normalized_cfg(func, cfg), func, 5)
-        if "b12" in parts:
-            full["b12"] = b12_times(tm, dr, dd, kernels, stop["b12"], ts, vals,
-                                    counts, cfg, 5)
-            torch.cuda.empty_cache()
-        if "b15" in parts:  # every sample valid; from 0 (start = T_START)
+    if tiles:
+        rolled = rate_tile(dr, RollupConfig, dev, gen, 8192, n, start, end,
+                           60_000, at_dashboard)
+        if "b15" in parts:  # 1440 columns from 0, gaps in every seventh row
+            ts, vals, _ = counter_tile(dev, gen, (8192,), n, 0)
             valid = torch.ones_like(ts, dtype=torch.bool)
-            full["b15"] = {func: b15_times(tm, dr, kernels, meshlib,
-                                           RollupConfig, ts, vals, valid,
-                                           func, 5)
+            valid[::7, 100:103] = False
+            dash["b15"] = {func: b15_times(tm, dr, kernels, meshlib,
+                                           RollupConfig, ts, vals, valid, func,
+                                           50)
                            for func in ("rate", "timestamp")}
-            del valid
-            torch.cuda.empty_cache()
-        if "k2" in parts:
-            full["k2"] = {f"{aggr}_{func}": k2_times(
-                tm, dr, kernels, meshlib, split_rows, ts, vals, counts, cfg,
-                func, aggr, 3125, 5)
-                for func, aggr in (("rate", "sum"), ("deriv", "avg"))}
+            del ts, vals, valid
+        res["dashboard"] = dash
+        if "topk" in parts:
+            dash.update(shape_times(tm, dr, rolled, (10, 20, 8192), 50))
+        if "quantile" in parts:
+            dash["quantile_m32"] = quantile_times(tm, dr, rolled, 256, 0.9, 50)
+            dash["quantile_m8192"] = quantile_times(tm, dr, rolled, 1, 0.5, 20)
+        if "b7" in parts:
+            dash["b7"] = b7_times(tm, dr, kernels, stop["b7"], rolled, 50)
+        sweep = hasattr(dr, "topk_plan")  # a port with B6's scan-path plan
+        if sweep and "topk" in parts:
+            dash["clusters"] = cluster_sweep(tm, dr, kernels, rolled, (10, 20),
+                                             (1, 2, 4, 8, 16))
+        del rolled
+        n = 5760
+        full = {}
 
-    rolled = rate_tile(dr, RollupConfig, dev, gen, 100_000, n, T_START,
-                       T_START + n * SCRAPE, SCRAPE, at_full_width)
-    torch.cuda.empty_cache()
-    res["full_width"] = full
-    if "topk" in parts:
-        full.update(shape_times(tm, dr, rolled, (10, 20), 10))
-        if sweep:
-            full["clusters"] = cluster_sweep(tm, dr, kernels, rolled,
-                                             (10, 20), (1, 2, 4, 8))
-    if "b7" in parts:
-        full["b7"] = b7_times(tm, dr, kernels, stop["b7"], rolled, 5)
-    if "quantile" in parts:
-        full["quantile_instant"] = quantile_times(
-            tm, dr, rolled[:, -1:].contiguous(), 1, 0.99, 50)
-    del rolled
-    torch.cuda.empty_cache()
+        def at_full_width(ts, vals, counts, cfg):
+            if "b5" in parts:
+                for func in ("rate", "deriv"):
+                    full[f"b5_{func}"] = b5_times(
+                        tm, dr, kernels, ts, vals, counts,
+                        dr.normalized_cfg(func, cfg), func, 5)
+            if "b12" in parts:
+                full["b12"] = b12_times(tm, dr, dd, kernels, stop["b12"], ts,
+                                        vals, counts, cfg, 5)
+                torch.cuda.empty_cache()
+            if "k1" in parts:
+                full["k1"] = k1_times(tm, dd, ts, vals, counts, 5,
+                                      chunks=(7232, 3616))
+                torch.cuda.empty_cache()
+            if "b15" in parts:  # every sample valid; from 0 (start = T_START)
+                valid = torch.ones_like(ts, dtype=torch.bool)
+                full["b15"] = {func: b15_times(tm, dr, kernels, meshlib,
+                                               RollupConfig, ts, vals, valid,
+                                               func, 5)
+                               for func in ("rate", "timestamp")}
+                del valid
+                torch.cuda.empty_cache()
+            if "k2" in parts:
+                full["k2"] = {f"{aggr}_{func}": k2_times(
+                    tm, dr, kernels, meshlib, split_rows, ts, vals, counts,
+                    cfg, func, aggr, 3125, 5)
+                    for func, aggr in (("rate", "sum"), ("deriv", "avg"))}
+
+        rolled = rate_tile(dr, RollupConfig, dev, gen, 100_000, n, T_START,
+                           T_START + n * SCRAPE, SCRAPE, at_full_width)
+        torch.cuda.empty_cache()
+        res["full_width"] = full
+        if "topk" in parts:
+            full.update(shape_times(tm, dr, rolled, (10, 20), 10))
+            if sweep:
+                full["clusters"] = cluster_sweep(tm, dr, kernels, rolled,
+                                                 (10, 20), (1, 2, 4, 8))
+        if "b7" in parts:
+            full["b7"] = b7_times(tm, dr, kernels, stop["b7"], rolled, 5)
+        if "quantile" in parts:
+            full["quantile_instant"] = quantile_times(
+                tm, dr, rolled[:, -1:].contiguous(), 1, 0.99, 50)
+        del rolled
+        torch.cuda.empty_cache()
     if "b9" in parts:
         res["fleet"] = fleet_times(tm, dr, RollupConfig, dev, gen, 10)
+    if "b10" in parts:
+        res["append"] = append_times(tm, dr, dev, gen)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(res), flush=True)
     return 0

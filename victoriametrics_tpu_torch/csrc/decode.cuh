@@ -1,7 +1,8 @@
-// The nearest-delta2 row decode of K1 (decode.cu) and B12 (rollup.cu
-// decode_rollup): decode_row, a block scan per 256 columns (K1), and
-// decode_row_pair, the same values of both planes from two block scans a
-// row (B12).  See decode.cu for the arithmetic.
+// The nearest-delta2 row decode of K1 (decode.cu decode_tiles) and B12
+// (rollup.cu decode_rollup): block_scan2, a block scan of the two
+// planes' uint32 sums at once, which both use, and decode_row_pair, B12's
+// decode of a whole row from global memory.  See decode.cu for the
+// arithmetic.
 
 #pragma once
 
@@ -10,70 +11,7 @@
 
 namespace {
 
-constexpr int kDecodeThreads = 256;
-constexpr int kDecodeWarps = kDecodeThreads / 32;
 constexpr int32_t kTsPad = 2147483647;
-
-// Block-wide inclusive scan of uint32 values (mod 2^32) over a block of
-// kDecodeThreads threads.  Every thread of the block must call it; *total
-// receives the sum over the block.
-__device__ uint32_t block_scan(uint32_t v, uint32_t* warp_sums,
-                               uint32_t* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t w = lane < kDecodeWarps ? warp_sums[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kDecodeWarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) v += warp_sums[warp - 1];
-  *total = warp_sums[kDecodeWarps - 1];
-  __syncthreads();  // warp_sums is rewritten by the next call
-  return v;
-}
-
-// Decode one row's plane: x[j] = x0 + sum_{k<=j} b[k], b = prefix sums of
-// [0, fd, d2...], in uint32.  Exactly one of ts_row (masked to TS_PAD from
-// column cnt on) and val_row ((int32)x * sc) is non-null; both address
-// the row's n columns.  Every thread of the block must call it.
-template <typename D2>
-__device__ void decode_row(uint32_t x0, uint32_t fd,
-                           const D2* __restrict__ d2row, int n, int cnt,
-                           double sc, int32_t* ts_row, double* val_row,
-                           uint32_t* warp_sums) {
-  uint32_t carry_a = 0u, carry_b = 0u;
-  for (int base = 0; base < n; base += kDecodeThreads) {
-    const int j = base + threadIdx.x;
-    uint32_t a = 0u;
-    if (j == 1) {
-      a = fd;
-    } else if (j >= 2 && j < n) {
-      a = static_cast<uint32_t>(static_cast<int32_t>(d2row[j - 2]));
-    }
-    uint32_t tot;
-    const uint32_t b = carry_a + block_scan(a, warp_sums, &tot);
-    carry_a += tot;
-    const uint32_t x = x0 + carry_b + block_scan(b, warp_sums, &tot);
-    carry_b += tot;
-    if (j < n) {
-      if (ts_row != nullptr) {
-        ts_row[j] = j < cnt ? static_cast<int32_t>(x) : kTsPad;
-      } else {
-        val_row[j] = static_cast<double>(static_cast<int32_t>(x)) * sc;
-      }
-    }
-  }
-}
 
 // One row of a delta plane as B12 reads it: the first value, the first
 // delta and the row's d2 entries of `bytes` bytes (1, 2 or 4).
@@ -81,7 +19,7 @@ struct PlaneRow {
   uint32_t x0, fd;
   const unsigned char* d2;
   int bytes;
-  // column j's a of decode_row: 0, fd, then d2[j - 2] sign-extended (the
+  // column j's a: 0, fd, then d2[j - 2] sign-extended (the
   // element size is uniform across the block)
   __device__ __forceinline__ uint32_t a(int j) const {
     if (j < 2) return j == 1 ? fd : 0u;
@@ -96,10 +34,13 @@ struct PlaneRow {
   }
 };
 
-// block_scan of two values at once (the two planes' sums) over a block
-// of `warps` warps (at most 32; warp_sums holds that many).
+// Block-wide inclusive scan of two uint32 values at once (the two
+// planes' sums, mod 2^32) over a block of `warps` warps (at most 32;
+// warp_sums holds that many).  Every thread of the block must call it;
+// *total, when given, receives the sums over the block.
 __device__ __forceinline__ uint2 block_scan2(uint2 v, uint2* warp_sums,
-                                             int warps) {
+                                             int warps,
+                                             uint2* total = nullptr) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int o = 1; o < 32; o <<= 1) {
@@ -129,13 +70,14 @@ __device__ __forceinline__ uint2 block_scan2(uint2 v, uint2* warp_sums,
     v.x += warp_sums[warp - 1].x;
     v.y += warp_sums[warp - 1].y;
   }
+  if (total != nullptr) *total = warp_sums[warps - 1];
   __syncthreads();  // warp_sums is rewritten by the next call
   return v;
 }
 
 // B12's row decode: both planes of one row, the timestamps into ts_row
 // (TS_PAD from column cnt on) and the values, (int32)x * sc, into
-// val_row, decode_row's values by thread-contiguous segments over the
+// val_row, K1's values by thread-contiguous segments over the
 // whole block (a multiple of 32 threads, at most 1024): thread p owns
 // the columns [p L, p L + L), L the least odd number with blockDim.x L
 // >= n (odd, so a warp's shared-memory words fall in distinct banks).
@@ -144,9 +86,8 @@ __device__ __forceinline__ uint2 block_scan2(uint2 v, uint2* warp_sums,
 // give those sums over the earlier segments; pass 2 rebuilds the
 // segment's x, reading back the a it stashed in the row (a timestamp
 // word; a value's low word: the same thread's words).  Two block scans a
-// row where decode_row makes two per 256 columns and plane.  Every sum is
-// uint32 arithmetic mod 2^32, which is associative, so the values are
-// decode_row's bit for bit.
+// row.  Every sum is uint32 arithmetic mod 2^32, which is associative,
+// so the values are K1's bit for bit.
 __device__ void decode_row_pair(const PlaneRow& tp, const PlaneRow& vp,
                                 int n, int cnt, double sc, int32_t* ts_row,
                                 double* val_row, uint2* warp_sums) {

@@ -4,12 +4,25 @@
 // stack of stream tiles.
 //
 // K3 replaces victoriametrics_tpu/ops/device_rollup.py:append_tile.  Each
-// row's K new samples land after its counts[row] existing ones; positions
-// at or past N are dropped, and counts[row] += new_counts[row].  The
+// row's first new_counts[row] of its K new samples land after its
+// counts[row] existing ones; positions at or past N (or below 0) are
+// dropped, and counts[row] += new_counts[row] (uint32 arithmetic).  The
 // reference donated its buffers to XLA; this kernel writes IN PLACE on the
-// resident ts / values / counts tensors.  One warp per row: every lane
-// reads counts[row] before the warp synchronises and lane 0 writes the new
-// count, so no lane sees a half-updated row.
+// resident ts / values / counts tensors.  A group of G lanes serves a row
+// (ops/device_rollup.append_plan: the least power of two >= K / 2, at
+// least 4 and at most a warp: 4 lanes for the K of 8 that a refresh's
+// one scrape and a fleet interval's four pad to, a warp for the
+// resume's 120),
+// consecutive groups consecutive rows, so the counts and new_counts
+// loads are coalesced and a store instruction writes a run of columns in
+// each of 32 / G rows (with a thread a row, it would scatter over 32
+// rows: slower, as measured).  A lane loads up to 4 of its
+// columns before it stores them; those loads wait on new_counts only, the
+// stores' addresses on counts.  A lane never reads a column past
+// new_counts[row], and a row with new_counts 0 is untouched.  Every lane
+// of a group reads counts[row] before the warp synchronises and the
+// group's first lane writes the new count, so no lane sees a
+// half-updated row.
 //
 // K4 replaces victoriametrics_tpu/ops/device_rollup.py:compact_tile.  Each
 // row drops its samples with ts < cutoff_rel (a sorted row's prefix),
@@ -34,7 +47,8 @@
 //
 // Bound: bytes.  K3 reads each row's live new samples (the first
 // new_counts[row] of its K columns, 12 B each) and writes the same bytes
-// into the tile, plus the counts; K4 reads the survivors (12 B each) and
+// into the tile, plus the counts (at the shapes served, less time than a
+// launch takes); K4 reads the survivors (12 B each) and
 // the timestamps of the dropped prefix (4 B each) and writes the whole
 // [S, N] output tile (12 B per column).  Both are single coalesced passes
 // with no arithmetic beyond an int32 rebase; B10 and B11 move the same
@@ -49,33 +63,51 @@ constexpr int kAppendThreads = 256;
 constexpr int kCompactThreads = 256;
 constexpr int32_t kTsPad = 2147483647;
 
+// the columns a lane loads before it stores
+constexpr int kAppendBatch = 4;
+
+template <int G>
 __global__ void __launch_bounds__(kAppendThreads)
 append_rows(int32_t* __restrict__ ts, double* __restrict__ vals,
             int32_t* __restrict__ counts, const int32_t* __restrict__ new_ts,
             const double* __restrict__ new_vals,
             const int32_t* __restrict__ new_counts, long long S, int N,
             int K) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (kAppendThreads / 32) +
-      (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= S) return;  // uniform across the warp
-  const int c = counts[row];
-  const int nc = new_counts[row];
+  const long long t =
+      static_cast<long long>(blockIdx.x) * kAppendThreads + threadIdx.x;
+  const long long row = t / G;
+  const int lane = static_cast<int>(t % G);
+  const bool on = row < S;
+  const int nc = on ? new_counts[row] : 0;
+  const int c = on ? counts[row] : 0;
+  const int m = min(K, nc);  // the live columns
   const long long off = row * static_cast<long long>(N);
   const long long noff = row * static_cast<long long>(K);
-  for (int k = lane; k < K && k < nc; k += 32) {
-    const long long pos = static_cast<long long>(c) + k;
-    if (pos >= 0 && pos < N) {
-      ts[off + pos] = new_ts[noff + k];
-      vals[off + pos] = new_vals[noff + k];
+  for (int k0 = lane; k0 < m; k0 += kAppendBatch * G) {
+    int32_t nt[kAppendBatch];
+    double nv[kAppendBatch];
+#pragma unroll
+    for (int u = 0; u < kAppendBatch; ++u) {
+      const int k = k0 + u * G;
+      if (k < m) {
+        nt[u] = new_ts[noff + k];
+        nv[u] = new_vals[noff + k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAppendBatch; ++u) {
+      const int k = k0 + u * G;
+      const long long pos = static_cast<long long>(c) + k;
+      if (k < m && pos >= 0 && pos < N) {
+        ts[off + pos] = nt[u];
+        vals[off + pos] = nv[u];
+      }
     }
   }
-  __syncwarp();
-  if (lane == 0) {
+  __syncwarp();  // the group's lanes have read counts[row]
+  if (on && lane == 0 && nc != 0)
     counts[row] = static_cast<int32_t>(static_cast<uint32_t>(c) +
                                        static_cast<uint32_t>(nc));
-  }
 }
 
 __global__ void __launch_bounds__(kCompactThreads)
@@ -123,19 +155,46 @@ compact_rows(const int32_t* __restrict__ ts, const double* __restrict__ vals,
   if (threadIdx.x == 0) counts_out[row] = nc;
 }
 
-int append(void* ts, void* vals, void* counts, const void* new_ts,
-           const void* new_vals, const void* new_counts, long long S, int N,
-           int K, void* stream) {
-  if (S <= 0) return 0;
-  const long long per_block = kAppendThreads / 32;
-  const unsigned blocks = static_cast<unsigned>((S + per_block - 1) /
-                                                per_block);
-  append_rows<<<blocks, kAppendThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+template <int G>
+void launch_append(void* ts, void* vals, void* counts, const void* new_ts,
+                   const void* new_vals, const void* new_counts, long long S,
+                   int N, int K, cudaStream_t stream) {
+  const long long threads = S * G;
+  append_rows<G><<<static_cast<unsigned>((threads + kAppendThreads - 1) /
+                                         kAppendThreads),
+                   kAppendThreads, 0, stream>>>(
       static_cast<int32_t*>(ts), static_cast<double*>(vals),
       static_cast<int32_t*>(counts), static_cast<const int32_t*>(new_ts),
       static_cast<const double*>(new_vals),
       static_cast<const int32_t*>(new_counts), S, N, K);
+}
+
+// `lanes` a row (ops/device_rollup.append_plan): 4, 8, 16 or 32.
+int append(void* ts, void* vals, void* counts, const void* new_ts,
+           const void* new_vals, const void* new_counts, long long S, int N,
+           int K, int lanes, void* stream) {
+  if (S <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 4:
+      launch_append<4>(ts, vals, counts, new_ts, new_vals, new_counts, S, N,
+                       K, st);
+      break;
+    case 8:
+      launch_append<8>(ts, vals, counts, new_ts, new_vals, new_counts, S, N,
+                       K, st);
+      break;
+    case 16:
+      launch_append<16>(ts, vals, counts, new_ts, new_vals, new_counts, S, N,
+                        K, st);
+      break;
+    case 32:
+      launch_append<32>(ts, vals, counts, new_ts, new_vals, new_counts, S, N,
+                        K, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -159,18 +218,19 @@ int compact(const void* ts, const void* vals, const void* counts,
 extern "C" int vm_append_tile(void* ts, void* vals, void* counts,
                               const void* new_ts, const void* new_vals,
                               const void* new_counts, long long S, int N,
-                              int K, void* stream) {
+                              int K, int lanes, void* stream) {
   return append(ts, vals, counts, new_ts, new_vals, new_counts, S, N, K,
-                stream);
+                lanes, stream);
 }
 
 // B10: [B, S, N] += [B, S, K], in place.
 extern "C" int vm_fleet_append_tile(void* ts, void* vals, void* counts,
                                     const void* new_ts, const void* new_vals,
                                     const void* new_counts, long long B,
-                                    long long S, int N, int K, void* stream) {
+                                    long long S, int N, int K, int lanes,
+                                    void* stream) {
   return append(ts, vals, counts, new_ts, new_vals, new_counts, B * S, N, K,
-                stream);
+                lanes, stream);
 }
 
 extern "C" int vm_compact_tile(const void* ts, const void* vals,

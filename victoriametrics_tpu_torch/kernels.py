@@ -49,9 +49,12 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 # exported C functions per source, with their ctypes argument types
 SIGNATURES = {
     "decode": {
-        # first, fdelta, d2, d2_bytes, d2w, counts, scale, ts_out, val_out,
-        # S, n, stream
-        "vm_decode_plane": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _LL, _I, _P],
+        # ts_first, ts_fd, ts_d2, ts_d2_bytes, ts_d2w, val_first, val_fd,
+        # val_d2, val_d2_bytes, val_d2w, scale, counts, S, n, chunk, smem,
+        # ts_out, val_out, stream (chunk and smem: the plan's,
+        # ops/device_decode.k1_plan)
+        "vm_decode_tiles": [_P, _P, _P, _I, _LL, _P, _P, _P, _I, _LL, _P, _P,
+                            _LL, _I, _I, _LL, _P, _P, _P],
     },
     "rollup": {
         # D, ts[D], vals[D], counts[D], rows[D], N, shift, min_ts, step,
@@ -144,14 +147,16 @@ SIGNATURES = {
         "vm_halo_compact": [_I, _LLP, _I, _I, _P, _P, _P, _P, _P],
     },
     "tile": {
-        # ts, vals, counts, new_ts, new_vals, new_counts, S, N, K, stream
-        "vm_append_tile": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+        # ts, vals, counts, new_ts, new_vals, new_counts, S, N, K, lanes,
+        # stream (lanes: ops/device_rollup.append_plan)
+        "vm_append_tile": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
         # ts, vals, counts, ts_out, vals_out, counts_out, S, N, cutoff,
         # delta, stream
         "vm_compact_tile": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
-        # ts, vals, counts, new_ts, new_vals, new_counts, B, S, N, K, stream
+        # ts, vals, counts, new_ts, new_vals, new_counts, B, S, N, K, lanes,
+        # stream
         "vm_fleet_append_tile": [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
-                                 _P],
+                                 _I, _P],
         # ts, vals, counts, ts_out, vals_out, counts_out, cutoffs, deltas,
         # B, S, N, stream
         "vm_fleet_compact_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
@@ -266,6 +271,20 @@ def sm_count(device: torch.device) -> int:
     grid)."""
     index = torch.device(device).index
     return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_per_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(
+        index).shared_memory_per_multiprocessor
+
+
+def smem_per_sm(device: torch.device) -> int:
+    """Shared memory bytes of one SM of a CUDA ``device`` (a launch plan's
+    room)."""
+    index = torch.device(device).index
+    return _smem_per_sm(torch.cuda.current_device() if index is None
+                        else index)
 
 
 # torch's own raw-stream lookup (what its generated kernels launch with);

@@ -7,8 +7,9 @@ instead of the 12 of a dense (int32 ts, float64 value) tile, and rebuilds
 the tile on the card with two cumulative sums per row.  Port of
 ``victoriametrics_tpu/ops/device_decode.py``: ``pack_delta_planes`` is the
 same host code (same arrays, dtype for dtype, float64 scale);
-``decode_tiles`` launches ``csrc/decode.cu`` for CUDA tensors and runs its
-plain PyTorch version for CPU tensors; ``decode_and_rollup`` decodes each
+``decode_tiles`` launches ``csrc/decode.cu`` (both planes of a row in one
+launch, chunked by ``k1_plan``) for CUDA tensors and runs its plain
+PyTorch version for CPU tensors; ``decode_and_rollup`` decodes each
 row and rolls it up in one kernel (``csrc/rollup.cu`` decode_rollup),
 never writing the decoded [S, n] tile.
 
@@ -19,8 +20,10 @@ and the caller packs a dense tile.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -147,6 +150,51 @@ def decode_tiles_plain(ts_first, ts_fd, ts_d2, val_first, val_fd, val_d2,
     return ts, vals
 
 
+# an H100 SM's shared memory in bytes (k1_plan's default; a launch reads
+# the card's own), and the runtime's share of each resident block
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1024
+# K1's static shared memory: its block scans' warp sums (8 uint2)
+K1_STATIC_SMEM = 64
+
+#: K1's launch: columns a chunk, dynamic shared bytes a block
+K1Plan = collections.namedtuple("K1Plan", "chunk smem")
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def k1_smem(chunk: int, ts_bytes: int, val_bytes: int) -> int:
+    """K1's workspace for a chunk of `chunk` columns with d2 planes of
+    `ts_bytes` and `val_bytes` a column (csrc/decode.cu ts_ws + val_ws +
+    raw_ws x 2; the launch refuses a size that differs): the ts with 3
+    words of alignment slack, the values with 1, each plane's staged d2
+    words with 32 bytes over."""
+    return (_round16(4 * (chunk + 3)) + _round16(8 * (chunk + 1)) +
+            _round16(chunk * ts_bytes + 32) + _round16(chunk * val_bytes + 32))
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(n: int, ts_bytes: int, val_bytes: int,
+            smem_per_sm: int = SMEM_PER_SM) -> K1Plan:
+    """K1's chunk for rows of n columns on an SM of `smem_per_sm` shared
+    bytes: the whole row where two blocks of its workspace fit an SM (the
+    full width's 7232 columns of int16 and int8 planes: 108 KB), else the
+    fewest chunks that do, of equal width rounded up to a multiple of 32
+    columns, carried chunk to chunk.  The launch runs as many blocks as
+    the card's occupancy query lets reside."""
+    room = smem_per_sm // 2 - SMEM_RESERVED - K1_STATIC_SMEM
+    chunk = max(int(n), 1)
+    if k1_smem(chunk, ts_bytes, val_bytes) > room:
+        widest = room // (12 + ts_bytes + val_bytes) // 32 * 32
+        while k1_smem(widest, ts_bytes, val_bytes) > room:
+            widest -= 32
+        chunks = -(-chunk // widest)
+        chunk = -(-chunk // (32 * chunks)) * 32
+    return K1Plan(chunk, k1_smem(chunk, ts_bytes, val_bytes))
+
+
 def decode_tiles(ts_first, ts_fd, ts_d2, val_first, val_fd, val_d2, scale,
                  counts, n: int):
     """Decode delta planes -> (ts int32 [S, n], vals float64 [S, n]).
@@ -174,19 +222,18 @@ def decode_tiles(ts_first, ts_fd, ts_d2, val_first, val_fd, val_d2, scale,
     kernels.require(scale, "scale", torch.float64, (S,))
     for name, d2 in (("ts_d2", ts_d2), ("val_d2", val_d2)):
         kernels.require(d2, name, d2.dtype, tuple(d2.shape))
+    plan = k1_plan(n, ts_d2.element_size(), val_d2.element_size(),
+                   kernels.smem_per_sm(dev))
     h = kernels.lib("decode")
     ts = torch.empty((S, n), dtype=torch.int32, device=dev)
     vals = torch.empty((S, n), dtype=torch.float64, device=dev)
-    stream = kernels.stream_of(dev)
-    kernels.check(h, h.vm_decode_plane(
+    kernels.check(h, h.vm_decode_tiles(
         ts_first.data_ptr(), ts_fd.data_ptr(), ts_d2.data_ptr(),
-        ts_d2.element_size(), ts_d2.shape[1], counts.data_ptr(), None,
-        ts.data_ptr(), None, S, n, stream), "decode_tiles (ts plane)")
-    kernels.check(h, h.vm_decode_plane(
-        val_first.data_ptr(), val_fd.data_ptr(), val_d2.data_ptr(),
-        val_d2.element_size(), val_d2.shape[1], counts.data_ptr(),
-        scale.data_ptr(), None, vals.data_ptr(), S, n, stream),
-        "decode_tiles (value plane)")
+        ts_d2.element_size(), ts_d2.shape[1], val_first.data_ptr(),
+        val_fd.data_ptr(), val_d2.data_ptr(), val_d2.element_size(),
+        val_d2.shape[1], scale.data_ptr(), counts.data_ptr(), S, n,
+        plan.chunk, plan.smem, ts.data_ptr(), vals.data_ptr(),
+        kernels.stream_of(dev)), "decode_tiles")
     kernels.LAUNCHES["decode_tiles"] += 1
     return ts, vals
 

@@ -975,6 +975,18 @@ def append_tile_plain(ts, values, counts, new_ts, new_values, new_counts):
     return ts, values, counts
 
 
+def append_plan(K: int) -> int:
+    """Lanes a row of K3 and B10's kernel (csrc/tile.cu append_rows): the
+    least power of two >= K / 2, at least 4 and at most a warp.  Both
+    callers pad K to a multiple of 8: the K of 8 that a refresh's one
+    scrape and a steady fleet interval's four pad to takes 4 lanes
+    (measured fastest at the fleet's 4 live of 8, ahead of 2 and 8 lanes,
+    a warp and a thread a row: PERF.md, B10), K 16 and 24 after a gap 8
+    and 16, the 30-minute resume's K of about 120 a warp."""
+    half = -(-int(K) // 2)
+    return min(32, max(4, 1 << max(half - 1, 0).bit_length()))
+
+
 def append_tile(ts: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
                 new_ts: torch.Tensor, new_values: torch.Tensor,
                 new_counts: torch.Tensor):
@@ -1000,7 +1012,7 @@ def append_tile(ts: torch.Tensor, values: torch.Tensor, counts: torch.Tensor,
     kernels.check(h, h.vm_append_tile(
         ts.data_ptr(), values.data_ptr(), counts.data_ptr(),
         new_ts.data_ptr(), new_values.data_ptr(), new_counts.data_ptr(),
-        S, N, K, kernels.stream_of(dev)), "append_tile")
+        S, N, K, append_plan(K), kernels.stream_of(dev)), "append_tile")
     kernels.LAUNCHES["append_tile"] += 1
     return ts, values, counts
 
@@ -1233,7 +1245,8 @@ def fleet_append_tile(ts: torch.Tensor, values: torch.Tensor,
     kernels.check(h, h.vm_fleet_append_tile(
         ts.data_ptr(), values.data_ptr(), counts.data_ptr(),
         new_ts.data_ptr(), new_values.data_ptr(), new_counts.data_ptr(),
-        B, S, N, K, kernels.stream_of(dev)), "fleet_append_tile")
+        B, S, N, K, append_plan(K), kernels.stream_of(dev)),
+        "fleet_append_tile")
     kernels.LAUNCHES["fleet_append_tile"] += 1
     return ts, values, counts
 
