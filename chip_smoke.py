@@ -7,7 +7,8 @@ Runs only the port (``victoriametrics_tpu_torch``), never JAX.  Phases,
 each printing one JSON line:
 
   build       compile csrc/*.cu with nvcc for sm_90a, one process per
-              source, all started together
+              source, all started together, then native/codec.cpp with
+              g++ (the host codec the cold upload converts with)
   kernels     K1 decode_tiles (also at its edge rows: n of 1, 2 and odd
               widths, each d2 width, planes wider than n - 2 or at an
               offset from a 16-byte word, count-0 rows, wrapping tails,
@@ -113,6 +114,21 @@ each printing one JSON line:
               torch.nanquantile) at this width; a range quantile at this
               width is declined by the dense-budget gate, as in the
               reference
+  host_codec  the cold upload's host half: the native codec
+              (native/codec.cpp, built by g++) must load; the grouped
+              float->decimal (``cuda_engine.decimal_columns``) and the flat
+              pack (``pack_columns``) timed (f2d_ms, pack_ms) on the
+              dashboard's 8192 x 1440 series beside the per-series path
+              (planes_for, per_series_ms) and on the full width's 100,000
+              series; mantissas and exponents bit for bit against
+              float_to_decimal on each series, the planes bit for bit
+              against planes_for (the dashboard and a small store of
+              decimal counters and gauges with series of 1-8 samples),
+              none on both paths for a store of full-precision floats and
+              NaN/+-Inf/stale markers, and at full width against the
+              planes K1 decoded; the block codecs (marshal_int64_array,
+              marshal_timestamps, marshal_values) through the native
+              codec and numpy: the same bytes, exact round trips
   mesh        the multi-device paths on 8 logical shards of this card
               (every shard on cuda:0): (a) the dashboard through
               CUDAEngine(mesh=make_mesh(8, 1)): the cold query (K1 per
@@ -148,6 +164,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -156,11 +173,12 @@ import time
 import numpy as np
 import torch
 
-from victoriametrics_tpu_torch import kernels
+from victoriametrics_tpu_torch import kernels, native
 from victoriametrics_tpu_torch.models import tile_cache
 from victoriametrics_tpu_torch.ops import device_decode as dd
 from victoriametrics_tpu_torch.ops import device_rollup as dr
 from victoriametrics_tpu_torch.ops import decimal as dec
+from victoriametrics_tpu_torch.ops import encoding as enc
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
 from victoriametrics_tpu_torch.parallel import mesh as meshlib
 from victoriametrics_tpu_torch.parallel.partition import split_rows
@@ -2721,6 +2739,171 @@ def phase_full_width(rng, dev, hours: float) -> dict:
                  "planes": (args, n_cap)}
 
 
+def host_codec_store(rng, kind: str):
+    """A small store as (ts, values) pairs, series of 1-8 samples (the
+    scalar conversion's) among longer ones: "decimal" (counters, a third
+    divided by 100, and 3-digit gauges; fits int32 planes) or "mixed"
+    (those, full-precision floats and NaN, +-Inf and staleness markers;
+    its mantissas leave int32, so both paths pack no planes)."""
+    out = []
+    for i in range(96):
+        n = int(rng.integers(1, 9)) if i % 6 == 0 else \
+            int(rng.integers(9, 600))
+        ts = np.sort(T_START + np.arange(n, dtype=np.int64) * SCRAPE +
+                     rng.integers(-JITTER, JITTER + 1, n))
+        v = np.cumsum(rng.integers(0, 50, n)).astype(np.float64)
+        if i % 3 == 1:
+            v /= 100
+        elif i % 3 == 2:
+            v = np.round(rng.uniform(-100, 100, n), 3)
+        if kind == "mixed" and i % 4 == 1:
+            v = rng.standard_normal(n) * np.exp(rng.uniform(-30, 30, n))
+        elif kind == "mixed" and i % 4 == 3:
+            v[rng.random(n) < 0.2] = (np.nan, np.inf, -np.inf,
+                                      dec.STALE_NAN)[i % 8 // 2]
+        out.append((ts, v))
+    return out
+
+
+def check_decimal_columns(what: str, series, cols) -> None:
+    """The grouped conversion's columns against float_to_decimal on each
+    series, bit for bit."""
+    m, starts, exps = cols
+    for i, sd in enumerate(series):
+        want_m, want_e = dec.float_to_decimal(sd.values)
+        got_m = m[starts[i]:starts[i] + want_m.size]
+        if int(exps[i]) != want_e or not np.array_equal(got_m, want_m):
+            raise AssertionError(f"{what}: series {i} converts otherwise "
+                                 "than float_to_decimal")
+
+
+def check_planes(what: str, got, want) -> None:
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {f.name} differs")
+
+
+def host_codec_round_trips(series, m, starts) -> dict:
+    """marshal_int64_array / unmarshal_int64_array, marshal_timestamps and
+    marshal_values through the native codec and through numpy: the same
+    bytes, and each decodes back to its input."""
+    blocks = []
+    for i in range(0, len(series), max(1, len(series) // 64)):
+        sd = series[i]
+        blocks.append(("timestamps", sd.timestamps))
+        blocks.append(("values", m[starts[i]:starts[i] + sd.values.size]))
+    rng = np.random.default_rng(11)
+    blocks += [("array", rng.integers(-1000, 1000, 4096)),  # a gauge
+               ("array", np.full(300, 7)), ("array", np.arange(0, 9000, 15)),
+               ("array", np.cumsum(np.tile([1, 2, 3, 4], 2048)))]
+    marshal = {"array": enc.marshal_int64_array,
+               "timestamps": enc.marshal_timestamps,
+               "values": enc.marshal_values}
+    unmarshal = {"array": enc.unmarshal_int64_array,
+                 "timestamps": enc.unmarshal_timestamps,
+                 "values": enc.unmarshal_values}
+    res, types = {}, collections.Counter()
+    saved = enc._HAVE_NATIVE
+    try:
+        outs = {}
+        for path in ("native", "numpy"):
+            enc._HAVE_NATIVE = path == "native"
+            t0 = time.perf_counter()
+            outs[path] = [marshal[k](np.asarray(b, np.int64))
+                          for k, b in blocks]
+            res[f"{path}_marshal_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for (k, b), (data, mt, first) in zip(blocks, outs[path]):
+                back = unmarshal[k](data, mt, first, len(b))
+                if not np.array_equal(back, b):
+                    raise AssertionError(f"codec round trip ({path}, {k}, "
+                                         f"{mt.name}) differs")
+            res[f"{path}_unmarshal_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        enc._HAVE_NATIVE = saved
+    if outs["native"] != outs["numpy"]:
+        raise AssertionError("codec: native and numpy bytes differ")
+    for _, mt, _ in outs["native"]:
+        types[mt.name] += 1
+    return {**res, "blocks": len(blocks),
+            "bytes": sum(len(d) for d, _, _ in outs["native"]),
+            "samples": int(sum(len(b) for _, b in blocks)),
+            "marshal_types": dict(types)}
+
+
+def phase_host_codec(rng, replay, fw) -> dict:
+    """The cold upload's host half: the native codec loaded (no silent
+    numpy fallback), the grouped conversion and flat pack timed on the
+    dashboard's and the full width's series (the script's own calls of
+    the engine's functions, after their cold queries), their planes held
+    bit for bit against the per-series path (planes_for, at the dashboard
+    and on two small stores) and against the planes K1 decoded at full
+    width; then the block codecs' round trips, native against numpy."""
+    lib = native.build()
+    if not native.available():
+        raise AssertionError(f"native codec {lib.name} built but not loaded")
+    res = {"phase": "host_codec", "ok": True, "native": {
+        "library": lib.name, "has_zstd": native.has_zstd(),
+        "decompress_caps": native.decompress_caps()}}
+    start, end = dashboard_grid()
+    series = replay["store"].search_series(start - WINDOW - LOOKBACK_DELTA,
+                                           end)
+    t0 = time.perf_counter()
+    cols = ce.decimal_columns(series)
+    t1 = time.perf_counter()
+    planes = ce.pack_columns(series, *cols, start)
+    t2 = time.perf_counter()
+    want, n_cap = planes_for([(sd.timestamps, sd.values) for sd in series],
+                             start)
+    t3 = time.perf_counter()
+    check_decimal_columns("dashboard", series, cols)
+    check_planes("dashboard planes vs the per-series path", planes, want)
+    res["dashboard"] = {
+        "series": len(series), "samples": int(cols[0].size),
+        "f2d_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3,
+        "per_series_ms": (t3 - t2) * 1e3, "n_cap": n_cap,
+        "d2_types": [str(planes.ts_d2.dtype), str(planes.val_d2.dtype)]}
+    res["codec"] = host_codec_round_trips(series, cols[0], cols[1])
+    del want, planes, cols
+    small = {}
+    for kind in ("decimal", "mixed"):
+        pairs = host_codec_store(rng, kind)
+        sds = [SeriesData(None, t, v) for t, v in pairs]
+        cols = ce.decimal_columns(sds)
+        check_decimal_columns(f"{kind} store", sds, cols)
+        got = ce.host_planes(sds, T_START)
+        if kind == "decimal":
+            check_planes(f"{kind} store planes", got,
+                         planes_for(pairs, T_START)[0])
+        elif got is not None or dd.pack_delta_planes(
+                [(t, *dec.float_to_decimal(v)) for t, v in pairs],
+                T_START) is not None:
+            raise AssertionError("mixed store: planes where its mantissas "
+                                 "leave int32")
+        small[kind] = {"series": len(sds), "samples": int(cols[0].size),
+                       "planes": got is not None}
+    res["small"] = small
+    series, cfg = fw["series"], fw["cfg"]
+    t0 = time.perf_counter()
+    cols = ce.decimal_columns(series)
+    t1 = time.perf_counter()
+    planes = ce.pack_columns(series, *cols, cfg.start)
+    t2 = time.perf_counter()
+    del cols
+    args, n_cap = fw["planes"]
+    for f, t in zip(dataclasses.fields(planes), args):
+        if not np.array_equal(getattr(planes, f.name), t.cpu().numpy()):
+            raise AssertionError(f"full width: {f.name} differs from the "
+                                 "planes K1 decoded")
+    res["full_width"] = {"series": len(series),
+                         "samples": int(planes.counts.sum()),
+                         "f2d_ms": (t1 - t0) * 1e3,
+                         "pack_ms": (t2 - t1) * 1e3, "n_cap": n_cap}
+    emit(res)
+    return res
+
+
 class Aside:
     """Launches made beside the mesh path (the unsharded comparisons and
     the cold rebuilds): `with aside():` records them so the path's counts
@@ -3122,8 +3305,13 @@ def main(argv=None) -> int:
     build_s = kernels.build()
     for name in kernels.SOURCES:
         kernels.lib(name)
+    # the host codec too, so that no cold query's time holds its g++ build
+    t1 = time.perf_counter()
+    native.build()
+    native_s = time.perf_counter() - t1
     emit({"phase": "build", "ok": True, "seconds": build_s,
-          "load_seconds": time.perf_counter() - t0, "gpu": gpu,
+          "load_seconds": time.perf_counter() - t0,
+          "native_codec_seconds": native_s, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     rng = np.random.default_rng(args.seed)
     kres, fleet_err = phase_kernels(rng, dev)
@@ -3135,6 +3323,7 @@ def main(argv=None) -> int:
         kres[name] = {**fl["kernels"][name], "max_abs_err": max(
             fleet_err[name], fl["kernels"][name]["max_abs_err"])}
     _, fw = phase_full_width(rng, dev, args.full_hours)
+    phase_host_codec(rng, replay, fw)
     mesh = phase_mesh(dev, replay, fw)
     del replay, fw
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on

@@ -1,6 +1,8 @@
 """The PyTorch/CUDA port imports no JAX and nothing of the JAX package:
 every module of victoriametrics_tpu_torch, and chip_smoke.py, load in a
-process where importing jax fails."""
+process where importing jax fails.  Importing them builds nothing: no
+compiler process starts and no file is written under the package's
+``_build/`` (the native codec and the CUDA kernels build on first use)."""
 
 import os
 import pkgutil
@@ -12,9 +14,37 @@ import victoriametrics_tpu_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
-import importlib, runpy, sys
+import builtins, importlib, os, runpy, subprocess, sys
 sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["jaxlib"] = None
+BUILD = os.path.join(os.getcwd(), "victoriametrics_tpu_torch", "_build")
+built = []
+real_open, real_os_open, real_popen = builtins.open, os.open, subprocess.Popen
+
+
+def _writes(path, how):
+    if os.path.abspath(os.fspath(path)).startswith(BUILD) and how:
+        built.append(os.fspath(path))
+
+
+def _open(file, mode="r", *a, **k):
+    if isinstance(file, (str, bytes, os.PathLike)):
+        _writes(file, any(c in mode for c in "wax+"))
+    return real_open(file, mode, *a, **k)
+
+
+def _os_open(path, flags, *a, **k):
+    _writes(path, flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT))
+    return real_os_open(path, flags, *a, **k)
+
+
+class _Popen(real_popen):
+    def __init__(self, args, *a, **k):
+        built.append(args)
+        super().__init__(args, *a, **k)
+
+
+builtins.open, os.open, subprocess.Popen = _open, _os_open, _Popen
 mods = sys.argv[1:]
 for m in mods:
     importlib.import_module(m)
@@ -28,6 +58,10 @@ leaked = sorted(m for m in sys.modules
                 and sys.modules[m] is not None)
 print("LEAKED", leaked)
 print("LOADED", len(mods))
+print("BUILT", built)
+loaded = (sys.modules["victoriametrics_tpu_torch.native"]._tried,
+          dict(sys.modules["victoriametrics_tpu_torch.kernels"]._libs))
+print("LIBRARIES", loaded)
 """
 
 
@@ -43,8 +77,13 @@ def test_port_and_chip_smoke_import_without_jax():
     mods = _port_modules()
     assert "victoriametrics_tpu_torch.query.cuda_engine" in mods
     assert {"victoriametrics_tpu_torch.parallel.mesh",
-            "victoriametrics_tpu_torch.parallel.partition"} <= set(mods)
-    assert len(mods) >= 15
+            "victoriametrics_tpu_torch.parallel.partition",
+            "victoriametrics_tpu_torch.native",
+            "victoriametrics_tpu_torch.ops.varint",
+            "victoriametrics_tpu_torch.ops.nearest_delta",
+            "victoriametrics_tpu_torch.ops.compress",
+            "victoriametrics_tpu_torch.ops.encoding"} <= set(mods)
+    assert len(mods) >= 20
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -52,3 +91,5 @@ def test_port_and_chip_smoke_import_without_jax():
     assert "LEAKED []" in out.stdout, out.stdout
     assert f"LOADED {len(mods)}" in out.stdout
     assert "usage: chip_smoke.py" in out.stdout
+    assert "BUILT []" in out.stdout, out.stdout
+    assert "LIBRARIES (False, {})" in out.stdout, out.stdout

@@ -1,11 +1,13 @@
-"""Decimal codec, float64[] -> (int64 mantissas, common decimal exponent).
+"""Decimal codec: float64[] <-> (int64 mantissas, common decimal exponent).
 
-The port's own copy of the encode half of ``victoriametrics_tpu/ops/
-decimal.py`` (``float_to_decimal`` and the special-value sentinels it
-needs; reference lib/decimal/decimal.go AppendFloatToDecimal): the cold
-upload turns each series' float64 values into integer mantissas before
-packing nearest-delta2 planes.  Host numpy only, bit-identical to the
-reference module, which the tests hold it against.
+The port's own copy of ``victoriametrics_tpu/ops/decimal.py`` (reference
+lib/decimal/decimal.go AppendFloatToDecimal, AppendDecimalToFloat,
+CalibrateScale): the cold upload turns the series' float64 values into
+integer mantissas before packing nearest-delta2 planes, one
+``float_to_decimal_grouped`` call for every series of more than 8 samples
+(native at 256 samples and above, ``native/codec.cpp`` vm_f2d_grouped).
+Host numpy only, bit-identical to the reference module, which the tests
+hold it against.
 
 Values are stored as int64 mantissas sharing one decimal exponent,
 ``v ~= m * 10^e``.  Special float values map to reserved int64 constants:
@@ -301,3 +303,190 @@ def _f2d_apply_specials(m, specials):
     m = np.where(posinf, V_INF_POS, m)
     m = np.where(neginf, V_INF_NEG, m)
     return m
+
+
+def float_to_decimal_grouped(values: np.ndarray, starts: np.ndarray
+                             ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-group float_to_decimal over a concatenation — bit-identical to
+    calling float_to_decimal on each segment, but the element-wise phase
+    runs ONCE over the whole array and the per-group common-exponent
+    unification is reduceat-vectorized. The flush path batches thousands of
+    small per-series blocks through this (the per-call overhead of the
+    vectorized pipeline dominates at ~24-sample scrape blocks).
+
+    starts: sorted int group start offsets; ends are implied. Returns
+    (mantissas, exps[int64, one per group]). Every group rides the same
+    vectorized element phase — one batched call amortizes the per-call
+    overhead that makes the scalar path attractive for single tiny
+    conversions, and per-group Python would otherwise dominate scrape-flush
+    conversion (~25us/group). Full-precision (non-decimal) floats may
+    round a final ulp differently than the repr-based scalar path; decimal
+    data converts identically."""
+    v = np.asarray(values, dtype=np.float64)
+    starts = np.asarray(starts, dtype=np.int64)
+    n_groups = starts.size
+    exps = np.zeros(n_groups, dtype=np.int64)
+    if v.size == 0 or n_groups == 0:
+        return np.zeros(v.size, dtype=np.int64), exps
+    if v.size >= 256:
+        # bit-identical native twin (differentially tested, shared pow10
+        # table) — the flush hot path
+        from .. import native
+        got = native.f2d_grouped(v, starts)
+        if got is not None:
+            return got
+    ends = np.append(starts[1:], v.size)
+    sizes = ends - starts
+    m, e, normal, specials = _f2d_element_phase(v)
+    BIG = np.int64(1 << 40)
+    absm = np.maximum(np.abs(m).astype(np.float64), 1.0)
+    allowed_up = np.floor(np.log10(MAX_MANTISSA / absm)).astype(np.int64)
+    emin_g = np.minimum.reduceat(np.where(normal, e, BIG), starts)
+    floor_g = np.maximum.reduceat(
+        np.where(normal, e - allowed_up, -BIG), starts)
+    has_norm_g = np.logical_or.reduceat(normal, starts)
+    exp_g = np.minimum(emin_g, _MAX_EXP)
+    exp_g = np.where(floor_g > exp_g, floor_g, exp_g)
+    exp_g = np.clip(exp_g, _MIN_EXP, _MAX_EXP)
+    exp_g = np.where(has_norm_g, exp_g, 0)
+    exp_elem = np.repeat(exp_g, sizes)
+    m_all = _f2d_rescale(m, e, normal, exp_elem)
+    m_out = _f2d_apply_specials(m_all, specials)
+    return m_out, exp_g.astype(np.int64)
+
+
+def decimal_to_float(ints: np.ndarray, exponent: int) -> np.ndarray:
+    """Convert (int64 mantissas, exponent) back to float64 values.
+
+    Division by an exact power of ten is used for negative exponents so that
+    typical decimal values round-trip bit-exactly.
+    """
+    m = np.asarray(ints, dtype=np.int64)
+    stale = m == V_STALE_NAN
+    nan = m == V_NAN
+    posinf = m == V_INF_POS
+    neginf = m == V_INF_NEG
+    special = stale | nan | posinf | neginf
+
+    mn = np.where(special, 0, m)
+    mf = mn.astype(np.float64)
+    if exponent == 0:
+        out = mf
+    elif exponent < 0:
+        if exponent >= -22:
+            out = mf / _pow10_float(-exponent)
+            if exponent >= -18:
+                # Mantissas above 2^53 round in the int64->float64 cast; when
+                # the division is exact in integers, divide first instead.
+                p = np.int64(10) ** np.int64(-exponent)
+                q = mn // p
+                exact = (mn - q * p == 0)
+                out = np.where(exact, q.astype(np.float64), out)
+        else:
+            out = mf * _pow10_float(exponent)
+    else:
+        out = mf * _pow10_float(exponent)
+
+    out = np.where(stale, STALE_NAN, out)
+    out = np.where(nan, np.nan, out)
+    out = np.where(posinf, np.inf, out)
+    out = np.where(neginf, -np.inf, out)
+    return out
+
+
+#: sample count above which one exponent run is split across pool workers
+_BLOCKS_SPLIT_MIN = 1 << 19
+
+
+def decimal_to_float_blocks_py(mants: np.ndarray, goff: np.ndarray,
+                               scales: np.ndarray, out: np.ndarray,
+                               pool=None) -> np.ndarray:
+    """Pure-numpy twin of native.decimal_to_float_blocks: convert
+    per-block (mantissa, exponent) columns into float64 `out` in place.
+
+    ``goff`` is the (K+1,) exclusive block-offset prefix; block k owns
+    samples [goff[k], goff[k+1]) at exponent ``scales[k]``.
+
+    One sort-by-scale pass: blocks are argsorted by exponent (K log K on
+    BLOCK count, not samples), their sample positions gathered once, and
+    each distinct exponent converts its whole sample run in one
+    decimal_to_float call — O(samples + K log K), replacing the old
+    per-exponent full-length repeat mask that made the fallback
+    O(samples x distinct_exponents).
+
+    Disjoint runs (and oversized single runs) optionally split across
+    ``pool`` (anything with ``.run(list_of_callables)``, as the
+    reference's utils/workpool.WorkPool): every task writes a disjoint
+    region of ``out``, so parallel execution is bit-identical."""
+    K = int(scales.size)
+    if K == 0 or out.size == 0:
+        return out
+    uniq = np.unique(scales)
+    if uniq.size == 1:
+        # common case (one part, uniform scrape payloads): no gather at all
+        out[:] = decimal_to_float(mants, int(uniq[0]))
+        return out
+    cnts = goff[1:] - goff[:-1]
+    order = np.argsort(scales, kind="stable")
+    ss = scales[order]
+    sorted_cnts = cnts[order]
+    tot = int(sorted_cnts.sum())
+    excl = np.cumsum(sorted_cnts) - sorted_cnts
+    pos = np.repeat(goff[:-1][order] - excl, sorted_cnts) + \
+        np.arange(tot, dtype=np.int64)
+    runs = []                       # (sample_lo, sample_hi, exponent)
+    bstart = np.flatnonzero(np.concatenate([[True], ss[1:] != ss[:-1]]))
+    sstart = excl[bstart]
+    send = np.append(sstart[1:], tot)
+    for lo, hi, e in zip(sstart, send, ss[bstart]):
+        lo, hi, e = int(lo), int(hi), int(e)
+        # split giant runs so the pool can overlap them too
+        step = max(_BLOCKS_SPLIT_MIN, -(-(hi - lo) // 8))
+        for a in range(lo, hi, step):
+            runs.append((a, min(a + step, hi), e))
+
+    def conv(lo: int, hi: int, e: int):
+        p = pos[lo:hi]
+        out[p] = decimal_to_float(mants[p], e)
+
+    if pool is not None and len(runs) > 1 and tot >= _BLOCKS_SPLIT_MIN:
+        from functools import partial
+        pool.run([partial(conv, *r) for r in runs])
+    else:
+        for r in runs:
+            conv(*r)
+    return out
+
+
+def calibrate_scale(a: np.ndarray, a_exp: int, b: np.ndarray, b_exp: int
+                    ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Bring two mantissa arrays to a common exponent (reference
+    CalibrateScale, decimal.go:13). Scales the larger-exponent side up unless
+    that overflows MAX_MANTISSA, in which case the smaller side loses digits.
+    """
+    if a_exp == b_exp:
+        return a, b, a_exp
+    if a_exp > b_exp:
+        b2, a2, e = calibrate_scale(b, b_exp, a, a_exp)
+        return a2, b2, e
+
+    # a_exp < b_exp: try to shift b down to a_exp.
+    def _specials(x):
+        return (x == V_STALE_NAN) | (x == V_NAN) | (x == V_INF_POS) | (x == V_INF_NEG)
+
+    shift = b_exp - a_exp
+    bsp = _specials(b)
+    babs = np.abs(np.where(bsp, 0, b)).astype(np.float64)
+    maxb = babs.max() if b.size else 0.0
+    if maxb == 0.0:
+        # b has no normal mantissas — zeros scale to any exponent for free.
+        return a, b, a_exp
+    if shift <= 18 and maxb * (10.0 ** shift) <= MAX_MANTISSA:
+        factor = np.int64(10) ** np.int64(shift)
+        b2 = np.where(bsp, b, b * factor)
+        return a, b2, a_exp
+    # Can't shift b down fully: shift a up (lossy on a).
+    asp = _specials(a)
+    factor = 10.0 ** shift
+    a2 = np.where(asp, a, np.round(np.where(asp, 0, a).astype(np.float64) / factor).astype(np.int64))
+    return a2, b, b_exp

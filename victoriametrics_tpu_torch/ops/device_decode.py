@@ -5,17 +5,24 @@ The cold upload ships second-order deltas quantized to the narrowest
 integer plane that fits (int8/int16/int32), about 2-5 bytes per sample
 instead of the 12 of a dense (int32 ts, float64 value) tile, and rebuilds
 the tile on the card with two cumulative sums per row.  Port of
-``victoriametrics_tpu/ops/device_decode.py``: ``pack_delta_planes`` is the
-same host code (same arrays, dtype for dtype, float64 scale);
-``decode_tiles`` launches ``csrc/decode.cu`` (both planes of a row in one
+``victoriametrics_tpu/ops/device_decode.py`` (host planes of the same
+arrays, dtype for dtype, float64 scale); ``decode_tiles`` launches ``csrc/decode.cu`` (both planes of a row in one
 launch, chunked by ``k1_plan``) for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; ``decode_and_rollup`` decodes each
 row and rolls it up in one kernel (``csrc/rollup.cu`` decode_rollup),
 never writing the decoded [S, n] tile.
 
+``pack_delta_planes_flat`` packs every series at once from flat columns
+(the cold upload's path); ``pack_delta_planes`` takes per-series triples
+and concatenates them into it.  Its planes equal the reference's
+``pack_delta_planes(..., np.float64)`` field for field.
+
 Overflow safety: a tile is only eligible when every intermediate
-(mantissa, delta) fits int32; otherwise ``pack_delta_planes`` returns None
-and the caller packs a dense tile.
+(mantissa, delta) fits int32; otherwise the pack returns None and the
+caller packs a dense tile.  One intended difference from the reference:
+a NaN mantissa (``decimal.V_NAN`` = INT64_MIN) is out of range here,
+where the reference's ``np.abs`` test lets an all-NaN series through and
+packs it as zeros.
 """
 
 from __future__ import annotations
@@ -54,67 +61,127 @@ class DeltaPlanes:
                    for f in dataclasses.fields(self))
 
 
-def _narrowest_plane(d2: np.ndarray):
-    if d2.size == 0:
+#: samples a chunk of rows of the flat pack holds, so that its int64
+#: temporaries stay a few MB whatever the tile's size
+PACK_CHUNK = 1 << 16
+
+
+def _plane_dtype(most: int):
+    """The narrowest plane for second-order deltas of magnitude <= most."""
+    if most < 127:
         return np.int8
-    m = np.abs(d2).max()
-    if m < 127:
-        return np.int8
-    if m < 32767:
+    if most < 32767:
         return np.int16
     return np.int32
 
 
-def pack_delta_planes(series, start_ms: int) -> DeltaPlanes | None:
-    """series: [(ts_ms int64[], mantissas int64[], exponent)] — returns None
-    when any series needs >int32 intermediates (caller falls back)."""
-    S = len(series)
+def _int32_range(x: np.ndarray):
+    """(min, max) of x when every element lies strictly inside
+    (-2**31, 2**31), else None.  A range test, not np.abs: abs(INT64_MIN),
+    the mantissa of a NaN (decimal.V_NAN), stays negative and would pass."""
+    lo, hi = int(x.min()), int(x.max())
+    return (lo, hi) if lo > -2**31 and hi < 2**31 else None
+
+
+def pack_delta_planes_flat(ts: np.ndarray, m: np.ndarray, starts: np.ndarray,
+                           exps: np.ndarray, start_ms: int,
+                           cols: int = 0) -> DeltaPlanes | None:
+    """Pack series given as flat columns: series i owns ts[starts[i]:
+    starts[i + 1]] (int64 ms) and m[...] (int64 mantissas) at decimal
+    exponent exps[i].  Returns None when a timestamp relative to start_ms,
+    a mantissa or a first or second delta leaves int32 (the caller packs
+    a dense tile); a NaN mantissa (V_NAN) is out of range too.
+
+    Rows are packed in chunks of about PACK_CHUNK samples: each chunk is
+    viewed as a [rows, n] matrix (padded where its rows are ragged, the
+    diffs past a row's count masked to zero), so there is no Python loop
+    over series.  The d2 planes are [S, max(N - 2, 1, cols)] (`cols`
+    reserves tile headroom), of the narrowest type that holds every
+    second delta: the first chunk's, widened if a later one needs more."""
+    starts = np.asarray(starts, dtype=np.int64)
+    S = int(starts.size)
     if S == 0:
         return None
-    counts = np.array([len(t) for t, _, _ in series], dtype=np.int32)
+    total = int(ts.size)
+    counts = np.diff(np.append(starts, total))
     if (counts < 1).any():
         return None
     N = int(counts.max())
-    ts_first = np.zeros(S, dtype=np.int64)
-    ts_fd = np.zeros(S, dtype=np.int64)
-    val_first = np.zeros(S, dtype=np.int64)
-    val_fd = np.zeros(S, dtype=np.int64)
-    scale = np.ones(S, dtype=np.float64)
-    ts_d2 = np.zeros((S, max(N - 2, 1)), dtype=np.int64)
-    val_d2 = np.zeros((S, max(N - 2, 1)), dtype=np.int64)
-    for i, (ts, m, exp) in enumerate(series):
-        rel = np.asarray(ts, dtype=np.int64) - start_ms
-        m = np.asarray(m, dtype=np.int64)
-        if rel.size and (np.abs(rel).max() >= 2**31 or
-                         np.abs(m).max() >= 2**31):
-            return None
-        ts_first[i] = rel[0]
-        val_first[i] = m[0]
-        scale[i] = np.float64(10.0) ** exp
-        if rel.size >= 2:
-            td = np.diff(rel)
-            vd = np.diff(m)
-            if np.abs(td).max() >= 2**31 or np.abs(vd).max() >= 2**31:
+    width = max(N - 2, 1, int(cols))
+    firsts = (np.empty(S, np.int32), np.empty(S, np.int32))
+    fdeltas = (np.zeros(S, np.int32), np.zeros(S, np.int32))
+    d2_planes = [None, None]
+    rows = max(1, PACK_CHUNK // N)
+    for g0 in range(0, S, rows):
+        g1 = min(g0 + rows, S)
+        lo, hi = int(starts[g0]), int(starts[g1]) if g1 < S else total
+        c = counts[g0:g1]
+        n = int(c.max())
+        ragged = bool((c < n).any())
+        for i, col in enumerate((ts, m)):
+            x = col[lo:hi]
+            if i == 0:
+                x = x - start_ms
+            if _int32_range(x) is None:
                 return None
-            ts_fd[i] = td[0]
-            val_fd[i] = vd[0]
-            if rel.size >= 3:
-                t2 = np.diff(td)
-                v2 = np.diff(vd)
-                if np.abs(t2).max() >= 2**31 or np.abs(v2).max() >= 2**31:
-                    return None
-                ts_d2[i, :t2.size] = t2
-                val_d2[i, :v2.size] = v2
-    return DeltaPlanes(
-        ts_first=ts_first.astype(np.int32),
-        ts_fdelta=ts_fd.astype(np.int32),
-        ts_d2=ts_d2.astype(_narrowest_plane(ts_d2)),
-        val_first=val_first.astype(np.int32),
-        val_fdelta=val_fd.astype(np.int32),
-        val_d2=val_d2.astype(_narrowest_plane(val_d2)),
-        scale=scale,
-        counts=counts,
-    )
+            if ragged:
+                live = np.arange(n)[None, :] < c[:, None]
+                X = np.zeros((g1 - g0, n), np.int64)
+                X[live] = x
+            else:
+                X = x.reshape(g1 - g0, n)
+            firsts[i][g0:g1] = X[:, 0]
+            if n < 2:
+                continue
+            d1 = np.diff(X, axis=1)
+            if ragged:
+                d1[~live[:, 1:]] = 0
+            if _int32_range(d1) is None:
+                return None
+            fdeltas[i][g0:g1] = d1[:, 0]
+            if n < 3:
+                continue
+            d2 = np.diff(d1, axis=1)
+            if ragged:
+                d2[~live[:, 2:]] = 0
+            span = _int32_range(d2)
+            if span is None:
+                return None
+            need = _plane_dtype(max(-span[0], span[1]))
+            plane = d2_planes[i]
+            if plane is None:
+                plane = np.zeros((S, width), need)
+            elif np.dtype(need).itemsize > plane.itemsize:
+                plane = plane.astype(need)
+            plane[g0:g1, :n - 2] = d2
+            d2_planes[i] = plane
+    ts_d2, val_d2 = (p if p is not None else np.zeros((S, width), np.int8)
+                     for p in d2_planes)
+    # 10^e per distinct exponent, as the per-series pack computes it
+    uniq, inv = np.unique(np.asarray(exps, dtype=np.int64),
+                          return_inverse=True)
+    scale = np.array([np.float64(10.0) ** int(e) for e in uniq],
+                     dtype=np.float64)[inv.reshape(-1)]
+    return DeltaPlanes(ts_first=firsts[0], ts_fdelta=fdeltas[0], ts_d2=ts_d2,
+                       val_first=firsts[1], val_fdelta=fdeltas[1],
+                       val_d2=val_d2, scale=scale,
+                       counts=counts.astype(np.int32))
+
+
+def pack_delta_planes(series, start_ms: int) -> DeltaPlanes | None:
+    """series: [(ts_ms int64[], mantissas int64[], exponent)] -> the
+    planes of pack_delta_planes_flat over their concatenation; None when
+    any series needs > int32 intermediates (caller falls back)."""
+    if not series:
+        return None
+    counts = np.array([len(t) for t, _, _ in series], dtype=np.int64)
+    if (counts < 1).any():
+        return None
+    starts = np.concatenate([[0], np.cumsum(counts[:-1])]).astype(np.int64)
+    ts = np.concatenate([np.asarray(t, dtype=np.int64) for t, _, _ in series])
+    m = np.concatenate([np.asarray(v, dtype=np.int64) for _, v, _ in series])
+    exps = np.array([int(e) for _, _, e in series], dtype=np.int64)
+    return pack_delta_planes_flat(ts, m, starts, exps, start_ms)
 
 
 def _wrap_int32(x: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,9 @@ tpu_engine.py`` (functions keep their reference names without the
 - quantile: ``try_quantile_rollup`` / ``run_quantile_on_tiles`` -> B8
   ``rollup_quantile_tile`` -> [G, T];
 
-- cold: ``try_aggr_rollup`` -> ``_upload_tiles`` (host float->decimal,
-  nearest-delta2 planes, H2D, K1 ``decode_tiles``) -> ``_dispatch_fused``
+- cold: ``try_aggr_rollup`` -> ``_upload_tiles`` (``host_planes``: one
+  grouped float->decimal and one flat nearest-delta2 pack for all the
+  series; H2D, K1 ``decode_tiles``) -> ``_dispatch_fused``
   (K2 ``rollup_aggregate_tile``) -> the [G, T] result back to the host;
 - rolling: ``advance_rolling`` fetches only the slice newer than the
   resident tile from a storage (duck-typed: ``search_columns``,
@@ -447,6 +448,49 @@ def _dispatch_fused(engine: CUDAEngine, aggr: str, func: str, tiles,
     return _pull_host(out)
 
 
+#: series of at most this many samples convert on float_to_decimal's
+#: scalar path (repr digits), which the grouped conversion may round a
+#: final ulp otherwise for full-precision floats
+SCALAR_SAMPLES = 8
+
+
+def decimal_columns(series):
+    """The cold upload's float -> decimal over every series at once:
+    (mantissas int64 [total], starts int64 [S], exponents int64 [S]) of
+    the series' concatenated values, from one float_to_decimal_grouped
+    call (native from 256 samples on).  Series of <= SCALAR_SAMPLES
+    samples are then redone on float_to_decimal's scalar path, so every
+    series converts exactly as float_to_decimal converts it alone.
+    Every series must hold a sample."""
+    counts = np.array([sd.values.size for sd in series], dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts[:-1])]).astype(np.int64)
+    m, exps = dec.float_to_decimal_grouped(
+        np.concatenate([sd.values for sd in series]), starts)
+    for i in np.flatnonzero(counts <= SCALAR_SAMPLES):
+        m[starts[i]:starts[i] + counts[i]], exps[i] = \
+            dec.float_to_decimal(series[i].values)
+    return m, starts, exps
+
+
+def pack_columns(series, m, starts, exps, start_ms: int):
+    """Delta planes at the tile's capacity (tile_capacity columns, the
+    d2 planes zero past each row's data) from decimal_columns' output and
+    the series' timestamps; None when the data needs more than int32."""
+    n = int(np.diff(np.append(starts, m.size)).max())
+    return dd.pack_delta_planes_flat(
+        np.concatenate([sd.timestamps for sd in series]), m, starts, exps,
+        start_ms, tile_capacity(n) - 2)
+
+
+def host_planes(series, start_ms: int):
+    """The cold upload's host half: one grouped conversion, one flat pack;
+    None (a dense tile) for an empty series or out-of-int32 data."""
+    if not series or min(sd.timestamps.size for sd in series) < 1:
+        return None
+    m, starts, exps = decimal_columns(series)
+    return pack_columns(series, m, starts, exps, start_ms)
+
+
 def _upload_tiles(engine: CUDAEngine, series, cfg: RollupConfig):
     """Cold upload: compact delta planes decoded on device (~2-5
     B/sample over the link); dense tiles when the data needs >int32.
@@ -460,22 +504,12 @@ def _upload_tiles(engine: CUDAEngine, series, cfg: RollupConfig):
     def put(a, name, pad_value=0):
         return shard_put(mesh, name, a, pad_value, device=engine.device)
 
-    triples = []
-    for sd in series:
-        m, e = dec.float_to_decimal(sd.values)
-        triples.append((sd.timestamps, m, e))
-    planes = dd.pack_delta_planes(triples, cfg.start)
+    planes = host_planes(series, cfg.start)
     if planes is not None:
-        n = int(planes.counts.max())
-        n_cap = tile_capacity(n)
-        if n_cap > n:
-            # headroom columns for rolling appends: zero d2 planes decode
-            # into tails that every kernel masks out via counts
-            pad = max(n_cap - 2 - planes.ts_d2.shape[1], 0)
-            planes = dataclasses.replace(
-                planes,
-                ts_d2=np.pad(planes.ts_d2, ((0, 0), (0, pad))),
-                val_d2=np.pad(planes.val_d2, ((0, 0), (0, pad))))
+        # headroom columns for rolling appends (pack_columns built the d2
+        # planes n_cap - 2 wide): zero d2 planes decode into tails that
+        # every kernel masks out via counts
+        n_cap = tile_capacity(int(planes.counts.max()))
         dev = [put(getattr(planes, f.name), f.name,
                    1 if f.name == "scale" else 0)
                for f in dataclasses.fields(planes)]
