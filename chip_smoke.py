@@ -73,20 +73,34 @@ each printing one JSON line:
               one launch per phase for the card's 8 shards and at most
               one host sync), each against its plain version and against
               the unsharded kernels
-  dashboard   the main path: a cold ``sum by (instance)(rate(m[5m]))``
-              over 8192 counters x 6 h at 15 s (256 instances, step 60 s),
-              then the other panels on its resident tile (per-series
+  dashboard   the main path on the port's Storage
+              (victoriametrics_tpu_torch/storage, in a temporary directory
+              removed at the end): the seeded 8192 counters x 6 h at 15 s
+              (256 instances) go in through Storage.add_rows, 40 whole
+              scrapes a call; the store is closed, copied for the mesh
+              phase's replay and reopened, and its columns are held
+              against the seeded ones exactly before any query; a cold
+              ``sum by (instance)(rate(m[5m]))`` (step 60 s) from
+              store.search_series with a metric-name TagFilter, groups by
+              each returned series' instance label, held bit for bit
+              against K2 on the seeded series handed straight to the
+              engine (in the store's row order), then the other panels on
+              its resident tile (per-series
               rate, topk/bottomk(10), topk_avg/median/last(10),
               quantile(0.9) by instance, median without by), each held
               against the same entry point on a CPU engine; then 6
               rolling refreshes through advance_rolling and
               run_fused_on_tiles with new scrapes ingested in between
-              (one refresh resumes after a long pause and slides the
+              through add_rows, read by advance_rolling from the store's
+              data_version, min_appended_since and search_columns (one
+              refresh resumes after a long pause and slides the
               window with compact_window), each followed by the quantile
               panel through run_quantile_on_tiles; every refresh is held
               against a cold rebuild at rtol 1e-12
-  fleet       fleet-batched serving on the dashboard's store and resident
-              selector: 128 standing queries ({rate, increase, irate,
+  fleet       fleet-batched serving on the dashboard's Storage (each
+              interval's scrapes through add_rows; each stream carries
+              the selector's TagFilter) and resident selector: 128
+              standing queries ({rate, increase, irate,
               max_over_time} x the 8 aggregates x {by instance, no
               grouping} x two grids) adopted into 16 buckets, then six
               intervals through FleetPlane.run (one B9 launch per bucket,
@@ -95,7 +109,10 @@ each printing one JSON line:
               (advance_rolling + run_fused_on_tiles) at rtol 1e-12
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
-              query with its own launch counts; K1 and K2 are checked
+              query with its own launch counts (its series are handed to
+              the engine from memory: 576 M rows through add_rows would
+              take about an hour, so this phase waits for the columnar
+              ingest); K1 and K2 are checked
               against their plain versions in row chunks (K1's device ms
               on the query's planes recorded), and K2's count,
               group, min and max of rate and deriv against B5's rows
@@ -146,7 +163,10 @@ each printing one JSON line:
               mesh, against the same streams on an unsharded fleet, bit
               for bit; (e) B12 decode_and_rollup on the dashboard's and
               the full width's delta planes, against K1 -> B5 bit for bit
-              and against its plain version, timed beside K1 -> B5
+              and against its plain version, timed beside K1 -> B5.  (a)
+              and (d) read a second Storage opened on a copy of the
+              dashboard's store directory, taken before its refreshes,
+              fed the same refresh scrapes
   uploads     (inside kernels and full_width) both host->device paths of
               the tile cache, pinned-staged and direct, timed on a
               refresh's new columns and on cold delta planes
@@ -166,8 +186,11 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -184,15 +207,22 @@ from victoriametrics_tpu_torch.parallel import mesh as meshlib
 from victoriametrics_tpu_torch.parallel.partition import split_rows
 from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
-from victoriametrics_tpu_torch.storage.columnar import PAD_TS, ColumnarSeries
-from victoriametrics_tpu_torch.storage.storage import SeriesData
+from victoriametrics_tpu_torch.storage.metric_name import MetricName
+from victoriametrics_tpu_torch.storage.storage import SeriesData, Storage
+from victoriametrics_tpu_torch.storage.tag_filters import TagFilter
 from victoriametrics_tpu_torch.timing import (
     MEM_BYTES_PER_S, SCALAR_OPS_PER_S, bound, cuda_ms, device_ms,
     fleet_bound, library_or_oom, quantile_bound, take_rows_bound, three_ms,
     topk_bound)
 from victoriametrics_tpu_torch.utils import metrics as metricslib
 
-T_START = 1_753_700_000_000   # unix ms of the first scrape
+DAY = 86_400_000
+# unix ms of the first scrape: this time of day (bench.py's anchor's), on
+# the day two to three days before the run, so that every sample the
+# dashboard, fleet and mesh phases write (about 9 h of them) lies in the
+# past and inside the store's default retention (13 months)
+T_REF = 1_753_700_000_000
+T_START = T_REF + (int(time.time() * 1000) - 2 * DAY - T_REF) // DAY * DAY
 SCRAPE = 15_000
 JITTER = 2_000
 WINDOW = 300_000
@@ -204,8 +234,14 @@ DASH_SERIES, DASH_SAMPLES, DASH_GROUPS, DASH_STEP = 8192, 1440, 256, 60_000
 DASH_REFRESHES = [(1, SCRAPE)] * 3 + [(420, 420 * SCRAPE)] + [(1, SCRAPE)] * 2
 # full width: BASELINE.md config 2
 FULL_SERIES, FULL_PER_GROUP, FULL_STEP = 100_000, 32, 15_000
-# the dashboard's selector and its roll-state keys
+# the dashboard's selector, the storage filters it parses to (a metric
+# name, as query/eval.py's search_series call passes them) and the tenant
 SELECTOR = "http_requests_total"
+FILTERS = [TagFilter(b"", SELECTOR.encode())]
+TENANT = (0, 0)
+# scrapes per add_rows call when the dashboard's history goes into the
+# store: 40 whole scrapes of 8192 series, 327,680 rows a call
+SCRAPES_PER_CALL = 40
 # fleet: the standing queries' funcs, and their grids as (duration, step,
 # groupings): A the dashboard panel's range on its 60 s step (5 h 54 m:
 # its tile, slid at the resume refresh, holds no longer history), B the
@@ -490,99 +526,117 @@ def plane_tensors(planes, device):
                       "val_fdelta", "val_d2", "scale", "counts")]
 
 
-class SynthStorage:
-    """In-script stand-in for the storage contract advance_rolling reads
-    (search_columns, data_version, structural_version,
-    min_appended_since, last_partial, dedup_interval_ms): S counters held
-    as (S, capacity) host columns that ingest extends one scrape at a time
-    per series.  search_columns returns the port's ColumnarSeries."""
+class Stores:
+    """The port's stores of this run, each in its own directory under one
+    temporary directory: every store still open is closed, and the
+    directory removed, by close_all (also when a phase fails)."""
 
-    dedup_interval_ms = 0
-    last_partial = False
-    structural_version = 0
+    def __init__(self):
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+        self.open_stores = []
 
-    def __init__(self, rng, S: int, N: int, capacity: int):
-        self.rng = rng
-        ts, vals = counters(rng, S, N, T_START)
-        self.ts = np.full((S, capacity), PAD_TS, dtype=np.int64)
-        self.vals = np.zeros((S, capacity), dtype=np.float64)
-        self.ts[:, :N] = ts
-        self.vals[:, :N] = vals
-        self.n = N
-        self.raw_names = [b'http_requests_total{instance="host-%d",id="%d"}'
-                          % (i % DASH_GROUPS, i) for i in range(S)]
-        self.data_version = 1
-        self._log = [(1, int(ts.min()))]
-        self.fetch_s = 0.0  # time spent answering search_columns
+    def path(self, name: str) -> str:
+        return os.path.join(self.root, name)
 
-    def ingest(self, k: int, after_ms: int) -> None:
-        """k more scrapes per series, 15 s apart, all in (after_ms,
-        after_ms + k * 15 s]: strictly newer than anything a query up to
-        after_ms has seen."""
-        S = self.ts.shape[0]
-        ts, incr = counters(self.rng, S, k, after_ms + SCRAPE // 2)
-        self.ts[:, self.n:self.n + k] = ts
-        self.vals[:, self.n:self.n + k] = \
-            self.vals[:, self.n - 1:self.n] + incr
-        self.n += k
-        self.data_version += 1
-        self._log.append((self.data_version, int(ts.min())))
+    def open(self, name: str) -> Storage:
+        st = Storage(self.path(name))
+        self.open_stores.append(st)
+        return st
 
-    def min_appended_since(self, version: int):
-        lo = [t for v, t in self._log if v > version]
-        return min(lo) if lo else None
+    def close(self, st: Storage) -> None:
+        self.open_stores.remove(st)
+        st.close()
 
-    def _count_below(self, x: int, strict: bool) -> np.ndarray:
-        """Per row, how many of its n samples are < x (strict) or <= x:
-        a binary search over all rows at once."""
-        lo = np.zeros(self.ts.shape[0], dtype=np.int64)
-        hi = np.full(self.ts.shape[0], self.n, dtype=np.int64)
-        rows = np.arange(self.ts.shape[0])
-        while True:
-            open_ = lo < hi
-            if not open_.any():
-                return lo
-            mid = (lo + hi) // 2
-            t = self.ts[rows, np.minimum(mid, self.n - 1)]
-            below = (t < x) if strict else (t <= x)
-            lo = np.where(open_ & below, mid + 1, lo)
-            hi = np.where(open_ & ~below, mid, hi)
-
-    def _rows(self, lo: int, hi: int):
-        return self._count_below(lo, True), self._count_below(hi, False)
-
-    def search_columns(self, filters, min_ts, max_ts, max_series=None,
-                       tenant=None) -> ColumnarSeries:
-        t0 = time.perf_counter()
+    def close_all(self) -> None:
         try:
-            return self._columns(min_ts, max_ts)
+            while self.open_stores:
+                self.close(self.open_stores[-1])
         finally:
-            self.fetch_s += time.perf_counter() - t0
+            shutil.rmtree(self.root, ignore_errors=True)
 
-    def _columns(self, min_ts, max_ts) -> ColumnarSeries:
-        a, b = self._rows(min_ts, max_ts)
-        cnt = b - a
-        keep = np.flatnonzero(cnt > 0)
-        if not keep.size:
-            return ColumnarSeries.empty()
-        a, cnt = a[keep], cnt[keep]
-        K = int(cnt.max())
-        idx = np.minimum(a[:, None] + np.arange(K)[None, :],
-                         self.ts.shape[1] - 1)
-        live = np.arange(K)[None, :] < cnt[:, None]
-        rows = keep[:, None]
-        ts = np.where(live, self.ts[rows, idx], PAD_TS)
-        vals = np.where(live, self.vals[rows, idx], 0.0)
-        return ColumnarSeries(keep.astype(np.int64), ts, vals,
-                              cnt.astype(np.int64),
-                              raw_names=[self.raw_names[i] for i in keep])
 
-    def search_series(self, min_ts: int, max_ts: int) -> list[SeriesData]:
-        a, b = self._rows(min_ts, max_ts)
-        return [SeriesData(None, self.ts[i, a[i]:b[i]].copy(),
-                           self.vals[i, a[i]:b[i]].copy(),
-                           raw_name=self.raw_names[i])
-                for i in range(self.ts.shape[0]) if b[i] > a[i]]
+def dash_labels(S: int) -> list[dict]:
+    """The dashboard's series: `SELECTOR{instance="host-<i % 256>",
+    id="<i>"}` (ids not zero-padded: the store's name order is not this
+    order)."""
+    return [{"__name__": SELECTOR, "instance": f"host-{i % DASH_GROUPS}",
+             "id": str(i)} for i in range(S)]
+
+
+def ingest(store: Storage, labels, ts, vals,
+           per_call: int = SCRAPES_PER_CALL) -> float:
+    """(S, k) columns into the store through add_rows, `per_call` whole
+    scrapes a call, scrape after scrape as a scraper sends them; returns
+    the wall seconds of the add_rows calls."""
+    took = 0.0
+    for j0 in range(0, ts.shape[1], per_call):
+        rows = [(labels[i], t, v) for tr, vr in zip(
+            ts[:, j0:j0 + per_call].T.tolist(),
+            vals[:, j0:j0 + per_call].T.tolist())
+            for i, (t, v) in enumerate(zip(tr, vr))]
+        t0 = time.perf_counter()
+        if store.add_rows(rows) != len(rows):
+            raise AssertionError("the store dropped rows")
+        took += time.perf_counter() - t0
+    return took
+
+
+class Feed:
+    """The counters' continuation: k more scrapes per series, each 15 s
+    apart, all in (after_ms, after_ms + k * 15 s], strictly newer than
+    anything a query up to after_ms has seen."""
+
+    def __init__(self, seed: int, last: np.ndarray):
+        self.rng = np.random.default_rng(seed)
+        self.last = last.copy()
+
+    def next(self, k: int, after_ms: int):
+        ts, incr = counters(self.rng, self.last.size, k,
+                            after_ms + SCRAPE // 2)
+        vals = self.last[:, None] + incr
+        self.last = vals[:, -1].copy()
+        return ts, vals
+
+
+def fetch_phases() -> dict[str, float]:
+    """Seconds the port's stores spent answering searches so far, by
+    their own fetch phase counters (index_search, collect or
+    assemble_native, decode, assemble, queue_wait)."""
+    head = 'vm_fetch_phase_seconds_total{phase="'
+    return {k[len(head):-2]: v
+            for k, v in metricslib.REGISTRY.snapshot().items()
+            if k.startswith(head)}
+
+
+def fetch_s() -> float:
+    """The sum of fetch_phases()."""
+    return sum(fetch_phases().values())
+
+
+def phases_ms(before: dict, after: dict) -> dict[str, float]:
+    return {k: (v - before.get(k, 0.0)) * 1e3 for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def instance_groups(series) -> tuple[np.ndarray, list]:
+    """Group ids by the `instance` label in the store's row order, the
+    first group seen first (query/eval.py's grouping), and each group's
+    key."""
+    index, keys = {}, []
+    gids = np.empty(len(series), np.int32)
+    for i, sd in enumerate(series):
+        inst = sd.metric_name.get_label(b"instance").decode()
+        g = index.get(inst)
+        if g is None:
+            g = index[inst] = len(keys)
+            keys.append((("instance", inst),))
+        gids[i] = g
+    return gids, keys
+
+
+def disk_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
 
 
 def upload_paths(what: str, arrays, dev, reps: int = 5) -> dict:
@@ -1968,76 +2022,171 @@ def dashboard_panels(engine, series, cfg, key, gids) -> dict:
 
 
 def dashboard_keys():
-    """The dashboard query's roll-state and roll-tile keys, and its group
-    keys."""
-    return ce.device_roll_keys(SELECTOR, None, "rate", "sum", None,
-                               ("instance",), False, None, WINDOW), \
-        [(("instance", f"host-{g}"),) for g in range(DASH_GROUPS)]
+    """The dashboard query's roll-state and roll-tile keys."""
+    return ce.device_roll_keys(SELECTOR, TENANT, "rate", "sum", None,
+                               ("instance",), False, None, WINDOW)
 
 
-def phase_dashboard(rng, dev):
-    """The main path: cold query, then rolling refreshes, each held
-    against a cold rebuild.  Returns the phase's result and the state the
-    fleet phase continues from (store, engine, keys, the last end)."""
+def build_store(rng, stores: Stores) -> dict:
+    """The dashboard's store, built through the write path: the seeded
+    counters (8192 x 1440) into a new Storage through add_rows, 40 whole
+    scrapes a call; then flushed and closed, copied for the mesh phase's
+    replay, and both reopened.  Before any query, the store's columns are
+    held against the seeded ones exactly (row order: the store's, by
+    marshaled name).  The refreshes' scrapes are made here too, so that
+    both stores get the same ones."""
+    S = DASH_SERIES
+    labels = dash_labels(S)
+    ts, vals = counters(rng, S, DASH_SAMPLES, T_START)
+    feed = Feed(int(rng.integers(2**62)), vals[:, -1])
+    end = dashboard_grid()[1]
+    batches = []
+    for k, adv in DASH_REFRESHES:
+        batches.append(feed.next(k, end))
+        end += adv
+    store = stores.open("dashboard")
+    ingest_s = ingest(store, labels, ts, vals)
+    t0 = time.perf_counter()
+    stores.close(store)
+    close_s = time.perf_counter() - t0
+    on_disk = disk_bytes(stores.path("dashboard"))
+    t0 = time.perf_counter()
+    shutil.copytree(stores.path("dashboard"), stores.path("replay"))
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store, replay = stores.open("dashboard"), stores.open("replay")
+    open_s = time.perf_counter() - t0
+    # the seeded columns in the store's row order, named independently
+    raws = [MetricName.from_dict(lb).marshal() for lb in labels]
+    order = sorted(range(S), key=raws.__getitem__)
+    f0 = fetch_s()
+    t0 = time.perf_counter()
+    cols = store.search_columns(FILTERS, T_START - DAY, T_START + DAY,
+                                tenant=TENANT)
+    search_s = time.perf_counter() - t0
+    names = [raws[i] for i in order]
+    if cols.raw_names != names:
+        raise AssertionError("store: other series or another row order")
+    if not (np.array_equal(cols.counts, np.full(S, DASH_SAMPLES)) and
+            np.array_equal(cols.ts, ts[order]) and
+            np.array_equal(cols.vals.view(np.int64),
+                           vals[order].view(np.int64))):
+        raise AssertionError("store: columns differ from the seeded ones")
+    n_rows = S * DASH_SAMPLES
+    return {"store": store, "replay": replay, "labels": labels,
+            "seeded": (ts[order], vals[order]), "names": names,
+            "batches": batches,
+            "feed": feed, "info": {
+                "anchor_ms": T_START, "series": S, "rows": n_rows,
+                "scrapes_per_call": SCRAPES_PER_CALL,
+                "ingest_s": ingest_s, "rows_per_s": n_rows / ingest_s,
+                "close_s": close_s, "disk_bytes": on_disk,
+                "copy_s": copy_s, "open_s": open_s,
+                "columns_search_ms": search_s * 1e3,
+                "columns_fetch_ms": (fetch_s() - f0) * 1e3,
+                "columns_equal_seeded": True}}
+
+
+def seeded_k2(dev, built, series, lo, hi, gids, G, cfg) -> np.ndarray:
+    """K2 on the seeded series handed straight to the engine, in the
+    store's row order, clipped to the query's fetch range [lo, hi]: the
+    cold query through the store must equal it bit for bit."""
+    if [sd.raw_name for sd in series] != built["names"]:
+        raise AssertionError("store: the cold query's series differ from "
+                             "the seeded ones")
+    ts, vals = built["seeded"]
+    direct = []
+    for i in range(ts.shape[0]):
+        keep = (ts[i] >= lo) & (ts[i] <= hi)
+        direct.append(SeriesData(None, ts[i][keep], vals[i][keep],
+                                 raw_name=b"seeded-%d" % i))
+    return ce.try_aggr_rollup(ce.CUDAEngine(device=dev), "sum", "rate",
+                              direct, gids, G, cfg)
+
+
+def phase_dashboard(rng, dev, stores: Stores):
+    """The main path on the port's Storage: the store built through
+    add_rows and checked, the cold query from store.search_series (held
+    bit for bit against K2 on the seeded series), then rolling refreshes
+    reading the store, each held against a cold rebuild.  Returns the
+    phase's result and the state the fleet phase continues from (store,
+    engine, groups, the last end, the feed of new scrapes)."""
     S, G = DASH_SERIES, DASH_GROUPS
-    # room for the dashboard's refreshes and the fleet phase's intervals
-    extra = sum(k for k, _ in DASH_REFRESHES + FLEET_INTERVALS)
-    store = SynthStorage(rng, S, DASH_SAMPLES, DASH_SAMPLES + extra)
-    # the mesh phase replays the same store and ingests on a copy
-    replay = copy.deepcopy(store)
-    gids = (np.arange(S) % G).astype(np.int32)
+    built = build_store(rng, stores)
+    store, batches = built["store"], built["batches"]
     start, end = dashboard_grid()
     fetch_lo = start - WINDOW - LOOKBACK_DELTA
     engine = ce.CUDAEngine(device=dev)
     kernels.reset_launches()
-    rebuild_launches = {}
+    rebuild_launches = collections.Counter()
+
+    @contextlib.contextmanager
+    def beside():
+        """Launches of the comparisons, left out of the path's counts."""
+        before = dict(kernels.LAUNCHES)
+        try:
+            yield
+        finally:
+            for name, n in kernels.LAUNCHES.items():
+                rebuild_launches[name] += n - before.get(name, 0)
 
     def cold(start_ms, end_ms, eng, key=None):
-        series = store.search_series(start_ms - WINDOW - LOOKBACK_DELTA,
-                                     end_ms)
+        series = store.search_series(FILTERS, start_ms - WINDOW -
+                                     LOOKBACK_DELTA, end_ms, tenant=TENANT)
+        gids, keys = instance_groups(series)
         cfg = RollupConfig(start_ms, end_ms, DASH_STEP, WINDOW)
-        return ce.try_aggr_rollup(eng, "sum", "rate", series, gids, G, cfg,
-                                  cache_key=key), series
+        return ce.try_aggr_rollup(eng, "sum", "rate", series, gids,
+                                  len(keys), cfg, cache_key=key), \
+            series, gids, keys
 
     ver0 = store.data_version
     up0 = tile_cache.bytes_uploaded()
-    snap = split_snapshot()
+    snap, f0 = split_snapshot(), fetch_s()
     t0 = time.perf_counter()
     key = ("dashboard", start, ver0)
-    out, series = cold(start, end, engine, key)
+    out, series, gids, group_keys = cold(start, end, engine, key)
     cold_s = time.perf_counter() - t0
     cold_ms = cold_s * 1e3
-    cold_split = split_ms(snap, split_snapshot(), cold_s)
+    cold_fetch = fetch_s() - f0
+    cold_split = split_ms(snap, split_snapshot(), cold_s,
+                          {"fetch": cold_fetch})
     cold_up = tile_cache.bytes_uploaded() - up0
     T = (end - start) // DASH_STEP + 1
+    if len(group_keys) != G or len(series) != S:
+        raise AssertionError(f"dashboard: {len(series)} series in "
+                             f"{len(group_keys)} groups from the store")
     if out is None or out.shape != (G, T) or not np.isfinite(out).all():
         raise AssertionError("dashboard cold query: wrong or non-finite "
                              "result")
-    panels = dashboard_panels(engine, series,
-                              RollupConfig(start, end, DASH_STEP, WINDOW),
-                              key, gids)
+    cfg0 = RollupConfig(start, end, DASH_STEP, WINDOW)
+    with beside():
+        direct = seeded_k2(dev, built, series, start - WINDOW -
+                           LOOKBACK_DELTA, end, gids, G, cfg0)
+    assert_exact("dashboard cold K2 through the store vs on the seeded "
+                 "series", torch.from_numpy(out), torch.from_numpy(direct))
+    panels = dashboard_panels(engine, series, cfg0, key, gids)
     _, max_group = ce.group_slots(gids, G)
-    (skey, tkey), group_keys = dashboard_keys()
+    skey, tkey = dashboard_keys()
     rt = ce.register_window(
         engine, skey, tkey, gids, group_keys, tile_key=key, series=series,
-        cfg=RollupConfig(start, end, DASH_STEP, WINDOW),
-        fetch_info=(fetch_lo, end, ver0),
+        cfg=cfg0, fetch_info=(fetch_lo, end, ver0),
         structural=store.structural_version)
     if rt is None:
         raise AssertionError("dashboard: the rolling window was not filed")
     refresh_ms, refresh_up, refresh_split, worst = [], [], [], 0.0
-    quantile_ms, worst_q, served_all = [], 0.0, []
+    quantile_ms, worst_q, served_all, ingest_ms = [], 0.0, [], []
+    refresh_phases = []
     compactions0 = _metric_sum("vm_device_window_compactions_total")
-    for k, adv in DASH_REFRESHES:
-        store.ingest(k, end)
+    for (k, adv), batch in zip(DASH_REFRESHES, batches):
+        ingest_ms.append(ingest(store, built["labels"], *batch) * 1e3)
         start, end = start + adv, end + adv
         fetch_lo = start - WINDOW - LOOKBACK_DELTA
         up0 = tile_cache.bytes_uploaded()
-        snap, fetch0 = split_snapshot(), store.fetch_s
+        snap, f0, ph0 = split_snapshot(), fetch_s(), fetch_phases()
         t0 = time.perf_counter()
         rt, groups, _ = engine.window_cache().get(skey)
-        if not ce.advance_rolling(engine, rt, store, None, start, fetch_lo,
-                                  end, None, None, True):
+        if not ce.advance_rolling(engine, rt, store, FILTERS, start,
+                                  fetch_lo, end, None, TENANT, True):
             raise AssertionError("rolling refresh declined: "
                                  + engine.last_roll_decline)
         cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
@@ -2049,7 +2198,8 @@ def phase_dashboard(rng, dev):
         served_all.append(served)
         refresh_up.append(tile_cache.bytes_uploaded() - up0)
         refresh_split.append(split_ms(snap, split_snapshot(), wall,
-                                      {"fetch": store.fetch_s - fetch0}))
+                                      {"fetch": fetch_s() - f0}))
+        refresh_phases.append(phases_ms(ph0, fetch_phases()))
         tile_cache.count_window_hit()
         # the quantile panel on the same refreshed tile, timed on its own
         t0 = time.perf_counter()
@@ -2057,14 +2207,13 @@ def phase_dashboard(rng, dev):
                                             groups, cfg, start - rt.base_ms,
                                             fetch_lo - start)
         quantile_ms.append((time.perf_counter() - t0) * 1e3)
-        before = dict(kernels.LAUNCHES)
-        eng2 = ce.CUDAEngine(device=dev)
-        rebuilt, series2 = cold(start, end, eng2)
-        rebuilt_q = ce.try_quantile_rollup(eng2, 0.9, "rate", series2, gids,
-                                           G, cfg, max_group)
-        for name, n in kernels.LAUNCHES.items():
-            rebuild_launches[name] = rebuild_launches.get(name, 0) + \
-                n - before.get(name, 0)
+        with beside():
+            eng2 = ce.CUDAEngine(device=dev)
+            rebuilt, series2, gids2, _ = cold(start, end, eng2)
+            if not np.array_equal(gids2, gids):
+                raise AssertionError("rebuild: other groups")
+            rebuilt_q = ce.try_quantile_rollup(eng2, 0.9, "rate", series2,
+                                               gids, G, cfg, max_group)
         worst = max(worst, assert_close("served == cold", served, rebuilt,
                                         1e-12, 0.0))
         if not np.isfinite(served_q).all():
@@ -2082,10 +2231,14 @@ def phase_dashboard(rng, dev):
     if max(steady) * 20 > cold_up:
         raise AssertionError("steady refreshes uploaded too much")
     res = {"phase": "dashboard", "ok": True, "series": S, "groups": G,
-           "steps": T, "cold_ms": cold_ms, "cold_upload_bytes": cold_up,
-           "cold_split": cold_split,
+           "steps": T, "store": built["info"], "cold_ms": cold_ms,
+           "cold_upload_bytes": cold_up, "cold_split": cold_split,
+           "cold_bitwise_vs_seeded": True,
            "refresh_ms": refresh_ms, "refresh_upload_bytes": refresh_up,
            "refresh_split": refresh_split,
+           "refresh_fetch_ms": [sp["fetch_ms"] for sp in refresh_split],
+           "refresh_fetch_phases_ms": refresh_phases,
+           "refresh_ingest_ms": ingest_ms,
            "refresh_scrapes": [k for k, _ in DASH_REFRESHES],
            "compactions": compactions, "appends": rt.appends,
            "served_vs_cold_max_abs_err": worst,
@@ -2094,8 +2247,13 @@ def phase_dashboard(rng, dev):
            "panels": panels, "launches": launches}
     emit(res)
     return res, {"store": store, "engine": engine, "end": end,
-                 "replay": {"store": replay, "cold": out,
-                            "served": served_all}}
+                 "labels": built["labels"], "feed": built["feed"],
+                 "gids": gids, "group_keys": group_keys,
+                 "replay": {"store": built["replay"],
+                            "labels": built["labels"], "batches": batches,
+                            "feed": copy.deepcopy(built["feed"]),
+                            "cold": out, "served": served_all}}
+
 
 class StandingQuery:
     """One subscribed dashboard panel as the fleet reads it (the
@@ -2105,7 +2263,7 @@ class StandingQuery:
     def __init__(self, q: str, step: int, duration: int,
                  shape: fleet.StreamShape):
         self.q, self.step, self.duration, self.shape = q, step, duration, shape
-        self.tenant = None
+        self.tenant = TENANT
         self.end = None
 
     def due(self, now_ms: int) -> bool:
@@ -2253,10 +2411,10 @@ def phase_fleet(rng, dev, state) -> dict:
     bound is the oldest, so the per-stream advance never slides the tile
     past it)."""
     store, engine = state["store"], state["engine"]
-    (_, tkey), inst_keys = dashboard_keys()
+    _, tkey = dashboard_keys()
     rt = engine.window_cache().get(tkey)
     S, G = DASH_SERIES, DASH_GROUPS
-    inst = (np.arange(S) % G).astype(np.int32)
+    inst, inst_keys = state["gids"], state["group_keys"]
     # by instance (or without id), and one group of every series
     layouts = ((inst, inst_keys, dr.group_layout(inst, G, dev)),
                (np.zeros(S, np.int32), [()],
@@ -2268,14 +2426,14 @@ def phase_fleet(rng, dev, state) -> dict:
                 for (grouping, without), (gids, keys, groups) in zip(
                         groupings, layouts):
                     shape = fleet.StreamShape(
-                        selector=SELECTOR, filters=None, func=func,
+                        selector=SELECTOR, filters=FILTERS, func=func,
                         aggr=aggr, window=WINDOW, grouping=grouping,
                         without=without, lookback_delta=LOOKBACK_DELTA)
                     q = f"{aggr} {'without' if without else 'by'} " \
                         f"({','.join(grouping)})({func}({SELECTOR}[5m]))"
                     st = StandingQuery(q, step, dur, shape)
                     skey, _ = ce.device_roll_keys(
-                        SELECTOR, None, func, aggr, None, grouping, without,
+                        SELECTOR, TENANT, func, aggr, None, grouping, without,
                         None, WINDOW)
                     if ce.register_window(engine, skey, tkey, gids,
                                           keys) is not rt:
@@ -2302,11 +2460,12 @@ def phase_fleet(rng, dev, state) -> dict:
                 now - adv,
                 lambda m, t=now: t - m.duration - m.lookback -
                 m.lookback_delta)
-        store.ingest(k, now - adv)
+        ingest_s = ingest(store, state["labels"],
+                          *state["feed"].next(k, now - adv))
         before = dict(kernels.LAUNCHES)
         up0 = tile_cache.bytes_uploaded()
         snap = {key: _metric_sum(n) for key, n in FLEET_SPLIT.items()}
-        fetch0 = store.fetch_s
+        fetch0, ph0 = fetch_s(), fetch_phases()
         adopt0 = plane.adopt_s
         t0 = time.perf_counter()
         n = plane.run(api, now)
@@ -2314,7 +2473,8 @@ def phase_fleet(rng, dev, state) -> dict:
         up = tile_cache.bytes_uploaded() - up0
         split = {f"{key}_ms": (_metric_sum(m) - snap[key]) * 1e3
                  for key, m in FLEET_SPLIT.items()}
-        split["fetch_ms"] = (store.fetch_s - fetch0) * 1e3
+        fetched = phases_ms(ph0, fetch_phases())
+        split["fetch_ms"] = (fetch_s() - fetch0) * 1e3
         # the rest: host staging, and in the adoption interval the
         # adoptions' host crops (adopt_ms holds each adoption's pull, whose
         # bytes d2h_ms counts, and its crop)
@@ -2338,8 +2498,8 @@ def phase_fleet(rng, dev, state) -> dict:
             sh = st.shape
             start = now - st.duration
             fetch_lo = start - sh.window - LOOKBACK_DELTA
-            if not ce.advance_rolling(engine, rt, store, None, start,
-                                      fetch_lo, now, None, None, True):
+            if not ce.advance_rolling(engine, rt, store, FILTERS, start,
+                                      fetch_lo, now, None, TENANT, True):
                 raise AssertionError("fleet oracle declined: "
                                      + engine.last_roll_decline)
             cfg = RollupConfig(start, now, st.step, sh.window)
@@ -2364,7 +2524,9 @@ def phase_fleet(rng, dev, state) -> dict:
                 raise AssertionError(f"fleet {st.q}: no finite value")
             st.end = now
         oracle_s = time.perf_counter() - t0
-        intervals.append({"scrapes": k, "fleet_ms": wall * 1e3,
+        intervals.append({"scrapes": k, "ingest_ms": ingest_s * 1e3,
+                          "fetch_phases_ms": fetched,
+                          "fleet_ms": wall * 1e3,
                           "split": split, "upload_bytes": up,
                           "launches": ran, "per_stream_ms": oracle_s * 1e3})
     steady = [iv["upload_bytes"] for iv in intervals[1:-1]]
@@ -2847,8 +3009,8 @@ def phase_host_codec(rng, replay, fw) -> dict:
         "library": lib.name, "has_zstd": native.has_zstd(),
         "decompress_caps": native.decompress_caps()}}
     start, end = dashboard_grid()
-    series = replay["store"].search_series(start - WINDOW - LOOKBACK_DELTA,
-                                           end)
+    series = replay["store"].search_series(
+        FILTERS, start - WINDOW - LOOKBACK_DELTA, end, tenant=TENANT)
     t0 = time.perf_counter()
     cols = ce.decimal_columns(series)
     t1 = time.perf_counter()
@@ -2929,16 +3091,17 @@ def mesh_dashboard(dev, replay, aside) -> dict:
     for bit) and against cold rebuilds.  Returns the part's result and the
     state (d) and (e) continue from."""
     store = replay["store"]
-    S, G = DASH_SERIES, DASH_GROUPS
-    gids = (np.arange(S) % G).astype(np.int32)
     start, end = dashboard_grid()
+    gids, group_keys = instance_groups(store.search_series(
+        FILTERS, start - WINDOW - LOOKBACK_DELTA, end, tenant=TENANT))
+    G = len(group_keys)
     mesh = meshlib.make_mesh(MESH_SHARDS, 1, [dev] * MESH_SHARDS)
     meng = ce.CUDAEngine(mesh=mesh)
     flat = ce.CUDAEngine(device=dev)
 
     def cold(eng, start_ms, end_ms, key=None):
-        series = store.search_series(start_ms - WINDOW - LOOKBACK_DELTA,
-                                     end_ms)
+        series = store.search_series(FILTERS, start_ms - WINDOW -
+                                     LOOKBACK_DELTA, end_ms, tenant=TENANT)
         cfg = RollupConfig(start_ms, end_ms, DASH_STEP, WINDOW)
         return ce.try_aggr_rollup(eng, "sum", "rate", series, gids, G, cfg,
                                   cache_key=key), series
@@ -2980,7 +3143,7 @@ def mesh_dashboard(dev, replay, aside) -> dict:
 
     compare("cold", lambda eng, aggr: ce.try_aggr_rollup(
         eng, aggr, "rate", series, gids, G, cfg, cache_key=key))
-    (skey, tkey), group_keys = dashboard_keys()
+    skey, tkey = dashboard_keys()
     fetch_lo = start - WINDOW - LOOKBACK_DELTA
     for eng in (meng, flat):
         if ce.register_window(eng, skey, tkey, gids, group_keys,
@@ -2989,8 +3152,9 @@ def mesh_dashboard(dev, replay, aside) -> dict:
                               structural=store.structural_version) is None:
             raise AssertionError("mesh: the rolling window was not filed")
     refresh_ms, worst_cold, worst_q = [], 0.0, 0.0
-    for i, (k, adv) in enumerate(DASH_REFRESHES):
-        store.ingest(k, end)
+    for i, ((k, adv), batch) in enumerate(zip(DASH_REFRESHES,
+                                              replay["batches"])):
+        ingest(store, replay["labels"], *batch)
         start, end = start + adv, end + adv
         fetch_lo = start - WINDOW - LOOKBACK_DELTA
         cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
@@ -3001,8 +3165,8 @@ def mesh_dashboard(dev, replay, aside) -> dict:
                     stack.enter_context(aside())
                 t0 = time.perf_counter()
                 rt, groups, _ = eng.window_cache().get(skey)
-                if not ce.advance_rolling(eng, rt, store, None, start,
-                                          fetch_lo, end, None, None, True):
+                if not ce.advance_rolling(eng, rt, store, FILTERS, start,
+                                          fetch_lo, end, None, TENANT, True):
                     raise AssertionError("mesh refresh declined: "
                                          + eng.last_roll_decline)
                 rolled[eng is meng] = (rt, groups, ce.run_fused_on_tiles(
@@ -3046,7 +3210,9 @@ def mesh_dashboard(dev, replay, aside) -> dict:
             "served_vs_cold_max_abs_err": worst_cold,
             "quantile_max_abs_err_vs_unsharded": worst_q}, {
         "mesh": mesh, "engine": meng, "flat": flat, "end": end,
-        "store": store, "planes": planes[0], "cfg": cfg}
+        "store": store, "labels": replay["labels"], "feed": replay["feed"],
+        "gids": gids, "group_keys": group_keys, "planes": planes[0],
+        "cfg": cfg}
 
 
 def mesh_fleet(dev, st, aside) -> dict:
@@ -3057,18 +3223,20 @@ def mesh_fleet(dev, st, aside) -> dict:
     for bit."""
     store, meng = st["store"], st["engine"]
     S, G = DASH_SERIES, DASH_GROUPS
-    (_, tkey), inst_keys = dashboard_keys()
-    inst = (np.arange(S) % G).astype(np.int32)
+    _, tkey = dashboard_keys()
+    inst, inst_keys = st["gids"], st["group_keys"]
     start, end = st["end"] - (DASH_SAMPLES - 1) * SCRAPE + 300_000, st["end"]
     flat = ce.CUDAEngine(device=dev)
     with aside():
-        series = store.search_series(start - WINDOW - LOOKBACK_DELTA, end)
+        series = store.search_series(FILTERS, start - WINDOW -
+                                     LOOKBACK_DELTA, end, tenant=TENANT)
         cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
         key = ("mesh-fleet", start)
         ce.try_aggr_rollup(flat, "sum", "rate", series, inst, G, cfg,
                            cache_key=key)
-        skey0, _ = ce.device_roll_keys(SELECTOR, None, "rate", "sum", None,
-                                       ("instance",), False, None, WINDOW)
+        skey0, _ = ce.device_roll_keys(SELECTOR, TENANT, "rate", "sum",
+                                       None, ("instance",), False, None,
+                                       WINDOW)
         ce.register_window(flat, skey0, tkey, inst, inst_keys, tile_key=key,
                            series=series, cfg=cfg,
                            fetch_info=(start - WINDOW - LOOKBACK_DELTA, end,
@@ -3079,13 +3247,14 @@ def mesh_fleet(dev, st, aside) -> dict:
     sides = {True: [], False: []}
     for aggr in dr.FLEET_AGGR_CODES:
         for (grouping, without), (gids, keys) in zip(groupings, layouts):
-            skey, _ = ce.device_roll_keys(SELECTOR, None, "rate", aggr, None,
-                                          grouping, without, None, WINDOW)
+            skey, _ = ce.device_roll_keys(SELECTOR, TENANT, "rate", aggr,
+                                          None, grouping, without, None,
+                                          WINDOW)
             for eng in (meng, flat):
                 if ce.register_window(eng, skey, tkey, gids, keys) is None:
                     raise AssertionError("mesh fleet: window not filed")
                 shape = fleet.StreamShape(
-                    selector=SELECTOR, filters=None, func="rate", aggr=aggr,
+                    selector=SELECTOR, filters=FILTERS, func="rate", aggr=aggr,
                     window=WINDOW, grouping=grouping, without=without,
                     lookback_delta=LOOKBACK_DELTA)
                 sides[eng is meng].append((StandingQuery(
@@ -3098,7 +3267,7 @@ def mesh_fleet(dev, st, aside) -> dict:
     for i, (k, adv) in enumerate(MESH_FLEET_INTERVALS):
         if i:
             now += adv
-        store.ingest(k, now - adv)
+        ingest(store, st["labels"], *st["feed"].next(k, now - adv))
         before = kernels.LAUNCHES.get("cached_fleet_rollup_aggregate", 0)
         t0 = time.perf_counter()
         n = planes[True].run(apis[True], now)
@@ -3315,17 +3484,21 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     rng = np.random.default_rng(args.seed)
     kres, fleet_err = phase_kernels(rng, dev)
-    dash, dash_state = phase_dashboard(rng, dev)
-    replay = dash_state.pop("replay")
-    fl = phase_fleet(rng, dev, dash_state)
-    del dash_state
-    for name in FLEET_KERNELS:
-        kres[name] = {**fl["kernels"][name], "max_abs_err": max(
-            fleet_err[name], fl["kernels"][name]["max_abs_err"])}
-    _, fw = phase_full_width(rng, dev, args.full_hours)
-    phase_host_codec(rng, replay, fw)
-    mesh = phase_mesh(dev, replay, fw)
-    del replay, fw
+    stores = Stores()
+    try:
+        dash, dash_state = phase_dashboard(rng, dev, stores)
+        replay = dash_state.pop("replay")
+        fl = phase_fleet(rng, dev, dash_state)
+        del dash_state
+        for name in FLEET_KERNELS:
+            kres[name] = {**fl["kernels"][name], "max_abs_err": max(
+                fleet_err[name], fl["kernels"][name]["max_abs_err"])}
+        _, fw = phase_full_width(rng, dev, args.full_hours)
+        phase_host_codec(rng, replay, fw)
+        mesh = phase_mesh(dev, replay, fw)
+        del replay, fw
+    finally:
+        stores.close_all()
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on
     # the mesh phase's
     launches = {**dash["launches"], **fl["launches"],

@@ -1,6 +1,7 @@
-"""The PyTorch/CUDA port imports no JAX and nothing of the JAX package:
-every module of victoriametrics_tpu_torch, and chip_smoke.py, load in a
-process where importing jax fails.  Importing them builds nothing: no
+"""The PyTorch/CUDA port imports no JAX, nothing of the JAX package and no
+``xxhash`` (the machine with the card has none; the native codec carries
+xxh64/xxh32): every module of victoriametrics_tpu_torch, and chip_smoke.py,
+load in a process where importing jax or xxhash fails.  Importing them builds nothing: no
 compiler process starts and no file is written under the package's
 ``_build/`` (the native codec and the CUDA kernels build on first use)."""
 
@@ -17,6 +18,7 @@ PROBE = r"""
 import builtins, importlib, os, runpy, subprocess, sys
 sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["jaxlib"] = None
+sys.modules["xxhash"] = None
 BUILD = os.path.join(os.getcwd(), "victoriametrics_tpu_torch", "_build")
 built = []
 real_open, real_os_open, real_popen = builtins.open, os.open, subprocess.Popen
@@ -54,7 +56,8 @@ try:
 except SystemExit as e:
     assert e.code in (0, None), e.code
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("victoriametrics_tpu", "jax", "jaxlib")
+                if m.split(".")[0] in ("victoriametrics_tpu", "jax", "jaxlib",
+                                       "xxhash")
                 and sys.modules[m] is not None)
 print("LEAKED", leaked)
 print("LOADED", len(mods))
@@ -83,7 +86,11 @@ def test_port_and_chip_smoke_import_without_jax():
             "victoriametrics_tpu_torch.ops.nearest_delta",
             "victoriametrics_tpu_torch.ops.compress",
             "victoriametrics_tpu_torch.ops.encoding"} <= set(mods)
-    assert len(mods) >= 20
+    assert {f"victoriametrics_tpu_torch.storage.{m}" for m in (
+        "tsid", "metric_name", "tag_filters", "dedup", "block", "part",
+        "mergeset", "index_db", "partition", "downsample", "table",
+        "columnar", "storage", "cardinality")} <= set(mods)
+    assert len(mods) >= 50
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)

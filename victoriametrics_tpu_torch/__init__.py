@@ -14,10 +14,15 @@ JAX package so each counterpart is easy to find:
   ops/       decimal codec, RollupConfig, delta-plane decode (K1), fused
              rollup + group aggregate (K2), rolling append (K3) and
              window compaction (K4)
-  storage/   ColumnarSeries and SeriesData (the storage contract's types)
+  storage/   the storage engine: Storage (add_rows, search_series,
+             search_columns, the rolling contract), index_db, mergeset,
+             table, partition, part, block, columnar
+  native/    the host codec (codec.cpp, built by g++ on first use), xxh64
   models/    device tile cache, upload seam, QueryPipeline
-  query/     cuda_engine: cold and rolling fused queries
-  utils/     minimal self-metrics registry
+  query/     cuda_engine: cold and rolling fused queries; fleet
+  utils/     self-metrics registry and the storage's helpers (fs, work
+             pool, working-set cache, deadlines, logger)
+  devtools/  the fault injector and the lock factories the storage uses
   convert.py load the JAX engine's resident state into the port
 """
 

@@ -3,9 +3,10 @@
 The port's own copy of ``victoriametrics_tpu/native`` for ``codec.cpp``:
 varint and delta(2) codecs, the batched block marshal, the zstd one-shots,
 the storage read kernels (block decode, part assembly, dedup, mantissa ->
-float64), the grouped float -> decimal of the cold upload, and the
-counter/rollup host kernels.  (``parse.cpp`` and ``ingest.cpp`` come with
-the ingestion layer.)
+float64), the grouped float -> decimal of the cold upload, the
+counter/rollup host kernels, and xxh64/xxh32 (the storage's series
+hashes, in place of the ``xxhash`` package).  (``parse.cpp`` and
+``ingest.cpp`` come with the ingestion layer.)
 
 ``codec.cpp`` is compiled by g++ on first use, never at import, into
 ``victoriametrics_tpu_torch/_build/libvmcodec-<digest>.so``, the digest
@@ -14,7 +15,8 @@ build from another machine is not loaded.  Concurrent first users (test
 workers) build under a file lock into a temporary name that is renamed
 into place.  Where no compiler is found or the build fails, ``_load()``
 returns None and callers keep their numpy paths (the reference's
-cgo-zstd-with-pure-Go-fallback split, lib/encoding/zstd/zstd_{cgo,pure}.go).
+cgo-zstd-with-pure-Go-fallback split, lib/encoding/zstd/zstd_{cgo,pure}.go);
+xxh64 and xxh32 have no numpy path and raise RuntimeError there.
 """
 
 from __future__ import annotations
@@ -177,11 +179,58 @@ def _configure(lib):
     lib.vm_rollup_counter_2d.argtypes = [pi64, pf64, pi64, i64, i64, i64,
                                          i64, i64, i64, pi64,
                                          ctypes.c_int32, pf64, pf64]
+    lib.vm_xxh64.restype = ctypes.c_uint64
+    lib.vm_xxh64.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint64]
+    lib.vm_xxh32.restype = ctypes.c_uint32
+    lib.vm_xxh32.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint32]
     return lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def assemble_enabled() -> bool:
+    """Whether the fused native read kernel (vm_assemble_part) serves
+    queries. ``VM_NATIVE_ASSEMBLE=0`` is the escape hatch AND the
+    correctness oracle: it restores the split Python-orchestrated
+    collect/decode/assemble path exactly. Re-read per call, like
+    VM_SEARCH_WORKERS, so tests can flip modes without restarting."""
+    return os.environ.get("VM_NATIVE_ASSEMBLE", "1") != "0" and available()
+
+
+def _required():
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("the native codec (codec.cpp) could not be built "
+                           "or loaded: the storage's series hashes need it")
+    return lib
+
+
+def _hash_args(data):
+    """(pointer, length, keep-alive) for bytes-like input: bytes, a
+    bytearray, a memoryview or a numpy array (hashed as its C-order
+    bytes)."""
+    if isinstance(data, np.ndarray):
+        a = np.ascontiguousarray(data)
+        return a.ctypes.data, a.nbytes, a
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return data, len(data), data
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """XXH64 digest of `data` as an unsigned int: the value of
+    ``xxhash.xxh64_intdigest(data, seed)``."""
+    ptr, n, _keep = _hash_args(data)  # _keep holds the buffer
+    return int(_required().vm_xxh64(ptr, n, seed))
+
+
+def xxh32(data, seed: int = 0) -> int:
+    """XXH32 digest of `data` as an unsigned int: the value of
+    ``xxhash.xxh32_intdigest(data, seed)``."""
+    ptr, n, _keep = _hash_args(data)  # _keep holds the buffer
+    return int(_required().vm_xxh32(ptr, n, seed))
 
 
 def has_zstd() -> bool:

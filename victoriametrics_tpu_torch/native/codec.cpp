@@ -1150,4 +1150,139 @@ void vm_dedup_rows(int64_t* ts, int64_t ts_stride, double* v,
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// xxHash64 / xxHash32 (the XXH64 and XXH32 specifications): the TSID's
+// clustering hashes (storage/tsid.py) and the storage's memo keys.  Equal
+// to the xxhash package's xxh64_intdigest / xxh32_intdigest.
+// ---------------------------------------------------------------------------
+
+static const uint64_t kP64_1 = 11400714785074694791ULL;
+static const uint64_t kP64_2 = 14029467366897019727ULL;
+static const uint64_t kP64_3 = 1609587929392839161ULL;
+static const uint64_t kP64_4 = 9650029242287828579ULL;
+static const uint64_t kP64_5 = 2870177450012600261ULL;
+static const uint32_t kP32_1 = 2654435761U;
+static const uint32_t kP32_2 = 2246822519U;
+static const uint32_t kP32_3 = 3266489917U;
+static const uint32_t kP32_4 = 668265263U;
+static const uint32_t kP32_5 = 374761393U;
+
+static inline uint64_t vm_rotl64(uint64_t x, int r) {
+    return (x << r) | (x >> (64 - r));
+}
+static inline uint32_t vm_rotl32(uint32_t x, int r) {
+    return (x << r) | (x >> (32 - r));
+}
+static inline uint64_t vm_rd64(const uint8_t* p) {
+    uint64_t v;
+    memcpy(&v, p, 8);  // little-endian hosts (x86-64, aarch64)
+    return v;
+}
+static inline uint32_t vm_rd32(const uint8_t* p) {
+    uint32_t v;
+    memcpy(&v, p, 4);
+    return v;
+}
+static inline uint64_t vm_xxh64_round(uint64_t acc, uint64_t in) {
+    acc += in * kP64_2;
+    acc = vm_rotl64(acc, 31);
+    return acc * kP64_1;
+}
+static inline uint64_t vm_xxh64_merge(uint64_t acc, uint64_t v) {
+    acc ^= vm_xxh64_round(0, v);
+    return acc * kP64_1 + kP64_4;
+}
+
+uint64_t vm_xxh64(const uint8_t* p, int64_t len, uint64_t seed) {
+    const uint8_t* end = p + len;
+    uint64_t h;
+    if (len >= 32) {
+        uint64_t v1 = seed + kP64_1 + kP64_2, v2 = seed + kP64_2;
+        uint64_t v3 = seed, v4 = seed - kP64_1;
+        const uint8_t* limit = end - 32;
+        do {
+            v1 = vm_xxh64_round(v1, vm_rd64(p));
+            v2 = vm_xxh64_round(v2, vm_rd64(p + 8));
+            v3 = vm_xxh64_round(v3, vm_rd64(p + 16));
+            v4 = vm_xxh64_round(v4, vm_rd64(p + 24));
+            p += 32;
+        } while (p <= limit);
+        h = vm_rotl64(v1, 1) + vm_rotl64(v2, 7) + vm_rotl64(v3, 12) +
+            vm_rotl64(v4, 18);
+        h = vm_xxh64_merge(h, v1);
+        h = vm_xxh64_merge(h, v2);
+        h = vm_xxh64_merge(h, v3);
+        h = vm_xxh64_merge(h, v4);
+    } else {
+        h = seed + kP64_5;
+    }
+    h += (uint64_t)len;
+    while (p + 8 <= end) {
+        h ^= vm_xxh64_round(0, vm_rd64(p));
+        h = vm_rotl64(h, 27) * kP64_1 + kP64_4;
+        p += 8;
+    }
+    if (p + 4 <= end) {
+        h ^= (uint64_t)vm_rd32(p) * kP64_1;
+        h = vm_rotl64(h, 23) * kP64_2 + kP64_3;
+        p += 4;
+    }
+    while (p < end) {
+        h ^= (uint64_t)(*p) * kP64_5;
+        h = vm_rotl64(h, 11) * kP64_1;
+        p++;
+    }
+    h ^= h >> 33;
+    h *= kP64_2;
+    h ^= h >> 29;
+    h *= kP64_3;
+    h ^= h >> 32;
+    return h;
+}
+
+static inline uint32_t vm_xxh32_round(uint32_t acc, uint32_t in) {
+    acc += in * kP32_2;
+    acc = vm_rotl32(acc, 13);
+    return acc * kP32_1;
+}
+
+uint32_t vm_xxh32(const uint8_t* p, int64_t len, uint32_t seed) {
+    const uint8_t* end = p + len;
+    uint32_t h;
+    if (len >= 16) {
+        uint32_t v1 = seed + kP32_1 + kP32_2, v2 = seed + kP32_2;
+        uint32_t v3 = seed, v4 = seed - kP32_1;
+        const uint8_t* limit = end - 16;
+        do {
+            v1 = vm_xxh32_round(v1, vm_rd32(p));
+            v2 = vm_xxh32_round(v2, vm_rd32(p + 4));
+            v3 = vm_xxh32_round(v3, vm_rd32(p + 8));
+            v4 = vm_xxh32_round(v4, vm_rd32(p + 12));
+            p += 16;
+        } while (p <= limit);
+        h = vm_rotl32(v1, 1) + vm_rotl32(v2, 7) + vm_rotl32(v3, 12) +
+            vm_rotl32(v4, 18);
+    } else {
+        h = seed + kP32_5;
+    }
+    h += (uint32_t)len;
+    while (p + 4 <= end) {
+        h += vm_rd32(p) * kP32_3;
+        h = vm_rotl32(h, 17) * kP32_4;
+        p += 4;
+    }
+    while (p < end) {
+        h += (uint32_t)(*p) * kP32_5;
+        h = vm_rotl32(h, 11) * kP32_1;
+        p++;
+    }
+    h ^= h >> 15;
+    h *= kP32_2;
+    h ^= h >> 13;
+    h *= kP32_3;
+    h ^= h >> 16;
+    return h;
+}
+
 }  // extern "C"

@@ -5,14 +5,18 @@ The port keeps the JAX package's metric names
 ``vm_tpu_kernel_duration_seconds{kernel,phase}``, ``vm_device_window_*``,
 ``vm_cache_*{type="tpu/tile_cache"}``) so dashboards read both engines the
 same way.  This is the small subset of ``victoriametrics_tpu/utils/
-metrics.py`` the device engine needs: counters, gauges with a callback,
-and histograms reduced to their ``_sum``/``_count`` pair.  Metrics are
-keyed by their full name including labels.
+metrics.py`` the device engine and the storage need: integer and float
+counters, gauges (set, or read from a callback), histograms reduced to
+their ``_sum``/``_count`` pair, and the ingest phase counters.  Metrics
+are keyed by their full name including labels.  (The Prometheus text
+exposition, the vmrange buckets and the process metrics come with the
+HTTP layer.)
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 
 def escape_label_value(v: str) -> str:
@@ -49,18 +53,50 @@ class Counter:
         with self._lock:
             return self._v
 
+    def set(self, v) -> None:
+        with self._lock:
+            self._v = v
+
+
+class FloatCounter(Counter):
+    """Monotonic float counter (e.g. accumulated seconds)."""
+
+    __slots__ = ()
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self._v = 0.0
+
 
 class Gauge:
-    """Instantaneous value read from a callback at exposition time."""
+    """Instantaneous value: read from a callback at exposition time, or
+    driven by set()/inc()/dec()."""
 
-    __slots__ = ("name", "callback")
+    __slots__ = ("name", "callback", "_lock", "_v")
 
-    def __init__(self, name: str, callback):
+    def __init__(self, name: str, callback=None):
         self.name = name
         self.callback = callback
+        self._lock = threading.Lock()
+        self._v = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._v = v
+
+    def inc(self, n: float = 1) -> None:
+        with self._lock:
+            self._v += n
+
+    def dec(self, n: float = 1) -> None:
+        with self._lock:
+            self._v -= n
 
     def get(self) -> float:
-        return float(self.callback())
+        if self.callback is not None:
+            return float(self.callback())
+        with self._lock:
+            return self._v
 
 
 class Histogram:
@@ -80,6 +116,9 @@ class Histogram:
         with self._lock:
             self._sum += v
             self._count += 1
+
+    def update_duration(self, start_monotonic: float) -> None:
+        self.update(time.perf_counter() - start_monotonic)
 
     def get_count(self) -> int:
         with self._lock:
@@ -108,8 +147,14 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get_or_create(name, lambda: Counter(name))
 
-    def gauge(self, name: str, callback) -> Gauge:
-        return self._get_or_create(name, lambda: Gauge(name, callback))
+    def float_counter(self, name: str) -> FloatCounter:
+        return self._get_or_create(name, lambda: FloatCounter(name))
+
+    def gauge(self, name: str, callback=None) -> Gauge:
+        g = self._get_or_create(name, lambda: Gauge(name, callback))
+        if callback is not None and g.callback is None:
+            g.callback = callback
+        return g
 
     def histogram(self, name: str) -> Histogram:
         return self._get_or_create(name, lambda: Histogram(name))
@@ -131,3 +176,12 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+def ingest_phase(phase: str) -> FloatCounter:
+    """Seconds spent in one stage of the write path: ``resolve`` (raw key
+    -> TSID), ``register`` (per-day index registration), ``append``
+    (partition pending append), ``flush`` (part encode + fsync), ``merge``
+    (background part merges)."""
+    return REGISTRY.float_counter(
+        f'vm_ingest_phase_seconds_total{{phase="{phase}"}}')
