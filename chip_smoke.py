@@ -96,11 +96,22 @@ each printing one JSON line:
               refresh resumes after a long pause and slides the
               window with compact_window), each followed by the quantile
               panel through run_quantile_on_tiles; every refresh is held
-              against a cold rebuild at rtol 1e-12
+              against a cold rebuild at rtol 1e-12.  host_oracle: each
+              panel's query text (sum by (instance), rate, topk, bottomk,
+              topk_avg/median/last, quantile(0.9) by instance, median),
+              parsed and optimized by the port's MetricsQL parser, its
+              shape read by the port's evaluator (_device_aggr_shape),
+              answered on the card from the resident tile, and held
+              against the port's host oracle over the same fetched
+              series (rollup_np.rollup_batch, aggr_funcs): sums and rates
+              at rtol 1e-12, the selections' rows exactly and their values
+              at 1e-12, quantile and median at rtol 1e-6, atol 1e-6
   fleet       fleet-batched serving on the dashboard's Storage (each
-              interval's scrapes through add_rows; each stream carries
-              the selector's TagFilter) and resident selector: 128
-              standing queries ({rate, increase, irate,
+              interval's scrapes through add_rows) and resident selector:
+              128 standing queries, each given only as query text that the
+              fleet parses (its window filed under the key the fleet's
+              own analysis derives; the phase fails when that is not the
+              resident selector's) ({rate, increase, irate,
               max_over_time} x the 8 aggregates x {by instance, no
               grouping} x two grids) adopted into 16 buckets, then six
               intervals through FleetPlane.run (one B9 launch per bucket,
@@ -202,11 +213,17 @@ from victoriametrics_tpu_torch.ops import device_decode as dd
 from victoriametrics_tpu_torch.ops import device_rollup as dr
 from victoriametrics_tpu_torch.ops import decimal as dec
 from victoriametrics_tpu_torch.ops import encoding as enc
+from victoriametrics_tpu_torch.ops import rollup_np
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
 from victoriametrics_tpu_torch.parallel import mesh as meshlib
 from victoriametrics_tpu_torch.parallel.partition import split_rows
+from victoriametrics_tpu_torch.query import aggr_funcs
 from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
+from victoriametrics_tpu_torch.query.eval import _device_aggr_shape
+from victoriametrics_tpu_torch.query.exec import parse_cached
+from victoriametrics_tpu_torch.query.metricsql.ast import AggrFuncExpr
+from victoriametrics_tpu_torch.query.types import EvalConfig
 from victoriametrics_tpu_torch.storage.metric_name import MetricName
 from victoriametrics_tpu_torch.storage.storage import SeriesData, Storage
 from victoriametrics_tpu_torch.storage.tag_filters import TagFilter
@@ -227,6 +244,9 @@ SCRAPE = 15_000
 JITTER = 2_000
 WINDOW = 300_000
 LOOKBACK_DELTA = 300_000
+#: the serving front end's series limit (the reference's PrometheusAPI
+#: default), which the fleet's analysis reads from its evaluation context
+MAX_SERIES = 1_000_000
 
 # dashboard: bench.py's headline shape
 DASH_SERIES, DASH_SAMPLES, DASH_GROUPS, DASH_STEP = 8192, 1440, 256, 60_000
@@ -2021,6 +2041,164 @@ def dashboard_panels(engine, series, cfg, key, gids) -> dict:
     return out
 
 
+#: the dashboard's panels as query text, each answered on the card from
+#: the resident tile and held against the port's host oracle
+PANEL_TEXTS = {
+    "sum_by_instance": f"sum by (instance)(rate({SELECTOR}[5m]))",
+    "rate": f"rate({SELECTOR}[5m])",
+    "topk": f"topk(10, rate({SELECTOR}[5m]))",
+    "bottomk": f"bottomk(10, rate({SELECTOR}[5m]))",
+    "topk_avg": f"topk_avg(10, rate({SELECTOR}[5m]))",
+    "topk_median": f"topk_median(10, rate({SELECTOR}[5m]))",
+    "topk_last": f"topk_last(10, rate({SELECTOR}[5m]))",
+    "quantile_by_instance":
+        f"quantile(0.9, rate({SELECTOR}[5m])) by (instance)",
+    "median": f"median(rate({SELECTOR}[5m]))",
+}
+#: the oracle's bound for quantile and median: the reference's own for
+#: its fused quantile against its host path (tests/test_device_rollup.py
+#: test_fused_matches_host, rtol 1e-6, atol 1e-6)
+QUANTILE_TOL = (1e-6, 1e-6)
+TOPK_NAMES = ("topk", "bottomk", "topk_avg", "topk_median", "topk_last")
+#: the kernels each panel must launch on the resident tile
+ORACLE_KERNELS = {"sum_by_instance": ("rollup_aggregate_tile",),
+                  **{p: QUERY_KERNELS[p] for p in PANEL_TEXTS
+                     if p != "sum_by_instance"}}
+
+
+def panel_shape(q: str):
+    """(expression, name, k or phi, rollup func) of a panel's text, parsed
+    and optimized by the port; the rollup arg is read by the port's
+    _device_aggr_shape (a selection's and a bare rollup's as sum(arg)
+    reads it).  Fails unless the text names the resident tile: the
+    dashboard's selector at its window."""
+    e = parse_cached(q)
+    if isinstance(e, AggrFuncExpr) and e.name in TOPK_NAMES:
+        name, arg = e.name, float(e.args[0].value)
+        shape = _device_aggr_shape(AggrFuncExpr("sum", [e.args[1]]))
+    elif isinstance(e, AggrFuncExpr):
+        name, arg, shape = e.name, None, _device_aggr_shape(e)
+    else:
+        name, arg = "rate", None
+        shape = _device_aggr_shape(AggrFuncExpr("sum", [e]))
+    if shape is None:
+        raise AssertionError(f"host_oracle: {q!r} does not fuse")
+    phi, func, rarg = shape
+    if str(rarg.expr) != SELECTOR or rarg.offset is not None or \
+            rarg.window is None or rarg.window.value_ms(DASH_STEP) != WINDOW:
+        raise AssertionError(f"host_oracle: {q!r} names another tile")
+    return e, name, phi if phi is not None else arg, func
+
+
+def oracle_groups(series, grouping) -> tuple[np.ndarray, int]:
+    """Group ids by the grouping labels' values, the first seen first."""
+    index = {}
+    gids = np.empty(len(series), np.int32)
+    for i, sd in enumerate(series):
+        key = tuple(sd.metric_name.get_label(g.encode()) for g in grouping)
+        gids[i] = index.setdefault(key, len(index))
+    return gids, len(index)
+
+
+def oracle_selection(name: str, k: int, m: np.ndarray) -> dict:
+    """The reference evaluator's host topk family over one group (query/
+    eval.py _eval_topk_family): {row: kept values}."""
+    bottom = name.startswith("bottomk")
+    if name in ("topk", "bottomk"):
+        mask = aggr_funcs.topk_mask_per_ts(m, k, bottom)
+        kept = np.where(mask, m, np.nan)
+        return {i: kept[i] for i in range(m.shape[0])
+                if not np.isnan(kept[i]).all()}
+    rank = aggr_funcs.series_rank_metric(name.split("_", 1)[1], m)
+    rank = np.where(np.isnan(rank), np.inf if bottom else -np.inf, rank)
+    order = np.argsort(-rank if bottom else rank, kind="stable")
+    return {int(i): m[i] for i in order[-k:]}
+
+
+def host_oracle(engine, series, cfg, key) -> dict:
+    """Each dashboard panel from its text: parsed and optimized by the
+    port, its shape read by the port's evaluator, answered on the card by
+    the engine entry point dashboard_panels calls (on the resident tile:
+    no upload), and held against the port's host oracle on the CPU over
+    the same fetched series: rollup_np.rollup_batch for the per-series
+    rates, aggr_funcs for the sums and quantiles, series_rank_metric and
+    topk_mask_per_ts for the selections.  Sums and rates at rtol 1e-12
+    (NaNs equal), the selected rows exactly and their values at 1e-12,
+    quantile and median at QUANTILE_TOL."""
+    t0 = time.perf_counter()
+    rows = rollup_np.rollup_batch(
+        "rate", [(sd.timestamps, sd.values) for sd in series], cfg)
+    rates_s = time.perf_counter() - t0
+    if rows is None or rows.shape != (len(series), cfg.out_timestamps().size):
+        raise AssertionError("host_oracle: rollup_batch declined the rates")
+    out, oracle_s = {}, rates_s
+    for panel, q in PANEL_TEXTS.items():
+        t0 = time.perf_counter()
+        e, name, arg, func = panel_shape(q)
+        parse_ms = (time.perf_counter() - t0) * 1e3
+        if func != "rate":
+            raise AssertionError(f"host_oracle: {q!r} is not a rate panel")
+        grouping = e.grouping if isinstance(e, AggrFuncExpr) else []
+        gids, G = oracle_groups(series, grouping)
+        before = dict(kernels.LAUNCHES)
+        if name == "sum":
+            got = ce.try_aggr_rollup(engine, name, func, series, gids, G, cfg,
+                                     cache_key=key)
+        elif name == "rate":
+            got = ce.try_rollup(engine, func, series, cfg, (), cache_key=key)
+        elif name in TOPK_NAMES:
+            got = ce.try_topk_rollup(engine, name, arg, func, series, cfg,
+                                     cache_key=key)
+        else:
+            _, max_group = ce.group_slots(gids, G)
+            got = ce.try_quantile_rollup(engine, arg, func, series, gids, G,
+                                         cfg, max_group, cache_key=key)
+        if got is None:
+            raise AssertionError(f"host_oracle: the engine declined {q!r}")
+        launches = {k: v - before.get(k, 0)
+                    for k, v in kernels.LAUNCHES.items()
+                    if v != before.get(k, 0)}
+        if launches.get("decode_tiles") or not all(
+                launches.get(k) for k in ORACLE_KERNELS[panel]):
+            raise AssertionError(f"host_oracle: {q!r} launched {launches}, "
+                                 "not its kernels on the resident tile")
+        t0 = time.perf_counter()
+        if name == "rate":
+            want, tol = rows, (1e-12, 0.0)
+        elif name == "sum":
+            want = np.stack([aggr_funcs.SIMPLE["sum"](rows[gids == g])
+                             for g in range(G)])
+            tol = (1e-12, 0.0)
+        elif name in TOPK_NAMES:
+            want = oracle_selection(name, int(arg), rows)
+            tol = (1e-12, 0.0)
+        else:
+            want = np.stack([aggr_funcs.a_quantile(rows[gids == g], arg)
+                             for g in range(G)])
+            tol = QUANTILE_TOL
+        oracle_s += time.perf_counter() - t0
+        if name in TOPK_NAMES:
+            picked = {int(i): v for i, v in got}
+            if sorted(picked) != sorted(want) or not picked:
+                raise AssertionError(f"host_oracle {q!r}: the card selected "
+                                     "other series than the oracle")
+            idx = sorted(want)
+            got = np.stack([picked[i] for i in idx])
+            want = np.stack([want[i] for i in idx])
+        got, want = np.asarray(got), np.asarray(want)
+        if not np.isfinite(got).any():
+            raise AssertionError(f"host_oracle {q!r}: no finite value")
+        err = assert_close(f"host_oracle {q!r}", torch.from_numpy(got),
+                           torch.from_numpy(want), *tol)
+        out[panel] = {"q": str(e), "max_abs_err": err, "rtol": tol[0],
+                      "atol": tol[1], "shape": list(got.shape),
+                      "parse_ms": parse_ms, "launches": launches}
+    res = {"check": "host_oracle", "ok": True, "panels": out,
+           "oracle_ms": oracle_s * 1e3, "oracle_rates_ms": rates_s * 1e3}
+    emit(res)
+    return res
+
+
 def dashboard_keys():
     """The dashboard query's roll-state and roll-tile keys."""
     return ce.device_roll_keys(SELECTOR, TENANT, "rate", "sum", None,
@@ -2165,6 +2343,7 @@ def phase_dashboard(rng, dev, stores: Stores):
     assert_exact("dashboard cold K2 through the store vs on the seeded "
                  "series", torch.from_numpy(out), torch.from_numpy(direct))
     panels = dashboard_panels(engine, series, cfg0, key, gids)
+    oracle = host_oracle(engine, series, cfg0, key)
     _, max_group = ce.group_slots(gids, G)
     skey, tkey = dashboard_keys()
     rt = ce.register_window(
@@ -2244,7 +2423,7 @@ def phase_dashboard(rng, dev, stores: Stores):
            "served_vs_cold_max_abs_err": worst,
            "quantile_refresh_ms": quantile_ms,
            "quantile_served_vs_cold_max_abs_err": worst_q,
-           "panels": panels, "launches": launches}
+           "panels": panels, "host_oracle": oracle, "launches": launches}
     emit(res)
     return res, {"store": store, "engine": engine, "end": end,
                  "labels": built["labels"], "feed": built["feed"],
@@ -2257,12 +2436,11 @@ def phase_dashboard(rng, dev, stores: Stores):
 
 class StandingQuery:
     """One subscribed dashboard panel as the fleet reads it (the
-    reference's matstream, duck-typed): grid, tenant, parsed shape, and
-    due() until its interval is served."""
+    reference's matstream, duck-typed): its query text, grid and tenant,
+    and due() until its interval is served.  The fleet parses ``q``."""
 
-    def __init__(self, q: str, step: int, duration: int,
-                 shape: fleet.StreamShape):
-        self.q, self.step, self.duration, self.shape = q, step, duration, shape
+    def __init__(self, q: str, step: int, duration: int):
+        self.q, self.step, self.duration = q, step, duration
         self.tenant = TENANT
         self.end = None
 
@@ -2271,8 +2449,9 @@ class StandingQuery:
 
 
 class FleetAPI:
-    """What FleetPlane.run reads of a serving front end: the storage and
-    the standing queries."""
+    """What FleetPlane.run reads of a serving front end: the storage, the
+    standing queries and the evaluation context of a query (``_ec``: the
+    lookback delta and series limit its analysis reads)."""
 
     def __init__(self, storage, engine, streams):
         self.storage, self.engine, self._streams = storage, engine, streams
@@ -2280,6 +2459,47 @@ class FleetAPI:
 
     def streams(self):
         return list(self._streams)
+
+    def _ec(self, start, end, step, tenant=TENANT) -> EvalConfig:
+        return EvalConfig(start=start, end=end, step=step,
+                          storage=self.storage,
+                          lookback_delta=LOOKBACK_DELTA,
+                          max_series=MAX_SERIES, tenant=tenant)
+
+
+def fleet_text(aggr: str, func: str, grouping, without: bool) -> str:
+    """A standing query's text: aggr by|without (grouping)(func(m[5m]))."""
+    return f"{aggr} {'without' if without else 'by'} " \
+        f"({','.join(grouping)})({func}({SELECTOR}[5m]))"
+
+
+def fleet_queries() -> list[tuple]:
+    """The fleet phase's 128 standing queries: (text, step, duration,
+    grid, grouping index, func, aggregate), {rate, increase, irate,
+    max_over_time} x the 8 aggregates x each grid's two groupings."""
+    out = []
+    for grid, (dur, step, groupings) in FLEET_GRIDS.items():
+        for func in FLEET_FUNCS:
+            for aggr in dr.FLEET_AGGR_CODES:
+                for gi, (grouping, without) in enumerate(groupings):
+                    out.append((fleet_text(aggr, func, grouping, without),
+                                step, dur, grid, gi, func, aggr))
+    return out
+
+
+def standing_info(plane, api, st, func, aggr, grouping, without) -> dict:
+    """The fleet's own analysis of a standing query's text, which must
+    name the shape the text was written for on the resident selector's
+    window: otherwise the fleet would adopt nothing, so the phase fails
+    here."""
+    info = plane._analyze(api, st)
+    want, _ = ce.device_roll_keys(SELECTOR, TENANT, func, aggr, None,
+                                  grouping, without, MAX_SERIES, WINDOW)
+    if info is None or info["skey"] != want or info["window"] != WINDOW:
+        raise AssertionError(
+            f"fleet: the fleet reads {st.q!r} as "
+            f"{None if info is None else info['skey']}, not {want}")
+    return info
 
 
 FLEET_SPLIT = {
@@ -2419,28 +2639,23 @@ def phase_fleet(rng, dev, state) -> dict:
     layouts = ((inst, inst_keys, dr.group_layout(inst, G, dev)),
                (np.zeros(S, np.int32), [()],
                 dr.group_layout(np.zeros(S, np.int32), 1, dev)))
-    streams = []
-    for grid, (dur, step, groupings) in FLEET_GRIDS.items():
-        for func in FLEET_FUNCS:
-            for aggr in dr.FLEET_AGGR_CODES:
-                for (grouping, without), (gids, keys, groups) in zip(
-                        groupings, layouts):
-                    shape = fleet.StreamShape(
-                        selector=SELECTOR, filters=FILTERS, func=func,
-                        aggr=aggr, window=WINDOW, grouping=grouping,
-                        without=without, lookback_delta=LOOKBACK_DELTA)
-                    q = f"{aggr} {'without' if without else 'by'} " \
-                        f"({','.join(grouping)})({func}({SELECTOR}[5m]))"
-                    st = StandingQuery(q, step, dur, shape)
-                    skey, _ = ce.device_roll_keys(
-                        SELECTOR, TENANT, func, aggr, None, grouping, without,
-                        None, WINDOW)
-                    if ce.register_window(engine, skey, tkey, gids,
-                                          keys) is not rt:
-                        raise AssertionError("fleet: window not filed")
-                    streams.append((st, skey, groups, grid))
-    api = FleetAPI(store, engine, [st for st, *_ in streams])
+    queries = [(StandingQuery(q, step, dur), *rest)
+               for q, step, dur, *rest in fleet_queries()]
+    api = FleetAPI(store, engine, [st for st, *_ in queries])
     plane = engine.fleet()
+    # each stream's window filed under the key the fleet derives from its
+    # text
+    streams, parse_ms = [], []
+    for st, grid, gi, func, aggr in queries:
+        gids, keys, groups = layouts[gi]
+        t0 = time.perf_counter()
+        info = standing_info(plane, api, st, func, aggr,
+                             *FLEET_GRIDS[grid][2][gi])
+        parse_ms.append((time.perf_counter() - t0) * 1e3)
+        if ce.register_window(engine, info["skey"], tkey, gids,
+                              keys) is not rt:
+            raise AssertionError("fleet: window not filed")
+        streams.append((st, info, groups, grid))
     torch.cuda.reset_peak_memory_stats(dev)
     now = -(-(state["end"] + FLEET_INTERVALS[0][1]) // 60_000) * 60_000
     intervals, worst, events = [], 0.0, None
@@ -2494,31 +2709,31 @@ def phase_fleet(rng, dev, state) -> dict:
         # the per-stream path: the selector's own rolling tile
         t0 = time.perf_counter()
         means = {}
-        for st, skey, groups, grid in streams:
-            sh = st.shape
+        for st, sh, groups, grid in streams:
             start = now - st.duration
-            fetch_lo = start - sh.window - LOOKBACK_DELTA
+            fetch_lo = start - sh["window"] - LOOKBACK_DELTA
             if not ce.advance_rolling(engine, rt, store, FILTERS, start,
                                       fetch_lo, now, None, TENANT, True):
                 raise AssertionError("fleet oracle declined: "
                                      + engine.last_roll_decline)
-            cfg = RollupConfig(start, now, st.step, sh.window)
-            want = ce.run_fused_on_tiles(engine, sh.aggr, sh.func, rt.tiles,
-                                         groups, cfg, start - rt.base_ms,
-                                         fetch_lo - start)
-            if sh.aggr == "avg":
-                means[grid, sh.func, sh.grouping] = want
-            r = plane._results[skey]
+            cfg = RollupConfig(start, now, st.step, sh["window"])
+            want = ce.run_fused_on_tiles(engine, sh["aggr"], sh["func"],
+                                         rt.tiles, groups, cfg,
+                                         start - rt.base_ms, fetch_lo - start)
+            grouping = sh["skey"][6]
+            if sh["aggr"] == "avg":
+                means[grid, sh["func"], grouping] = want
+            r = plane._results[sh["skey"]]
             if r.end != now or r.rows.shape != want.shape:
                 raise AssertionError(f"fleet {st.q}: no result for {now}")
             # the group mean, for the variance's 16-ulp term (avg comes
             # before stddev and stdvar)
-            mean = means.get((grid, sh.func, sh.grouping))
-            e = aggr_close(f"fleet interval {i} {st.q}", sh.aggr,
+            mean = means.get((grid, sh["func"], grouping))
+            e = aggr_close(f"fleet interval {i} {st.q}", sh["aggr"],
                            torch.from_numpy(r.rows), torch.from_numpy(want),
-                           sh.func,
+                           sh["func"],
                            None if mean is None else torch.from_numpy(mean))
-            if sh.aggr not in ("stddev", "stdvar"):
+            if sh["aggr"] not in ("stddev", "stdvar"):
                 worst = max(worst, e)
             if not np.isfinite(r.rows).any():
                 raise AssertionError(f"fleet {st.q}: no finite value")
@@ -2536,6 +2751,10 @@ def phase_fleet(rng, dev, state) -> dict:
         raise AssertionError("fleet: the resume slid no bucket (B11)")
     buckets = sorted(plane._buckets.values(), key=lambda b: b.key)
     res = {"phase": "fleet", "ok": True, "streams": len(streams),
+           "parsed_streams": len(parse_ms),
+           "analysis_ms": {"first": parse_ms[0],
+                           "median": float(np.median(parse_ms)),
+                           "max": max(parse_ms)},
            "buckets": [{"func": b.func, "step": b.step, "B": b.B_pad,
                         "S": b.S_b, "N": b.N_b, "T": b.T_b, "G": b.G_b}
                        for b in buckets],
@@ -3244,24 +3463,22 @@ def mesh_fleet(dev, st, aside) -> dict:
                            structural=store.structural_version)
     dur, step, groupings = FLEET_GRIDS["B"]
     layouts = ((inst, inst_keys), (np.zeros(S, np.int32), [()]))
-    sides = {True: [], False: []}
-    for aggr in dr.FLEET_AGGR_CODES:
-        for (grouping, without), (gids, keys) in zip(groupings, layouts):
-            skey, _ = ce.device_roll_keys(SELECTOR, TENANT, "rate", aggr,
-                                          None, grouping, without, None,
-                                          WINDOW)
-            for eng in (meng, flat):
-                if ce.register_window(eng, skey, tkey, gids, keys) is None:
-                    raise AssertionError("mesh fleet: window not filed")
-                shape = fleet.StreamShape(
-                    selector=SELECTOR, filters=FILTERS, func="rate", aggr=aggr,
-                    window=WINDOW, grouping=grouping, without=without,
-                    lookback_delta=LOOKBACK_DELTA)
-                sides[eng is meng].append((StandingQuery(
-                    f"{aggr} ({grouping})", step, dur, shape), skey))
-    apis = {m: FleetAPI(store, meng if m else flat, [q for q, _ in sides[m]])
+    texts = [(fleet_text(aggr, "rate", *gw), aggr, gw, layout)
+             for aggr in dr.FLEET_AGGR_CODES
+             for gw, layout in zip(groupings, layouts)]
+    sides = {m: [StandingQuery(q, step, dur) for q, *_ in texts]
+             for m in (True, False)}
+    apis = {m: FleetAPI(store, meng if m else flat, sides[m])
             for m in (True, False)}
     planes = {True: meng.fleet(), False: flat.fleet()}
+    keyed = {True: [], False: []}
+    for m, eng in ((True, meng), (False, flat)):
+        for sq, (_, aggr, gw, (gids, keys)) in zip(sides[m], texts):
+            skey = standing_info(planes[m], apis[m], sq, "rate", aggr,
+                                 *gw)["skey"]
+            if ce.register_window(eng, skey, tkey, gids, keys) is None:
+                raise AssertionError("mesh fleet: window not filed")
+            keyed[m].append((sq, skey))
     now = -(-(end + MESH_FLEET_INTERVALS[0][1]) // 60_000) * 60_000
     wall_ms, launches = [], []
     for i, (k, adv) in enumerate(MESH_FLEET_INTERVALS):
@@ -3288,7 +3505,7 @@ def mesh_fleet(dev, st, aside) -> dict:
             if b.B_pad % MESH_SHARDS or len(b.dev["ts"]) != MESH_SHARDS:
                 raise AssertionError("mesh fleet: a bucket is not stream-"
                                      "sharded")
-        for (qm, skey), (qf, _) in zip(sides[True], sides[False]):
+        for (qm, skey), (qf, _) in zip(keyed[True], keyed[False]):
             rm, rf = planes[True]._results[skey], planes[False]._results[skey]
             if rm.end != now or not np.array_equal(
                     rm.rows.view(np.int64), rf.rows.view(np.int64)):

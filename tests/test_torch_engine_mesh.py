@@ -226,13 +226,12 @@ def test_fleet_sequence_on_a_mesh(tmp_path):
     and the port's FleetPlane on an 8-way mesh engine, from the same
     Storage, every stream every interval, at rtol 1e-12."""
     from test_torch_fleet import (DUR, _API, _Stream, _close as fclose,
-                                  _end0, _grid_t0, _ingest, _register, _seed)
+                                  _end0, _grid_t0, _ingest, _reference_shape,
+                                  _register, _seed)
     from victoriametrics_tpu.httpapi.prometheus_api import PrometheusAPI
     from victoriametrics_tpu.query import rollup_result_cache as rrc
-    from victoriametrics_tpu.query.eval import filters_from_metric_expr
     from victoriametrics_tpu.query.matstream import StreamClient
     from victoriametrics_tpu.storage.storage import Storage
-    from victoriametrics_tpu_torch.query import fleet
 
     rrc.GLOBAL.reset()
     panels = [("sum by (g)(rate(fl_m[5m]))", DUR),
@@ -252,15 +251,8 @@ def test_fleet_sequence_on_a_mesh(tmp_path):
         streams = []
         for st in (sub.stream for sub in subs):
             info = ref_plane._analyze(api, st)
-            skey = info["skey"]
-            shape = fleet.StreamShape(
-                selector=str(info["me"]),
-                filters=filters_from_metric_expr(info["me"], s),
-                func=info["func"], aggr=info["aggr"], window=info["window"],
-                offset=info["offset"], grouping=skey[6], without=skey[7],
-                lookback_delta=info["lookback_delta"],
-                max_series=info["max_series"])
-            streams.append(_Stream(st.q, st.duration, shape, st.tenant))
+            streams.append(_Stream(st.q, st.duration,
+                                   _reference_shape(info, s), st.tenant))
         eng = ce.CUDAEngine(device="cpu", min_series=4,
                             mesh=ml.make_mesh(8, 1, CPU8))
         port_skeys = [_register(eng, s, st, end) for st in streams]

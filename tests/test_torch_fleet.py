@@ -25,6 +25,7 @@ the device planes and mirrors bit for bit."""
 
 import re
 import time
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +39,7 @@ from victoriametrics_tpu.storage.storage import Storage
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
 from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
+from victoriametrics_tpu_torch.query.types import EvalConfig
 from victoriametrics_tpu_torch.storage.storage import SeriesData
 from victoriametrics_tpu_torch.utils.metrics import REGISTRY
 
@@ -47,6 +49,7 @@ NS = 16
 NN = 240
 DUR = 20 * STEP
 WINDOW = 300_000
+MAX_SERIES = 1_000_000  # the serving front end's default limit
 PANELS = [
     ("sum by (g)(rate(fl_m[5m]))", DUR),       # rate, G 4 -> 8: bucket A
     ("max by (g)(rate(fl_m[5m]))", DUR),       # bucket A
@@ -97,11 +100,14 @@ def _end0(t0: int, n: int = NN) -> int:
 
 class _Stream:
     """A standing query as the plane reads it (the reference's MatStream,
-    duck-typed): grid, tenant, parsed shape, and due() until served."""
+    duck-typed): its text, grid and tenant, and due() until served.  The
+    plane parses ``q``; ``shape`` is the test's own reading of it, which
+    the cold registration and the per-stream oracle use."""
 
-    def __init__(self, q, duration, shape, tenant=(0, 0)):
+    def __init__(self, q, duration, shape=None, tenant=(0, 0)):
         self.q, self.step, self.duration = q, STEP, duration
-        self.shape, self.tenant = shape, tenant
+        self.shape = shape if shape is not None else _shape(q)
+        self.tenant = tenant
         self.end = None
 
     def due(self, now_ms):
@@ -117,12 +123,31 @@ class _API:
     def streams(self):
         return list(self._streams)
 
+    def _ec(self, start, end, step, tenant=(0, 0)):
+        return EvalConfig(start=start, end=end, step=step,
+                          storage=self.storage, lookback_delta=300_000,
+                          max_series=MAX_SERIES, tenant=tenant)
+
 
 def _shape(q, **kw):
+    """aggr by (label)(func(metric[5m])) read by the test's own regex."""
     aggr, label, func, metric = _Q.fullmatch(q).groups()
-    return fleet.StreamShape(
+    return SimpleNamespace(**{**dict(
         selector=metric, filters=filters_from_metric_expr(parse(metric)),
-        func=func, aggr=aggr, window=WINDOW, grouping=(label,), **kw)
+        func=func, aggr=aggr, window=WINDOW, offset=0, grouping=(label,),
+        without=False, phi=None, lookback_delta=300_000,
+        max_series=MAX_SERIES), **kw})
+
+
+def _reference_shape(info, storage):
+    """The reference plane's analysis of a stream, as the test's shape."""
+    skey = info["skey"]
+    return SimpleNamespace(
+        selector=str(info["me"]),
+        filters=filters_from_metric_expr(info["me"], storage),
+        func=info["func"], aggr=info["aggr"], window=info["window"],
+        offset=info["offset"], grouping=skey[6], without=skey[7], phi=None,
+        lookback_delta=info["lookback_delta"], max_series=info["max_series"])
 
 
 def _register(engine, storage, st, end):
@@ -216,7 +241,7 @@ def _setup(tmp_path, names=("fl_m",), panels=PANELS):
     t0 = _grid_t0()
     last, rng = _seed(s, t0, names)
     end = _end0(t0)
-    streams = [_Stream(q, d, _shape(q)) for q, d in panels]
+    streams = [_Stream(q, d) for q, d in panels]
     eng = ce.CUDAEngine(device="cpu", min_series=4)
     oracle = ce.CUDAEngine(device="cpu", min_series=4)
     skeys = [_register(eng, s, st, end) for st in streams]
@@ -426,23 +451,20 @@ def test_cost_split_sums_to_the_launch(tmp_path, monkeypatch):
         s.close()
 
 
-@pytest.mark.parametrize("q,kw", [
-    ("sum by (g)(rate(fl_m[5m]))", {"phi": 0.9}),           # quantile
-    ("topk by (g)(rate(fl_m[5m]))", {}),                    # not a fleet aggr
-    ("sum by (g)(timestamp(fl_m[5m]))", {}),                # time-valued
-    ("sum by (g)(tlast_over_time(fl_m[5m]))", {}),
-    ("sum by (g)(lifetime(fl_m[5m]))", {}),
-    ("sum by (g)(rate(fl_m[5m]))", {"window": 0}),          # adjustable
-    ("sum by (g)(default_rollup(fl_m[5m]))", {"window": 0}),
-    ("sum by (g)(holt_winters(fl_m[5m]))", {}),             # not core
+@pytest.mark.parametrize("q", [
+    "quantile by (g)(0.9, rate(fl_m[5m]))",                 # quantile
+    "topk by (g)(2, rate(fl_m[5m]))",                       # not a fleet aggr
+    "sum by (g)(timestamp(fl_m[5m]))",                      # time-valued
+    "sum by (g)(tlast_over_time(fl_m[5m]))",
+    "sum by (g)(lifetime(fl_m[5m]))",
+    "sum by (g)(rate(fl_m))",                               # adjustable
+    "sum by (g)(default_rollup(fl_m))",
+    "sum by (g)(holt_winters(fl_m[5m], 0.5, 0.5))",         # not core
 ])
-def test_shapes_the_fleet_declines(q, kw):
-    aggr, label, func, metric = _Q.fullmatch(q).groups()
-    shape = fleet.StreamShape(**{**dict(
-        selector=metric, filters=None, func=func, aggr=aggr, window=WINDOW,
-        grouping=(label,)), **kw})
+def test_shapes_the_fleet_declines(q):
     plane = ce.CUDAEngine(device="cpu").fleet()
-    assert plane._analyze(None, _Stream(q, DUR, shape)) is None
+    assert plane._analyze(_API(None, None, []),
+                          _Stream(q, DUR, shape=SimpleNamespace())) is None
 
 
 def test_prepass_survives_a_fault_and_honours_the_switch(monkeypatch,
@@ -491,15 +513,8 @@ def test_slice_matches_the_reference_plane(tmp_path):
         streams = []
         for st in (sub.stream for sub in subs):
             info = ref_plane._analyze(api, st)
-            skey = info["skey"]
-            shape = fleet.StreamShape(
-                selector=str(info["me"]),
-                filters=filters_from_metric_expr(info["me"], s),
-                func=info["func"], aggr=info["aggr"], window=info["window"],
-                offset=info["offset"], grouping=skey[6], without=skey[7],
-                lookback_delta=info["lookback_delta"],
-                max_series=info["max_series"])
-            streams.append(_Stream(st.q, st.duration, shape, st.tenant))
+            streams.append(_Stream(st.q, st.duration,
+                                   _reference_shape(info, s), st.tenant))
         eng = ce.CUDAEngine(device="cpu", min_series=4)
         port_skeys = [_register(eng, s, st, end) for st in streams]
         for st in streams:

@@ -1,9 +1,10 @@
 """The PyTorch/CUDA port imports no JAX, nothing of the JAX package and no
 ``xxhash`` (the machine with the card has none; the native codec carries
 xxh64/xxh32): every module of victoriametrics_tpu_torch, and chip_smoke.py,
-load in a process where importing jax or xxhash fails.  Importing them builds nothing: no
-compiler process starts and no file is written under the package's
-``_build/`` (the native codec and the CUDA kernels build on first use)."""
+load in a process where importing jax, the JAX package or xxhash fails.
+Importing them builds nothing: no compiler process starts and no file is
+written under the package's ``_build/`` (the native codec and the CUDA
+kernels build on first use)."""
 
 import os
 import pkgutil
@@ -19,6 +20,7 @@ import builtins, importlib, os, runpy, subprocess, sys
 sys.modules["jax"] = None          # any `import jax` now raises
 sys.modules["jaxlib"] = None
 sys.modules["xxhash"] = None
+sys.modules["victoriametrics_tpu"] = None   # nor the JAX package
 BUILD = os.path.join(os.getcwd(), "victoriametrics_tpu_torch", "_build")
 built = []
 real_open, real_os_open, real_popen = builtins.open, os.open, subprocess.Popen
@@ -90,6 +92,13 @@ def test_port_and_chip_smoke_import_without_jax():
         "tsid", "metric_name", "tag_filters", "dedup", "block", "part",
         "mergeset", "index_db", "partition", "downsample", "table",
         "columnar", "storage", "cardinality")} <= set(mods)
+    assert {f"victoriametrics_tpu_torch.{m}" for m in (
+        "query.metricsql", "query.metricsql.ast", "query.metricsql.parser",
+        "query.metricsql.optimizer", "ops.rollup_np", "query.rollup_funcs",
+        "utils.querytracer", "utils.memory", "utils.costacc", "query.limits",
+        "query.types", "query.aggr_funcs", "query.binary_op", "query.gorand",
+        "query.transform_funcs", "query.vmhistogram", "query.format_value",
+        "query.exec", "query.eval")} <= set(mods)
     assert len(mods) >= 50
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,

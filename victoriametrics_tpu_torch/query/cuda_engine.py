@@ -70,6 +70,7 @@ from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
 from ..parallel import mesh as meshlib
 from ..parallel.partition import AXIS_SERIES, host_rows, per_shard, shard_put
 from ..utils import metrics as metricslib
+from .rollup_funcs import ADJUSTABLE_WINDOW_FUNCS
 
 FUSED_AGGRS = frozenset(AGGR_FUNCS)
 
@@ -565,15 +566,6 @@ class RollingTile:
 
     def samples_in_range(self, fetch_lo: int) -> int:
         return sum(n for _, seg_hi, n in self.segments if seg_hi >= fetch_lo)
-
-
-#: funcs whose window the evaluator widens to the data's scrape interval
-#: (the reference's query/rollup_funcs.py:ADJUSTABLE_WINDOW_FUNCS)
-ADJUSTABLE_WINDOW_FUNCS = frozenset("""
-deriv deriv_fast ideriv irate rate rate_over_sum rollup
-rollup_candlestick rollup_deriv rollup_rate rollup_scrape_interval
-scrape_interval timestamp
-""".split())
 
 
 def device_roll_keys(selector: str, tenant, func: str, aggr: str, phi,

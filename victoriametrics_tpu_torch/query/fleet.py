@@ -48,11 +48,14 @@ rules as per-shard slices of streams, B10 and B11 run per shard, and B14
 (``cached_fleet_rollup_aggregate``) runs B9 on each shard's streams into
 one [B, G, T] output for the single host pull.
 
-What the port leaves out, for later slices: the MetricsQL analysis of the
-stream's query text (a stream carries its parsed :class:`StreamShape`),
-the matstream registry itself (duck-typed: ``api.matstreams.streams()``
-and ``st.due(now_ms)``), and the flight recorder and cost-plane hooks (the
-counters below and the shares on :class:`FleetResult` remain).  Buckets
+The plane reads a stream's shape from its query text (``st.q``), parsed
+and analysed as the evaluator does (``exec.parse_cached``,
+``eval._device_aggr_shape``), with the limits of the serving front end's
+evaluation context (``api._ec``).  What the port leaves out, for later
+slices: the matstream registry itself (duck-typed:
+``api.matstreams.streams()`` and ``st.due(now_ms)``), and the flight
+recorder and cost-plane hooks (the counters below and the shares on
+:class:`FleetResult` remain).  Buckets
 are float64, the port's only tile type, so the rebase-offset plane v0 is
 zeros.
 
@@ -63,7 +66,6 @@ the escape hatch and the equality oracle.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import sys
 import threading
@@ -83,6 +85,9 @@ from ..parallel.partition import (AXIS_STREAM, axis_multiple, host_rows,
 from ..utils import metrics as metricslib
 from .cuda_engine import (RollingTile, _pull_host, device_roll_keys,
                           tile_capacity, tile_shape, timed_kernel_call)
+from .eval import _device_aggr_shape, filters_from_metric_expr
+from .exec import parse_cached
+from .metricsql.ast import AggrFuncExpr
 
 _LAUNCHES = metricslib.REGISTRY.counter("vm_device_fleet_launches_total")
 #: incremented by the number of due streams each launch served: the ratio
@@ -128,31 +133,12 @@ def bucket_up(n: int, minimum: int | None = None) -> int:
     return b
 
 
-@dataclasses.dataclass(frozen=True)
-class StreamShape:
-    """The parsed shape of a stream's query, aggr(func(selector[window]
-    offset offset)) by/without (grouping), as the evaluator's analysis
-    yields it, with the selector's storage filters: what the fleet reads
-    from a stream in place of parsing its query text."""
-    selector: str          # the selector's canonical text
-    filters: object        # its storage filters (search_columns)
-    func: str
-    aggr: str
-    window: int = 0        # ms; 0 = the step
-    offset: int = 0        # ms
-    grouping: tuple = ()
-    without: bool = False
-    phi: float | None = None   # quantile's phi: not batched
-    lookback_delta: int = 300_000
-    max_series: int | None = None
-
-
 class FleetMember:
     """One adopted stream: identity, grid parameters and host-side series
     bookkeeping.  Its samples live in the bucket's planes at ``slot``."""
 
     __slots__ = (
-        "skey", "stream_key", "filters", "tenant", "max_series",
+        "skey", "stream_key", "me", "tenant", "max_series",
         "func", "aggr", "step", "duration", "window", "lookback",
         "lookback_delta", "offset", "drop_stale",
         "S", "G", "T", "group_keys", "gids",
@@ -296,30 +282,37 @@ class FleetPlane:
         return info
 
     def _analyze_uncached(self, api, st):
-        shape = getattr(st, "shape", None)
-        if not isinstance(shape, StreamShape):
+        e = parse_cached(st.q)
+        if not isinstance(e, AggrFuncExpr):
             return None
-        func = shape.func
+        shape = _device_aggr_shape(e)
+        if shape is None:
+            return None
+        phi, func, rarg = shape
         # quantile's dense [G, M, T] doesn't batch; per-stream residency
         # still serves it
-        if shape.phi is not None or shape.aggr not in FLEET_AGGR_CODES or \
+        if phi is not None or e.name not in FLEET_AGGR_CODES or \
                 func not in CORE_SUPPORTED:
             return None
-        window = shape.window
-        skey, _ = device_roll_keys(shape.selector, st.tenant, func,
-                                   shape.aggr, shape.phi, shape.grouping,
-                                   shape.without, shape.max_series, window)
+        window = rarg.window.value_ms(st.step) if rarg.window is not None \
+            else 0
+        offset = rarg.offset.value_ms(st.step) if rarg.offset is not None \
+            else 0
+        ec = api._ec(0, st.duration, st.step, st.tenant)
+        skey, _ = device_roll_keys(str(rarg.expr), ec.tenant, func, e.name,
+                                   phi, e.grouping, e.without, ec.max_series,
+                                   window)
         if skey is None:
             return None
         lookback = window if window > 0 else (
-            shape.lookback_delta if func == "default_rollup" else st.step)
-        return {"skey": skey, "func": func, "aggr": shape.aggr,
-                "aggr_code": FLEET_AGGR_CODES[shape.aggr], "window": window,
-                "offset": shape.offset, "lookback": lookback,
-                "lookback_delta": shape.lookback_delta,
+            ec.lookback_delta if func == "default_rollup" else st.step)
+        return {"skey": skey, "func": func, "aggr": e.name,
+                "aggr_code": FLEET_AGGR_CODES[e.name], "window": window,
+                "offset": offset, "lookback": lookback,
+                "lookback_delta": ec.lookback_delta,
                 "drop_stale": func not in ("default_rollup",
                                            "stale_samples_over_time"),
-                "filters": shape.filters, "max_series": shape.max_series}
+                "me": rarg.expr, "max_series": ec.max_series}
 
     # -- the per-interval batch scheduler ---------------------------------
 
@@ -442,7 +435,7 @@ class FleetPlane:
         m = FleetMember()
         m.skey = info["skey"]
         m.stream_key = (st.tenant, st.q, st.step, st.duration)
-        m.filters = info["filters"]
+        m.me = info["me"]
         m.tenant = st.tenant
         m.max_series = info["max_series"]
         m.func = info["func"]
@@ -545,10 +538,11 @@ class FleetPlane:
                 return no("late data landed inside the covered range")
         staged = "ok"
         if end_g > m.hi_ms:
+            filters = filters_from_metric_expr(m.me, storage)
             if hasattr(storage, "reset_partial"):
                 storage.reset_partial()
             try:
-                cols = storage.search_columns(m.filters, m.hi_ms + 1, end_g,
+                cols = storage.search_columns(filters, m.hi_ms + 1, end_g,
                                               max_series=m.max_series,
                                               tenant=m.tenant)
             except Exception:  # noqa: BLE001 — limits etc: per-stream path
