@@ -96,16 +96,25 @@ each printing one JSON line:
               refresh resumes after a long pause and slides the
               window with compact_window), each followed by the quantile
               panel through run_quantile_on_tiles; every refresh is held
-              against a cold rebuild at rtol 1e-12.  host_oracle: each
+              against a cold rebuild at rtol 1e-12.  evaluator: each
               panel's query text (sum by (instance), rate, topk, bottomk,
-              topk_avg/median/last, quantile(0.9) by instance, median),
-              parsed and optimized by the port's MetricsQL parser, its
-              shape read by the port's evaluator (_device_aggr_shape),
-              answered on the card from the resident tile, and held
-              against the port's host oracle over the same fetched
-              series (rollup_np.rollup_batch, aggr_funcs): sums and rates
-              at rtol 1e-12, the selections' rows exactly and their values
-              at 1e-12, quantile and median at rtol 1e-6, atol 1e-6
+              topk_avg/median/last, quantile(0.9) by instance, median)
+              through the port's exec_query on the store and grid, first
+              on a fresh CUDAEngine (each panel must launch its route's
+              kernels: K1 + K2 for the sum, B5 for rate, B5 + B6 +
+              take_rows, B5 + B7 + take_rows, B5 + B8), then through the
+              port's host evaluator (tpu=None) as the oracle: sums and
+              rates at rtol 1e-12, the selections' series the same and
+              their values at 1e-12, quantile and median at rtol 1e-6,
+              atol 1e-6; the sum again unchanged takes the warm path (one
+              K2, no K1, no store fetch), its cost split beside the cold
+              one's (evaluator_cost).  After each refresh the sum and
+              the quantile panel through exec_query on the evaluator's
+              own rolling window (the route from its trace: the ring's
+              tail, a pure shift, a full grid on the advanced tile; never
+              a rebuild, and a one-scrape refresh appends with K3), each
+              held at rtol 1e-12 against the direct path's served result
+              and a cold exec_query with disable_cache
   fleet       fleet-batched serving on the dashboard's Storage (each
               interval's scrapes through add_rows) and resident selector:
               128 standing queries, each given only as query text that the
@@ -113,11 +122,16 @@ each printing one JSON line:
               own analysis derives; the phase fails when that is not the
               resident selector's) ({rate, increase, irate,
               max_over_time} x the 8 aggregates x {by instance, no
-              grouping} x two grids) adopted into 16 buckets, then six
+              grouping} x two grids) adopted into 16 buckets (the
+              dashboard's sum by (instance) on grid A filed by a cold
+              exec_query, the others by register_window), then six
               intervals through FleetPlane.run (one B9 launch per bucket,
               B10 appends, B11 slides at a 30-minute resume), every
               stream of every interval held against the per-stream path
-              (advance_rolling + run_fused_on_tiles) at rtol 1e-12
+              (advance_rolling + run_fused_on_tiles) at rtol 1e-12, and
+              every stream's text evaluated by exec_query right after
+              the run: a fleet.take hit each (no launch, no store fetch),
+              its rows the plane's result table's bit for bit
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
               query with its own launch counts (its series are handed to
@@ -198,6 +212,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -213,16 +228,13 @@ from victoriametrics_tpu_torch.ops import device_decode as dd
 from victoriametrics_tpu_torch.ops import device_rollup as dr
 from victoriametrics_tpu_torch.ops import decimal as dec
 from victoriametrics_tpu_torch.ops import encoding as enc
-from victoriametrics_tpu_torch.ops import rollup_np
 from victoriametrics_tpu_torch.ops.rollup_np import RollupConfig
 from victoriametrics_tpu_torch.parallel import mesh as meshlib
 from victoriametrics_tpu_torch.parallel.partition import split_rows
-from victoriametrics_tpu_torch.query import aggr_funcs
 from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
-from victoriametrics_tpu_torch.query.eval import _device_aggr_shape
-from victoriametrics_tpu_torch.query.exec import parse_cached
-from victoriametrics_tpu_torch.query.metricsql.ast import AggrFuncExpr
+from victoriametrics_tpu_torch.query import rollup_result_cache as rrc
+from victoriametrics_tpu_torch.query.exec import exec_query, parse_cached
 from victoriametrics_tpu_torch.query.types import EvalConfig
 from victoriametrics_tpu_torch.storage.metric_name import MetricName
 from victoriametrics_tpu_torch.storage.storage import SeriesData, Storage
@@ -232,6 +244,7 @@ from victoriametrics_tpu_torch.timing import (
     fleet_bound, library_or_oom, quantile_bound, take_rows_bound, three_ms,
     topk_bound)
 from victoriametrics_tpu_torch.utils import metrics as metricslib
+from victoriametrics_tpu_torch.utils import querytracer
 
 DAY = 86_400_000
 # unix ms of the first scrape: this time of day (bench.py's anchor's), on
@@ -2041,8 +2054,8 @@ def dashboard_panels(engine, series, cfg, key, gids) -> dict:
     return out
 
 
-#: the dashboard's panels as query text, each answered on the card from
-#: the resident tile and held against the port's host oracle
+#: the dashboard's panels as query text, each served on the card through
+#: the port's evaluator (exec_query) and held against its host evaluator
 PANEL_TEXTS = {
     "sum_by_instance": f"sum by (instance)(rate({SELECTOR}[5m]))",
     "rate": f"rate({SELECTOR}[5m])",
@@ -2055,148 +2068,224 @@ PANEL_TEXTS = {
         f"quantile(0.9, rate({SELECTOR}[5m])) by (instance)",
     "median": f"median(rate({SELECTOR}[5m]))",
 }
-#: the oracle's bound for quantile and median: the reference's own for
-#: its fused quantile against its host path (tests/test_device_rollup.py
-#: test_fused_matches_host, rtol 1e-6, atol 1e-6)
+#: the host evaluator's bound for quantile and median: the reference's own
+#: for its fused quantile against its host path
+#: (tests/test_device_rollup.py test_fused_matches_host, rtol 1e-6, atol
+#: 1e-6)
 QUANTILE_TOL = (1e-6, 1e-6)
-TOPK_NAMES = ("topk", "bottomk", "topk_avg", "topk_median", "topk_last")
-#: the kernels each panel must launch on the resident tile
-ORACLE_KERNELS = {"sum_by_instance": ("rollup_aggregate_tile",),
+#: the kernels each panel's route launches on the card when the
+#: evaluator serves it cold on a fresh engine: the first panel uploads the
+#: selector's tile (K1), the others find it in the engine's tile cache
+ORACLE_KERNELS = {"sum_by_instance": ("decode_tiles",
+                                      "rollup_aggregate_tile"),
                   **{p: QUERY_KERNELS[p] for p in PANEL_TEXTS
                      if p != "sum_by_instance"}}
+#: the route each panel takes through the evaluator
+PANEL_ROUTES = {"sum_by_instance": "fused cold (K1, K2)",
+                "rate": "per-series (B5)",
+                "topk": "topk (B5, B6, take_rows)",
+                "bottomk": "topk (B5, B6, take_rows)",
+                "topk_avg": "topk_<kind> (B5, B7, take_rows)",
+                "topk_median": "topk_<kind> (B5, B7, take_rows)",
+                "topk_last": "topk_<kind> (B5, B7, take_rows)",
+                "quantile_by_instance": "fused quantile (B5, B8)",
+                "median": "fused quantile (B5, B8)"}
+#: the rolling queries served through the evaluator after each refresh
+ROLL_TEXTS = {"sum": PANEL_TEXTS["sum_by_instance"],
+              "quantile": PANEL_TEXTS["quantile_by_instance"]}
 
 
-def panel_shape(q: str):
-    """(expression, name, k or phi, rollup func) of a panel's text, parsed
-    and optimized by the port; the rollup arg is read by the port's
-    _device_aggr_shape (a selection's and a bare rollup's as sum(arg)
-    reads it).  Fails unless the text names the resident tile: the
-    dashboard's selector at its window."""
-    e = parse_cached(q)
-    if isinstance(e, AggrFuncExpr) and e.name in TOPK_NAMES:
-        name, arg = e.name, float(e.args[0].value)
-        shape = _device_aggr_shape(AggrFuncExpr("sum", [e.args[1]]))
-    elif isinstance(e, AggrFuncExpr):
-        name, arg, shape = e.name, None, _device_aggr_shape(e)
-    else:
-        name, arg = "rate", None
-        shape = _device_aggr_shape(AggrFuncExpr("sum", [e]))
-    if shape is None:
-        raise AssertionError(f"host_oracle: {q!r} does not fuse")
-    phi, func, rarg = shape
-    if str(rarg.expr) != SELECTOR or rarg.offset is not None or \
-            rarg.window is None or rarg.window.value_ms(DASH_STEP) != WINDOW:
-        raise AssertionError(f"host_oracle: {q!r} names another tile")
-    return e, name, phi if phi is not None else arg, func
+def evaluator_ec(store, engine, start: int, end: int, **kw) -> EvalConfig:
+    """The serving front end's evaluation context for a dashboard query
+    (the reference's PrometheusAPI._ec): its lookback delta, series limit
+    and the engine as ``tpu``."""
+    return EvalConfig(start=start, end=end, step=DASH_STEP, storage=store,
+                      lookback_delta=LOOKBACK_DELTA, max_series=MAX_SERIES,
+                      tpu=engine, **kw)
 
 
-def oracle_groups(series, grouping) -> tuple[np.ndarray, int]:
-    """Group ids by the grouping labels' values, the first seen first."""
-    index = {}
-    gids = np.empty(len(series), np.int32)
-    for i, sd in enumerate(series):
-        key = tuple(sd.metric_name.get_label(g.encode()) for g in grouping)
-        gids[i] = index.setdefault(key, len(index))
-    return gids, len(index)
+def launched_since(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+            if v != before.get(k, 0)}
 
 
-def oracle_selection(name: str, k: int, m: np.ndarray) -> dict:
-    """The reference evaluator's host topk family over one group (query/
-    eval.py _eval_topk_family): {row: kept values}."""
-    bottom = name.startswith("bottomk")
-    if name in ("topk", "bottomk"):
-        mask = aggr_funcs.topk_mask_per_ts(m, k, bottom)
-        kept = np.where(mask, m, np.nan)
-        return {i: kept[i] for i in range(m.shape[0])
-                if not np.isnan(kept[i]).all()}
-    rank = aggr_funcs.series_rank_metric(name.split("_", 1)[1], m)
-    rank = np.where(np.isnan(rank), np.inf if bottom else -np.inf, rank)
-    order = np.argsort(-rank if bottom else rank, kind="stable")
-    return {int(i): m[i] for i in order[-k:]}
+def rows_by_name(what: str, got, want, rtol: float, atol: float) -> float:
+    """Two exec_query results: the same series in the same order (by
+    marshalled name), values at (rtol, atol), NaN where the other has NaN;
+    the largest difference."""
+    gn = [bytes(ts.metric_name.marshal()) for ts in got]
+    wn = [bytes(ts.metric_name.marshal()) for ts in want]
+    if gn != wn or not gn:
+        raise AssertionError(f"{what}: other series ({len(gn)} vs "
+                             f"{len(wn)})")
+    g = np.stack([ts.values for ts in got])
+    w = np.stack([ts.values for ts in want])
+    if not np.isfinite(g).any():
+        raise AssertionError(f"{what}: no finite value")
+    return assert_close(what, torch.from_numpy(g), torch.from_numpy(w),
+                        rtol, atol)
 
 
-def host_oracle(engine, series, cfg, key) -> dict:
-    """Each dashboard panel from its text: parsed and optimized by the
-    port, its shape read by the port's evaluator, answered on the card by
-    the engine entry point dashboard_panels calls (on the resident tile:
-    no upload), and held against the port's host oracle on the CPU over
-    the same fetched series: rollup_np.rollup_batch for the per-series
-    rates, aggr_funcs for the sums and quantiles, series_rank_metric and
-    topk_mask_per_ts for the selections.  Sums and rates at rtol 1e-12
-    (NaNs equal), the selected rows exactly and their values at 1e-12,
-    quantile and median at QUANTILE_TOL."""
-    t0 = time.perf_counter()
-    rows = rollup_np.rollup_batch(
-        "rate", [(sd.timestamps, sd.values) for sd in series], cfg)
-    rates_s = time.perf_counter() - t0
-    if rows is None or rows.shape != (len(series), cfg.out_timestamps().size):
-        raise AssertionError("host_oracle: rollup_batch declined the rates")
-    out, oracle_s = {}, rates_s
+def by_group(what: str, rows, group_keys) -> np.ndarray:
+    """An exec_query result grouped by instance as a [G, T] array in the
+    direct path's group order (group_keys from instance_groups)."""
+    at = {(("instance", ts.metric_name.get_label(b"instance").decode()),):
+          ts.values for ts in rows}
+    if set(at) != set(group_keys):
+        raise AssertionError(f"{what}: other groups")
+    return np.stack([at[k] for k in group_keys])
+
+
+def evaluator_check(dev, store, grid) -> tuple[dict, object]:
+    """The dashboard's nine panels from their text through exec_query on
+    the dashboard's store and grid: first on the card (a fresh CUDAEngine,
+    so every route runs cold; each panel must launch its route's kernels,
+    ORACLE_KERNELS, none means the evaluator declined to the host), then
+    through the port's host evaluator (tpu=None) as the oracle, with the
+    rollup result cache emptied between, so that no card row serves the
+    oracle: sums and rates at rtol 1e-12, the selections' series the same
+    and their values at 1e-12, quantile and median at QUANTILE_TOL.  Then
+    sum by (instance) again unchanged: the warm aux path, one K2 launch,
+    no K1 and no store fetch.  Returns the check's line and the engine,
+    which holds the evaluator's rolling windows for the refreshes."""
+    start, end = grid
+    rrc.GLOBAL.reset()
+    engine = ce.CUDAEngine(device=dev)
+    card, out, costs = {}, {}, {}
+    t_all = time.perf_counter()
     for panel, q in PANEL_TEXTS.items():
         t0 = time.perf_counter()
-        e, name, arg, func = panel_shape(q)
+        e = parse_cached(q)
         parse_ms = (time.perf_counter() - t0) * 1e3
-        if func != "rate":
-            raise AssertionError(f"host_oracle: {q!r} is not a rate panel")
-        grouping = e.grouping if isinstance(e, AggrFuncExpr) else []
-        gids, G = oracle_groups(series, grouping)
-        before = dict(kernels.LAUNCHES)
-        if name == "sum":
-            got = ce.try_aggr_rollup(engine, name, func, series, gids, G, cfg,
-                                     cache_key=key)
-        elif name == "rate":
-            got = ce.try_rollup(engine, func, series, cfg, (), cache_key=key)
-        elif name in TOPK_NAMES:
-            got = ce.try_topk_rollup(engine, name, arg, func, series, cfg,
-                                     cache_key=key)
-        else:
-            _, max_group = ce.group_slots(gids, G)
-            got = ce.try_quantile_rollup(engine, arg, func, series, gids, G,
-                                         cfg, max_group, cache_key=key)
-        if got is None:
-            raise AssertionError(f"host_oracle: the engine declined {q!r}")
-        launches = {k: v - before.get(k, 0)
-                    for k, v in kernels.LAUNCHES.items()
-                    if v != before.get(k, 0)}
-        if launches.get("decode_tiles") or not all(
-                launches.get(k) for k in ORACLE_KERNELS[panel]):
-            raise AssertionError(f"host_oracle: {q!r} launched {launches}, "
-                                 "not its kernels on the resident tile")
+        ec = evaluator_ec(store, engine, start, end)
+        before, f0 = dict(kernels.LAUNCHES), fetch_s()
         t0 = time.perf_counter()
-        if name == "rate":
-            want, tol = rows, (1e-12, 0.0)
-        elif name == "sum":
-            want = np.stack([aggr_funcs.SIMPLE["sum"](rows[gids == g])
-                             for g in range(G)])
-            tol = (1e-12, 0.0)
-        elif name in TOPK_NAMES:
-            want = oracle_selection(name, int(arg), rows)
-            tol = (1e-12, 0.0)
-        else:
-            want = np.stack([aggr_funcs.a_quantile(rows[gids == g], arg)
-                             for g in range(G)])
-            tol = QUANTILE_TOL
-        oracle_s += time.perf_counter() - t0
-        if name in TOPK_NAMES:
-            picked = {int(i): v for i, v in got}
-            if sorted(picked) != sorted(want) or not picked:
-                raise AssertionError(f"host_oracle {q!r}: the card selected "
-                                     "other series than the oracle")
-            idx = sorted(want)
-            got = np.stack([picked[i] for i in idx])
-            want = np.stack([want[i] for i in idx])
-        got, want = np.asarray(got), np.asarray(want)
-        if not np.isfinite(got).any():
-            raise AssertionError(f"host_oracle {q!r}: no finite value")
-        err = assert_close(f"host_oracle {q!r}", torch.from_numpy(got),
-                           torch.from_numpy(want), *tol)
-        out[panel] = {"q": str(e), "max_abs_err": err, "rtol": tol[0],
-                      "atol": tol[1], "shape": list(got.shape),
-                      "parse_ms": parse_ms, "launches": launches}
-    res = {"check": "host_oracle", "ok": True, "panels": out,
-           "oracle_ms": oracle_s * 1e3, "oracle_rates_ms": rates_s * 1e3}
+        card[panel] = exec_query(ec, q)
+        exec_ms = (time.perf_counter() - t0) * 1e3
+        launches = launched_since(before)
+        want = ORACLE_KERNELS[panel]
+        if not all(launches.get(k) for k in want) or (
+                panel != "sum_by_instance" and launches.get("decode_tiles")):
+            raise AssertionError(f"evaluator {q!r} launched {launches}, not "
+                                 f"its route's {want}")
+        if panel == "sum_by_instance":
+            costs["cold"] = ec.cost.summary()
+        out[panel] = {"q": str(e), "route": PANEL_ROUTES[panel],
+                      "parse_ms": parse_ms, "exec_ms": exec_ms,
+                      "fetch_ms": (fetch_s() - f0) * 1e3,
+                      "launches": launches}
+    card_ms = (time.perf_counter() - t_all) * 1e3
+    rrc.GLOBAL.reset()
+    t0 = time.perf_counter()
+    host = {panel: exec_query(evaluator_ec(store, None, start, end), q)
+            for panel, q in PANEL_TEXTS.items()}
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    rrc.GLOBAL.reset()
+    for panel, q in PANEL_TEXTS.items():
+        tol = QUANTILE_TOL if panel in ("quantile_by_instance", "median") \
+            else (1e-12, 0.0)
+        err = rows_by_name(f"evaluator {q!r} card vs host", card[panel],
+                           host[panel], *tol)
+        out[panel].update(max_abs_err=err, rtol=tol[0], atol=tol[1],
+                          series=len(card[panel]),
+                          shape=[len(card[panel]),
+                                 int(card[panel][0].values.size)])
+    # the same query again on unchanged data: the warm aux path
+    ec = evaluator_ec(store, engine, start, end)
+    before, ph0 = dict(kernels.LAUNCHES), fetch_phases()
+    t0 = time.perf_counter()
+    warm = exec_query(ec, PANEL_TEXTS["sum_by_instance"])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    warm_launches = launched_since(before)
+    if warm_launches != {"rollup_aggregate_tile": 1} or \
+            fetch_phases() != ph0:
+        raise AssertionError(f"evaluator warm repeat: {warm_launches}, "
+                             f"fetch {phases_ms(ph0, fetch_phases())}")
+    costs["warm"] = ec.cost.summary()
+    rows_by_name("evaluator warm repeat vs cold", warm,
+                 card["sum_by_instance"], 0.0, 0.0)
+    emit({"check": "evaluator_cost", "query": PANEL_TEXTS["sum_by_instance"],
+          **costs})
+    res = {"check": "evaluator", "ok": True, "panels": out,
+           "card_ms": card_ms, "oracle_ms": oracle_ms,
+           "warm": {"exec_ms": warm_ms, "launches": warm_launches,
+                    "fetch_phases_unchanged": True}}
     emit(res)
-    return res
+    return res, engine
+
+
+_ROUTE_MSGS = (
+    (re.compile(r"fused tail kernel \+ D2H: \[\d+, (\d+)\] tail, (\d+) "
+                r"columns reused"), "ring tail"),
+    (re.compile(r"pure shift: (\d+) columns reused"), "pure shift"),
+    (re.compile(r"fused kernel \+ D2H: \[\d+, (\d+)\]"), "advanced"),
+    (re.compile(r"not advanceable \((.*)\); rebuilding"), "rebuild"),
+)
+
+
+def roll_route(tracer) -> dict:
+    """The route the evaluator's trace of one rolling query records: the
+    ring's tail (the new columns computed, the rest reused), a pure shift
+    (every column reused), a full grid on the advanced tile, or a rebuild
+    (the reason the advance declined)."""
+    todo, msgs = [tracer.to_dict()], []
+    while todo:
+        d = todo.pop()
+        msgs.append(d.get("message", ""))
+        todo.extend(d.get("children", ()))
+    found = {}
+    for rx, route in _ROUTE_MSGS:
+        for m in msgs:
+            hit = rx.search(m)
+            if hit:
+                found.setdefault(route, hit.groups())
+    if "rebuild" in found:
+        return {"route": "rebuild", "reason": found["rebuild"][0]}
+    if "ring tail" in found:
+        n, reused = found["ring tail"]
+        return {"route": "ring tail", "columns": int(n),
+                "reused": int(reused)}
+    if "pure shift" in found:
+        return {"route": "pure shift", "reused": int(found["pure shift"][0])}
+    if "advanced" in found:
+        return {"route": "advanced", "columns": int(found["advanced"][0])}
+    raise AssertionError(f"no rolling route in the trace: {msgs}")
+
+
+def evaluator_refresh(engine, cold_engine, store, start, end, direct,
+                      group_keys, beside) -> dict:
+    """One dashboard refresh through the evaluator: sum by (instance) and
+    quantile(0.9) by (instance) from their text through exec_query on the
+    evaluator's own rolling window (advance_rolling and the ring of the
+    [G, T] result), each held at rtol 1e-12 against the direct path's
+    served result of this refresh and against a cold exec_query with
+    disable_cache (its launches left out of the path's counts); the
+    route from the evaluator's trace, with the launches it made."""
+    out = {}
+    for name, q in ROLL_TEXTS.items():
+        tracer = querytracer.Tracer("refresh %s", name)
+        ec = evaluator_ec(store, engine, start, end, tracer=tracer)
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        rows = exec_query(ec, q)
+        exec_ms = (time.perf_counter() - t0) * 1e3
+        launches = launched_since(before)
+        route = roll_route(tracer)
+        with beside():
+            cold = exec_query(evaluator_ec(store, cold_engine, start, end,
+                                           disable_cache=True), q)
+        err = assert_close(f"evaluator {name} refresh vs the direct path",
+                           torch.from_numpy(by_group(q, rows, group_keys)),
+                           torch.from_numpy(np.asarray(direct[name])),
+                           1e-12, 0.0)
+        err_cold = rows_by_name(f"evaluator {name} refresh vs cold", rows,
+                                cold, 1e-12, 0.0)
+        out[name] = {**route, "exec_ms": exec_ms, "launches": launches,
+                     "vs_direct_max_abs_err": err,
+                     "vs_cold_max_abs_err": err_cold,
+                     "decline": engine.last_roll_decline}
+    cold_engine.cache().invalidate()
+    return out
 
 
 def dashboard_keys():
@@ -2343,7 +2432,10 @@ def phase_dashboard(rng, dev, stores: Stores):
     assert_exact("dashboard cold K2 through the store vs on the seeded "
                  "series", torch.from_numpy(out), torch.from_numpy(direct))
     panels = dashboard_panels(engine, series, cfg0, key, gids)
-    oracle = host_oracle(engine, series, cfg0, key)
+    t0 = time.perf_counter()
+    evaluator, eval_engine = evaluator_check(dev, store, (start, end))
+    evaluator["seconds"] = time.perf_counter() - t0
+    cold_engine = ce.CUDAEngine(device=dev)
     _, max_group = ce.group_slots(gids, G)
     skey, tkey = dashboard_keys()
     rt = ce.register_window(
@@ -2354,7 +2446,8 @@ def phase_dashboard(rng, dev, stores: Stores):
         raise AssertionError("dashboard: the rolling window was not filed")
     refresh_ms, refresh_up, refresh_split, worst = [], [], [], 0.0
     quantile_ms, worst_q, served_all, ingest_ms = [], 0.0, [], []
-    refresh_phases = []
+    refresh_phases, eval_refreshes = [], []
+    eval_s = 0.0
     compactions0 = _metric_sum("vm_device_window_compactions_total")
     for (k, adv), batch in zip(DASH_REFRESHES, batches):
         ingest_ms.append(ingest(store, built["labels"], *batch) * 1e3)
@@ -2363,7 +2456,7 @@ def phase_dashboard(rng, dev, stores: Stores):
         up0 = tile_cache.bytes_uploaded()
         snap, f0, ph0 = split_snapshot(), fetch_s(), fetch_phases()
         t0 = time.perf_counter()
-        rt, groups, _ = engine.window_cache().get(skey)
+        rt, groups, *_ = engine.window_cache().get(skey)
         if not ce.advance_rolling(engine, rt, store, FILTERS, start,
                                   fetch_lo, end, None, TENANT, True):
             raise AssertionError("rolling refresh declined: "
@@ -2399,6 +2492,24 @@ def phase_dashboard(rng, dev, stores: Stores):
             raise AssertionError("rolling quantile: non-finite result")
         worst_q = max(worst_q, assert_close(
             "served quantile == cold", served_q, rebuilt_q, 1e-12, 0.0))
+        t0 = time.perf_counter()
+        ev = evaluator_refresh(eval_engine, cold_engine, store, start, end,
+                               {"sum": served, "quantile": served_q},
+                               group_keys, beside)
+        eval_s += time.perf_counter() - t0
+        for name, r in ev.items():
+            if r["route"] == "rebuild":
+                raise AssertionError(f"evaluator {name} refresh of {k} "
+                                     f"scrapes rebuilt: {r['reason']}")
+            # the sum advances the shared tile (K3); the quantile after it
+            # finds it advanced
+            appended = r["launches"].get("append_tile", 0) > 0
+            if k == 1 and (r["launches"].get("decode_tiles") or
+                           appended != (name == "sum")):
+                raise AssertionError(f"evaluator {name}: a one-scrape "
+                                     f"refresh launched {r['launches']}")
+        eval_refreshes.append({"scrapes": k, **ev})
+    del eval_engine, cold_engine
     launches = {name: kernels.LAUNCHES.get(name, 0) -
                 rebuild_launches.get(name, 0) for name in SOURCES
                 if name not in FLEET_KERNELS + MESH_KERNELS}
@@ -2423,7 +2534,9 @@ def phase_dashboard(rng, dev, stores: Stores):
            "served_vs_cold_max_abs_err": worst,
            "quantile_refresh_ms": quantile_ms,
            "quantile_served_vs_cold_max_abs_err": worst_q,
-           "panels": panels, "host_oracle": oracle, "launches": launches}
+           "panels": panels, "evaluator": evaluator,
+           "evaluator_refreshes": eval_refreshes,
+           "evaluator_refresh_seconds": eval_s, "launches": launches}
     emit(res)
     return res, {"store": store, "engine": engine, "end": end,
                  "labels": built["labels"], "feed": built["feed"],
@@ -2450,11 +2563,12 @@ class StandingQuery:
 
 class FleetAPI:
     """What FleetPlane.run reads of a serving front end: the storage, the
-    standing queries and the evaluation context of a query (``_ec``: the
-    lookback delta and series limit its analysis reads)."""
+    engine (``tpu``), the standing queries and the evaluation context of a
+    query (``_ec``: the lookback delta, series limit and engine, as the
+    reference's PrometheusAPI._ec gives them)."""
 
     def __init__(self, storage, engine, streams):
-        self.storage, self.engine, self._streams = storage, engine, streams
+        self.storage, self.tpu, self._streams = storage, engine, streams
         self.matstreams = self
 
     def streams(self):
@@ -2464,7 +2578,48 @@ class FleetAPI:
         return EvalConfig(start=start, end=end, step=step,
                           storage=self.storage,
                           lookback_delta=LOOKBACK_DELTA,
-                          max_series=MAX_SERIES, tenant=tenant)
+                          max_series=MAX_SERIES, tpu=self.tpu, tenant=tenant)
+
+
+def group_key(labels) -> bytes:
+    """The evaluator's group key of one group, ((label, value), ...): the
+    marshalled name with only those labels (query/eval.py _group_key), which
+    is what the evaluator emits a served group's row under."""
+    return MetricName(b"", [(k.encode(), v.encode())
+                            for k, v in labels]).marshal()
+
+
+def served_by_take(plane, api, streams, now) -> dict:
+    """Every due stream's text through exec_query(api._ec(...)) right after
+    the interval's run: each must be a fleet.take hit (plane.served up by
+    one a stream, no launch, no store fetch) whose rows are the plane's
+    result table's, group key and values bit for bit (the groups that are
+    NaN at every step dropped, as exec_query drops them)."""
+    served0, before, ph0 = plane.served, dict(kernels.LAUNCHES), \
+        fetch_phases()
+    t0 = time.perf_counter()
+    got = [exec_query(api._ec(now - st.duration, now, st.step, st.tenant),
+                      st.q) for st, *_ in streams]
+    wall = time.perf_counter() - t0
+    launches = launched_since(before)
+    if plane.served - served0 != len(streams) or launches or \
+            fetch_phases() != ph0:
+        raise AssertionError(
+            f"fleet: {plane.served - served0} of {len(streams)} evaluations "
+            f"served from the table; launches {launches}, fetch "
+            f"{phases_ms(ph0, fetch_phases())}")
+    for (st, sh, *_), rows in zip(streams, got):
+        r = plane._results[sh["skey"]]
+        want = sorted((k, row) for k, row in zip(r.group_keys, r.rows)
+                      if not np.isnan(row).all())
+        if [bytes(ts.metric_name.marshal()) for ts in rows] != \
+                [k for k, _ in want]:
+            raise AssertionError(f"fleet take {st.q}: other groups")
+        assert_exact(f"fleet take {st.q}",
+                     torch.from_numpy(np.stack([ts.values for ts in rows])),
+                     torch.from_numpy(np.stack([row for _, row in want])))
+    return {"evaluations": len(got), "exec_ms": wall * 1e3,
+            "served": plane.served - served0}
 
 
 def fleet_text(aggr: str, func: str, grouping, without: bool) -> str:
@@ -2635,30 +2790,50 @@ def phase_fleet(rng, dev, state) -> dict:
     rt = engine.window_cache().get(tkey)
     S, G = DASH_SERIES, DASH_GROUPS
     inst, inst_keys = state["gids"], state["group_keys"]
-    # by instance (or without id), and one group of every series
-    layouts = ((inst, inst_keys, dr.group_layout(inst, G, dev)),
-               (np.zeros(S, np.int32), [()],
+    # by instance (or without id), and one group of every series, each
+    # group under the evaluator's key for it
+    layouts = ((inst, [group_key(k) for k in inst_keys],
+                dr.group_layout(inst, G, dev)),
+               (np.zeros(S, np.int32), [group_key(())],
                 dr.group_layout(np.zeros(S, np.int32), 1, dev)))
     queries = [(StandingQuery(q, step, dur), *rest)
                for q, step, dur, *rest in fleet_queries()]
     api = FleetAPI(store, engine, [st for st, *_ in queries])
     plane = engine.fleet()
+    now = -(-(state["end"] + FLEET_INTERVALS[0][1]) // 60_000) * 60_000
     # each stream's window filed under the key the fleet derives from its
-    # text
-    streams, parse_ms = [], []
+    # text: the dashboard's own panel on grid A by the evaluator (a cold
+    # exec_query, whose window the fleet must adopt), the others by
+    # register_window on the resident selector's tile
+    streams, parse_ms, evaluated = [], [], None
     for st, grid, gi, func, aggr in queries:
         gids, keys, groups = layouts[gi]
         t0 = time.perf_counter()
         info = standing_info(plane, api, st, func, aggr,
                              *FLEET_GRIDS[grid][2][gi])
         parse_ms.append((time.perf_counter() - t0) * 1e3)
-        if ce.register_window(engine, info["skey"], tkey, gids,
-                              keys) is not rt:
+        if st.q == PANEL_TEXTS["sum_by_instance"] and grid == "A":
+            end0 = now - FLEET_INTERVALS[0][1]
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            rows = exec_query(api._ec(end0 - st.duration, end0, st.step),
+                              st.q)
+            stv = engine.window_cache().peek(info["skey"])
+            if not rows or stv is None or len(stv) != 5 or stv[0] is rt or \
+                    stv[3] is not None or stv[4] is None:
+                raise AssertionError("fleet: the evaluator filed no window")
+            eval_skey = info["skey"]
+            evaluated = {"q": st.q, "exec_ms": (time.perf_counter() - t0) *
+                         1e3, "launches": launched_since(before),
+                         "skey": list(map(str, info["skey"]))}
+        elif ce.register_window(engine, info["skey"], tkey, gids,
+                                keys) is not rt:
             raise AssertionError("fleet: window not filed")
         streams.append((st, info, groups, grid))
+    if evaluated is None:
+        raise AssertionError("fleet: no stream filed through the evaluator")
     torch.cuda.reset_peak_memory_stats(dev)
-    now = -(-(state["end"] + FLEET_INTERVALS[0][1]) // 60_000) * 60_000
-    intervals, worst, events = [], 0.0, None
+    intervals, worst, events, takes = [], 0.0, None, []
     launches = dict.fromkeys(FLEET_KERNELS, 0)
     adoption_up = 0
     for i, (k, adv) in enumerate(FLEET_INTERVALS):
@@ -2706,6 +2881,10 @@ def phase_fleet(rng, dev, state) -> dict:
                                  f"{ran}, {stats}, {plane.last_decline}")
         if i == 0:
             adoption_up = up
+            if not plane.has(eval_skey):
+                raise AssertionError("fleet: the evaluator's window was not "
+                                     "adopted")
+        takes.append(served_by_take(plane, api, streams, now))
         # the per-stream path: the selector's own rolling tile
         t0 = time.perf_counter()
         means = {}
@@ -2743,7 +2922,8 @@ def phase_fleet(rng, dev, state) -> dict:
                           "fetch_phases_ms": fetched,
                           "fleet_ms": wall * 1e3,
                           "split": split, "upload_bytes": up,
-                          "launches": ran, "per_stream_ms": oracle_s * 1e3})
+                          "launches": ran, "per_stream_ms": oracle_s * 1e3,
+                          "take": takes[-1]})
     steady = [iv["upload_bytes"] for iv in intervals[1:-1]]
     if max(steady) * 20 > adoption_up:
         raise AssertionError("fleet: steady intervals uploaded too much")
@@ -2765,6 +2945,8 @@ def phase_fleet(rng, dev, state) -> dict:
            "adoption_upload_bytes": adoption_up, "intervals": intervals,
            "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
            "fleet_vs_per_stream_max_abs_err": worst, "launches": launches,
+           "evaluator_filed": evaluated,
+           "take_exec_ms": [t["exec_ms"] for t in takes],
            "kernels": events}
     emit(res)
     engine._fleet = None  # the planes and mirrors go before full width
@@ -3383,7 +3565,7 @@ def mesh_dashboard(dev, replay, aside) -> dict:
                 if eng is flat:
                     stack.enter_context(aside())
                 t0 = time.perf_counter()
-                rt, groups, _ = eng.window_cache().get(skey)
+                rt, groups, *_ = eng.window_cache().get(skey)
                 if not ce.advance_rolling(eng, rt, store, FILTERS, start,
                                           fetch_lo, end, None, TENANT, True):
                     raise AssertionError("mesh refresh declined: "

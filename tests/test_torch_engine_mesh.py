@@ -171,7 +171,8 @@ def test_rolling_refresh_on_a_mesh(tmp_path):
         prt = ce.register_window(peng, skey, tkey, gids, group_keys,
                                  tile_key=key, series=pseries, cfg=cfg,
                                  fetch_info=finfo, structural=structural)
-        _, groups, _ = peng.window_cache().get(skey)
+        _, groups, _, qx, rb = peng.window_cache().get(skey)
+        assert qx is None and rb is None
         assert isinstance(groups, ce.MeshGroups) and len(groups.shards) == 8
         jgids = jnp.asarray(gids)
         slots, max_group = ce.group_slots(gids, G)

@@ -151,7 +151,7 @@ def _advance(pair, eng, rt, start, end):
                             fetch_lo, end, None, (0, 0), True)
     if not ok:
         return None
-    _, groups, _ = eng.window_cache().get(("state",))
+    _, groups, _, _, _ = eng.window_cache().get(("state",))
     return ce.run_fused_on_tiles(eng, "sum", "rate", rt.tiles, groups,
                                  RollupConfig(start, end, STEP, WINDOW),
                                  start - rt.base_ms, fetch_lo - start)

@@ -12,7 +12,11 @@ Storage.
     the reference's jitted fleet_rollup_aggregate_tile run on the port's
     own mirrors;
   * swap-remove eviction and churn re-adoption;
-  * the rows-share cost split sums to the launch;
+  * the rows-share cost split sums to the launch, laps into a port
+    EvalConfig's cost tracker as the reference's take() laps it;
+  * a window filed by the port's exec_query is adopted, and exec_query
+    after the prepass is served from the result table, as the
+    reference's evaluator is after its prepass;
   * the shapes the fleet declines;
   * the slice as a whole: the reference's PrometheusAPI + StreamClient
     sequence with TPUEngine(mesh=None) (tests/test_device_fleet.py:180-227,
@@ -41,6 +45,8 @@ from victoriametrics_tpu_torch.query import cuda_engine as ce
 from victoriametrics_tpu_torch.query import fleet
 from victoriametrics_tpu_torch.query.types import EvalConfig
 from victoriametrics_tpu_torch.storage.storage import SeriesData
+from victoriametrics_tpu_torch.utils import costacc
+from victoriametrics_tpu_torch.utils.costacc import CostTracker
 from victoriametrics_tpu_torch.utils.metrics import REGISTRY
 
 STEP = 60_000
@@ -115,18 +121,23 @@ class _Stream:
 
 
 class _API:
-    def __init__(self, storage, engine, streams):
-        self.storage, self.engine = storage, engine
+    """The serving front end as the fleet reads it: its storage, its
+    engine as ``tpu`` and ``_ec``, as the reference's PrometheusAPI."""
+
+    def __init__(self, storage, engine, streams, ec_cls=EvalConfig):
+        self.storage, self.tpu = storage, engine
         self.matstreams = self
         self._streams = streams
+        self._ec_cls = ec_cls
 
     def streams(self):
         return list(self._streams)
 
     def _ec(self, start, end, step, tenant=(0, 0)):
-        return EvalConfig(start=start, end=end, step=step,
-                          storage=self.storage, lookback_delta=300_000,
-                          max_series=MAX_SERIES, tenant=tenant)
+        return self._ec_cls(start=start, end=end, step=step,
+                            storage=self.storage, lookback_delta=300_000,
+                            max_series=MAX_SERIES, tpu=self.tpu,
+                            tenant=tenant)
 
 
 def _shape(q, **kw):
@@ -183,7 +194,7 @@ def _register(engine, storage, st, end):
 def _oracle(engine, storage, st, skey, end):
     """The per-stream rolling path on the stream's own window."""
     sh = st.shape
-    rt, groups, _ = engine.window_cache().get(skey)
+    rt, groups, _, _, _ = engine.window_cache().get(skey)
     start = end - st.duration - sh.offset
     cfg = RollupConfig(start, end - sh.offset, st.step, sh.window)
     fetch_lo = start - cfg.lookback - sh.lookback_delta
@@ -386,21 +397,44 @@ def test_eviction_swap_removes_and_churn_readopts(tmp_path):
         s.close()
 
 
-class _EC:
-    """The evaluation context take() reads, recording what it charges."""
+class _Tracker(CostTracker):
+    """A query's cost tracker that also keeps each lap as it came."""
 
-    def __init__(self, engine, storage, start, end):
-        self.engine, self.storage = engine, storage
-        self.start, self.end, self.step = start, end, STEP
-        self.lookback_delta = 300_000
-        self.samples = 0
-        self.charged = []
+    __slots__ = ("laps",)
 
-    def count_samples(self, n):
-        self.samples += n
+    def __init__(self):
+        super().__init__()
+        self.laps = []
 
-    def charge_device(self, exec_s, up_s, up_b):
-        self.charged.append((exec_s, up_s, up_b))
+    def lap(self, bucket, wall_s, cpu_s):
+        self.laps.append((bucket, wall_s))
+        super().lap(bucket, wall_s, cpu_s)
+
+
+def _ec(engine, storage, start, end):
+    """A port EvalConfig for one evaluation of a stream's grid."""
+    return EvalConfig(start=start, end=end, step=STEP, storage=storage,
+                      lookback_delta=300_000, max_series=MAX_SERIES,
+                      tpu=engine, _cost=_Tracker())
+
+
+def _take(ec, skey):
+    """fleet.take with the evaluation's cost tracker installed, as
+    exec_query installs it."""
+    prev = costacc.set_current(ec.cost)
+    try:
+        return fleet.take(ec, skey)
+    finally:
+        costacc.set_current(prev)
+
+
+def _charged(ec):
+    """(device:execute seconds, device:upload seconds, upload bytes) that
+    take() lapped into the evaluation's tracker."""
+    laps = ec.cost.laps
+    return (sum(w for b, w in laps if b == "device:execute"),
+            sum(w for b, w in laps if b == "device:upload"),
+            ec.cost.device_up)
 
 
 class _Clock:
@@ -432,21 +466,23 @@ def test_cost_split_sums_to_the_launch(tmp_path, monkeypatch):
             up_bytes = sum(a.nbytes for a in (
                 b.ts_h, b.vals_h, b.counts_h, b.gids_h, b.v0_h, b.aggr_h)) \
                 if interval == 0 else b.B_pad * b.S_b * (8 * 12 + 4)
-            ecs = [_EC(eng, s, end - DUR, end) for _ in streams]
+            ecs = [_ec(eng, s, end - DUR, end) for _ in streams]
             for ec, skey in zip(ecs, skeys):
-                assert fleet.take(ec, skey) is not None
-                assert fleet.take(ec, skey) is not None  # shares once
-            shares = [c for ec in ecs for c in ec.charged]
-            assert len(shares) == 6
+                assert _take(ec, skey) is not None
+                n_laps = len(ec.cost.laps)
+                assert _take(ec, skey) is not None  # shares once
+                assert len(ec.cost.laps) == n_laps
+            shares = [_charged(ec) for ec in ecs]
+            assert len(shares) == 3
             assert sum(x[0] for x in shares) == 0.25
             assert sum(x[1] for x in shares) == 0.25
             assert sum(x[2] for x in shares) == up_bytes
-            assert all(ec.samples > 0 for ec in ecs)
+            assert all(ec.samples_scanned > 0 for ec in ecs)
             for st in streams:
                 st.end = end
         # a grid the result does not cover is not served
-        assert fleet.take(_EC(eng, s, end - DUR - STEP, end - STEP),
-                          skeys[0]) is None
+        assert _take(_ec(eng, s, end - DUR - STEP, end - STEP),
+                     skeys[0]) is None
     finally:
         s.close()
 
@@ -472,7 +508,7 @@ def test_prepass_survives_a_fault_and_honours_the_switch(monkeypatch,
     eng = ce.CUDAEngine(device="cpu")
 
     class _Broken:
-        engine = eng
+        tpu = eng
         storage = matstreams = property(lambda self: 1 / 0)
 
     assert fleet.prepass(_Broken(), 0) == 0
@@ -566,9 +602,201 @@ def test_one_expression_on_two_grids_shares_one_member(tmp_path):
         _ingest(s, rng, last, end)
         assert eng.fleet().run(_API(s, eng, streams), end) == 1
         assert eng.fleet().stats()["members"] == 1
-        first = fleet.take(_EC(eng, s, end - DUR, end), skeys[0])
+        first = _take(_ec(eng, s, end - DUR, end), skeys[0])
         assert first is not None and first[0].shape[1] == DUR // STEP + 1
-        assert fleet.take(_EC(eng, s, end - 30 * STEP, end), skeys[1]) \
-            is None
+        assert _take(_ec(eng, s, end - 30 * STEP, end), skeys[1]) is None
     finally:
         s.close()
+
+
+def test_take_laps_what_the_reference_take_laps(tmp_path):
+    """fleet.take serves a port EvalConfig (its engine is ``tpu``) and laps
+    this stream's share of the shared launch into the query's cost
+    tracker: the same device:execute and device:upload laps, and the same
+    upload bytes, as the reference's take() writes for the same result
+    (called on the port's plane, whose results carry the reference's
+    fields)."""
+    from victoriametrics_tpu.query import fleet as ref_fleet
+    from victoriametrics_tpu.query.types import EvalConfig as RefEC
+    from victoriametrics_tpu.utils import costacc as ref_costacc
+    s, last, rng, end, streams, eng, _, skeys = _setup(tmp_path,
+                                                       panels=PANELS[:3])
+    try:
+        end += STEP
+        _ingest(s, rng, last, end)
+        assert eng.fleet().run(_API(s, eng, streams), end) == 1
+        r = eng.fleet()._results[skeys[0]]
+        shares = (r.exec_share_s, r.up_share_s, r.up_share_b)
+        assert shares[0] > 0 and shares[1] > 0 and shares[2] > 0
+        ec = _ec(eng, s, end - DUR, end)
+        served0 = eng.fleet().served
+        got = _take(ec, skeys[0])
+        assert got is not None and eng.fleet().served == served0 + 1
+        # the shares are consumed: give them back for the reference's take
+        r.exec_share_s, r.up_share_s, r.up_share_b = shares
+        ref_ec = RefEC(start=end - DUR, end=end, step=STEP, storage=s,
+                       lookback_delta=300_000, max_series=MAX_SERIES,
+                       tpu=eng)
+        prev = ref_costacc.set_current(ref_ec.cost)
+        try:
+            want = ref_fleet.take(ref_ec, skeys[0])
+        finally:
+            ref_costacc.set_current(prev)
+        assert want is not None
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+        assert ec.cost.wall_ms == ref_ec.cost.wall_ms
+        assert set(ec.cost.wall_ms) == {"device:execute", "device:upload"}
+        assert ec.cost.device_up == ref_ec.cost.device_up == shares[2]
+        assert ec.samples_scanned == ref_ec.samples_scanned > 0
+    finally:
+        s.close()
+
+
+def _port_store_setup(tmp_path, panels):
+    """A port Storage seeded as _setup seeds, and the port's engine."""
+    from victoriametrics_tpu_torch.storage.storage import Storage as PortStore
+    s = PortStore(str(tmp_path / "port"))
+    t0 = _grid_t0()
+    last, rng = _seed(s, t0)
+    streams = [_Stream(q, d) for q, d in panels]
+    return s, last, rng, _end0(t0), streams
+
+
+def _exec(exec_query, ec_cls, engine, storage, q, start, end, **kw):
+    return exec_query(ec_cls(start=start, end=end, step=STEP,
+                             storage=storage, lookback_delta=300_000,
+                             max_series=MAX_SERIES, tpu=engine, **kw), q)
+
+
+def test_exec_query_window_is_adopted(tmp_path):
+    """The port's evaluator files a cold query's rolling window as the
+    reference's 5-tuple under the stream's roll-state key, and
+    FleetPlane.run adopts it (the entry moves into the plane); the
+    plane's rows then equal a cold evaluation."""
+    from victoriametrics_tpu_torch.query.exec import exec_query
+    s, last, rng, end, streams = _port_store_setup(tmp_path, PANELS[:2])
+    try:
+        eng = ce.CUDAEngine(device="cpu", min_series=4)
+        api = _API(s, eng, streams)
+        skeys = []
+        for st in streams:
+            assert _exec(exec_query, EvalConfig, eng, s, st.q,
+                         end - st.duration, end)
+            info = eng.fleet()._analyze(api, st)
+            stv = eng.window_cache().peek(info["skey"])
+            assert stv is not None and len(stv) == 5
+            rt, groups, group_keys, qx, rb = stv
+            assert isinstance(rt, ce.RollingTile) and qx is None
+            assert rb.T == st.duration // STEP + 1
+            skeys.append(info["skey"])
+            st.end = end
+        end += STEP
+        _ingest(s, rng, last, end)
+        plane = eng.fleet()
+        assert plane.run(api, end) == 1
+        assert plane.stats()["adoptions"] == len(streams)
+        for st, skey in zip(streams, skeys):
+            assert plane.has(skey)
+            assert eng.window_cache().peek(skey) is None
+            cold = _exec(exec_query, EvalConfig, eng, s, st.q,
+                         end - st.duration, end, disable_cache=True)
+            r = plane._results[skey]
+            got = {k: row for k, row in zip(r.group_keys, r.rows)}
+            assert len(cold) == len(got)
+            for ts in cold:
+                _close(got[bytes(ts.metric_name.marshal())], ts.values,
+                       st.q)
+    finally:
+        s.close()
+
+
+class _Both:
+    """Writes the same rows into several stores."""
+
+    def __init__(self, *stores):
+        self.stores = stores
+
+    def add_rows(self, rows):
+        rows = list(rows)
+        for st in self.stores:
+            st.add_rows(rows)
+
+    def force_flush(self):
+        for st in self.stores:
+            st.force_flush()
+
+
+def test_exec_query_after_prepass_is_served_from_the_table(tmp_path,
+                                                          monkeypatch):
+    """A cold exec_query, the interval's prepass, then exec_query of the
+    next grid: the port serves it from the plane's table (no store fetch,
+    no launch, plane.served up by one per stream) and returns what the
+    reference's sequence returns (its exec_query with TPUEngine, its
+    prepass, its exec_query) over a reference Storage holding the same
+    rows, at rtol 1e-12."""
+    from test_torch_exec import close_rows
+    from victoriametrics_tpu.query import fleet as ref_fleet
+    from victoriametrics_tpu.query import rollup_result_cache as ref_rrc
+    from victoriametrics_tpu.query.exec import exec_query as ref_exec_query
+    from victoriametrics_tpu.query.tpu_engine import TPUEngine
+    from victoriametrics_tpu.query.types import EvalConfig as RefEC
+    from victoriametrics_tpu_torch.query import rollup_result_cache as rrc
+    from victoriametrics_tpu_torch.query.exec import exec_query
+    from victoriametrics_tpu_torch.storage.storage import Storage as PortStore
+    s = PortStore(str(tmp_path / "port"))
+    ref_s = Storage(str(tmp_path / "ref"))
+    try:
+        t0 = _grid_t0()
+        both = _Both(s, ref_s)
+        last, rng = _seed(both, t0)
+        end = _end0(t0)
+        streams = [_Stream(q, d) for q, d in PANELS[:4]]
+        rrc.GLOBAL.reset()
+        ref_rrc.GLOBAL.reset()
+        eng = ce.CUDAEngine(device="cpu", min_series=4)
+        ref_eng = TPUEngine(min_series=4, mesh=None, value_dtype=np.float64)
+        api = _API(s, eng, streams)
+        ref_api = _API(ref_s, ref_eng, streams, ec_cls=RefEC)
+        for st in streams:
+            close_rows(_exec(exec_query, EvalConfig, eng, s, st.q,
+                             end - st.duration, end),
+                       _exec(ref_exec_query, RefEC, ref_eng, ref_s, st.q,
+                             end - st.duration, end), st.q)
+            st.end = end
+        launches = []
+        real = ce.timed_kernel_call
+
+        def counting(kernel, fn, *a, **kw):
+            launches.append(kernel)
+            return real(kernel, fn, *a, **kw)
+
+        monkeypatch.setattr(ce, "timed_kernel_call", counting)
+        monkeypatch.setattr(fleet, "timed_kernel_call", counting)
+        fetch = 'vm_fetch_phase_seconds_total{phase="'
+        for interval in range(2):
+            end += STEP
+            _ingest(both, rng, last, end)
+            # buckets A (three panels) and B (by i): two launches
+            assert fleet.prepass(api, end) == 2
+            assert ref_fleet.prepass(ref_api, end) >= 1
+            assert launches.count("fleet_rollup_aggregate_tile") == 2
+            del launches[:]
+            served0 = eng.fleet().served
+            before = {k: v for k, v in REGISTRY.snapshot().items()
+                      if k.startswith(fetch)}
+            got = [_exec(exec_query, EvalConfig, eng, s, st.q,
+                         end - st.duration, end) for st in streams]
+            after = {k: v for k, v in REGISTRY.snapshot().items()
+                     if k.startswith(fetch)}
+            assert eng.fleet().served == served0 + len(streams)
+            assert launches == [] and after == before, interval
+            for st, rows in zip(streams, got):
+                assert rows
+                close_rows(rows, _exec(ref_exec_query, RefEC, ref_eng,
+                                       ref_s, st.q, end - st.duration, end),
+                           f"{st.q} interval {interval}")
+                st.end = end
+    finally:
+        s.close()
+        ref_s.close()

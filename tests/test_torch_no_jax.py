@@ -98,7 +98,8 @@ def test_port_and_chip_smoke_import_without_jax():
         "utils.querytracer", "utils.memory", "utils.costacc", "query.limits",
         "query.types", "query.aggr_funcs", "query.binary_op", "query.gorand",
         "query.transform_funcs", "query.vmhistogram", "query.format_value",
-        "query.exec", "query.eval")} <= set(mods)
+        "query.exec", "query.eval", "query.rollup_result_cache",
+        "utils.flightrec", "utils.metrics")} <= set(mods)
     assert len(mods) >= 50
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
@@ -109,3 +110,78 @@ def test_port_and_chip_smoke_import_without_jax():
     assert "usage: chip_smoke.py" in out.stdout
     assert "BUILT []" in out.stdout, out.stdout
     assert "LIBRARIES (False, {})" in out.stdout, out.stdout
+
+
+EVAL_PROBE = r"""
+import json, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["xxhash"] = None
+sys.modules["victoriametrics_tpu"] = None
+from victoriametrics_tpu_torch import native
+from victoriametrics_tpu_torch.query import eval as ev
+from victoriametrics_tpu_torch.query import exec as ex
+from victoriametrics_tpu_torch.query import rollup_result_cache as rrc
+from victoriametrics_tpu_torch.query.types import EvalConfig
+from victoriametrics_tpu_torch.utils import flightrec, metrics
+
+hashed = []
+real = native.xxh64
+native.xxh64 = lambda data, seed=0: hashed.append(bytes(data)) or \
+    real(data, seed)
+out = {}
+for q in json.loads(sys.argv[1]):
+    rows = ex.exec_query(EvalConfig(start=1_000_000, end=2_000_000,
+                                    step=200_000), q)
+    out[q] = [[bytes(ts.metric_name.marshal()).hex(),
+               [None if v != v else v for v in ts.values.tolist()]]
+              for ts in rows]
+flightrec.instant("probe:done")
+cap = flightrec.FlightRecorder(max_captures=1).capture("probe",
+                                                       window_s=60.0)
+assert any(e["name"] == "probe:done" for e in cap["trace"]["traceEvents"])
+h = metrics.REGISTRY.histogram("probe_seconds")
+h.update(0.25)
+assert h.buckets() and metrics.gc_pause_hooks
+assert rrc.GLOBAL.stats()["entries"] == 0
+print("HASHED", len(hashed))
+print("ROWS", json.dumps(out))
+"""
+
+LIMITK = [
+    'limitk(1, label_set(10, "foo", "bar") or '
+    'label_set(time()/150, "xbaz", "sss"))',
+    'sort(limitk(10, label_set(10, "foo", "bar") or '
+    'label_set(time()/150, "baz", "sss")))',
+]
+
+
+def test_evaluator_runs_without_jax_and_hashes_natively():
+    """The evaluator, executor, result cache, flight recorder and metrics
+    run with jax, the JAX package and xxhash blocked: limitk's series
+    hash goes through native.xxh64, and the rows equal the JAX package's
+    (each row's marshalled name and values)."""
+    import json
+
+    import numpy as np
+
+    from victoriametrics_tpu.query.exec import exec_query as ref_exec
+    from victoriametrics_tpu.query.types import EvalConfig as RefEC
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", EVAL_PROBE,
+                          json.dumps(LIMITK)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.startswith(("HASHED", "ROWS")))
+    assert int(lines["HASHED"]) >= 4  # two series a limitk, two queries
+    got = json.loads(lines["ROWS"])
+    for q in LIMITK:
+        want = ref_exec(RefEC(start=1_000_000, end=2_000_000, step=200_000),
+                        q)
+        assert [bytes.fromhex(k) for k, _ in got[q]] == \
+            [bytes(ts.metric_name.marshal()) for ts in want], q
+        for (_, vals), ts in zip(got[q], want):
+            np.testing.assert_array_equal(
+                np.array([np.nan if v is None else v for v in vals]),
+                ts.values)

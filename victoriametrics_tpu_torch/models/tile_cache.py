@@ -34,6 +34,8 @@ import weakref
 import numpy as np
 import torch
 
+from ..utils import costacc as _costacc
+from ..utils import flightrec as _flightrec
 from ..utils import metrics as metricslib
 
 UPLOAD_CHUNK_BYTES = 64 << 20
@@ -47,10 +49,12 @@ _BYTES_DOWNLOADED = metricslib.REGISTRY.counter(
 
 def count_upload(nbytes: int) -> None:
     _BYTES_UPLOADED.inc(int(nbytes))
+    _costacc.add_device(up=int(nbytes))
 
 
 def count_download(nbytes: int) -> None:
     _BYTES_DOWNLOADED.inc(int(nbytes))
+    _costacc.add_device(down=int(nbytes))
 
 
 def bytes_uploaded() -> int:
@@ -59,15 +63,24 @@ def bytes_uploaded() -> int:
 
 def timed_transfer(span: str, nbytes: int, fn):
     """Run one H2D/D2H transfer `fn`, counting its bytes and its wall time
-    — the one place every device:upload / device:download goes through."""
+    — the one place every device:upload / device:download goes through.
+    The wall time also goes to the flight recorder (transfers of 1 MiB
+    and more, as the reference records them) and to the query's cost
+    tracker, as link time with no CPU."""
     (count_upload if span == "device:upload" else count_download)(nbytes)
     t0 = time.perf_counter()
     try:
         return fn()
     finally:
+        dt = time.perf_counter() - t0
         metricslib.REGISTRY.histogram(metricslib.format_name(
             "vm_device_transfer_duration_seconds", {"span": span})).update(
-            time.perf_counter() - t0)
+            dt)
+        if nbytes >= (1 << 20):
+            _flightrec.rec(span, t0, dt, arg=nbytes)
+        tr = _costacc.current()
+        if tr is not None:
+            tr.lap(span, dt, 0.0)
 
 
 def chunked_device_put(x: np.ndarray, device) -> torch.Tensor:

@@ -69,6 +69,8 @@ from ..ops.device_rollup import (AGGR_FUNCS, MIN_TS_NONE, TIME_VALUED_FUNCS,
 from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
 from ..parallel import mesh as meshlib
 from ..parallel.partition import AXIS_SERIES, host_rows, per_shard, shard_put
+from ..utils import costacc as _costacc
+from ..utils import flightrec as _flightrec
 from ..utils import metrics as metricslib
 from .rollup_funcs import ADJUSTABLE_WINDOW_FUNCS
 
@@ -105,9 +107,10 @@ def _synchronize(out) -> None:
 
 def timed_kernel_call(kernel: str, fn, *args, **kw):
     """Run a kernel wrapper and record its wall time, synchronised with the
-    card, into vm_tpu_kernel_duration_seconds{kernel, phase}.  The phase is
-    "compile" for a call that had to build or load a kernel library first,
-    "execute" otherwise."""
+    card, into vm_tpu_kernel_duration_seconds{kernel, phase}, the flight
+    recorder (``device:<phase>``) and the query's cost tracker (as device
+    time with no CPU).  The phase is "compile" for a call that had to
+    build or load a kernel library first, "execute" otherwise."""
     loads = kernels.loads()
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -115,6 +118,10 @@ def timed_kernel_call(kernel: str, fn, *args, **kw):
     dt = time.perf_counter() - t0
     phase = "compile" if kernels.loads() > loads else "execute"
     _kernel_histogram(kernel, phase).update(dt)
+    _flightrec.rec(f"device:{phase}", t0, dt, arg=kernel)
+    tr = _costacc.current()
+    if tr is not None:
+        tr.lap(f"device:{phase}", dt, 0.0)
     return out
 
 
@@ -589,19 +596,25 @@ def device_roll_keys(selector: str, tenant, func: str, aggr: str, phi,
 def register_window(engine: CUDAEngine, roll_state_key, roll_tile_key, gids,
                     group_keys, tile_key=None, series=None,
                     cfg: RollupConfig | None = None, fetch_info=None,
-                    structural=None):
+                    structural=None, groups=None, qx=None, ring_block=None):
     """File a query shape's device-resident rolling window: the entry the
     rolling refresh and the fleet's adoption read (the reference's
-    query/eval.py:1325-1350).
+    query/eval.py:1325-1351, which the port's evaluator calls this for).
 
     The selector's RollingTile lives under `roll_tile_key`.  After a cold
     query (`tile_key` the key of its cached tile, with the query's
     `series`, `cfg`, `fetch_info` = (fetch_lo, end, data version) and the
     storage's `structural` version) a tile not yet adopted from that
     cache entry is wrapped in a new RollingTile; without `tile_key` the
-    selector's existing RollingTile is reused.  The shape's entry
-    (rolling tile, GroupLayout, group keys) goes under `roll_state_key`.  Returns the RollingTile, or None when there is none
-    to register (an evicted tile, or series without raw names)."""
+    selector's existing RollingTile is reused.  The shape's entry goes
+    under `roll_state_key` as the reference's 5-tuple (rolling tile,
+    group layout, group keys, qx, ring block): `groups` is the layout
+    (``groups_for(engine, gids, len(group_keys))`` when None), `qx` a
+    quantile's (slots tensor, max group) or None, `ring_block` the
+    host copy of the [G, T] result (rollup_result_cache.RingBlock) the
+    rolling path reuses columns from, or None.  Returns the RollingTile,
+    or None when there is none to register (an evicted tile, or series
+    without raw names)."""
     wcache = engine.window_cache()
     rt = wcache.get(roll_tile_key)
     if tile_key is not None:
@@ -621,20 +634,22 @@ def register_window(engine: CUDAEngine, roll_state_key, roll_tile_key, gids,
             wcache.put(roll_tile_key, rt)
     elif not isinstance(rt, RollingTile):
         return None
+    if groups is None:
+        groups = groups_for(engine, gids, len(group_keys))
     wcache.put(roll_state_key,
-               (rt, groups_for(engine, gids, len(group_keys)),
-                list(group_keys)))
+               (rt, groups, list(group_keys), qx, ring_block))
     return rt
 
 
 def advance_rolling(engine: CUDAEngine, rt: RollingTile, storage, filters,
                     start: int, fetch_lo: int, end: int, max_series, tenant,
-                    drop_stale: bool) -> bool:
+                    drop_stale: bool, tracer=None) -> bool:
     """Bring `rt` up to date with storage for a query fetching
     [fetch_lo, end]: fetch only the slice newer than the tile's covered
     range and append it on device.  Returns False when the tile cannot be
     advanced (late/backfilled data, deletes, new series, capacity/int32
-    exhausted); the caller then rebuilds through the cold path."""
+    exhausted); the caller then rebuilds through the cold path.  With a
+    query `tracer` the slice fetch and the append are its child spans."""
     def no(reason: str) -> bool:
         engine.last_roll_decline = reason
         return False
@@ -664,14 +679,30 @@ def advance_rolling(engine: CUDAEngine, rt: RollingTile, storage, filters,
         if lo_new is not None and lo_new <= rt.hi_ms:
             return no("late data landed inside the covered range")
     if end > rt.hi_ms:
-        cols = storage.search_columns(filters, rt.hi_ms + 1, end,
-                                      max_series=max_series, tenant=tenant)
+        qt = tracer.new_child("slice fetch (%d, %d]", rt.hi_ms, end) \
+            if tracer is not None else None
+        try:
+            cols = storage.search_columns(filters, rt.hi_ms + 1, end,
+                                          max_series=max_series,
+                                          tenant=tenant)
+        except ResourceWarning as e:
+            from .limits import QueryLimitError
+            raise QueryLimitError(
+                f"{e}; either narrow the selector or raise "
+                f"-search.maxUniqueTimeseries") from None
         if getattr(storage, "last_partial", False):
             return no("partial slice fetch")
         if drop_stale:
             cols.drop_stale_nans()
+        if qt is not None:
+            qt.donef("%d series, %d samples", cols.n_series, cols.n_samples)
         if cols.n_series:
-            if not _append_cols(engine, rt, cols, fetch_lo):
+            qa = tracer.new_child("device append") if tracer is not None \
+                else None
+            ok = _append_cols(engine, rt, cols, fetch_lo)
+            if qa is not None:
+                qa.donef("%d samples -> row tails", cols.n_samples)
+            if not ok:
                 return no(engine.last_roll_decline)
             rt.segments.append((rt.hi_ms + 1, end, cols.n_samples))
         rt.hi_ms = end

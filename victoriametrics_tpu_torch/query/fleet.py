@@ -51,13 +51,16 @@ one [B, G, T] output for the single host pull.
 The plane reads a stream's shape from its query text (``st.q``), parsed
 and analysed as the evaluator does (``exec.parse_cached``,
 ``eval._device_aggr_shape``), with the limits of the serving front end's
-evaluation context (``api._ec``).  What the port leaves out, for later
-slices: the matstream registry itself (duck-typed:
-``api.matstreams.streams()`` and ``st.due(now_ms)``), and the flight
-recorder and cost-plane hooks (the counters below and the shares on
-:class:`FleetResult` remain).  Buckets
-are float64, the port's only tile type, so the rebase-offset plane v0 is
-zeros.
+evaluation context (``api._ec``, whose ``EvalConfig`` carries the
+engine as ``tpu``, as the reference's ``PrometheusAPI._ec`` does).  A
+served stream's share of the shared launch goes into the query's cost
+tracker (``device:execute``, ``device:upload``), and adoption, eviction,
+packing and the launch are flight-recorder events, as in the reference.
+What the port leaves out, for a later slice: the matstream registry
+itself (duck-typed: ``api.matstreams.streams()`` and ``st.due(now_ms)``).
+Buckets are float64, the port's only tile type, so the rebase-offset
+plane v0 is zeros; a quantile's window (``qx`` set in its roll-state
+entry) is never adopted, as in the reference.
 
 ``VM_DEVICE_FLEET=0`` disables the plane: the per-stream rolling path
 (``advance_rolling`` + ``run_fused_on_tiles``) then serves every stream,
@@ -82,6 +85,7 @@ from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
 from ..parallel import mesh as meshlib
 from ..parallel.partition import (AXIS_STREAM, axis_multiple, host_rows,
                                   per_shard, shard_put)
+from ..utils import costacc, flightrec
 from ..utils import metrics as metricslib
 from .cuda_engine import (RollingTile, _pull_host, device_roll_keys,
                           tile_capacity, tile_shape, timed_kernel_call)
@@ -355,7 +359,7 @@ class FleetPlane:
         for m, end_q in work:
             verdict = self._advance_member(api, m, end_q)
             if verdict == "evict":
-                self._evict(m)  # why: self.last_decline
+                self._evict(m, self.last_decline)
                 continue
             if verdict == "skip":
                 continue
@@ -364,12 +368,16 @@ class FleetPlane:
             due.setdefault(m.bucket, []).append((m, end_q))
         touched = set(staged) | {b for b in self._buckets.values()
                                  if b.dirty and b.members}
+        t_pack = time.perf_counter()
         for b in touched:
             self._stage_to_mirror(b, staged.get(b, ()))
             if b.dirty:
                 self._upload(b)
             else:
                 self._append_device(b, staged.get(b, ()))
+        flightrec.rec("device:fleet_pack", t_pack,
+                      time.perf_counter() - t_pack,
+                      arg=f"{len(work)} streams, {len(touched)} buckets")
         n = 0
         for b, mems in due.items():
             if b.members and b.dev is not None:
@@ -386,8 +394,8 @@ class FleetPlane:
         if stv is None:
             return None  # not yet device-resident; the stream's own
             #              evaluation builds the per-stream window first
-        rt, groups, group_keys = stv
-        if not isinstance(rt, RollingTile):
+        rt, groups, group_keys, qx, _rb = stv
+        if qx is not None or not isinstance(rt, RollingTile):
             return None
         storage = api.storage
         # the member inherits the tile's version watermark; the advance
@@ -481,6 +489,7 @@ class FleetPlane:
         self.adoptions += 1
         self.adopt_s += time.perf_counter() - t_adopt
         _ADOPTIONS.inc()
+        flightrec.instant("fleet:adopt", arg=str(m.skey[1])[:120])
         return m
 
     def _fill_slot(self, b: FleetBucket, m: FleetMember,
@@ -706,7 +715,7 @@ class FleetPlane:
 
     # -- eviction ---------------------------------------------------------
 
-    def _evict(self, m: FleetMember) -> None:
+    def _evict(self, m: FleetMember, reason: str) -> None:
         b = m.bucket
         self._members.pop(m.skey, None)
         self._results.pop(m.skey, None)
@@ -735,6 +744,8 @@ class FleetPlane:
             self._buckets.pop(b.key, None)
         self.evictions += 1
         _EVICTIONS.inc()
+        flightrec.instant("fleet:evict",
+                          arg=f"{reason}: {str(m.skey[1])[:100]}")
 
     # -- the fused launch -------------------------------------------------
 
@@ -802,6 +813,10 @@ class FleetPlane:
         self.launches += 1
         _LAUNCHES.inc()
         _STREAMS.inc(len(due))
+        flightrec.rec(
+            "device:fleet_launch", t0, wall,
+            arg=f"{len(due)}/{len(b.members)} streams "
+                f"[B={b.B_pad},S={b.S_b},N={b.N_b},G={b.G_b},T={b.T_b}]")
 
 
 # -- module-level seams ------------------------------------------------------
@@ -812,13 +827,14 @@ def prepass(api, now_ms: int) -> int:
     Never raises: a fleet failure leaves the interval to the per-stream
     paths, loudly on stderr.  (A caller that must see the fault calls
     ``engine.fleet().run`` itself.)"""
-    eng = getattr(api, "engine", None)
+    eng = getattr(api, "tpu", None)
     if eng is None or not enabled() or \
             not tile_cache.device_resident_enabled():
         return 0
     try:
         return eng.fleet().run(api, now_ms)
     except Exception as e:  # noqa: BLE001 — serving must survive
+        flightrec.instant("fleet:error", arg=repr(e)[:160])
         print(f"vmtorch: fleet prepass failed (per-stream fallback): {e!r}",
               file=sys.stderr)
         return 0
@@ -838,14 +854,11 @@ def resident(engine, skey) -> bool:
 def take(ec, skey):
     """Serve one evaluation from the fleet's result table: (rows [G, T],
     group_keys) on a grid- and version-matched result, else None (the
-    evaluation falls through to the per-stream paths).
-
-    `ec` is duck-typed: ``engine``, ``start``, ``end``, ``step``,
-    ``storage``, ``lookback_delta``, and optionally ``check_deadline()``,
-    ``count_samples(n)`` and ``charge_device(exec_s, upload_s,
-    upload_bytes)``, which receives this stream's share of the shared
-    launch once."""
-    eng = getattr(ec, "engine", None)
+    evaluation falls through to the per-stream paths).  `ec` is the
+    query's EvalConfig (its engine is ``ec.tpu``).  Counts samples, checks
+    the deadline, and laps this stream's share of the shared launch into
+    the query's cost tracker (consumed once)."""
+    eng = ec.tpu
     if eng is None or not enabled():
         return None
     plane = eng._fleet
@@ -865,14 +878,18 @@ def take(ec, skey):
                 r.lookback_delta != ec.lookback_delta:
             return None
         rows, group_keys, samples = r.rows, r.group_keys, r.samples
-        shares = (r.exec_share_s, r.up_share_s, r.up_share_b)
+        exec_s, up_s, up_b = r.exec_share_s, r.up_share_s, r.up_share_b
         r.exec_share_s = r.up_share_s = 0.0
         r.up_share_b = 0
         plane.served += 1
-    for hook, args in (("check_deadline", ()), ("count_samples", (samples,)),
-                       ("charge_device", shares)):
-        fn = getattr(ec, hook, None)
-        if fn is not None:
-            fn(*args)
+    ec.check_deadline()
+    ec.count_samples(samples)
+    tr = costacc.current()
+    if tr is not None:
+        if exec_s:
+            tr.lap("device:execute", exec_s, 0.0)
+        if up_s or up_b:
+            tr.lap("device:upload", up_s, 0.0)
+            tr.add_device(up=up_b)
     _SERVED.inc()
     return rows, group_keys

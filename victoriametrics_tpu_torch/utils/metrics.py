@@ -6,10 +6,12 @@ The port keeps the JAX package's metric names
 ``vm_cache_*{type="tpu/tile_cache"}``) so dashboards read both engines the
 same way.  This is the small subset of ``victoriametrics_tpu/utils/
 metrics.py`` the device engine and the storage need: integer and float
-counters, gauges (set, or read from a callback), histograms reduced to
-their ``_sum``/``_count`` pair, and the ingest phase counters.  Metrics
-are keyed by their full name including labels.  (The Prometheus text
-exposition, the vmrange buckets and the process metrics come with the
+counters, gauges (set, or read from a callback), histograms with the
+storage's own vmrange buckets (``query/vmhistogram.py``) beside their
+``_sum``/``_count`` pair, the gc pause counter with its observer hooks
+(``gc_pause_hooks``, which ``utils/flightrec`` appends to), and the ingest
+phase counters.  Metrics are keyed by their full name including labels.
+(The Prometheus text exposition and the process metrics come with the
 HTTP layer.)
 """
 
@@ -17,6 +19,8 @@ from __future__ import annotations
 
 import threading
 import time
+
+from ..query import vmhistogram
 
 
 def escape_label_value(v: str) -> str:
@@ -100,22 +104,33 @@ class Gauge:
 
 
 class Histogram:
-    """Sum and count of observed values (NaN and negatives skipped)."""
+    """VictoriaMetrics-native histogram: log-spaced vmrange buckets
+    (18/decade, query/vmhistogram.py) storing only non-empty buckets,
+    plus the sum and count.  NaN and negative values are skipped,
+    matching the reference (histogram.go:85)."""
 
-    __slots__ = ("name", "_lock", "_sum", "_count")
+    __slots__ = ("name", "_lock", "_buckets", "_sum", "_count")
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
+        self._buckets: dict[str, int] = {}
         self._sum = 0.0
         self._count = 0
 
     def update(self, v: float) -> None:
-        if not v >= 0:
+        r = vmhistogram.vmrange_for(float(v))
+        if r is None:
             return
         with self._lock:
+            self._buckets[r] = self._buckets.get(r, 0) + 1
             self._sum += v
             self._count += 1
+
+    def buckets(self) -> dict[str, int]:
+        """{vmrange label: observations} of the non-empty buckets."""
+        with self._lock:
+            return dict(self._buckets)
 
     def update_duration(self, start_monotonic: float) -> None:
         self.update(time.perf_counter() - start_monotonic)
@@ -176,6 +191,48 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+# -- gc pause accounting ------------------------------------------------------
+
+_GC_PAUSE = REGISTRY.float_counter("vm_gc_pause_seconds_total")
+_gc_pause_t0 = [0.0]
+
+#: (t0, dur_s, generation) observers invoked after each collection:
+#: utils/flightrec appends one to land gc pauses on the flight timeline
+#: without registering a second gc callback that re-times the same
+#: collection
+gc_pause_hooks: list = []
+
+# bound at import, not imported inside the callback: gc callbacks still
+# fire during interpreter shutdown, when `import time` raises
+from time import perf_counter as _gc_clock  # noqa: E402
+
+
+def _gc_pause_callback(phase: str, info: dict) -> None:
+    # the collecting thread holds the GIL for the whole collection, so
+    # start/stop pair up on one thread and a plain slot is race-free
+    if phase == "start":
+        _gc_pause_t0[0] = _gc_clock()
+    elif phase == "stop" and _gc_pause_t0[0]:
+        t0 = _gc_pause_t0[0]
+        _gc_pause_t0[0] = 0.0
+        dur = _gc_clock() - t0
+        _GC_PAUSE.inc(dur)
+        for hook in gc_pause_hooks:
+            hook(t0, dur, info.get("generation", "?"))
+
+
+def install_gc_metrics() -> None:
+    """Accumulate gc collection pauses into vm_gc_pause_seconds_total
+    (idempotent; installed at import, so the counter covers the whole
+    process lifetime)."""
+    import gc
+    if _gc_pause_callback not in gc.callbacks:
+        gc.callbacks.append(_gc_pause_callback)
+
+
+install_gc_metrics()
 
 
 def ingest_phase(phase: str) -> FloatCounter:
