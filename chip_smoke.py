@@ -132,6 +132,35 @@ each printing one JSON line:
               every stream's text evaluated by exec_query right after
               the run: a fleet.take hit each (no launch, no store fetch),
               its rows the plane's result table's bit for bit
+  http        the port's vmsingle (apps.vmsingle build(parse_flags(...))
+              with -search.tpuBackend, on a copy of the dashboard's store
+              directory taken with the replay's) over localhost TCP: the
+              attach (probe subprocess, CUDAEngine, warm-up) must give the
+              server the engine; the nine panels over GET
+              /api/v1/query_range on the dashboard's grid, each launching
+              its route's kernels, equal as strings to exec_query on the
+              same EvalConfig in-process and within the evaluator check's
+              bounds of the host evaluator, with its round trip and the
+              server's cost split (the slow-query log's record); the sum
+              again (its resident window's warm path: one K2, no K1, no
+              fetch) and topk again (a full hit of the rollup result
+              cache: no launch, no fetch); two refreshes, one scrape of
+              every series through POST /api/v1/write (remote write,
+              snappy) each, the sum on the grid advanced one step (K3, no
+              K1) at rtol 1e-12 against nocache=1 and the host evaluator;
+              two instant queries (GET /api/v1/query: quantile by
+              instance, B5 + B8; topk, B5 + B6 + take_rows); eight
+              standing queries (rate by instance under every aggregate,
+              one bucket) subscribed through the server's registry and
+              pumped three intervals pinned to the data's clock, the
+              scrapes through /api/v1/write (from the second interval
+              one B9 launch per bucket, B10 appends, every stream
+              served; each stream's reassembled frames equal its polled
+              query_range, and after the last interval the host
+              evaluator's rows at the fleet's bounds); an SSE
+              /api/v1/watch snapshot over 256 series written through
+              /api/v1/import equal to its poll; /metrics' device counters
+              moved and /api/v1/status/top_queries listing the panels
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
               query with its own launch counts (its series are handed to
@@ -179,9 +208,11 @@ each printing one JSON line:
               against the unsharded engine (count, group, min and max bit
               for bit, sum and avg at rtol 1e-12, stddev and stdvar at the
               tests' allowances) and each served result against its own
-              cold rebuild; (b) the full-width cold query through the
-              sharded engine, held against the full_width phase's K2 the
-              same way; (c) B15 time_sharded_rollup on a (2, 4) mesh over
+              cold rebuild; (b) the full-width cold query, cut to its
+              first MESH_FULL_HOURS (6) of the 24 hours, every series kept,
+              through the sharded engine, held the same way against K2 on
+              the same cut tile unsharded (the shards' row blocks side by
+              side); (c) B15 time_sharded_rollup on a (2, 4) mesh over
               the full-width tile's columns, against B5 at 1e-9, each call
               one launch per phase; (d) B14:
               16 standing queries in 2 buckets of 8 on an 8-way stream
@@ -341,6 +372,10 @@ MESH_KERNELS = ("decode_and_rollup", "sharded_rollup_aggregate",
 # intervals: two steady minutes, then the 30-minute resume that slides
 # grid B's windows (B11 per shard)
 MESH_SHARDS = 8
+#: hours of the full width's history the mesh phase's sharded cold query
+#: (part b) takes: a depth cut (every series kept) that pays for the http
+#: phase within the script's time limit
+MESH_FULL_HOURS = 6
 B15_MESH, B15_STEP, B15_HALO = (2, 4), 60_000, 32
 MESH_FLEET_INTERVALS = [(4, 60_000)] * 2 + [(120, 1_800_000)]
 # the quantile probabilities every B8 check runs
@@ -2320,6 +2355,8 @@ def build_store(rng, stores: Stores) -> dict:
     t0 = time.perf_counter()
     shutil.copytree(stores.path("dashboard"), stores.path("replay"))
     copy_s = time.perf_counter() - t0
+    # the http phase's server opens its own copy (not through Stores)
+    shutil.copytree(stores.path("dashboard"), stores.path("http"))
     t0 = time.perf_counter()
     store, replay = stores.open("dashboard"), stores.open("replay")
     open_s = time.perf_counter() - t0
@@ -2343,7 +2380,10 @@ def build_store(rng, stores: Stores) -> dict:
     return {"store": store, "replay": replay, "labels": labels,
             "seeded": (ts[order], vals[order]), "names": names,
             "batches": batches,
-            "feed": feed, "info": {
+            "feed": feed, "http": {"path": stores.path("http"),
+                                   "labels": labels,
+                                   "feed": copy.deepcopy(feed)},
+            "info": {
                 "anchor_ms": T_START, "series": S, "rows": n_rows,
                 "scrapes_per_call": SCRAPES_PER_CALL,
                 "ingest_s": ingest_s, "rows_per_s": n_rows / ingest_s,
@@ -2540,6 +2580,7 @@ def phase_dashboard(rng, dev, stores: Stores):
     emit(res)
     return res, {"store": store, "engine": engine, "end": end,
                  "labels": built["labels"], "feed": built["feed"],
+                 "http": built["http"],
                  "gids": gids, "group_keys": group_keys,
                  "replay": {"store": built["replay"],
                             "labels": built["labels"], "batches": batches,
@@ -2952,6 +2993,529 @@ def phase_fleet(rng, dev, state) -> dict:
     engine._fleet = None  # the planes and mirrors go before full width
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# The http phase: the port's vmsingle over localhost TCP.
+# ---------------------------------------------------------------------------
+
+#: seconds the -search.tpuBackend attach (probe, engine, warm-up) may take
+HTTP_ATTACH_S = 600
+#: the standing queries of the http phase's fleet: rate by instance under
+#: every aggregate, one bucket, a 30-minute window on the dashboard's step
+HTTP_STREAM_DUR = 30 * 60_000
+HTTP_FLEET_INTERVALS = 3
+#: the series the watch check writes over the last 30 minutes of the
+#: wall clock
+WATCH_SERIES, WATCH_SELECTOR = 256, "watch_requests_total"
+
+
+class HttpClient:
+    """GET and POST against the server on localhost: (status, body, round
+    trip ms)."""
+
+    def __init__(self, port: int):
+        self.base = f"http://127.0.0.1:{port}"
+
+    def _do(self, req) -> tuple[int, bytes, float]:
+        import urllib.error
+        import urllib.request
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                body, code = r.read(), r.status
+        except urllib.error.HTTPError as e:
+            body, code = e.read(), e.code
+        return code, body, (time.perf_counter() - t0) * 1e3
+
+    def url(self, path: str, **params) -> str:
+        import urllib.parse
+        return self.base + path + ("?" + urllib.parse.urlencode(params)
+                                   if params else "")
+
+    def get(self, path: str, **params) -> tuple[int, bytes, float]:
+        return self._do(self.url(path, **params))
+
+    def post(self, path: str, body: bytes, headers=None
+             ) -> tuple[int, bytes, float]:
+        import urllib.request
+        return self._do(urllib.request.Request(
+            self.url(path), data=body, method="POST", headers=headers or {}))
+
+    def json(self, path: str, **params) -> tuple[dict, float]:
+        """A 200 GET's JSON body and round trip ms; the body's size and
+        its parse ms in ``last``."""
+        code, body, ms = self.get(path, **params)
+        if code != 200:
+            raise AssertionError(f"http {path} {params}: {code} {body[:300]}")
+        t0 = time.perf_counter()
+        out = json.loads(body)
+        self.last = {"body_bytes": len(body),
+                     "parse_ms": (time.perf_counter() - t0) * 1e3}
+        return out, ms
+
+    def server_cost(self, q: str, start: int, end: int) -> dict:
+        """The server's cost split (wall ms by phase) of its newest request
+        for `q` over [start, end], from the slow-query log."""
+        slow, _ = self.json("/api/v1/status/slow_queries")
+        for rec in slow["data"]:
+            if rec["query"] == q and rec["start"] == start and \
+                    rec["end"] == end:
+                return rec.get("cost", {}).get("wallMsByPhase", {})
+        raise AssertionError(f"http: no slow-query record of {q!r}")
+
+
+def served_result(rows, grid_s) -> dict:
+    """exec_query rows serialised as h_query_range serialises them
+    (query/format_value.fmt_value, NaN points and empty series dropped),
+    keyed by the metric's labels."""
+    from victoriametrics_tpu_torch.query.format_value import fmt_value
+    out = {}
+    for r in rows:
+        vals = [[float(t), fmt_value(v)] for t, v in zip(grid_s, r.values)
+                if not np.isnan(v)]
+        if vals:
+            out[json.dumps(r.metric_name.to_dict(), sort_keys=True)] = vals
+    return out
+
+
+def body_result(body: dict) -> dict:
+    """A query_range (matrix) or query (vector) body's result, keyed as
+    served_result keys it."""
+    res = body["data"]["result"]
+    return {json.dumps(e["metric"], sort_keys=True):
+            e["values"] if "values" in e else [e["value"]] for e in res}
+
+
+def same_strings(what: str, got: dict, want: dict) -> None:
+    """Two keyed results: the same series, timestamps and value strings
+    (fmt_value is repr: equal strings are equal bits)."""
+    if got.keys() != want.keys() or not got:
+        raise AssertionError(f"{what}: other series ({len(got)} vs "
+                             f"{len(want)})")
+    for k in got:
+        if [[float(t), v] for t, v in got[k]] != \
+                [[float(t), v] for t, v in want[k]]:
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def keyed_close(what: str, got: dict, want: dict, rtol: float, atol: float,
+                aggr: str | None = None) -> float:
+    """Two keyed results at (rtol, atol) on their timestamps (or, for an
+    aggregate, at aggr_close's bounds); the largest difference."""
+    if got.keys() != want.keys() or not got:
+        raise AssertionError(f"{what}: other series ({len(got)} vs "
+                             f"{len(want)})")
+    keys = sorted(got)
+    stamps = sorted({float(t) for k in keys for t, _ in got[k] + want[k]})
+    col = {t: i for i, t in enumerate(stamps)}
+
+    def grid(res):
+        a = np.full((len(keys), len(stamps)), np.nan)
+        for i, k in enumerate(keys):
+            for t, v in res[k]:
+                a[i, col[float(t)]] = float(v)
+        return torch.from_numpy(a)
+    g, w = grid(got), grid(want)
+    if aggr is not None:
+        return aggr_close(what, aggr, g, w, "rate")
+    return assert_close(what, g, w, rtol, atol)
+
+
+def write_request(labels, ts, vals) -> bytes:
+    """One remote-write body (snappy) of the (S, k) columns, built with the
+    port's remote_write.build_write_request."""
+    from victoriametrics_tpu_torch.ingest import remote_write
+    return remote_write.build_write_request(
+        [(sorted(lb.items()), list(zip(t.tolist(), v.tolist())))
+         for lb, t, v in zip(labels, ts, vals)])
+
+
+def metric_sums(text: str, names) -> dict[str, float]:
+    """The sum of every /metrics sample line starting with each name."""
+    out = dict.fromkeys(names, 0.0)
+    for line in text.splitlines():
+        for n in names:
+            if line.startswith(n):
+                out[n] += float(line.rsplit(" ", 1)[1])
+    return out
+
+
+#: /metrics families the phase's device work must move
+HTTP_DEVICE_METRICS = (
+    'vm_tpu_kernel_duration_seconds_count{kernel="decode_tiles"',
+    'vm_tpu_kernel_duration_seconds_count{kernel="rollup_aggregate_tile"',
+    'vm_tpu_kernel_duration_seconds_count{kernel="append_tile"',
+    'vm_tpu_kernel_duration_seconds_count'
+    '{kernel="fleet_rollup_aggregate_tile"',
+    "vm_device_bytes_uploaded_total", "vm_device_bytes_downloaded_total")
+
+
+def http_panels(c, api, grid, aside) -> tuple[dict, dict]:
+    """The nine panels over GET /api/v1/query_range on the dashboard's
+    grid, each: its route's kernels launched; its values, as strings, the
+    port's exec_query on the same EvalConfig called in-process; within the
+    evaluator check's bounds of the host evaluator; its round trip and the
+    server's cost split (the slow-query log's record of the request)."""
+    start, end = grid
+    step_s = DASH_STEP / 1e3
+    grid_s = np.arange(start, end + 1, DASH_STEP) / 1e3
+    out, served = {}, {}
+    for panel, q in PANEL_TEXTS.items():
+        before, f0 = dict(kernels.LAUNCHES), fetch_s()
+        body, ms = c.json("/api/v1/query_range", query=q, start=start / 1e3,
+                          end=end / 1e3, step=step_s)
+        fetch_ms = (fetch_s() - f0) * 1e3
+        launches = launched_since(before)
+        want = ORACLE_KERNELS[panel]
+        if not all(launches.get(k) for k in want) or (
+                panel != "sum_by_instance" and launches.get("decode_tiles")):
+            raise AssertionError(f"http {q!r} launched {launches}, not its "
+                                 f"route's {want}")
+        got = served[panel] = body_result(body)
+        with aside():
+            t0 = time.perf_counter()
+            direct = exec_query(api._ec(start, end, DASH_STEP), q)
+            direct_ms = (time.perf_counter() - t0) * 1e3
+        same_strings(f"http {q!r} vs exec_query", got,
+                     served_result(direct, grid_s))
+        ec = api._ec(start, end, DASH_STEP)
+        ec.tpu, ec.disable_cache = None, True
+        host = served_result(exec_query(ec, q), grid_s)
+        tol = QUANTILE_TOL if panel in ("quantile_by_instance", "median") \
+            else (1e-12, 0.0)
+        err = keyed_close(f"http {q!r} vs the host evaluator", got, host,
+                          *tol)
+        out[panel] = {"route": PANEL_ROUTES[panel], "round_trip_ms": ms,
+                      **c.last, "fetch_ms": fetch_ms, "launches": launches,
+                      "direct_exec_ms": direct_ms, "series": len(got),
+                      "max_abs_err_vs_host": err, "rtol": tol[0],
+                      "atol": tol[1], "cost": c.server_cost(q, start, end)}
+    return out, served
+
+
+def http_refreshes(c, api, st, grid, aside) -> list:
+    """Two refreshes through the write API: one scrape of every series
+    posted to /api/v1/write (remote write, snappy), then the sum panel on
+    the grid advanced one step, which the resident window serves (K3, no
+    K1); held at rtol 1e-12 against nocache=1 over HTTP and against the
+    host evaluator."""
+    from victoriametrics_tpu_torch.ingest import snappy
+    start, end = grid
+    q = PANEL_TEXTS["sum_by_instance"]
+    out = []
+    for _ in range(2):
+        ts, vals = st["feed"].next(1, end)
+        t0 = time.perf_counter()
+        body = write_request(st["labels"], ts, vals)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        code, resp, write_ms = c.post("/api/v1/write", body,
+                                      {"Content-Encoding": "snappy"})
+        if code != 204:
+            raise AssertionError(f"http remote write: {code} {resp[:300]}")
+        start, end = start + DASH_STEP, end + DASH_STEP
+        kw = dict(query=q, start=start / 1e3, end=end / 1e3,
+                  step=DASH_STEP / 1e3)
+        before = dict(kernels.LAUNCHES)
+        got, ms = c.json("/api/v1/query_range", **kw)
+        launches = launched_since(before)
+        if not launches.get("append_tile") or launches.get("decode_tiles"):
+            raise AssertionError(f"http refresh launched {launches}, not "
+                                 f"the resident window's K3")
+        cost = c.server_cost(q, start, end)
+        with aside():
+            nocache, nocache_ms = c.json("/api/v1/query_range", nocache="1",
+                                         **kw)
+        ec = api._ec(start, end, DASH_STEP)
+        ec.tpu, ec.disable_cache = None, True
+        grid_s = np.arange(start, end + 1, DASH_STEP) / 1e3
+        got = body_result(got)
+        out.append({
+            "rows": int(ts.size), "write_body_bytes": len(body),
+            "write_build_ms": build_ms, "write_ms": write_ms,
+            "write_rows_per_s": ts.size / write_ms * 1e3,
+            "snappy_codec": "libsnappy" if snappy._lib is not None
+            else "pure-python",
+            "round_trip_ms": ms, "launches": launches, "cost": cost,
+            "nocache_round_trip_ms": nocache_ms,
+            "vs_nocache_max_abs_err": keyed_close(
+                "http refresh vs nocache", got, body_result(nocache),
+                1e-12, 0.0),
+            "vs_host_max_abs_err": keyed_close(
+                "http refresh vs the host evaluator", got,
+                served_result(exec_query(ec, q), grid_s), 1e-12, 0.0)})
+    return out, (start, end)
+
+
+def http_instants(c, api, t_ms: int, aside) -> dict:
+    """Two instant queries over GET /api/v1/query: quantile(0.9) by
+    instance (B5 + B8) and topk(10) (B5 + B6 + take_rows), each held as a
+    panel is."""
+    out = {}
+    for name, q, kinds, tol in (
+            ("quantile", PANEL_TEXTS["quantile_by_instance"],
+             ("rollup_tile", "rollup_quantile_tile"), QUANTILE_TOL),
+            ("topk", PANEL_TEXTS["topk"],
+             ("rollup_tile", "topk_select_tile", "take_rows"),
+             (1e-12, 0.0))):
+        before = dict(kernels.LAUNCHES)
+        body, ms = c.json("/api/v1/query", query=q, time=t_ms / 1e3)
+        launches = launched_since(before)
+        if not all(launches.get(k) for k in kinds):
+            raise AssertionError(f"http instant {q!r} launched {launches}")
+        got = body_result(body)
+        step = 300_000  # h_query's default step
+        with aside():
+            direct = exec_query(api._ec(t_ms, t_ms, step), q)
+        same_strings(f"http instant {q!r} vs exec_query", got,
+                     served_result(direct, [t_ms / 1e3]))
+        ec = api._ec(t_ms, t_ms, step)
+        ec.tpu, ec.disable_cache = None, True
+        out[name] = {"round_trip_ms": ms, "launches": launches,
+                     "cost": c.server_cost(q, t_ms, t_ms),
+                     "series": len(got),
+                     "max_abs_err_vs_host": keyed_close(
+                         f"http instant {q!r} vs the host evaluator", got,
+                         served_result(exec_query(ec, q), [t_ms / 1e3]),
+                         *tol)}
+    return out
+
+
+def http_fleet(c, api, st, end: int, aside) -> dict:
+    """Eight standing queries (rate by instance under the 8 aggregates, one
+    bucket) subscribed through the server's registry, pumped with
+    next_frame pinned to the data's clock for three intervals whose
+    scrapes go through /api/v1/write: from the second interval on exactly
+    one B9 launch per bucket, B10 appends and every stream served; each
+    stream's frames, reassembled, equal its polled query_range over HTTP
+    at rtol 1e-12; after the last interval each stream within the fleet
+    phase's bounds of the host evaluator."""
+    from victoriametrics_tpu_torch.query.matstream import StreamClient
+    texts = [fleet_text(aggr, "rate", ("instance",), False)
+             for aggr in dr.FLEET_AGGR_CODES]
+    end = end // DASH_STEP * DASH_STEP
+    subs = [api.matstreams.subscribe(q, DASH_STEP, HTTP_STREAM_DUR)
+            for q in texts]
+    clis = [StreamClient() for _ in texts]
+    try:
+        t0 = time.perf_counter()
+        for sub, cli in zip(subs, clis):
+            f = sub.next_frame(timeout_s=120, now_ms=end)
+            if f is None or f["type"] != "snapshot":
+                raise AssertionError(f"http fleet: first frame {f}")
+            cli.apply(f)
+        snapshot_ms = (time.perf_counter() - t0) * 1e3
+        plane = api.tpu.fleet()
+        intervals = []
+        for i in range(HTTP_FLEET_INTERVALS):
+            ts, vals = st["feed"].next(4, end)
+            code, _, write_ms = c.post(
+                "/api/v1/write", write_request(st["labels"], ts, vals),
+                {"Content-Encoding": "snappy"})
+            if code != 204:
+                raise AssertionError(f"http fleet write: {code}")
+            end += DASH_STEP
+            st0, before = plane.stats(), dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            for sub, cli in zip(subs, clis):
+                f = sub.next_frame(timeout_s=120, now_ms=end)
+                if f is None:
+                    raise AssertionError("http fleet: a stream did not "
+                                         "advance")
+                cli.apply(f)
+            wall = (time.perf_counter() - t0) * 1e3
+            launches, st1 = launched_since(before), plane.stats()
+            buckets = st1["buckets"]
+            if i >= 1 and (
+                    buckets != 1 or st1["members"] != len(texts) or
+                    launches.get("fleet_rollup_aggregate_tile") != buckets or
+                    st1["launches"] - st0["launches"] != buckets or
+                    not launches.get("fleet_append_tile") or
+                    st1["served"] - st0["served"] != len(texts)):
+                raise AssertionError(f"http fleet interval {i}: {launches}, "
+                                     f"{st0} -> {st1}")
+            polled = 0.0
+            for q, cli in zip(texts, clis):
+                body, ms = c.json("/api/v1/query_range", query=q,
+                                  start=(end - HTTP_STREAM_DUR) / 1e3,
+                                  end=end / 1e3, step=DASH_STEP / 1e3)
+                polled += ms
+                pushed = {json.dumps(e["metric"], sort_keys=True):
+                          e["values"] for e in cli.result()}
+                keyed_close(f"http fleet {q!r} pushed vs polled", pushed,
+                            body_result(body), 1e-12, 0.0)
+            intervals.append({"write_ms": write_ms,
+                              "write_rows_per_s": ts.size / write_ms * 1e3,
+                              "interval_ms": wall, "launches": launches,
+                              "stats": st1, "polls_ms": polled})
+        # rate is a counter func: aggr_close needs no group mean for it
+        worst = {}
+        grid_s = np.arange(end - HTTP_STREAM_DUR, end + 1, DASH_STEP) / 1e3
+        for q, aggr, cli in zip(texts, dr.FLEET_AGGR_CODES, clis):
+            ec = api._ec(end - HTTP_STREAM_DUR, end, DASH_STEP)
+            ec.tpu, ec.disable_cache = None, True
+            host = served_result(exec_query(ec, q), grid_s)
+            pushed = {json.dumps(e["metric"], sort_keys=True): e["values"]
+                      for e in cli.result()}
+            worst[aggr] = keyed_close(f"http fleet {q!r} vs the host "
+                                      f"evaluator", pushed, host, 1e-12, 0.0,
+                                      aggr=aggr)
+    finally:
+        for sub in subs:
+            sub.close()
+    return {"streams": len(texts), "window_ms": HTTP_STREAM_DUR,
+            "snapshot_ms": snapshot_ms, "intervals": intervals,
+            "vs_host_max_abs_err": worst,
+            "adoptions": plane.adoptions}
+
+
+def http_watch(c) -> dict:
+    """256 series over the last 30 minutes of the wall clock through POST
+    /api/v1/import (JSON lines), then /api/v1/watch with max_frames=1: its
+    SSE snapshot frame, reassembled, equals the polled query_range of the
+    same window."""
+    import urllib.request
+    from victoriametrics_tpu_torch.query.matstream import StreamClient
+    rng = np.random.default_rng(11)
+    now = int(time.time() * 1000)
+    n = 30 * 60_000 // SCRAPE
+    lines = []
+    for i in range(WATCH_SERIES):
+        ts = now - 30 * 60_000 + np.arange(n) * SCRAPE + \
+            int(rng.integers(0, SCRAPE))
+        vals = np.cumsum(rng.integers(0, 50, n)).astype(float)
+        lines.append(json.dumps({
+            "metric": {"__name__": WATCH_SELECTOR,
+                       "instance": f"host-{i % 16}", "id": str(i)},
+            "values": vals.tolist(), "timestamps": ts.tolist()}))
+    code, _, import_ms = c.post("/api/v1/import", "\n".join(lines).encode())
+    if code != 204:
+        raise AssertionError(f"http import: {code}")
+    q = f"sum(rate({WATCH_SELECTOR}[5m]))"
+    cli, frames = StreamClient(), []
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(c.url("/api/v1/watch", query=q, step="15s",
+                                      range="15m", max_frames="1"),
+                                timeout=300) as r:
+        if r.headers["Content-Type"] != "text/event-stream":
+            raise AssertionError("http watch: not an SSE stream")
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                frames.append(json.loads(line[len("data: "):]))
+                cli.apply(frames[-1])
+    watch_ms = (time.perf_counter() - t0) * 1e3
+    if len(frames) != 1 or frames[0]["type"] != "snapshot":
+        raise AssertionError(f"http watch: frames {frames[:1]}")
+    start_ms, end_ms, step_ms = cli.window
+    body, poll_ms = c.json("/api/v1/query_range", query=q,
+                           start=start_ms / 1e3, end=end_ms / 1e3,
+                           step=step_ms / 1e3)
+    pushed = {json.dumps(e["metric"], sort_keys=True): e["values"]
+              for e in cli.result()}
+    err = keyed_close("http watch snapshot vs poll", pushed,
+                      body_result(body), 1e-12, 0.0)
+    return {"series": WATCH_SERIES, "rows": WATCH_SERIES * n,
+            "import_ms": import_ms,
+            "import_rows_per_s": WATCH_SERIES * n / import_ms * 1e3,
+            "watch_ms": watch_ms, "poll_ms": poll_ms,
+            "steps": (end_ms - start_ms) // step_ms + 1,
+            "max_abs_err_vs_poll": err}
+
+
+def phase_http(dev, st, dash) -> dict:
+    """The port's vmsingle on a copy of the dashboard's store, started as
+    a user starts it (apps.vmsingle build(parse_flags(...)) with
+    -search.tpuBackend) and driven over localhost TCP: the attach must
+    give the server the CUDA engine; the nine panels, the repeat, two
+    refreshes through the write API, two instant queries, eight standing
+    queries through the server's registry and an SSE watch; then
+    /metrics and /api/v1/status/top_queries.  Its launch counts leave out
+    the in-process comparisons."""
+    from victoriametrics_tpu_torch.apps import vmsingle
+    from victoriametrics_tpu_torch.utils import profiler
+    t_phase = time.perf_counter()
+    aside = Aside()
+    rrc.GLOBAL.reset()
+    slow0 = os.environ.get("VM_SLOW_QUERY_MS")
+    # every request lands in the slow-query log with its cost split
+    os.environ["VM_SLOW_QUERY_MS"] = "0.001"
+    t0 = time.perf_counter()
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={st['path']}", "-httpListenAddr=127.0.0.1:0",
+        "-search.tpuBackend"]))
+    srv.start()
+    try:
+        api.attach_thread.join(HTTP_ATTACH_S)
+        attach_s = time.perf_counter() - t0
+        probe = getattr(api, "probe_result", None)
+        if api.tpu is None:
+            raise AssertionError(
+                "http: -search.tpuBackend attached no engine (probe: "
+                f"{None if probe is None else probe.error})")
+        attach = {**api.attach_timing, "attach_s": attach_s,
+                  "probe_platform": probe.platform, "probe_devices": probe.n,
+                  "probe_name": probe.name}
+        c = HttpClient(srv.port)
+        text0 = c.get("/metrics")[1].decode()
+        kernels.reset_launches()
+        start, end = dashboard_grid()
+        start -= start % DASH_STEP
+        end = start + -(-(end - start) // DASH_STEP) * DASH_STEP
+        panels, served = http_panels(c, api, (start, end), aside)
+        # the repeat: the sum's resident window answers with its warm path
+        # (one K2, no K1, no fetch); topk, whose result the rollup result
+        # cache holds, is a full hit of it (no launch, no fetch)
+        repeat = {}
+        for panel in ("sum_by_instance", "topk"):
+            before, ph0 = dict(kernels.LAUNCHES), fetch_phases()
+            body, ms = c.json("/api/v1/query_range", query=PANEL_TEXTS[panel],
+                              start=start / 1e3, end=end / 1e3,
+                              step=DASH_STEP / 1e3)
+            launches = launched_since(before)
+            allowed = {"rollup_aggregate_tile": 1} \
+                if panel == "sum_by_instance" else {}
+            if launches not in ({}, allowed) or fetch_phases() != ph0:
+                raise AssertionError(f"http repeat {panel}: {launches}, "
+                                     f"fetch {phases_ms(ph0, fetch_phases())}")
+            same_strings(f"http repeat {panel}", body_result(body),
+                         served[panel])
+            repeat[panel] = {"round_trip_ms": ms, "launches": launches,
+                             "fetch_phases_unchanged": True}
+        refreshes, (start, end) = http_refreshes(c, api, st, (start, end),
+                                                 aside)
+        instants = http_instants(c, api, end, aside)
+        fl = http_fleet(c, api, st, end, aside)
+        watch = http_watch(c)
+        text1 = c.get("/metrics")[1].decode()
+        m0, m1 = (metric_sums(t, HTTP_DEVICE_METRICS) for t in (text0, text1))
+        unmoved = [n for n in HTTP_DEVICE_METRICS if not m1[n] > m0[n]]
+        if unmoved:
+            raise AssertionError(f"http /metrics: {unmoved} did not move")
+        tops, _ = c.json("/api/v1/status/top_queries", topN="100")
+        listed = {r["query"] for r in tops["topByCount"]}
+        if not set(PANEL_TEXTS.values()) <= listed:
+            raise AssertionError("http top_queries: panels missing")
+        launches = {k: kernels.LAUNCHES.get(k, 0) - aside.n.get(k, 0)
+                    for k in SOURCES}
+    finally:
+        srv.stop()
+        storage.close()
+        profiler.PROFILER.stop()
+        if slow0 is None:
+            os.environ.pop("VM_SLOW_QUERY_MS", None)
+        else:
+            os.environ["VM_SLOW_QUERY_MS"] = slow0
+    res = {"phase": "http", "ok": True, "attach": attach,
+           "panels": panels,
+           "evaluator_exec_ms": {p: dash["evaluator"]["panels"][p]["exec_ms"]
+                                 for p in PANEL_TEXTS},
+           "repeat": repeat, "refreshes": refreshes, "instants": instants,
+           "fleet": fl, "watch": watch,
+           "metrics_moved": {n: m1[n] - m0[n] for n in HTTP_DEVICE_METRICS},
+           "wall_s": time.perf_counter() - t_phase, "launches": launches}
+    emit(res)
+    return res
 
 
 def full_width_queries(engine, series, cfg, key, gids, G, dev) -> dict:
@@ -3740,44 +4304,62 @@ def mesh_decode(dev, what, planes, cfg, aside, tiles=None,
 
 
 def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:
-    """(b) the full-width cold query through the sharded engine, against
-    the full_width phase's K2 (and every other aggregate on both resident
-    tiles), and (c) B15 on a (2, 4) mesh over the full-width tile's
-    columns against B5."""
+    """(b) the full-width cold query, cut to its first MESH_FULL_HOURS
+    hours (every series kept), through the sharded engine, against K2 on
+    the same cut tile unsharded (the shards' row blocks side by side), in
+    every aggregate; and (c) B15 on a (2, 4) mesh over the full-width
+    tile's columns against B5."""
     S, G = FULL_SERIES, FULL_SERIES // FULL_PER_GROUP
-    flat, series, cfg, gids, key = (fw[k] for k in ("engine", "series",
-                                                    "cfg", "gids", "key"))
+    flat, series, gids, key = (fw[k] for k in ("engine", "series", "gids",
+                                               "key"))
+    n_cut = min(int(MESH_FULL_HOURS * 3_600_000 // SCRAPE), fw["N"])
+    cut = [SeriesData(None, sd.timestamps[:n_cut], sd.values[:n_cut],
+                      raw_name=sd.raw_name) for sd in series]
+    cfg = RollupConfig(T_START, T_START + n_cut * SCRAPE, FULL_STEP, WINDOW)
+    key_cut = ("mesh_full_width_cut",)
     mesh = meshlib.make_mesh(MESH_SHARDS, 1, [dev] * MESH_SHARDS)
     meng = ce.CUDAEngine(mesh=mesh, cache_bytes=64 << 30)
     snap = split_snapshot()
     t0 = time.perf_counter()
-    out = ce.try_aggr_rollup(meng, "sum", "rate", series, gids, G, cfg,
-                             cache_key=key)
+    out = ce.try_aggr_rollup(meng, "sum", "rate", cut, gids, G, cfg,
+                             cache_key=key_cut)
     total = time.perf_counter() - t0
     split = split_ms(snap, split_snapshot(), total)
+    ts_s, v_s, c_s = meng.cache().get(key_cut)
+    # the unsharded tile: the shards' row blocks in order (padded rows,
+    # count 0, in group 0 add nothing)
+    unsharded = ce.CUDAEngine(device=dev)
+    tile = tuple(torch.cat(list(x)) for x in (ts_s, v_s, c_s))
+    gids_pad = np.zeros(tile[0].shape[0], np.int32)
+    gids_pad[:S] = gids
+    groups1 = ce.groups_for(unsharded, gids_pad, G)
+    with aside():
+        want = ce.run_fused_on_tiles(unsharded, "sum", "rate", tile, groups1,
+                                     cfg)
     aggr_close("mesh full width sum", "sum", torch.from_numpy(out),
-               torch.from_numpy(fw["out"]))
+               torch.from_numpy(want))
     worst = {}
     mean = None
     for aggr in dr.AGGR_FUNCS:
-        g = ce.try_aggr_rollup(meng, aggr, "rate", series, gids, G, cfg,
-                               cache_key=key)
+        g = ce.try_aggr_rollup(meng, aggr, "rate", cut, gids, G, cfg,
+                               cache_key=key_cut)
         with aside():
-            w = ce.try_aggr_rollup(flat, aggr, "rate", series, gids, G, cfg,
-                                   cache_key=key)
+            w = ce.run_fused_on_tiles(unsharded, aggr, "rate", tile, groups1,
+                                      cfg)
         worst[aggr] = mesh_close(f"mesh full width {aggr}", aggr, g, w,
                                  "rate", mean)
         if aggr == "avg":
             mean = torch.from_numpy(w)
-    ts_s, v_s, c_s = meng.cache().get(key)
+    del tile, groups1, unsharded
     groups = ce.groups_for(meng, gids, G)
     ncfg = dr.normalized_cfg("rate", cfg)
     fn = meshlib.cached_sharded_rollup_aggregate(mesh, "rate", "sum", ncfg,
                                                  G)
     with aside():
         b13_ms = cuda_ms(lambda: fn(ts_s, v_s, c_s, groups.shards), reps=3)
-    del ts_s, v_s, c_s, groups, meng
-    b = {"total_ms": total * 1e3, "split": split, "b13_event_ms": b13_ms,
+    del ts_s, v_s, c_s, groups, meng, cut
+    b = {"hours": MESH_FULL_HOURS, "samples_per_series": n_cut,
+         "total_ms": total * 1e3, "split": split, "b13_event_ms": b13_ms,
          "max_abs_err_vs_unsharded": worst}
     # (c) B15 over the tile's first N columns (every sample valid)
     ts_t, v_t, counts = flat.cache().get(key)
@@ -3887,8 +4469,11 @@ def main(argv=None) -> int:
     try:
         dash, dash_state = phase_dashboard(rng, dev, stores)
         replay = dash_state.pop("replay")
+        http_state = dash_state.pop("http")
         fl = phase_fleet(rng, dev, dash_state)
         del dash_state
+        http = phase_http(dev, http_state, dash)
+        del http_state
         for name in FLEET_KERNELS:
             kres[name] = {**fl["kernels"][name], "max_abs_err": max(
                 fleet_err[name], fl["kernels"][name]["max_abs_err"])}
@@ -3899,9 +4484,12 @@ def main(argv=None) -> int:
     finally:
         stores.close_all()
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on
-    # the mesh phase's
+    # the mesh phase's; the http phase's launches (its path through the
+    # server: K1-B10) are added to them
     launches = {**dash["launches"], **fl["launches"],
                 **{k: mesh["launches"][k] for k in MESH_KERNELS}}
+    for name, n in http["launches"].items():
+        launches[name] = launches.get(name, 0) + n
     for name in SOURCES:
         if launches.get(name, 0) < 1:
             raise AssertionError(f"{name} never launched on its path")

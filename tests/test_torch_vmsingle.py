@@ -1,0 +1,181 @@
+"""The port's server entry point, ``victoriametrics_tpu_torch.apps.
+vmsingle``:
+
+- as a process (``python -m ...``) in an interpreter where importing
+  ``jax``, ``jaxlib``, ``xxhash`` or the JAX package fails: it ingests and
+  answers over HTTP, shuts down cleanly on SIGTERM (exit 0), and none of
+  those modules was loaded;
+- every flag that asks for a part the port does not have yet makes it
+  exit non-zero with an error naming that part and ROADMAP.md §A item 11;
+- ``-search.tpuBackend`` on a machine without a CUDA device: the attach
+  thread's probe fails, the failure is logged at error level, ``api.tpu``
+  stays None and the host path answers."""
+
+import logging
+import os
+import signal
+import subprocess
+import sys
+import time
+import urllib.request
+
+import pytest
+
+from tests.apptest_helpers import Client, free_ports
+from victoriametrics_tpu_torch.apps import vmsingle
+from victoriametrics_tpu_torch.utils import profiler
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "xxhash", "victoriametrics_tpu")
+
+#: a sitecustomize that blocks the modules before anything imports and
+#: reports, at exit, which of them ended up loaded
+SITECUSTOMIZE = f"""
+import atexit, json, sys
+BLOCKED = {BLOCKED!r}
+for _m in BLOCKED:
+    sys.modules[_m] = None
+
+
+def _report():
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED
+                    and sys.modules[m] is not None)
+    print("LEAKED " + json.dumps(leaked), flush=True)
+
+
+atexit.register(_report)
+"""
+
+
+def _wait_ready(proc, port, timeout=60):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                        timeout=1):
+                return
+        except OSError:
+            if proc.poll() is not None:
+                raise RuntimeError(proc.stdout.read().decode())
+            time.sleep(0.1)
+    raise TimeoutError("vmsingle did not become ready")
+
+
+def test_process_serves_and_stops_without_jax(tmp_path):
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    port = free_ports(1)[0]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), REPO]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmsingle",
+         f"-storageDataPath={tmp_path / 'data'}",
+         f"-httpListenAddr=127.0.0.1:{port}"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    try:
+        _wait_ready(proc, port)
+        c = Client(port)
+        now = int(time.time() * 1000)
+        body = "".join(f'proc_m{{i="{i}"}} {i * 1.5} {now - 60_000}\n'
+                       for i in range(8))
+        assert c.post("/api/v1/import/prometheus", body.encode())[0] == 204
+        c.force_flush()
+        res = c.query("sum(proc_m)", now / 1e3)
+        assert res["data"]["result"][0]["value"][1] == "42"
+        assert c.get("/metrics")[0] == 200
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    text = out.decode()
+    assert proc.returncode == 0, text[-3000:]
+    assert "shutdown complete" in text
+    assert "LEAKED []" in text, text[-3000:]
+
+
+@pytest.mark.parametrize("flag,part", [
+    ("-streamAggr.config=agg.yml", "stream aggregation"),
+    ("-rule=rules.yml", "server-side rules"),
+    ("-graphiteListenAddr=:2003", "Graphite listener"),
+    ("-influxListenAddr=:8089", "Influx listener"),
+    ("-opentsdbListenAddr=:4242", "OpenTSDB listener"),
+    ("-selfScrapeInterval=15s", "self-scrape"),
+    ("-pushmetrics.url=http://127.0.0.1:1/api/v1/import/prometheus",
+     "pushmetrics"),
+])
+def test_unported_flags_exit_naming_the_part(tmp_path, flag, part):
+    args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
+                                 "-httpListenAddr=127.0.0.1:0", flag])
+    with pytest.raises(SystemExit) as ei:
+        vmsingle.build(args)
+    msg = str(ei.value.code)
+    assert part in msg and "§A item 11" in msg, msg
+    assert flag.split("=")[0] in msg
+    assert not (tmp_path / "d").exists()  # nothing opened
+
+
+def test_unported_flag_exit_code_of_the_process(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmsingle",
+         f"-storageDataPath={tmp_path / 'd'}", "-httpListenAddr=127.0.0.1:0",
+         "-selfScrapeInterval=1"],
+        cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "§A item 11" in out.stderr, out.stderr[-2000:]
+
+
+def test_cuda_backend_without_a_card_logs_and_serves_host(tmp_path,
+                                                          caplog):
+    from victoriametrics_tpu_torch.utils import logger
+    errors0 = logger.message_counters().get("error", 0)
+    args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
+                                 "-httpListenAddr=127.0.0.1:0",
+                                 "-search.tpuBackend"])
+    storage, srv, api = vmsingle.build(args)
+    srv.start()
+    try:
+        with caplog.at_level(logging.INFO, logger="vmtpu"):
+            api.attach_thread.join(timeout=120)
+        assert not api.attach_thread.is_alive()
+        assert api.tpu is None
+        assert api.probe_result.error is not None
+        assert "no CUDA device" in api.probe_result.error
+        assert api.attach_timing["probe_s"] > 0
+        errs = [r for r in caplog.records if r.levelno == logging.ERROR]
+        assert any("cuda backend requested but unavailable" in r.getMessage()
+                   for r in errs), [r.getMessage() for r in caplog.records]
+        assert logger.message_counters().get("error", 0) > errors0
+        c = Client(srv.port)
+        now = int(time.time() * 1000)
+        rows = "".join(f'host_m{{i="{i}"}} {i} {now - 30_000}\n'
+                       for i in range(5))
+        assert c.post("/api/v1/import/prometheus", rows.encode())[0] == 204
+        res = c.query("sum(host_m)", now / 1e3)
+        assert res["data"]["result"][0]["value"][1] == "10"
+        code, body = c.get("/flags")
+        assert code == 200 and b"tpu=True" in body
+    finally:
+        srv.stop()
+        storage.close()
+        profiler.PROFILER.stop()
+
+
+def test_probe_timeout_is_reported_with_the_stack(monkeypatch):
+    """A probe that outlives its deadline is killed and reported as hung,
+    as the reference's probe reports it."""
+    from victoriametrics_tpu_torch.utils import device_probe
+    monkeypatch.setattr(device_probe, "_DUMP_INTERVAL_S", 0.2)
+    monkeypatch.setattr(device_probe, "_PROBE_CODE",
+                        "import faulthandler, sys, time\n"
+                        "faulthandler.dump_traceback_later({dump}, "
+                        "repeat=True, file=sys.stderr)\ntime.sleep(30)\n")
+    res = device_probe.probe_backend(1.5)
+    assert res.platform is None and res.n == 0
+    assert "timed out" in res.error
+    assert res.stack and "Timeout (" in res.stack
+    assert tuple(res) == (None, 0, res.error)

@@ -1,0 +1,293 @@
+"""vmsingle: the single-binary server (reference app/victoria-metrics/
+main.go:53-125) — storage + query engine + HTTP API in one process.
+
+Flags follow the reference's conventions (-storageDataPath,
+-httpListenAddr, -retentionPeriod, -dedup.minScrapeInterval); every flag is
+also settable via env var VM_<FLAGNAME> (lib/envflag analog).
+
+Run: python -m victoriametrics_tpu_torch.apps.vmsingle -storageDataPath=DIR
+[-search.tpuBackend]
+
+The port's copy of ``victoriametrics_tpu/apps/vmsingle.py``, with the
+reference's flag names.  ``-search.tpuBackend`` attaches the CUDA engine
+(``query/cuda_engine.py``) after a bounded probe of the card
+(``_attach_cuda_engine``).  Flags that ask for a part the port does not
+have yet (``UNPORTED_FLAGS``: stream aggregation, server-side rules, the
+Graphite/Influx/OpenTSDB listeners, self-scrape, pushmetrics) make
+``build`` exit with an error naming it; the Graphite query API is not
+registered.  Those parts wait for ROADMAP.md section A, item 11.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import time
+
+from ..utils import logger
+
+
+def parse_flags(argv=None):
+    p = argparse.ArgumentParser(prog="vmsingle", prefix_chars="-")
+    p.add_argument("-storageDataPath", default="victoria-metrics-data")
+    p.add_argument("-httpListenAddr", default=":8428")
+    p.add_argument("-retentionPeriod", default="13m",
+                   help="duration: 30d, 13m(onths) etc")
+    p.add_argument("-dedup.minScrapeInterval", dest="dedup_interval",
+                   default="0s")
+    p.add_argument("-storage.maxHourlySeries", dest="max_hourly_series",
+                   type=int, default=0)
+    p.add_argument("-storage.maxDailySeries", dest="max_daily_series",
+                   type=int, default=0)
+    p.add_argument("-search.maxUniqueTimeseries", dest="max_series",
+                   type=int, default=300_000)
+    p.add_argument("-search.maxSamplesPerQuery", dest="max_samples_per_query",
+                   type=int, default=1_000_000_000)
+    p.add_argument("-search.maxMemoryPerQuery", dest="max_memory_per_query",
+                   type=int, default=0)
+    p.add_argument("-search.maxQueryDuration", dest="max_query_duration",
+                   default="30s")
+    p.add_argument("-search.maxStalenessInterval", dest="lookback",
+                   default="5m")
+    p.add_argument("-search.tpuBackend", dest="tpu", action="store_true",
+                   help="route supported rollups to the CUDA engine")
+    p.add_argument("-graphiteListenAddr", dest="graphite_addr", default="")
+    p.add_argument("-influxListenAddr", dest="influx_addr", default="")
+    p.add_argument("-opentsdbListenAddr", dest="opentsdb_addr", default="")
+    p.add_argument("-relabelConfig", dest="relabel_config", default="",
+                   help="path to global relabeling rules YAML")
+    p.add_argument("-streamAggr.config", dest="streamaggr_config", default="",
+                   help="path to stream aggregation config YAML")
+    p.add_argument("-streamAggr.keepInput", dest="streamaggr_keep_input",
+                   action="store_true")
+    p.add_argument("-maxLabelsPerTimeseries", type=int, default=40)
+    p.add_argument("-maxLabelValueLen", type=int, default=4096)
+    p.add_argument("-maxIngestionRate", dest="max_ingestion_rate",
+                   type=int, default=0,
+                   help="rows/s ingest ceiling, 0 = unlimited "
+                        "(lib/ratelimiter analog: bursts within ~1s are "
+                        "smoothed by blocking; sustained overload gets "
+                        "429 + Retry-After)")
+    p.add_argument("-maxTenantIngestionRate",
+                   dest="max_tenant_ingestion_rate", type=int, default=0,
+                   help="per-tenant rows/s ingest ceiling, 0 = unlimited")
+    p.add_argument("-selfScrapeInterval", dest="self_scrape_interval",
+                   default="",
+                   help="scrape own /metrics into storage every "
+                        "interval (15s when set to 1); empty/0 = off")
+    p.add_argument("-pushmetrics.url", dest="pushmetrics_urls",
+                   action="append", default=[])
+    p.add_argument("-pushmetrics.interval", dest="pushmetrics_interval",
+                   default="10s")
+    p.add_argument("-pushmetrics.extraLabel", dest="pushmetrics_extra",
+                   default="")
+    p.add_argument("-rule", action="append", default=[],
+                   help="vmalert-format rule file evaluated SERVER-SIDE "
+                        "through the materialized-stream engine (rules "
+                        "sharing an expression share one fetch+rollup "
+                        "per interval); repeatable")
+    p.add_argument("-evaluationInterval", dest="eval_interval",
+                   default="1m")
+    p.add_argument("-loggerLevel", default="INFO")
+    p.add_argument("-tls", action="store_true")
+    p.add_argument("-tlsCertFile", default="")
+    p.add_argument("-tlsKeyFile", default="")
+    args, _ = p.parse_known_args(argv)
+    # env overrides: VM_STORAGEDATAPATH etc (envflag analog)
+    for name in vars(args):
+        env = os.environ.get("VM_" + name.upper().replace(".", "_"))
+        if env is not None:
+            cur = getattr(args, name)
+            if isinstance(cur, bool):
+                setattr(args, name, env not in ("0", "false", ""))
+            elif isinstance(cur, list):
+                setattr(args, name, [x for x in env.split(",") if x])
+            else:
+                setattr(args, name, type(cur)(env))
+    return args
+
+
+def _dur_ms(s: str, months_ok=False) -> int:
+    from ..query.metricsql.parser import parse_duration_ms
+    s = s.strip()
+    if months_ok and s.endswith("m") and s[:-1].isdigit():
+        # retentionPeriod bare "13m" means months per reference semantics
+        return int(float(s[:-1]) * 31 * 86_400_000)
+    ms, step_based = parse_duration_ms(s)
+    return int(ms)
+
+
+def _attach_cuda_engine(api, enabled: bool):
+    """-search.tpuBackend startup: probe the card with a hard deadline in a
+    subprocess BEFORE any in-process CUDA init (a hung device init must degrade
+    the server to the host path, not wedge startup).  The probe, the
+    engine build and the kernels' warm-up (their nvcc build on first use,
+    then one launch each) all run on a daemon thread: the HTTP listener
+    comes up at once serving the host path, and `api.tpu` is attached the
+    moment the card is proven healthy.  A failed probe, build or warm-up
+    is logged at error level (with the hung probe's last stack) and the
+    server goes on serving the host path.  Returns the thread (None when
+    not enabled), so a caller can join it; `api.attach_timing` holds the
+    probe's, the engine's and the warm-up's seconds."""
+    if not enabled:
+        return None
+    import threading
+
+    from ..utils.device_probe import probe_backend
+
+    def _provision():
+        timeout = float(os.environ.get("VM_TPU_PROBE_TIMEOUT_S", "600"))
+        res = probe_backend(timeout)
+        api.probe_result = res
+        api.attach_timing = {"probe_s": res.elapsed_s}
+        if res.error is not None:
+            logger.errorf("cuda backend requested but unavailable (%s); "
+                          "serving on the host path", res.error)
+            if res.stack:
+                logger.errorf("hung probe's last stack:\n%s", res.stack)
+            return
+        logger.infof("accelerator probe: %d %s device(s) (%s)", res.n,
+                     res.platform, res.name)
+        try:
+            from ..query import cuda_engine
+            t0 = time.perf_counter()
+            engine = cuda_engine.CUDAEngine(mesh=cuda_engine.auto_mesh())
+            t1 = time.perf_counter()
+            # build and launch the hot kernels BEFORE exposing the engine
+            cuda_engine.warmup(engine)
+            api.attach_timing.update(engine_s=t1 - t0,
+                                     warmup_s=time.perf_counter() - t1)
+        except Exception as e:  # noqa: BLE001 - any failure keeps the host
+            logger.errorf("cuda engine build or warm-up failed (%s: %s); "
+                          "serving on the host path", type(e).__name__, e)
+            return
+        api.tpu = engine
+        logger.infof("cuda engine attached (%s)", engine.device)
+
+    t = threading.Thread(target=_provision, daemon=True,
+                         name="cuda-provision")
+    t.start()
+    return t
+
+
+#: flags that ask for a part the port does not have yet (dest, flag, part)
+UNPORTED_FLAGS = (
+    ("streamaggr_config", "-streamAggr.config",
+     "stream aggregation (ingest/streamaggr.py)"),
+    ("rule", "-rule", "server-side rules (apps/vmalert.py)"),
+    ("graphite_addr", "-graphiteListenAddr",
+     "the Graphite listener (ingest/ingestserver.py)"),
+    ("influx_addr", "-influxListenAddr",
+     "the Influx listener (ingest/ingestserver.py)"),
+    ("opentsdb_addr", "-opentsdbListenAddr",
+     "the OpenTSDB listener (ingest/ingestserver.py)"),
+    ("self_scrape_interval", "-selfScrapeInterval",
+     "self-scrape (utils/selfscrape.py)"),
+    ("pushmetrics_urls", "-pushmetrics.url",
+     "pushmetrics (utils/pushmetrics.py)"),
+)
+
+
+def check_unported(args) -> None:
+    """Exit with an error naming the part when a flag asks for one the
+    port does not have yet: a flag is never silently ignored."""
+    for dest, flag, part in UNPORTED_FLAGS:
+        v = getattr(args, dest, None)
+        if v and v not in ("0", "0s"):
+            raise SystemExit(
+                f"vmsingle: {flag} needs {part}, which the port does not "
+                f"have yet (ROADMAP.md §A item 11)")
+
+
+def build(args):
+    check_unported(args)
+    from ..httpapi.prometheus_api import PrometheusAPI
+    from ..httpapi.server import HTTPServer
+    from ..storage.storage import Storage
+
+    retention = _dur_ms(args.retentionPeriod, months_ok=True)
+    dedup = _dur_ms(args.dedup_interval) if args.dedup_interval != "0s" else 0
+    storage = Storage(args.storageDataPath, retention_ms=retention,
+                      dedup_interval_ms=dedup,
+                      max_hourly_series=args.max_hourly_series,
+                      max_daily_series=args.max_daily_series)
+    relabel = None
+    if args.relabel_config:
+        from ..ingest.relabel import parse_relabel_configs
+        relabel = parse_relabel_configs(open(args.relabel_config).read())
+    host, _, port = args.httpListenAddr.rpartition(":")
+    srv = HTTPServer(host or "0.0.0.0", int(port),
+                     tls_cert_file=args.tlsCertFile if args.tls else "",
+                     tls_key_file=args.tlsKeyFile if args.tls else "")
+    from ..ingest.serieslimits import SeriesLimits
+    limits = SeriesLimits(max_labels_per_series=args.maxLabelsPerTimeseries,
+                          max_label_value_len=args.maxLabelValueLen)
+    rate_limiter = None
+    if args.max_ingestion_rate > 0 or args.max_tenant_ingestion_rate > 0:
+        from ..ingest.ratelimiter import TenantRateLimiters
+        rate_limiter = TenantRateLimiters(
+            global_limit=args.max_ingestion_rate,
+            per_tenant_limit=args.max_tenant_ingestion_rate)
+    api = PrometheusAPI(storage, None,
+                        lookback_delta=_dur_ms(args.lookback),
+                        max_series=args.max_series,
+                        relabel_configs=relabel,
+                        series_limits=limits,
+                        max_samples_per_query=args.max_samples_per_query,
+                        max_memory_per_query=args.max_memory_per_query,
+                        max_query_duration_ms=_dur_ms(
+                            args.max_query_duration),
+                        rate_limiter=rate_limiter)
+    api.attach_thread = _attach_cuda_engine(api, args.tpu)
+    api.flags_map = {k: v for k, v in vars(args).items()}
+    api.register(srv)
+    from ..utils import profiler
+    profiler.ensure_started()
+    return storage, srv, api
+
+
+def main(argv=None):
+    import threading
+    import faulthandler
+    faulthandler.register(signal.SIGUSR1)
+
+    args = parse_flags(argv)
+    logger.set_level(args.loggerLevel)
+    storage, srv, _api = build(args)
+    logger.infof("vmsingle started: data=%s listen=%s",
+                 args.storageDataPath, args.httpListenAddr)
+
+    # serve from a daemon thread; the main thread blocks on the stop event.
+    # Calling HTTPServer.shutdown() from inside a signal handler interrupting
+    # serve_forever deadlocks (shutdown() joins the loop it interrupted).
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+
+    def _reload(*_):
+        # SIGHUP hot-reload of -relabelConfig
+        try:
+            if args.relabel_config:
+                from ..ingest.relabel import parse_relabel_configs
+                _api.relabel = parse_relabel_configs(
+                    open(args.relabel_config).read())
+            logger.infof("vmsingle: config reloaded")
+        except Exception as e:
+            logger.errorf("vmsingle: reload failed, keeping old config: %s",
+                          e)
+    signal.signal(signal.SIGHUP, _reload)
+    srv.start()
+    try:
+        while not stop.wait(1.0):
+            pass
+    finally:
+        logger.infof("vmsingle: shutting down")
+        srv.stop()
+        storage.close()
+        logger.infof("vmsingle: shutdown complete")
+
+
+if __name__ == "__main__":
+    main()

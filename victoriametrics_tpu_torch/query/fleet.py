@@ -56,9 +56,10 @@ engine as ``tpu``, as the reference's ``PrometheusAPI._ec`` does).  A
 served stream's share of the shared launch goes into the query's cost
 tracker (``device:execute``, ``device:upload``), and adoption, eviction,
 packing and the launch are flight-recorder events, as in the reference.
-What the port leaves out, for a later slice: the matstream registry
-itself (duck-typed: ``api.matstreams.streams()`` and ``st.due(now_ms)``).
-Buckets are float64, the port's only tile type, so the rebase-offset
+The streams come from the serving front end's registry
+(``api.matstreams``, the port's ``query/matstream.MatStreamRegistry``:
+``streams()`` and each stream's ``due(now_ms)``), whose every advance calls
+``prepass`` before it evaluates.  Buckets are float64, the port's only tile type, so the rebase-offset
 plane v0 is zeros; a quantile's window (``qx`` set in its roll-state
 entry) is never adopted, as in the reference.
 
