@@ -76,7 +76,8 @@ each printing one JSON line:
   dashboard   the main path on the port's Storage
               (victoriametrics_tpu_torch/storage, in a temporary directory
               removed at the end): the seeded 8192 counters x 6 h at 15 s
-              (256 instances) go in through Storage.add_rows, 40 whole
+              (256 instances) go in through Storage.add_rows_columnar
+              (native.ColumnarRows batches of raw series keys), 40 whole
               scrapes a call; the store is closed, copied for the mesh
               phase's replay and reopened, and its columns are held
               against the seeded ones exactly before any query; a cold
@@ -146,8 +147,9 @@ each printing one JSON line:
               fetch) and topk again (a full hit of the rollup result
               cache: no launch, no fetch); two refreshes, one scrape of
               every series through POST /api/v1/write (remote write,
-              snappy) each, the sum on the grid advanced one step (K3, no
-              K1) at rtol 1e-12 against nocache=1 and the host evaluator;
+              snappy, taking the server's native columnar branch) each,
+              the sum on the grid advanced one step (K3, no K1) at rtol
+              1e-12 against nocache=1 and the host evaluator;
               two instant queries (GET /api/v1/query: quantile by
               instance, B5 + B8; topk, B5 + B6 + take_rows); eight
               standing queries (rate by instance under every aggregate,
@@ -163,10 +165,10 @@ each printing one JSON line:
               moved and /api/v1/status/top_queries listing the panels
   full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
               series per instance, step 15 s, window 5 m, as one cold
-              query with its own launch counts (its series are handed to
-              the engine from memory: 576 M rows through add_rows would
-              take about an hour, so this phase waits for the columnar
-              ingest); K1 and K2 are checked
+              query with its own launch counts (its 24 h of series are
+              handed to the engine from memory; the ingest phase writes
+              the first of those hours to a store); K1 and K2
+              are checked
               against their plain versions in row chunks (K1's device ms
               on the query's planes recorded), and K2's count,
               group, min and max of rate and deriv against B5's rows
@@ -200,6 +202,31 @@ each printing one JSON line:
               planes K1 decoded; the block codecs (marshal_int64_array,
               marshal_timestamps, marshal_values) through the native
               codec and numpy: the same bytes, exact round trips
+  ingest      the ingestion layer: (a) the native library (codec.cpp,
+              parse.cpp and ingest.cpp, built by g++) must load, and its
+              snappy decoder and each columnar parser (remote write,
+              Prometheus text, Influx lines) must return the whole batch
+              of the phase's own bodies; (b) the port's vmsingle on a
+              store of the phase's own: the dashboard's 8192 series as a
+              snappy remote-write body to /api/v1/write, Prometheus text
+              to /api/v1/import/prometheus and Influx lines to
+              /influx/write, each under its own metric name, first one
+              scrape (every key new) and then 4 (every key known): each
+              body's rows/s, each must take the native columnar branch
+              (the tenant's columnar space gains every series' key with
+              the first body, none with the second, nothing dropped),
+              and the server's
+              search_columns of each equals a store written by add_rows
+              with the same rows (by name and order, timestamps exactly,
+              values bit for bit); (c) the full width's 100,000 counters
+              (32 series an instance) for the first STORE_HOURS of the
+              24 hours, a cut from the 6 planned printed as a "cut"
+              line, every series
+              kept, through Storage.add_rows_columnar,
+              40 scrapes a call: rows/s, the close, bytes on disk and the
+              peak host RSS; the store reopened, its search_columns equal
+              to the in-memory cut (timestamps exactly, values bit for
+              bit)
   mesh        the multi-device paths on 8 logical shards of this card
               (every shard on cuda:0): (a) the dashboard through
               CUDAEngine(mesh=make_mesh(8, 1)): the cold query (K1 per
@@ -208,13 +235,15 @@ each printing one JSON line:
               against the unsharded engine (count, group, min and max bit
               for bit, sum and avg at rtol 1e-12, stddev and stdvar at the
               tests' allowances) and each served result against its own
-              cold rebuild; (b) the full-width cold query, cut to its
-              first MESH_FULL_HOURS (6) of the 24 hours, every series kept,
-              through the sharded engine, held the same way against K2 on
-              the same cut tile unsharded (the shards' row blocks side by
-              side); (c) B15 time_sharded_rollup on a (2, 4) mesh over
-              the full-width tile's columns, against B5 at 1e-9, each call
-              one launch per phase; (d) B14:
+              cold rebuild; (b) the full-width cold query over the
+              hours the ingest phase wrote to its store, every series
+              kept, the columns read back from the store grouped by
+              instance, through the sharded engine, held
+              the same way against K2 on the same cut tile unsharded (the
+              shards' row blocks side by side); (c) B15
+              time_sharded_rollup on a (2, 4) mesh over the full-width
+              tile's columns, against B5 at 1e-9, each call one launch
+              per phase; (d) B14:
               16 standing queries in 2 buckets of 8 on an 8-way stream
               mesh, against the same streams on an unsharded fleet, bit
               for bit; (e) B12 decode_and_rollup on the dashboard's and
@@ -303,7 +332,7 @@ FULL_SERIES, FULL_PER_GROUP, FULL_STEP = 100_000, 32, 15_000
 SELECTOR = "http_requests_total"
 FILTERS = [TagFilter(b"", SELECTOR.encode())]
 TENANT = (0, 0)
-# scrapes per add_rows call when the dashboard's history goes into the
+# scrapes per write call when the dashboard's history goes into the
 # store: 40 whole scrapes of 8192 series, 327,680 rows a call
 SCRAPES_PER_CALL = 40
 # fleet: the standing queries' funcs, and their grids as (duration, step,
@@ -372,10 +401,18 @@ MESH_KERNELS = ("decode_and_rollup", "sharded_rollup_aggregate",
 # intervals: two steady minutes, then the 30-minute resume that slides
 # grid B's windows (B11 per shard)
 MESH_SHARDS = 8
-#: hours of the full width's history the mesh phase's sharded cold query
-#: (part b) takes: a depth cut (every series kept) that pays for the http
-#: phase within the script's time limit
-MESH_FULL_HOURS = 6
+#: hours of the full width's history the ingest phase writes to its store
+#: and the mesh phase's sharded cold query (part b) reads back: a depth cut
+#: (every series kept) from the 6 h planned, printed as a "cut" line.
+#: Written through add_rows_columnar, closed and read back, each hour of
+#: 100,000 series costs 20-40 s of host time: at 6 h the script ran past
+#: its 1200 s on the card's host, and at 3 h it took 943-1128 s
+STORE_HOURS = 2
+#: the ingest phase: scrapes of the dashboard's 8192 series each insert
+#: route's measured body carries (after one body that registers them),
+#: and the full width's metric name on its store
+INGEST_SCRAPES = 4
+FULL_SELECTOR = "fw_requests_total"
 B15_MESH, B15_STEP, B15_HALO = (2, 4), 60_000, 32
 MESH_FLEET_INTERVALS = [(4, 60_000)] * 2 + [(120, 1_800_000)]
 # the quantile probabilities every B8 check runs
@@ -647,6 +684,52 @@ def ingest(store: Storage, labels, ts, vals,
             raise AssertionError("the store dropped rows")
         took += time.perf_counter() - t0
     return took
+
+
+def series_keys(labels) -> tuple[bytes, np.ndarray, np.ndarray]:
+    """The canonical raw series keys (``name{k="v",...}``, the native
+    parsers' form) of label dicts, as one buffer with each key's offset
+    and length."""
+    from victoriametrics_tpu_torch.ingest.parsers import \
+        series_key_from_labels
+    keys = [series_key_from_labels(sorted(lb.items())) for lb in labels]
+    lens = np.array([len(k) for k in keys], np.int64)
+    offs = np.zeros(len(keys), np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    return b"".join(keys), offs, lens
+
+
+def ingest_columnar(store: Storage, keys, ts, vals,
+                    per_call: int = SCRAPES_PER_CALL, calls=None) -> float:
+    """(S, k) columns into the store through add_rows_columnar, `per_call`
+    whole scrapes a call, scrape after scrape as a scraper sends them: each
+    call one native.ColumnarRows batch whose rows name their series by
+    its raw key (`keys`: series_keys' buffer, offsets, lengths).  Returns
+    the wall seconds of the add_rows_columnar calls (each call's appended
+    to `calls` when given)."""
+    keybuf, offs, lens = keys
+    took = 0.0
+    for j0 in range(0, ts.shape[1], per_call):
+        k = min(per_call, ts.shape[1] - j0)
+        cr = native.ColumnarRows(
+            keybuf, np.tile(offs, k), np.tile(lens, k),
+            np.ascontiguousarray(ts[:, j0:j0 + k].T).ravel(),
+            np.ascontiguousarray(vals[:, j0:j0 + k].T).ravel())
+        t0 = time.perf_counter()
+        if store.add_rows_columnar(cr, tenant=TENANT) != len(cr):
+            raise AssertionError("the store dropped rows")
+        dt = time.perf_counter() - t0
+        took += dt
+        if calls is not None:
+            calls.append(dt)
+    return took
+
+
+def columnar_keys(store: Storage) -> int:
+    """The raw series keys the tenant's columnar space holds: only
+    add_rows_columnar fills it."""
+    sp = store._cspaces.get(TENANT)
+    return 0 if sp is None or sp.keymap is None else len(sp.keymap)
 
 
 class Feed:
@@ -2330,11 +2413,13 @@ def dashboard_keys():
 
 
 def build_store(rng, stores: Stores) -> dict:
-    """The dashboard's store, built through the write path: the seeded
-    counters (8192 x 1440) into a new Storage through add_rows, 40 whole
-    scrapes a call; then flushed and closed, copied for the mesh phase's
-    replay, and both reopened.  Before any query, the store's columns are
-    held against the seeded ones exactly (row order: the store's, by
+    """The dashboard's store, built through the columnar write path: the
+    seeded counters (8192 x 1440) into a new Storage through
+    add_rows_columnar, 40 whole scrapes a call; then flushed and closed,
+    copied for the mesh phase's replay, and both reopened.  (The
+    refreshes' scrapes go in through add_rows, so both write paths run.)
+    Before any query, the store's columns are held against the seeded
+    ones exactly (row order: the store's, by
     marshaled name).  The refreshes' scrapes are made here too, so that
     both stores get the same ones."""
     S = DASH_SERIES
@@ -2347,7 +2432,10 @@ def build_store(rng, stores: Stores) -> dict:
         batches.append(feed.next(k, end))
         end += adv
     store = stores.open("dashboard")
-    ingest_s = ingest(store, labels, ts, vals)
+    ingest_s = ingest_columnar(store, series_keys(labels), ts, vals)
+    if columnar_keys(store) != S:
+        raise AssertionError("store: the columnar space does not hold "
+                             "every series")
     t0 = time.perf_counter()
     stores.close(store)
     close_s = time.perf_counter() - t0
@@ -2385,6 +2473,7 @@ def build_store(rng, stores: Stores) -> dict:
                                    "feed": copy.deepcopy(feed)},
             "info": {
                 "anchor_ms": T_START, "series": S, "rows": n_rows,
+                "write_path": "add_rows_columnar",
                 "scrapes_per_call": SCRAPES_PER_CALL,
                 "ingest_s": ingest_s, "rows_per_s": n_rows / ingest_s,
                 "close_s": close_s, "disk_bytes": on_disk,
@@ -2413,8 +2502,9 @@ def seeded_k2(dev, built, series, lo, hi, gids, G, cfg) -> np.ndarray:
 
 def phase_dashboard(rng, dev, stores: Stores):
     """The main path on the port's Storage: the store built through
-    add_rows and checked, the cold query from store.search_series (held
-    bit for bit against K2 on the seeded series), then rolling refreshes
+    add_rows_columnar and checked, the cold query from
+    store.search_series (held bit for bit against K2 on the seeded
+    series), then rolling refreshes
     reading the store, each held against a cold rebuild.  Returns the
     phase's result and the state the fleet phase continues from (store,
     engine, groups, the last end, the feed of new scrapes)."""
@@ -3196,7 +3286,9 @@ def http_panels(c, api, grid, aside) -> tuple[dict, dict]:
 
 def http_refreshes(c, api, st, grid, aside) -> list:
     """Two refreshes through the write API: one scrape of every series
-    posted to /api/v1/write (remote write, snappy), then the sum panel on
+    posted to /api/v1/write (remote write, snappy; the server's native
+    columnar branch, which must hold every series' key), then the sum
+    panel on
     the grid advanced one step, which the resident window serves (K3, no
     K1); held at rtol 1e-12 against nocache=1 over HTTP and against the
     host evaluator."""
@@ -3213,6 +3305,10 @@ def http_refreshes(c, api, st, grid, aside) -> list:
                                       {"Content-Encoding": "snappy"})
         if code != 204:
             raise AssertionError(f"http remote write: {code} {resp[:300]}")
+        if columnar_keys(api.storage) != len(st["labels"]) or \
+                api.columnar_drop_stats:
+            raise AssertionError("http remote write: not the columnar "
+                                 "branch, or rows dropped")
         start, end = start + DASH_STEP, end + DASH_STEP
         kw = dict(query=q, start=start / 1e3, end=end / 1e3,
                   step=DASH_STEP / 1e3)
@@ -3236,6 +3332,8 @@ def http_refreshes(c, api, st, grid, aside) -> list:
             "write_rows_per_s": ts.size / write_ms * 1e3,
             "snappy_codec": "libsnappy" if snappy._lib is not None
             else "pure-python",
+            "server_route": "add_rows_columnar",
+            "columnar_keys": columnar_keys(api.storage),
             "round_trip_ms": ms, "launches": launches, "cost": cost,
             "nocache_round_trip_ms": nocache_ms,
             "vs_nocache_max_abs_err": keyed_close(
@@ -3863,7 +3961,7 @@ def phase_full_width(rng, dev, hours: float) -> dict:
     emit(res)
     return res, {"engine": engine, "series": series, "cfg": cfg,
                  "gids": gids, "key": key, "out": out, "N": N,
-                 "planes": (args, n_cap)}
+                 "ts": ts, "vals": vals, "planes": (args, n_cap)}
 
 
 def host_codec_store(rng, kind: str):
@@ -4029,6 +4127,297 @@ def phase_host_codec(rng, replay, fw) -> dict:
                          "pack_ms": (t2 - t1) * 1e3, "n_cap": n_cap}
     emit(res)
     return res
+
+
+# ---------------------------------------------------------------------------
+# ingest: the native columnar write paths.
+# ---------------------------------------------------------------------------
+
+class RssPeak:
+    """The peak resident set of this process over a block: VmRSS read
+    from /proc/self/status every `interval` seconds by a thread (a spike
+    shorter than that can be missed); None where /proc has no VmRSS."""
+
+    def __init__(self, interval: float = 0.05):
+        import threading
+        self.interval = interval
+        self.peak_bytes = None
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss_bytes():
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        return int(line.split()[1]) * 1024
+        except (OSError, ValueError):
+            pass
+        return None
+
+    def _run(self):
+        while True:
+            r = self.rss_bytes()
+            if r is not None:
+                self.peak_bytes = max(self.peak_bytes or 0, r)
+            if self._done.wait(self.interval):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join()
+        r = self.rss_bytes()
+        if r is not None:
+            self.peak_bytes = max(self.peak_bytes or 0, r)
+
+
+def same_columns(what: str, got, want) -> None:
+    """Two search_columns results: the same series in the same order (by
+    raw name: metric ids are seeded from the clock), the same counts,
+    timestamps exactly and values bit for bit."""
+    if got.raw_names != want.raw_names:
+        raise AssertionError(f"{what}: other series or another row order")
+    if not (np.array_equal(got.counts, want.counts) and
+            np.array_equal(got.ts, want.ts) and
+            np.array_equal(got.vals.view(np.int64),
+                           want.vals.view(np.int64))):
+        raise AssertionError(f"{what}: columns differ")
+
+
+def route_bodies(labels, ts, vals) -> dict:
+    """The same (S, k) columns as the three bodies of the insert routes,
+    each under its own metric name: (path, params, headers, body, name).
+    Remote write: one snappy WriteRequest; Prometheus text and Influx
+    lines scrape after scrape, values in their shortest round-trip form."""
+    out = {}
+    named = [{**lb, "__name__": "ingest_rw_total"} for lb in labels]
+    out["remote_write"] = ("/api/v1/write", {"Content-Encoding": "snappy"},
+                           write_request(named, ts, vals), "ingest_rw_total")
+    tv = list(zip(ts.T.tolist(), vals.T.tolist()))
+    heads = [f'ingest_prom_total{{instance="{lb["instance"]}",'
+             f'id="{lb["id"]}"}} ' for lb in labels]
+    out["prometheus"] = ("/api/v1/import/prometheus", {}, "".join(
+        f"{h}{v!r} {t}\n" for tr, vr in tv
+        for h, t, v in zip(heads, tr, vr)).encode(), "ingest_prom_total")
+    heads = [f'ingest_influx,instance={lb["instance"]},id={lb["id"]} total='
+             for lb in labels]
+    out["influx"] = ("/influx/write", {}, "".join(
+        f"{h}{v!r} {t * 1_000_000}\n" for tr, vr in tv
+        for h, t, v in zip(heads, tr, vr)).encode(), "ingest_influx_total")
+    return out
+
+
+def ingest_native(bodies: dict, rows: int) -> dict:
+    """(a) the native library loads and each of its ingest entry points
+    returns the whole batch on the phase's own bodies: a failed g++ build
+    fails here, not behind the Python parsers."""
+    from victoriametrics_tpu_torch.ingest import snappy
+    if not native.available():
+        raise AssertionError("ingest: the native library did not build or "
+                             "load")
+    out = {"library": native.library_path().name,
+           "snappy_decoder": "native (ingest.cpp vm_snappy_uncompress)",
+           "client_snappy_compress": "libsnappy" if snappy._lib is not None
+           else "pure-python"}
+    t0 = time.perf_counter()
+    raw = native.snappy_uncompress(bodies["remote_write"][2])
+    out["snappy_ms"] = (time.perf_counter() - t0) * 1e3
+    if raw is None:
+        raise AssertionError("ingest: native snappy returned nothing")
+    parse = {"remote_write": lambda: native.parse_rw_columnar(raw, 0),
+             "prometheus": lambda: native.parse_prom_columnar(
+                 bodies["prometheus"][2], 0),
+             "influx": lambda: native.parse_influx_columnar(
+                 bodies["influx"][2], "", 0)}
+    for route, fn in parse.items():
+        t0 = time.perf_counter()
+        cr = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        if cr is None or len(cr) != rows:
+            raise AssertionError(f"ingest: the native {route} parser gave "
+                                 f"{None if cr is None else len(cr)} rows, "
+                                 f"not {rows}")
+        out[route] = {"parse_ms": ms, "rows_per_s": rows / ms * 1e3,
+                      "body_bytes": len(bodies[route][2])}
+    return out
+
+
+def ingest_routes(stores: Stores, labels, ts, vals) -> dict:
+    """(b) the port's vmsingle on a store of its own.  Each route gets
+    two bodies of its own metric name: the first scrape of every series
+    (`register`: every key is new, so each takes the per-key slow path)
+    and then the next INGEST_SCRAPES (`write`: every key known, the
+    steady path).  Each must take the native columnar branch (the
+    tenant's columnar space gains every series' key with the first body
+    and none with the second, nothing dropped, every row counted); the
+    server's columns of each route equal those of a store written by
+    add_rows with the same rows."""
+    from victoriametrics_tpu_torch.apps import vmsingle
+    from victoriametrics_tpu_torch.utils import profiler
+    S = ts.shape[0]
+    first = route_bodies(labels, ts[:, :1], vals[:, :1])
+    bodies = route_bodies(labels, ts[:, 1:], vals[:, 1:])
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={stores.path('ingest_http')}",
+        "-httpListenAddr=127.0.0.1:0"]))
+    srv.start()
+    out = {}
+    try:
+        c = HttpClient(srv.port)
+        for route in bodies:
+            out[route] = {}
+            for part, (path, headers, body, _), new, rows in (
+                    ("register", first[route], S, S),
+                    ("write", bodies[route], 0, S * (ts.shape[1] - 1))):
+                keys0, rows0 = columnar_keys(api.storage), api.rows_inserted
+                code, resp, ms = c.post(path, body, headers)
+                if code != 204:
+                    raise AssertionError(f"ingest {route}: {code} "
+                                         f"{resp[:300]}")
+                keys = columnar_keys(api.storage) - keys0
+                if keys != new or api.rows_inserted - rows0 != rows or \
+                        api.columnar_drop_stats:
+                    raise AssertionError(
+                        f"ingest {route} {part}: not the columnar branch "
+                        f"({keys} keys, {api.rows_inserted - rows0} rows, "
+                        f"dropped {api.columnar_drop_stats})")
+                out[route][part] = {"rows": rows, "body_bytes": len(body),
+                                    "write_ms": ms,
+                                    "rows_per_s": rows / ms * 1e3,
+                                    "columnar_keys_added": keys}
+        want = stores.open("ingest_rows")
+        for route, (*_, name) in bodies.items():
+            t0 = time.perf_counter()
+            ingest(want, [{**lb, "__name__": name} for lb in labels], ts,
+                   vals)
+            out[route]["add_rows_ms"] = (time.perf_counter() - t0) * 1e3
+            f = [TagFilter(b"", name.encode())]
+            got = api.storage.search_columns(f, T_START - DAY, T_START + DAY,
+                                             tenant=TENANT)
+            if len(got.raw_names) != S or int(got.counts.sum()) != ts.size:
+                raise AssertionError(f"ingest {route}: the server's store "
+                                     f"holds {len(got.raw_names)} series")
+            same_columns(f"ingest {route} vs add_rows", got,
+                         want.search_columns(f, T_START - DAY,
+                                             T_START + DAY, tenant=TENANT))
+            out[route]["columns_equal_add_rows"] = True
+        stores.close(want)
+    finally:
+        srv.stop()
+        storage.close()
+        profiler.PROFILER.stop()
+    return out
+
+
+def full_width_labels(S: int, G: int) -> list[dict]:
+    """The full width's series as a scraper labels them: 32 a `instance`
+    (series i in group i % G, as the full_width phase groups them)."""
+    return [{"__name__": FULL_SELECTOR, "instance": f"fw-{i % G}",
+             "id": str(i)} for i in range(S)]
+
+
+def ingest_full_width(stores: Stores, fw) -> tuple[dict, dict]:
+    """(c) the full width's series on the store: the first STORE_HOURS of the
+    100,000 counters through Storage.add_rows_columnar, 40 scrapes a call
+    (every series kept); closed and reopened, its search_columns must
+    equal the in-memory cut (timestamps exactly, values bit for bit).
+    Returns the part's record and the columns read back, which the mesh
+    phase's part (b) takes."""
+    S, G = FULL_SERIES, FULL_SERIES // FULL_PER_GROUP
+    n_cut = min(int(STORE_HOURS * 3_600_000 // SCRAPE), fw["N"])
+    ts, vals = fw["ts"][:, :n_cut], fw["vals"][:, :n_cut]
+    labels = full_width_labels(S, G)
+    t0 = time.perf_counter()
+    keys = series_keys(labels)
+    keys_s = time.perf_counter() - t0
+    store = stores.open("full_width")
+    calls = []
+    with RssPeak() as rss:
+        add_s = ingest_columnar(store, keys, ts, vals, calls=calls)
+        if columnar_keys(store) != S:
+            raise AssertionError("full width store: the columnar space does "
+                                 "not hold every series")
+        t0 = time.perf_counter()
+        stores.close(store)
+        close_s = time.perf_counter() - t0
+    on_disk = disk_bytes(stores.path("full_width"))
+    t0 = time.perf_counter()
+    store = stores.open("full_width")
+    open_s = time.perf_counter() - t0
+    f0 = fetch_s()
+    t0 = time.perf_counter()
+    cols = store.search_columns([TagFilter(b"", FULL_SELECTOR.encode())],
+                                T_START - DAY, T_START + DAY, tenant=TENANT)
+    search_s = time.perf_counter() - t0
+    fetch_ms = (fetch_s() - f0) * 1e3
+    # the in-memory cut in the store's row order, named independently
+    raws = [MetricName.from_dict(lb).marshal() for lb in labels]
+    order = np.array(sorted(range(S), key=raws.__getitem__), np.int64)
+    if cols.raw_names != [raws[i] for i in order]:
+        raise AssertionError("full width store: other series or another "
+                             "row order")
+    if not (np.array_equal(cols.counts, np.full(S, n_cut)) and
+            np.array_equal(cols.ts, ts[order]) and
+            np.array_equal(cols.vals.view(np.int64),
+                           vals[order].view(np.int64))):
+        raise AssertionError("full width store: columns differ from the "
+                             "in-memory cut")
+    stores.close(store)
+    n_rows = S * n_cut
+    rec = {"series": S, "instances": G, "hours": STORE_HOURS,
+           "samples_per_series": n_cut, "rows": n_rows,
+           "scrapes_per_call": SCRAPES_PER_CALL, "keys_s": keys_s,
+           "add_rows_columnar_s": add_s, "rows_per_s": n_rows / add_s,
+           # the first call registers every series (the slow path per
+           # new key); the others resolve whole batches natively
+           "first_call_s": calls[0],
+           "steady_rows_per_s": (n_rows - S * min(SCRAPES_PER_CALL, n_cut))
+           / max(sum(calls[1:]), 1e-9),
+           "close_s": close_s, "disk_bytes": on_disk,
+           "bytes_per_sample": on_disk / n_rows,
+           "peak_rss_bytes": rss.peak_bytes, "open_s": open_s,
+           "search_columns_ms": search_s * 1e3,
+           "columns_fetch_ms": fetch_ms, "columns_equal_memory": True,
+           # all 24 h through the same path: the first call's
+           # registration once, the rest of the writes and the close
+           # in proportion
+           "all_hours_estimate_s": calls[0] +
+           (add_s - calls[0] + close_s) * fw["N"] / n_cut}
+    return rec, {"cols": cols, "order": order, "n_cut": n_cut,
+                 "hours": STORE_HOURS}
+
+
+def phase_ingest(rng, stores: Stores, fw) -> tuple[dict, dict]:
+    """The ingestion layer: (a) the native library's ingest entry points,
+    (b) the three insert routes through the port's vmsingle, (c) the full
+    width's series written to a store.  Returns the phase's result and
+    the columns part (c) read back."""
+    t_phase = time.perf_counter()
+    walls = {}
+    labels = dash_labels(DASH_SERIES)
+    ts, vals = counters(rng, DASH_SERIES, 1 + INGEST_SCRAPES, T_START)
+    t0 = time.perf_counter()
+    nat = ingest_native(route_bodies(labels, ts[:, 1:], vals[:, 1:]),
+                        DASH_SERIES * INGEST_SCRAPES)
+    walls["native"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes = ingest_routes(stores, labels, ts, vals)
+    walls["routes"] = time.perf_counter() - t0
+    print(json.dumps({"cut": {"full_width_store_hours": STORE_HOURS,
+                              "planned_hours": 6}}), flush=True)
+    t0 = time.perf_counter()
+    fw_rec, fw_store = ingest_full_width(stores, fw)
+    walls["full_width"] = time.perf_counter() - t0
+    res = {"phase": "ingest", "ok": True,
+           "wall_s": time.perf_counter() - t_phase, "part_wall_s": walls,
+           "native": nat, "routes": routes, "full_width_store": fw_rec}
+    emit(res)
+    return res, fw_store
 
 
 class Aside:
@@ -4303,18 +4692,21 @@ def mesh_decode(dev, what, planes, cfg, aside, tiles=None,
             "device_ms": dev_ms, "k1_then_b5_device_ms": k1_b5_dev_ms}
 
 
-def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:
-    """(b) the full-width cold query, cut to its first MESH_FULL_HOURS
-    hours (every series kept), through the sharded engine, against K2 on
-    the same cut tile unsharded (the shards' row blocks side by side), in
-    every aggregate; and (c) B15 on a (2, 4) mesh over the full-width
-    tile's columns against B5."""
+def mesh_full_width(dev, fw, fw_store, aside) -> tuple[dict, dict]:
+    """(b) the full-width cold query over the hours the ingest phase wrote
+    to its store (STORE_HOURS, every series kept), its series the
+    columns read back from that store in the store's row order, grouped
+    by their instance, through the sharded engine, against K2 on the same
+    cut tile unsharded (the shards' row blocks side by side), in every
+    aggregate; and (c) B15 on a (2, 4) mesh over the full-width tile's
+    columns against B5."""
     S, G = FULL_SERIES, FULL_SERIES // FULL_PER_GROUP
-    flat, series, gids, key = (fw[k] for k in ("engine", "series", "gids",
-                                               "key"))
-    n_cut = min(int(MESH_FULL_HOURS * 3_600_000 // SCRAPE), fw["N"])
-    cut = [SeriesData(None, sd.timestamps[:n_cut], sd.values[:n_cut],
-                      raw_name=sd.raw_name) for sd in series]
+    flat, key = fw["engine"], fw["key"]
+    cols, n_cut = fw_store["cols"], fw_store["n_cut"]
+    # row r of the store is series order[r], of instance fw-<order[r] % G>
+    gids = (fw_store["order"] % G).astype(np.int32)
+    cut = [SeriesData(None, cols.ts[r, :n_cut], cols.vals[r, :n_cut],
+                      raw_name=cols.raw_names[r]) for r in range(S)]
     cfg = RollupConfig(T_START, T_START + n_cut * SCRAPE, FULL_STEP, WINDOW)
     key_cut = ("mesh_full_width_cut",)
     mesh = meshlib.make_mesh(MESH_SHARDS, 1, [dev] * MESH_SHARDS)
@@ -4358,7 +4750,8 @@ def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:
     with aside():
         b13_ms = cuda_ms(lambda: fn(ts_s, v_s, c_s, groups.shards), reps=3)
     del ts_s, v_s, c_s, groups, meng, cut
-    b = {"hours": MESH_FULL_HOURS, "samples_per_series": n_cut,
+    b = {"hours": fw_store["hours"], "samples_per_series": n_cut,
+         "series_from": "the ingest phase's store",
          "total_ms": total * 1e3, "split": split, "b13_event_ms": b13_ms,
          "max_abs_err_vs_unsharded": worst}
     # (c) B15 over the tile's first N columns (every sample valid)
@@ -4396,7 +4789,7 @@ def mesh_full_width(dev, fw, aside) -> tuple[dict, dict]:
     return b, c
 
 
-def phase_mesh(dev, replay, fw) -> dict:
+def phase_mesh(dev, replay, fw, fw_store) -> dict:
     """The mesh phase, (a)-(e), every shard on `dev`.  Its launch counts
     leave out the unsharded comparisons and the cold rebuilds."""
     t_phase = time.perf_counter()
@@ -4416,7 +4809,7 @@ def phase_mesh(dev, replay, fw) -> dict:
     e = {"dashboard": part("decode_dashboard", mesh_decode, dev, "dashboard",
                            st["planes"], st["cfg"], aside)}
     del st
-    b, c = part("full_width", mesh_full_width, dev, fw, aside)
+    b, c = part("full_width", mesh_full_width, dev, fw, fw_store, aside)
     e["full_width"] = part(
         "decode_full_width", mesh_decode, dev, "full width",
         fw["planes"][0] + (fw["planes"][1],), fw["cfg"], aside,
@@ -4479,8 +4872,9 @@ def main(argv=None) -> int:
                 fleet_err[name], fl["kernels"][name]["max_abs_err"])}
         _, fw = phase_full_width(rng, dev, args.full_hours)
         phase_host_codec(rng, replay, fw)
-        mesh = phase_mesh(dev, replay, fw)
-        del replay, fw
+        _, fw_store = phase_ingest(rng, stores, fw)
+        mesh = phase_mesh(dev, replay, fw, fw_store)
+        del replay, fw, fw_store
     finally:
         stores.close_all()
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on

@@ -3,13 +3,18 @@ its ``apps/vmsingle.build``) against the reference's vmsingle, side by
 side in one process on real localhost ports.
 
 Both servers are fed the same bodies on every insert route the port
-registers and asked the same ``query``, ``query_range``, ``series``,
-``labels``, ``label/<n>/values``, ``export``, ``export/native`` ->
+registers (remote write, Prometheus text and Influx lines through each
+side's native columnar branch, which both must take: the same series in
+their columnar key maps) and asked the same ``query``, ``query_range``,
+``series``, ``labels``, ``label/<n>/values``, ``export``, ``export/native`` ->
 ``import/native`` round trip, ``federate``, ``status/tsdb``,
 ``prettify-query``, ``parse-query``, ``metadata`` and ``delete_series``;
 their bodies must be equal as JSON (or as bytes), with only the volatile
 fields (timings, start times) removed.  The 400/422/429/503 answers to
-bad arguments and limits compare the same way.
+bad arguments and limits compare the same way.  Under
+``-streamAggr.config`` the rows take the row path on both sides (stream
+aggregation must see every row) and the aggregates flushed into each
+store answer the same.
 
 Then the device path: the port with ``api.tpu = CUDAEngine(device="cpu",
 min_series=4)`` (the kernels' plain versions) against the reference with
@@ -234,8 +239,22 @@ QUERIES = ["rw_m", "sum by (instance)(rate(rw_m[5m]))", "imp_m",
            "topk(2, rw_m)", "count(rw_m) by (instance)"]
 
 
+def columnar_keys(side) -> dict:
+    """The raw series keys each tenant's columnar space holds: only the
+    native columnar branch (add_rows_columnar) fills them."""
+    return {tenant: len(sp.keymap)
+            for tenant, sp in side.storage._cspaces.items()}
+
+
 def test_every_insert_route_then_queries(pair):
     ingest_everywhere(pair)
+    # remote write (6 series on /api/v1/write, one each on /api/v1/push
+    # and /prometheus/api/v1/write), Prometheus text (4), Influx lines (3:
+    # two fields of /write, one of /influx/write), the tenant's text (1)
+    want = {(0, 0): 15, (7, 3): 1}
+    assert columnar_keys(pair.port) == columnar_keys(pair.ref) == want
+    assert pair.port.api.columnar_drop_stats == \
+        pair.ref.api.columnar_drop_stats == {}
     t = T0 / 1e3
     for q in QUERIES:
         code, body = pair.get("/api/v1/query", query=q, time=t + 590)
@@ -364,6 +383,53 @@ def test_bad_insert_bodies(pair, path, body):
     """The same status (400, or 204 where the parser skips bad lines) and
     body from both."""
     pair.post(path, body)
+
+
+AGG_YML = """- match: '{__name__=~"agg_.*"}'
+  interval: 1m
+  outputs: [sum_samples, count_series, max]
+  by: [instance]
+- interval: 1m
+  outputs: [last]
+  without: [id]
+"""
+
+
+def test_stream_aggregation_route(tmp_path):
+    """Both servers under -streamAggr.config (and -streamAggr.keepInput):
+    the same remote-write and Prometheus-text bodies take the row path
+    (no columnar key), and after each side's final flush the aggregates
+    and the kept input answer the same."""
+    cfg = tmp_path / "agg.yml"
+    cfg.write_text(AGG_YML)
+    p = HttpPair(tmp_path, [f"-streamAggr.config={cfg}",
+                            "-streamAggr.keepInput"])
+    try:
+        now = int(time.time() * 1000)
+        text = "".join(f'agg_m{{instance="{lab["instance"]}",id="{lab["id"]}"'
+                       f"}} {v} {t}\n"
+                       for lab, ts, vals in _scrapes("a", 6, 8, 21,
+                                                     t0=now - 180_000)
+                       for t, v in zip(ts, vals))
+        p.post("/api/v1/import/prometheus", text.encode())
+        rw = [(sorted(lab.items()), list(zip(ts, vals)))
+              for lab, ts, vals in _scrapes("agg_rw", 4, 8, 22,
+                                            t0=now - 180_000)]
+        p.post("/api/v1/write", port_rw.build_write_request(rw),
+               headers={"Content-Encoding": "snappy"})
+        for side in (p.ref, p.port):
+            assert columnar_keys(side) == {}
+            assert side.api.rows_inserted == 6 * 8 + 4 * 8
+            side.api.stream_aggr.stop(final_flush=True)
+        p.flush()
+        t = time.time() + 1
+        for q in ("agg_m:1m_sum_samples", "agg_m:1m_count_series",
+                  "agg_rw:1m_max", '{__name__=~".*:1m_last"}',
+                  "count(agg_m)", "count(agg_rw)"):
+            code, body = p.get("/api/v1/query", query=q, time=t)
+            assert code == 200 and json.loads(body)["data"]["result"], q
+    finally:
+        p.close()
 
 
 def test_limits_429_and_503(tmp_path, monkeypatch):

@@ -1,6 +1,7 @@
 """Port parity: the native host codec (victoriametrics_tpu_torch/native,
-codec.cpp built by g++ on first use) against the JAX package's native
-codec and the port's own numpy paths, on the same seeded inputs.
+codec.cpp with parse.cpp and ingest.cpp built by g++ on first use) against
+the JAX package's native codec and the port's own numpy paths, on the same
+seeded inputs; the library's name covers every source.
 
 Mirrors tests/test_f2d_native.py (its CASES and random group starts):
 the grouped float -> decimal bit for bit, native and numpy; then every
@@ -318,3 +319,33 @@ def test_concurrent_first_loads_build_once(tmp_path):
     assert [n for n in names if n.endswith(".so")] == \
         [native.library_path().name]
     assert not [n for n in names if n.endswith(".tmp")]
+
+
+@pytest.mark.parametrize("changed", ["codec.cpp", "parse.cpp", "ingest.cpp"])
+def test_library_digest_covers_every_source(tmp_path, monkeypatch, changed):
+    """The library is named by a digest of all three sources: a change to
+    any one of them names another library (so a build from older sources
+    is never loaded), and unchanged sources name the same one."""
+    assert [p.name for p in native.SOURCES] == \
+        ["codec.cpp", "parse.cpp", "ingest.cpp"]
+    copies = []
+    for src in native.SOURCES:
+        dst = tmp_path / src.name
+        dst.write_bytes(src.read_bytes())
+        copies.append(dst)
+    monkeypatch.setattr(native, "SOURCES", tuple(copies))
+    before = native.library_path()
+    assert before.name == native.library_path().name
+    target = tmp_path / changed
+    target.write_bytes(target.read_bytes() + b"\n// changed\n")
+    after = native.library_path()
+    assert after.name != before.name
+    assert after.parent == before.parent == native.BUILD_DIR
+    # moving bytes from one source to the next is a change too
+    target.write_bytes(target.read_bytes()[:-len(b"\n// changed\n")])
+    assert native.library_path().name == before.name
+    first, second = copies[0], copies[1]
+    tail = first.read_bytes()[-1:]
+    first.write_bytes(first.read_bytes()[:-1])
+    second.write_bytes(tail + second.read_bytes())
+    assert native.library_path().name != before.name

@@ -4,7 +4,8 @@ xxh64/xxh32): every module of victoriametrics_tpu_torch, and chip_smoke.py,
 load in a process where importing jax, the JAX package or xxhash fails.
 Importing them builds nothing: no compiler process starts and no file is
 written under the package's ``_build/`` (the native codec and the CUDA
-kernels build on first use)."""
+kernels build on first use).  The evaluator and the columnar ingest run
+there too."""
 
 import os
 import pkgutil
@@ -104,11 +105,12 @@ def test_port_and_chip_smoke_import_without_jax():
         "parallel.rpc", "ingest.ratelimiter", "ingest.serieslimits",
         "ingest.protowire", "ingest.snappy", "ingest.parsers",
         "ingest.remote_write", "ingest.otlp", "ingest.relabel",
+        "ingest.streamaggr", "ingest.ingestserver",
         "utils.workpool", "utils.profiler", "utils.device_probe",
         "utils.buildinfo", "query.querystats", "query.matstream",
         "httpapi.server", "httpapi.prometheus_api",
         "apps.vmsingle")} <= set(mods)
-    assert len(mods) >= 90
+    assert len(mods) >= 92
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -193,3 +195,46 @@ def test_evaluator_runs_without_jax_and_hashes_natively():
             np.testing.assert_array_equal(
                 np.array([np.nan if v is None else v for v in vals]),
                 ts.values)
+
+
+INGEST_PROBE = r"""
+import sys, time
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["xxhash"] = None
+sys.modules["victoriametrics_tpu"] = None
+from victoriametrics_tpu_torch import native
+from victoriametrics_tpu_torch.ingest import remote_write, streamaggr
+from victoriametrics_tpu_torch.storage.storage import Storage
+from victoriametrics_tpu_torch.storage.tag_filters import filters_from_dict
+
+t0 = int(time.time() * 1000) - 86_400_000
+series = [([("__name__", "nj"), ("i", str(i))],
+           [(t0 + j * 15_000, float(i + j)) for j in range(5)])
+          for i in range(7)]
+body = native.snappy_uncompress(remote_write.build_write_request(series))
+cr = native.parse_rw_columnar(body, t0)
+st = Storage(sys.argv[1])
+n = st.add_rows_columnar(cr)
+cols = st.search_columns(filters_from_dict({"__name__": "nj"}), t0 - 1,
+                         t0 + 86_400_000)
+out = []
+agg = streamaggr.load_from_text("- interval: 1m\n  outputs: [sum_samples]\n",
+                                out.extend)
+agg.push({"__name__": "nj"}, t0, 2.0)
+agg.stop()
+st.close()
+print("INGESTED", n, len(cols.raw_names), int(cols.counts.sum()), out[0][2])
+"""
+
+
+def test_columnar_ingest_runs_without_jax(tmp_path):
+    """The native ingest (snappy, the remote-write parser, the key map
+    under add_rows_columnar) and stream aggregation run with jax, the JAX
+    package and xxhash blocked."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", INGEST_PROBE,
+                          str(tmp_path / "d")], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "INGESTED 35 7 35 2.0" in out.stdout, out.stdout

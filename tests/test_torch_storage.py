@@ -320,8 +320,24 @@ def test_append_log_matches_reference(stores):
 
 
 def test_raw_keys_are_left_to_the_ingestion_layer(stores):
-    port = stores.open("port", "p")
-    assert port.supports_raw_keys is False
-    with pytest.raises(TypeError, match="ingestion"):
-        port.add_rows([(b'm{a="b"}', T0, 1.0)])
-    assert not hasattr(port, "add_rows_columnar")
+    """The ingestion layer has landed: the port's add_rows takes raw
+    ``name{labels}`` byte keys (the native text parser's rows) as the
+    reference's does, skipping a malformed key and keeping the batch, and
+    both have add_rows_columnar."""
+    from victoriametrics_tpu_torch.ingest.parsers import \
+        series_key_from_labels
+    rows = [(series_key_from_labels(sorted(lb.items())), t, v)
+            for lb, t, v in seeded_rows(3, S=12, N=8)]
+    rows.insert(5, (b'bad{a="unterminated', T0, 1.0))
+    ref, port = stores.open("ref", "r"), stores.open("port", "p")
+    for st in (ref, port):
+        assert st.supports_raw_keys is True
+        assert st.supports_columnar is True
+        assert callable(st.add_rows_columnar)
+    assert port.add_rows(rows) == ref.add_rows(rows) == len(rows) - 1
+    for name in ("m_total", "g", "f"):
+        assert_same_columns(
+            port.search_columns(filters("port", {"__name__": name}),
+                                T0 - DAY, T0 + DAY),
+            ref.search_columns(filters("ref", {"__name__": name}),
+                               T0 - DAY, T0 + DAY))

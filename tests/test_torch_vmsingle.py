@@ -7,13 +7,19 @@ vmsingle``:
   those modules was loaded;
 - every flag that asks for a part the port does not have yet makes it
   exit non-zero with an error naming that part and ROADMAP.md §A item 11;
+- the flags of the ingestion layer (``-streamAggr.config``, and the
+  Graphite, Influx and OpenTSDB listeners) start the server and serve what
+  they ingest; the reference's ``TestIngestServersAndGate`` cases
+  (``tests/test_vmsingle_http.py``) run on the port's vmsingle;
 - ``-search.tpuBackend`` on a machine without a CUDA device: the attach
   thread's probe fails, the failure is logged at error level, ``api.tpu``
   stays None and the host path answers."""
 
+import json
 import logging
 import os
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -98,11 +104,7 @@ def test_process_serves_and_stops_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag,part", [
-    ("-streamAggr.config=agg.yml", "stream aggregation"),
     ("-rule=rules.yml", "server-side rules"),
-    ("-graphiteListenAddr=:2003", "Graphite listener"),
-    ("-influxListenAddr=:8089", "Influx listener"),
-    ("-opentsdbListenAddr=:4242", "OpenTSDB listener"),
     ("-selfScrapeInterval=15s", "self-scrape"),
     ("-pushmetrics.url=http://127.0.0.1:1/api/v1/import/prometheus",
      "pushmetrics"),
@@ -116,6 +118,173 @@ def test_unported_flags_exit_naming_the_part(tmp_path, flag, part):
     assert part in msg and "§A item 11" in msg, msg
     assert flag.split("=")[0] in msg
     assert not (tmp_path / "d").exists()  # nothing opened
+
+
+AGG_YML = """- match: '{__name__="agg_in"}'
+  interval: 1m
+  outputs: [sum_samples, count_samples]
+  by: [dc]
+"""
+
+
+def _send_tcp(port: int, text: str) -> None:
+    s = socket.create_connection(("127.0.0.1", port), timeout=5)
+    s.sendall(text.encode())
+    s.close()
+
+
+def _poll(c, query, t_s, timeout=10.0):
+    """The instant query's first value once the series is queryable."""
+    deadline = time.time() + timeout
+    while True:
+        res = c.query(query, t_s)["data"]["result"]
+        if res or time.time() > deadline:
+            return res[0]["value"][1] if res else None
+        time.sleep(0.1)
+
+
+@pytest.mark.parametrize("flag", ["-streamAggr.config",
+                                  "-graphiteListenAddr",
+                                  "-influxListenAddr",
+                                  "-opentsdbListenAddr"])
+def test_ported_ingest_flags_start_and_serve(tmp_path, flag):
+    """Each flag this slice ports starts the server, and what comes in
+    through it is served: the aggregator's flushed outputs (its final
+    flush before the store closes), or each listener's lines."""
+    value = "127.0.0.1:0"
+    if flag == "-streamAggr.config":
+        (tmp_path / "agg.yml").write_text(AGG_YML)
+        value = str(tmp_path / "agg.yml")
+    args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
+                                 "-httpListenAddr=127.0.0.1:0",
+                                 f"{flag}={value}"])
+    storage, srv, api = vmsingle.build(args)
+    srv.start()
+    now = int(time.time() * 1000)
+    try:
+        c = Client(srv.port)
+        if flag == "-streamAggr.config":
+            rows = "".join(f'agg_in{{dc="e",i="{i}"}} {i} {now - 5000}\n'
+                           for i in range(6)) + f"other 7 {now - 5000}\n"
+            assert c.post("/api/v1/import/prometheus", rows.encode())[0] \
+                == 204
+            assert api.stream_aggr is not None
+            assert api.rows_inserted == 1  # only the unmatched row
+            api.stream_aggr.stop(final_flush=True)
+            t = time.time() + 1
+            assert _poll(c, "agg_in:1m_sum_samples", t) == "15"
+            assert _poll(c, "agg_in:1m_count_samples", t) == "6"
+            assert _poll(c, "other", t) == "7"
+            assert c.query("agg_in", t)["data"]["result"] == []
+        else:
+            (isrv,) = api.ingest_servers
+            assert isrv.port > 0
+            line, name, want = {
+                "-graphiteListenAddr": (f"g.m;k=v 5.5 {now // 1000}", "g.m",
+                                        "5.5"),
+                "-influxListenAddr": (f"inf,k=v f=6.5 {now * 10**6}",
+                                      "inf_f", "6.5"),
+                "-opentsdbListenAddr": (f"put ot.m {now // 1000} 7.5 k=v",
+                                        "ot.m", "7.5")}[flag]
+            _send_tcp(isrv.port, line + "\n")
+            assert _poll(c, f'{{__name__="{name}",k="v"}}',
+                         time.time()) == want
+    finally:
+        srv.stop()
+        for isrv in api.ingest_servers:
+            isrv.stop()
+        storage.close()
+        profiler.PROFILER.stop()
+
+
+T0 = 1_753_700_000_000
+
+
+class TestIngestServersAndGate:
+    """The reference's cases (tests/test_vmsingle_http.py), on the port's
+    vmsingle."""
+
+    def test_tcp_udp_line_protocols(self, tmp_path):
+        args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
+                                     "-httpListenAddr=127.0.0.1:0",
+                                     "-graphiteListenAddr=127.0.0.1:0",
+                                     "-opentsdbListenAddr=127.0.0.1:0"])
+        storage, srv, api = vmsingle.build(args)
+        srv.start()
+        try:
+            c = Client(srv.port)
+            gport = api.ingest_servers[0].port
+            oport = api.ingest_servers[1].port
+            # graphite over TCP
+            _send_tcp(gport, f"tcp.metric;src=tcp 5.5 {T0 // 1000}\n")
+            # graphite over UDP
+            u = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            u.sendto(f"udp.metric 6.5 {T0 // 1000}\n".encode(),
+                     ("127.0.0.1", gport))
+            u.close()
+            # opentsdb telnet over TCP
+            _send_tcp(oport, f"put ot.tcp {T0 // 1000} 7.5 k=v\n")
+            deadline = time.time() + 10
+            got = {}
+            while time.time() < deadline and len(got) < 3:
+                for name in ("tcp.metric", "udp.metric", "ot.tcp"):
+                    res = c.query(f'{{__name__="{name}"}}', T0 / 1e3 + 10)
+                    if res["data"]["result"]:
+                        got[name] = res["data"]["result"][0]["value"][1]
+                time.sleep(0.2)
+            assert got == {"tcp.metric": "5.5", "udp.metric": "6.5",
+                           "ot.tcp": "7.5"}
+        finally:
+            srv.stop()
+            for isrv in api.ingest_servers:
+                isrv.stop()
+            storage.close()
+            profiler.PROFILER.stop()
+
+    def test_concurrency_gate_rejects_with_429(self, tmp_path):
+        """A saturated 1-slot gate must reject HTTP queries with 429 +
+        Retry-After through the real endpoint."""
+        from victoriametrics_tpu_torch.httpapi.prometheus_api import \
+            ConcurrencyGate
+        args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
+                                     "-httpListenAddr=127.0.0.1:0"])
+        storage, srv, api = vmsingle.build(args)
+        api.gate = ConcurrencyGate(max_concurrent=1, max_queue_duration_s=0.2)
+        srv.start()
+        try:
+            c = Client(srv.port)
+            with api.gate:  # hold the only slot
+                code, body = c.get("/api/v1/query", query="up")
+                assert code == 429, body
+                assert json.loads(body)["errorType"] == "too_many_requests"
+            code, _ = c.get("/api/v1/query", query="up")
+            assert code == 200  # slot released
+            assert api.gate.rejected == 1
+        finally:
+            srv.stop()
+            storage.close()
+            profiler.PROFILER.stop()
+
+    def test_relative_time_param(self, tmp_path):
+        args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
+                                     "-httpListenAddr=127.0.0.1:0"])
+        storage, srv, api = vmsingle.build(args)
+        srv.start()
+        try:
+            app = Client(srv.port)
+            now = time.time()
+            line = f"rel_metric 9.5 {int((now - 60) * 1000)}\n"
+            app.post("/api/v1/import/prometheus", line.encode())
+            code, body = app.get("/api/v1/query", query="rel_metric")
+            assert code == 200
+            code, body = app.get("/api/v1/query_range", query="rel_metric",
+                                 start="-5m", end=str(now), step="15")
+            assert code == 200
+            assert json.loads(body)["data"]["result"]
+        finally:
+            srv.stop()
+            storage.close()
+            profiler.PROFILER.stop()
 
 
 def test_unported_flag_exit_code_of_the_process(tmp_path):

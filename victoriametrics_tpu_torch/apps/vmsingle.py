@@ -11,11 +11,15 @@ Run: python -m victoriametrics_tpu_torch.apps.vmsingle -storageDataPath=DIR
 The port's copy of ``victoriametrics_tpu/apps/vmsingle.py``, with the
 reference's flag names.  ``-search.tpuBackend`` attaches the CUDA engine
 (``query/cuda_engine.py``) after a bounded probe of the card
-(``_attach_cuda_engine``).  Flags that ask for a part the port does not
-have yet (``UNPORTED_FLAGS``: stream aggregation, server-side rules, the
-Graphite/Influx/OpenTSDB listeners, self-scrape, pushmetrics) make
-``build`` exit with an error naming it; the Graphite query API is not
-registered.  Those parts wait for ROADMAP.md section A, item 11.
+(``_attach_cuda_engine``).  ``-streamAggr.config`` aggregates ingested
+rows (``ingest/streamaggr.py``; reloaded on SIGHUP, flushed before the
+store closes) and ``-graphiteListenAddr``, ``-influxListenAddr`` and
+``-opentsdbListenAddr`` start the TCP/UDP line listeners
+(``ingest/ingestserver.py``).  Flags that ask for a part the port does
+not have yet (``UNPORTED_FLAGS``: server-side rules, self-scrape,
+pushmetrics) make ``build`` exit with an error naming it; the Graphite
+query API is not registered.  Those parts wait for ROADMAP.md section A,
+item 11.
 """
 
 from __future__ import annotations
@@ -174,15 +178,7 @@ def _attach_cuda_engine(api, enabled: bool):
 
 #: flags that ask for a part the port does not have yet (dest, flag, part)
 UNPORTED_FLAGS = (
-    ("streamaggr_config", "-streamAggr.config",
-     "stream aggregation (ingest/streamaggr.py)"),
     ("rule", "-rule", "server-side rules (apps/vmalert.py)"),
-    ("graphite_addr", "-graphiteListenAddr",
-     "the Graphite listener (ingest/ingestserver.py)"),
-    ("influx_addr", "-influxListenAddr",
-     "the Influx listener (ingest/ingestserver.py)"),
-    ("opentsdb_addr", "-opentsdbListenAddr",
-     "the OpenTSDB listener (ingest/ingestserver.py)"),
     ("self_scrape_interval", "-selfScrapeInterval",
      "self-scrape (utils/selfscrape.py)"),
     ("pushmetrics_urls", "-pushmetrics.url",
@@ -217,6 +213,12 @@ def build(args):
     if args.relabel_config:
         from ..ingest.relabel import parse_relabel_configs
         relabel = parse_relabel_configs(open(args.relabel_config).read())
+    stream_aggr = None
+    if args.streamaggr_config:
+        from ..ingest.streamaggr import load_from_text
+        stream_aggr = load_from_text(open(args.streamaggr_config).read(),
+                                     lambda rows: storage.add_rows(rows))
+        stream_aggr.start()
     host, _, port = args.httpListenAddr.rpartition(":")
     srv = HTTPServer(host or "0.0.0.0", int(port),
                      tls_cert_file=args.tlsCertFile if args.tls else "",
@@ -233,7 +235,8 @@ def build(args):
     api = PrometheusAPI(storage, None,
                         lookback_delta=_dur_ms(args.lookback),
                         max_series=args.max_series,
-                        relabel_configs=relabel,
+                        relabel_configs=relabel, stream_aggr=stream_aggr,
+                        stream_aggr_keep_input=args.streamaggr_keep_input,
                         series_limits=limits,
                         max_samples_per_query=args.max_samples_per_query,
                         max_memory_per_query=args.max_memory_per_query,
@@ -245,6 +248,17 @@ def build(args):
     api.register(srv)
     from ..utils import profiler
     profiler.ensure_started()
+    api.ingest_servers = []
+    for proto, addr in (("graphite", args.graphite_addr),
+                        ("influx", args.influx_addr),
+                        ("opentsdb", args.opentsdb_addr)):
+        if addr:
+            from ..ingest.ingestserver import IngestServer
+            h, _, p_ = addr.rpartition(":")
+            isrv = IngestServer(proto, h or "0.0.0.0", int(p_),
+                                api._add_rows)
+            isrv.start()
+            api.ingest_servers.append(isrv)
     return storage, srv, api
 
 
@@ -267,12 +281,22 @@ def main(argv=None):
     signal.signal(signal.SIGINT, lambda *_: stop.set())
 
     def _reload(*_):
-        # SIGHUP hot-reload of -relabelConfig
+        # SIGHUP hot-reload of -relabelConfig and -streamAggr.config
         try:
             if args.relabel_config:
                 from ..ingest.relabel import parse_relabel_configs
                 _api.relabel = parse_relabel_configs(
                     open(args.relabel_config).read())
+            if args.streamaggr_config:
+                from ..ingest.streamaggr import load_from_text
+                new = load_from_text(
+                    open(args.streamaggr_config).read(),
+                    lambda rows: storage.add_rows(rows))
+                old = _api.stream_aggr
+                new.start()
+                _api.stream_aggr = new
+                if old is not None:
+                    old.stop()
             logger.infof("vmsingle: config reloaded")
         except Exception as e:
             logger.errorf("vmsingle: reload failed, keeping old config: %s",
@@ -285,6 +309,14 @@ def main(argv=None):
     finally:
         logger.infof("vmsingle: shutting down")
         srv.stop()
+        for isrv in _api.ingest_servers:
+            isrv.stop()
+        if _api.stream_aggr is not None:
+            # final window flush BEFORE storage closes (streamaggr MustStop
+            # ordering): dropping the open window on every restart would
+            # lose data, and a late flusher tick must not write into a
+            # closed storage
+            _api.stream_aggr.stop(final_flush=True)
         storage.close()
         logger.infof("vmsingle: shutdown complete")
 

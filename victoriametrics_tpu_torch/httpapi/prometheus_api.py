@@ -9,13 +9,16 @@ status/{tsdb,active_queries,top_queries}}, /write (influx), /api/put
 /metrics, /health, /snapshot/*, /internal/force_{flush,merge},
 /newrelic/infra/v2/metrics/events/bulk.
 
-The port's copy of ``victoriametrics_tpu/httpapi/prometheus_api.py``.
-Left out until the slices that bring what they need (ROADMAP.md §A item
-11): the columnar and raw-key ingest branches (the port's ``Storage`` has
-neither ``add_rows_columnar`` nor raw keys, so every insert route takes
-``_add_rows``), the stream aggregation hook (``ingest/streamaggr.py``),
-and the SLO plane's routes (``/api/v1/status/health``, ``/slo``,
-``/incidents``: ``query/sloplane.py``), which are not registered.
+The port's copy of ``victoriametrics_tpu/httpapi/prometheus_api.py``,
+with its ingest branches: remote write, Prometheus text and Influx lines
+parse natively into ``native.ColumnarRows`` for
+``Storage.add_rows_columnar`` (relabeling and series limits as a cached
+per-series transform), the Prometheus text otherwise into raw-key rows,
+and every other body through ``_add_rows``, where the stream aggregation
+hook (``ingest/streamaggr.py``) sits.  Left out until the slice that
+brings it (ROADMAP.md §A item 11): the SLO plane's routes
+(``/api/v1/status/health``, ``/slo``, ``/incidents``:
+``query/sloplane.py``), which are not registered.
 """
 
 from __future__ import annotations
@@ -141,6 +144,7 @@ def _device_window_ready(ec, q: str) -> bool:
 class PrometheusAPI:
     def __init__(self, storage, tpu_engine=None, lookback_delta=300_000,
                  max_series=1_000_000, relabel_configs=None,
+                 stream_aggr=None, stream_aggr_keep_input=False,
                  max_concurrent_queries=None, series_limits=None,
                  max_samples_per_query=1_000_000_000,
                  max_memory_per_query=0, max_query_duration_ms=30_000,
@@ -156,7 +160,10 @@ class PrometheusAPI:
         self.max_query_duration_ms = max_query_duration_ms
         self.default_tenant = (0, 0)
         self.relabel = relabel_configs   # ingest.relabel.ParsedConfigs
+        self.stream_aggr = stream_aggr   # ingest.streamaggr.StreamAggregators
+        self.stream_aggr_keep_input = stream_aggr_keep_input
         self.series_limits = series_limits  # ingest.serieslimits.SeriesLimits
+        self.columnar_drop_stats: dict = {}
         self.active = ActiveQueries()
         self.qstats = QueryStats()
         self.slowlog = SlowQueryLog()
@@ -175,6 +182,33 @@ class PrometheusAPI:
         self.tenant_rows: dict[str, int] = {}
         self.name_usage: dict[str, list] = {}  # name -> [count, last_ts]
         self._role = "vmsingle"
+
+    # the columnar ingest path caches relabel/series-limit VERDICTS per raw
+    # series key (Storage.add_rows_columnar transform), so any config swap
+    # must invalidate those caches — property setters make hot-reload
+    # (`self.relabel = ...` on SIGHUP) safe without extra call sites
+    @property
+    def relabel(self):
+        return self._relabel
+
+    @relabel.setter
+    def relabel(self, v):
+        self._relabel = v
+        self._reset_columnar()
+
+    @property
+    def series_limits(self):
+        return self._series_limits
+
+    @series_limits.setter
+    def series_limits(self, v):
+        self._series_limits = v
+        self._reset_columnar()
+
+    def _reset_columnar(self):
+        st = getattr(self, "storage", None)
+        if st is not None and getattr(st, "supports_columnar", False):
+            st.reset_columnar_spaces()
 
     # -- wiring ------------------------------------------------------------
 
@@ -991,6 +1025,51 @@ class PrometheusAPI:
 
     # -- ingestion -----------------------------------------------------------
 
+    def _columnar_ok(self) -> bool:
+        """Columnar fast path covers relabel + series limits (verdicts are
+        cached per raw key inside Storage); only stream aggregation — which
+        must see every row — forces the Python path."""
+        return (self.stream_aggr is None
+                and getattr(self.storage, "supports_columnar", False))
+
+    def _columnar_transform(self):
+        relabel = self.relabel
+        limits = self.series_limits
+        if relabel is None and limits is None:
+            return None
+
+        def transform(labels):
+            d = dict(labels)
+            if relabel is not None:
+                d = relabel.apply(d)
+                if not d or not d.get("__name__"):
+                    return None
+            if limits is not None and not limits.check(d):
+                return None
+            return list(d.items())
+        return transform
+
+    def _ingest_columnar(self, cr, tenant=(0, 0)) -> int:
+        """Shared columnar ingest tail (native.ColumnarRows batches)."""
+        if self.rate_limiter is not None and self.rate_limiter.enabled():
+            # registers the raw batch size (insert_ctx.go:286 semantics);
+            # raises RateLimitedError -> 429 + Retry-After at the server
+            self.rate_limiter.register(len(cr), tenant)
+        stats: dict = {}
+        n = self.storage.add_rows_columnar(
+            cr, tenant=tenant, transform=self._columnar_transform(),
+            drop_stats=stats)
+        if stats:
+            self.rows_relabel_dropped += stats.get("transform", 0)
+            for k, v in stats.items():
+                self.columnar_drop_stats[k] = \
+                    self.columnar_drop_stats.get(k, 0) + v
+        self.rows_inserted += n
+        if n and tenant != (0, 0):
+            key = f'{{accountID="{tenant[0]}",projectID="{tenant[1]}"}}'
+            self.tenant_rows[key] = self.tenant_rows.get(key, 0) + n
+        return n
+
     def _add_rows(self, rows_iter, tenant=(0, 0)) -> int:
         now = fasttime.unix_ms()
         batch = []
@@ -1001,9 +1080,7 @@ class PrometheusAPI:
 
     def _ingest(self, batch: list, tenant=(0, 0)) -> int:
         """Shared ingest tail: global relabeling (-relabelConfig analog,
-        app/vminsert/relabel) -> series limits -> storage.  (The
-        reference's stream aggregation hook between them comes with
-        ``ingest/streamaggr.py``.)"""
+        app/vminsert/relabel) -> stream aggregation hook -> storage."""
         if self.rate_limiter is not None and self.rate_limiter.enabled():
             self.rate_limiter.register(len(batch), tenant)
         if self.relabel is not None:
@@ -1021,6 +1098,13 @@ class PrometheusAPI:
         if self.series_limits is not None:
             batch = [(labels, ts, val) for labels, ts, val in batch
                      if self.series_limits.check(labels)]
+        if self.stream_aggr is not None:
+            passthrough = []
+            for labels, ts, val in batch:
+                consumed = self.stream_aggr.push(labels, ts, val)
+                if not consumed or self.stream_aggr_keep_input:
+                    passthrough.append((labels, ts, val))
+            batch = passthrough
         if batch:
             # backfill older than the cache offset invalidates cached rollup
             # tails (ResetRollupResultCacheIfNeeded analog)
@@ -1042,8 +1126,17 @@ class PrometheusAPI:
         # header; clients that omit it still send snappy (the protocol
         # default), so try raw first, then snappy. parse_write_request is a
         # generator — materialize inside the try so errors surface here.
-        # (The reference's native columnar branch before this needs
-        # Storage.add_rows_columnar, which the port's storage lacks.)
+        if self._columnar_ok():
+            from .. import native
+            now = fasttime.unix_ms()
+            cr = native.parse_rw_columnar(req.body, now)
+            if cr is None:
+                body = native.snappy_uncompress(req.body)
+                if body is not None:
+                    cr = native.parse_rw_columnar(body, now)
+            if cr is not None:
+                self._ingest_columnar(cr, self._tenant(req))
+                return Response(status=204, body=b"")
         try:
             series = list(remote_write.parse_write_request(req.body, "none"))
         except Exception:
@@ -1078,11 +1171,26 @@ class PrometheusAPI:
                     self.metadata.update(md)
                 if getattr(self.storage, "set_metadata", None) is not None:
                     self.storage.set_metadata(md)
-            # only the reference's _add_rows branch: its native columnar
-            # and raw-key branches read storage.supports_columnar and
-            # supports_raw_keys, which the port's Storage does not have
-            self._add_rows(parsers.parse_prometheus(
-                req.body.decode("utf-8", "replace"), ts), self._tenant(req))
+            tenant = self._tenant(req)
+            cr = None
+            if self._columnar_ok():
+                from .. import native
+                cr = native.parse_prom_columnar(
+                    req.body, ts or fasttime.unix_ms())
+            if cr is not None:
+                # fast path: native parse -> columnar raw-key rows; repeat
+                # scrapes resolve whole batches in one native hash-map call
+                self._ingest_columnar(cr, tenant)
+            elif self.relabel is None and self.series_limits is None and \
+                    self.stream_aggr is None and \
+                    getattr(self.storage, "supports_raw_keys", False):
+                # raw-key row path (native lib present, columnar storage
+                # absent — e.g. cluster vminsert)
+                rows = parsers.parse_prometheus_fast(req.body, ts)
+                self._ingest(rows, tenant)
+            else:
+                self._add_rows(parsers.parse_prometheus(
+                    req.body.decode("utf-8", "replace"), ts), tenant)
         except (ValueError, QueryError) as e:
             return Response.error(f"cannot parse prometheus text: {e}", 400)
         return Response(status=204, body=b"")
@@ -1101,10 +1209,17 @@ class PrometheusAPI:
     def h_influx_write(self, req: Request) -> Response:
         db = req.arg("db")
         try:
-            # only the _add_rows branch (no columnar storage, see above)
-            self._add_rows(parsers.parse_influx(
-                req.body.decode("utf-8", "replace"), db=db),
-                self._tenant(req))
+            cr = None
+            if self._columnar_ok():
+                from .. import native
+                cr = native.parse_influx_columnar(
+                    req.body, db or "", fasttime.unix_ms())
+            if cr is not None:
+                self._ingest_columnar(cr, self._tenant(req))
+            else:
+                self._add_rows(parsers.parse_influx(
+                    req.body.decode("utf-8", "replace"), db=db),
+                    self._tenant(req))
         except ValueError as e:
             return Response.error(f"cannot parse influx line: {e}", 400)
         return Response(status=204, body=b"")

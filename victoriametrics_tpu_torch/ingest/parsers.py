@@ -12,10 +12,9 @@
 Every parser yields Row(labels, timestamp_ms, value); labels is a list of
 (name, value) str pairs including __name__.
 
-The port's copy of ``victoriametrics_tpu/ingest/parsers.py``, without
-``parse_prometheus_fast``: that function and its native ``parse_prom_raw``
-come with ``native/parse.cpp`` in the native ingest slice (ROADMAP.md
-section A, item 11).
+The port's copy of ``victoriametrics_tpu/ingest/parsers.py``, whole:
+``parse_prometheus_fast`` reads through the port's native line scanner
+(``native/parse.cpp``, ``native.parse_prom_raw``).
 """
 
 from __future__ import annotations
@@ -632,3 +631,17 @@ def series_key_from_labels(labels) -> bytes:
         parts.append(f'{ks}="{vs}"')
     return f"{name}{{{','.join(parts)}}}".encode()
 
+
+def parse_prometheus_fast(data: bytes, default_ts: int = 0):
+    """Native-accelerated prometheus parse returning raw-key rows
+    [(series_key_bytes, ts_ms, value)] suitable for Storage.add_rows.
+    Falls back to the Python parser (materialized labels) when the native
+    library is unavailable."""
+    from .. import native
+    rows = native.parse_prom_raw(data, default_ts or _now_ms())
+    if rows is not None:
+        return rows
+    out = []
+    for row in parse_prometheus(data.decode("utf-8", "replace"), default_ts):
+        out.append((row.labels, row.timestamp, row.value))
+    return out

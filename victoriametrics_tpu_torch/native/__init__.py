@@ -1,20 +1,23 @@
-"""ctypes bindings for the native host codec (``codec.cpp``).
+"""ctypes bindings for the native host codec and ingest kernels.
 
-The port's own copy of ``victoriametrics_tpu/native`` for ``codec.cpp``:
-varint and delta(2) codecs, the batched block marshal, the zstd one-shots,
-the storage read kernels (block decode, part assembly, dedup, mantissa ->
-float64), the grouped float -> decimal of the cold upload, the
-counter/rollup host kernels, and xxh64/xxh32 (the storage's series
-hashes, in place of the ``xxhash`` package).  (``parse.cpp`` and
-``ingest.cpp`` come with the ingestion layer.)
+The port's own copy of ``victoriametrics_tpu/native``: ``codec.cpp``
+(varint and delta(2) codecs, the batched block marshal, the zstd
+one-shots, the storage read kernels (block decode, part assembly, dedup,
+mantissa -> float64), the grouped float -> decimal of the cold upload, the
+counter/rollup host kernels, and xxh64/xxh32, the storage's series hashes
+in place of the ``xxhash`` package), ``parse.cpp`` (the Prometheus text
+line scanner) and ``ingest.cpp`` (the snappy block decoder, the
+remote-write and Influx parsers into columnar rows, and the raw-key ->
+dense-id map of the storage's columnar ingest).
 
-``codec.cpp`` is compiled by g++ on first use, never at import, into
-``victoriametrics_tpu_torch/_build/libvmcodec-<digest>.so``, the digest
-taken over the source, the flags and this CPU (``-march=native``), so a
-build from another machine is not loaded.  Concurrent first users (test
-workers) build under a file lock into a temporary name that is renamed
-into place.  Where no compiler is found or the build fails, ``_load()``
-returns None and callers keep their numpy paths (the reference's
+The three sources are compiled by g++ on first use, never at import, into
+one ``victoriametrics_tpu_torch/_build/libvmcodec-<digest>.so``, the
+digest taken over every source, the flags and this CPU
+(``-march=native``), so a build from another machine, or from older
+sources, is not loaded.  Concurrent first users (test workers) build
+under a file lock into a temporary name that is renamed into place.
+Where no compiler is found or the build fails, ``_load()`` returns None
+and callers keep their numpy and Python paths (the reference's
 cgo-zstd-with-pure-Go-fallback split, lib/encoding/zstd/zstd_{cgo,pure}.go);
 xxh64 and xxh32 have no numpy path and raise RuntimeError there.
 """
@@ -34,7 +37,8 @@ from pathlib import Path
 import numpy as np
 
 _DIR = Path(__file__).resolve().parent
-SOURCE = _DIR / "codec.cpp"
+#: the library's sources, compiled together into one shared object
+SOURCES = (_DIR / "codec.cpp", _DIR / "parse.cpp", _DIR / "ingest.cpp")
 BUILD_DIR = _DIR.parent / "_build"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 
@@ -55,10 +59,15 @@ def _cpu_tag() -> bytes:
 
 
 def library_path() -> Path:
-    digest = hashlib.blake2b(
-        SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode() + _cpu_tag(),
-        digest_size=8).hexdigest()
-    return BUILD_DIR / f"libvmcodec-{digest}.so"
+    """Where the build of these sources, flags and CPU lives: a change to
+    any source names another library."""
+    h = hashlib.blake2b(digest_size=8)
+    for src in SOURCES:
+        data = src.read_bytes()
+        h.update(b"%s %d\n" % (src.name.encode(), len(data)))
+        h.update(data)
+    h.update(" ".join(CXX_FLAGS).encode() + _cpu_tag())
+    return BUILD_DIR / f"libvmcodec-{h.hexdigest()}.so"
 
 
 def _zstd_links(cxx: str) -> bool:
@@ -71,7 +80,7 @@ def _zstd_links(cxx: str) -> bool:
 
 
 def build() -> Path:
-    """Compile codec.cpp into ``_build/`` unless it is built; returns the
+    """Compile the sources into ``_build/`` unless built; returns the
     library's path.  Raises FileNotFoundError without a compiler and
     RuntimeError with g++'s output when the build fails."""
     out = library_path()
@@ -79,8 +88,8 @@ def build() -> Path:
         return out
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
-        raise FileNotFoundError("g++ not found: the native codec cannot be "
-                                "built")
+        raise FileNotFoundError("g++ not found: the native library cannot "
+                                "be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "libvmcodec.lock", "wb") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -89,12 +98,14 @@ def build() -> Path:
         zstd = _zstd_links(cxx)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [cxx, *CXX_FLAGS, *(["-DVM_HAVE_ZSTD=1"] if zstd else []),
-               "-o", str(tmp), str(SOURCE), *(["-lzstd"] if zstd else []),
+               "-o", str(tmp), *map(str, SOURCES),
+               *(["-lzstd"] if zstd else []),
                "-ldl"]
         r = subprocess.run(cmd, capture_output=True, timeout=600)
         if r.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ codec.cpp failed ({r.returncode}):\n"
+            raise RuntimeError(f"g++ of the native sources failed "
+                               f"({r.returncode}):\n"
                                + r.stdout.decode(errors="replace")
                                + r.stderr.decode(errors="replace"))
         os.replace(tmp, out)
@@ -136,6 +147,9 @@ def _configure(lib):
     lib.vm_delta_decode.argtypes = [p8, i64, i64, pi64, i64]
     pi32 = ctypes.POINTER(ctypes.c_int32)
     pf64 = ctypes.POINTER(ctypes.c_double)
+    lib.vm_parse_prom.restype = i64
+    lib.vm_parse_prom.argtypes = [ctypes.c_char_p, i64, pi32, pi32,
+                                  pf64, pi64, i64]
     lib.vm_marshal_i64_many.restype = i64
     lib.vm_marshal_i64_many.argtypes = [pi64, pi64, i64, p8, i64,
                                         pi32, pi64, pi64]
@@ -179,6 +193,24 @@ def _configure(lib):
     lib.vm_rollup_counter_2d.argtypes = [pi64, pf64, pi64, i64, i64, i64,
                                          i64, i64, i64, pi64,
                                          ctypes.c_int32, pf64, pf64]
+    lib.vm_snappy_uncompressed_len.restype = i64
+    lib.vm_snappy_uncompressed_len.argtypes = [p8, i64]
+    lib.vm_snappy_uncompress.restype = i64
+    lib.vm_snappy_uncompress.argtypes = [p8, i64, p8, i64]
+    lib.vm_parse_rw.restype = i64
+    lib.vm_parse_rw.argtypes = [p8, i64, i64, p8, i64, pi64, pi64,
+                                pf64, pi64, i64]
+    lib.vm_parse_influx.restype = i64
+    lib.vm_parse_influx.argtypes = [p8, i64, p8, i64, i64, p8, i64,
+                                    pi64, pi64, pf64, pi64, i64]
+    lib.vm_keymap_new.restype = i64
+    lib.vm_keymap_new.argtypes = []
+    lib.vm_keymap_free.restype = None
+    lib.vm_keymap_free.argtypes = [i64]
+    lib.vm_keymap_size.restype = i64
+    lib.vm_keymap_size.argtypes = [i64]
+    lib.vm_keymap_resolve.restype = i64
+    lib.vm_keymap_resolve.argtypes = [i64, p8, pi64, pi64, i64, pi64]
     lib.vm_xxh64.restype = ctypes.c_uint64
     lib.vm_xxh64.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint64]
     lib.vm_xxh32.restype = ctypes.c_uint32
@@ -589,3 +621,216 @@ def marshal_i64_many(vals: np.ndarray, offsets: np.ndarray):
     if n < 0:
         raise ValueError("native batched marshal failed")
     return out.raw[:n], types, firsts, lens
+
+
+_TS_ABSENT = -(2 ** 63)  # INT64_MIN sentinel from vm_parse_prom
+
+
+def parse_prom_raw(data: bytes, default_ts: int):
+    """Native prometheus text parse -> list of (series_key_bytes, ts_ms,
+    value). Returns None when the native library is unavailable (callers
+    fall back to the Python parser). The series key is the raw
+    `name{labels}` prefix — the storage TSID cache is keyed on it directly,
+    so repeat scrapes never materialize labels."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_max = data.count(b"\n") + 2
+    key_off = np.empty(n_max, dtype=np.int32)
+    key_len = np.empty(n_max, dtype=np.int32)
+    values = np.empty(n_max, dtype=np.float64)
+    tss = np.empty(n_max, dtype=np.int64)
+    n = lib.vm_parse_prom(
+        data, len(data),
+        key_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        key_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        _as_i64_ptr(tss), n_max)
+    out = []
+    mv = memoryview(data)
+    for i in range(n):
+        o = key_off[i]
+        ts = tss[i]
+        # explicit 0 is "no timestamp" too, matching the Python ingest path
+        # (Row.with_default_ts treats 0 as absent)
+        out.append((bytes(mv[o:o + key_len[i]]),
+                    default_ts if ts == _TS_ABSENT or ts == 0 else int(ts),
+                    values[i]))
+    return out
+
+
+def snappy_uncompress(data: bytes):
+    """Native snappy block-format decompress; None when unavailable or
+    malformed (callers fall back to the Python decoder)."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = _as_u8_ptr(data)
+    n = lib.vm_snappy_uncompressed_len(src, len(data))
+    if n < 0 or n > 1 << 31:
+        # unreasonable claimed length (attacker-controlled varint): refuse
+        # to allocate; the Python decoder raises the proper 400 downstream
+        return None
+    out = ctypes.create_string_buffer(int(n) or 1)
+    w = lib.vm_snappy_uncompress(src, len(data),
+                                 ctypes.cast(out, ctypes.POINTER(ctypes.c_uint8)),
+                                 n)
+    if w != n:
+        return None
+    return out.raw[:n]
+
+
+class ColumnarRows:
+    """Columnar ingest rows: keybuf[key_off[i]:key_off[i]+key_len[i]] is the
+    canonical text series key of row i; tss/values are int64/float64."""
+
+    __slots__ = ("keybuf", "key_off", "key_len", "tss", "values")
+
+    def __init__(self, keybuf, key_off, key_len, tss, values):
+        self.keybuf = keybuf
+        self.key_off = key_off
+        self.key_len = key_len
+        self.tss = tss
+        self.values = values
+
+    def __len__(self):
+        return self.key_off.size
+
+    def to_rows(self):
+        """Materialize per-row (key_bytes, ts, value) tuples (slow; tests
+        and non-columnar storages only)."""
+        mv = memoryview(self.keybuf)
+        return [(bytes(mv[o:o + l]), int(t), float(v))
+                for o, l, t, v in zip(self.key_off, self.key_len,
+                                      self.tss, self.values)]
+
+
+def _parse_columnar(call, data: bytes, est_rows: int):
+    """Shared retry loop for the columnar parsers: grows keybuf (-2) and
+    row capacity (-3); -1 = native asked for the Python fallback."""
+    lib = _load()
+    if lib is None:
+        return None
+    keybuf_cap = 2 * len(data) + 4096
+    max_rows = est_rows
+    for _ in range(6):
+        keybuf = ctypes.create_string_buffer(keybuf_cap)
+        key_off = np.empty(max_rows, dtype=np.int64)
+        key_len = np.empty(max_rows, dtype=np.int64)
+        values = np.empty(max_rows, dtype=np.float64)
+        tss = np.empty(max_rows, dtype=np.int64)
+        n = call(lib, keybuf, keybuf_cap, _as_i64_ptr(key_off),
+                 _as_i64_ptr(key_len),
+                 values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                 _as_i64_ptr(tss), max_rows)
+        if n == -2:
+            keybuf_cap *= 4
+            continue
+        if n == -3:
+            max_rows *= 4
+            continue
+        if n < 0:
+            return None
+        return ColumnarRows(keybuf.raw[:_keybuf_used(key_off, key_len, n)],
+                            key_off[:n], key_len[:n], tss[:n], values[:n])
+    return None
+
+
+def _keybuf_used(key_off, key_len, n):
+    if n == 0:
+        return 0
+    return int(key_off[n - 1] + key_len[n - 1])
+
+
+def parse_rw_columnar(data: bytes, default_ts: int):
+    """Native remote-write WriteRequest parse (uncompressed protobuf) ->
+    ColumnarRows; None = fall back to the Python parser."""
+    return _parse_columnar(
+        lambda lib, kb, kc, ko, kl, vs, ts, mr: lib.vm_parse_rw(
+            _as_u8_ptr(data), len(data), default_ts, ctypes.cast(
+                kb, ctypes.POINTER(ctypes.c_uint8)), kc, ko, kl, vs, ts, mr),
+        data, max(data.count(b"\x12") + 16, 64))
+
+
+def parse_influx_columnar(data: bytes, db: str, default_ts: int):
+    """Native influx line-protocol parse -> ColumnarRows; None = fallback."""
+    dbb = db.encode() if db else b""
+    return _parse_columnar(
+        lambda lib, kb, kc, ko, kl, vs, ts, mr: lib.vm_parse_influx(
+            _as_u8_ptr(data), len(data), _as_u8_ptr(dbb), len(dbb),
+            default_ts, ctypes.cast(kb, ctypes.POINTER(ctypes.c_uint8)),
+            kc, ko, kl, vs, ts, mr),
+        data, max(2 * data.count(b"\n") + 16, 64))
+
+
+def parse_prom_columnar(data: bytes, default_ts: int):
+    """Native prometheus text parse -> ColumnarRows (keys reference the
+    request body itself); None = fallback."""
+    lib = _load()
+    if lib is None:
+        return None
+    n_max = data.count(b"\n") + 2
+    key_off = np.empty(n_max, dtype=np.int32)
+    key_len = np.empty(n_max, dtype=np.int32)
+    values = np.empty(n_max, dtype=np.float64)
+    tss = np.empty(n_max, dtype=np.int64)
+    n = lib.vm_parse_prom(
+        data, len(data),
+        key_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        key_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        _as_i64_ptr(tss), n_max)
+    tss = tss[:n]
+    # explicit 0 is "no timestamp" too (parity with parse_prom_raw)
+    tss[(tss == _TS_ABSENT) | (tss == 0)] = default_ts
+    return ColumnarRows(data, key_off[:n].astype(np.int64),
+                        key_len[:n].astype(np.int64), tss, values[:n])
+
+
+class KeyMap:
+    """Native byte-string -> dense-id map (vm_keymap). Ids are assigned
+    consecutively in first-occurrence order, so id arrays can index numpy
+    side tables (TSID fields, per-day state) directly."""
+
+    def __init__(self):
+        lib = _load()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._h = lib.vm_keymap_new()
+        if not self._h:
+            raise MemoryError("vm_keymap_new failed")
+
+    def __len__(self):
+        return int(self._lib.vm_keymap_size(self._h))
+
+    def resolve(self, base, key_off: np.ndarray,
+                key_len: np.ndarray) -> tuple[np.ndarray, int]:
+        """Returns (ids int64[n], n_new). New keys get ids
+        len-before..len-before+n_new-1 in first-occurrence order."""
+        n = int(key_off.size)
+        ids = np.empty(n, dtype=np.int64)
+        if isinstance(base, np.ndarray):
+            bp = base.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        else:
+            bp = _as_u8_ptr(base)
+        added = self._lib.vm_keymap_resolve(
+            self._h, bp, _as_i64_ptr(np.ascontiguousarray(key_off, np.int64)),
+            _as_i64_ptr(np.ascontiguousarray(key_len, np.int64)), n,
+            _as_i64_ptr(ids))
+        if added < 0:
+            raise MemoryError("vm_keymap_resolve failed")
+        return ids, int(added)
+
+    def close(self):
+        if self._h:
+            self._lib.vm_keymap_free(self._h)
+            self._h = 0
+
+    def __del__(self):
+        try:
+            self.close()
+        except (AttributeError, TypeError, OSError):
+            # interpreter teardown: the ctypes lib handle may already
+            # be gone; __del__ must never raise
+            pass

@@ -9,11 +9,12 @@ DeleteSeries, CreateSnapshot, RegisterMetricNames, GetTSDBStatus, ForceFlush/
 ForceMerge — re-shaped for a Python host plane feeding a device query engine.
 
 The port's copy of ``victoriametrics_tpu/storage/storage.py``, on the same
-on-disk format (each reads a directory the other wrote).  Left out: the
-columnar ingest (``add_rows_columnar``, its per-tenant ``_ColumnarSpace``
-over the native ingest key map, and raw ``name{labels}`` byte keys in
-``add_rows``), which come with the ingestion layer; ``add_rows`` is the
-write path.  ``SeriesData.raw_name`` keys the device engine's tiles.
+on-disk format (each reads a directory the other wrote).  Two write paths:
+``add_rows`` (label sets, or raw ``name{labels}`` byte keys from the
+native text parser) and ``add_rows_columnar`` (``native.ColumnarRows``
+batches, each resolved to dense ids by a per-tenant ``_ColumnarSpace``
+over the native key map).  ``SeriesData.raw_name`` keys the device
+engine's tiles.
 """
 
 from __future__ import annotations
@@ -108,6 +109,103 @@ class _IngestShard:
         # from lock-order cycle checks (stripes are never nested)
         self.lock = make_lock("storage.Storage._ingest_shard")
         self.day_cache: set[tuple[int, int]] = set()  # (metric_id, date)
+
+
+class _ColumnarSpace:
+    """Per-tenant dense-id state for the columnar ingest path: a native
+    byte-key -> id map plus per-id numpy columns (TSID sort-key fields,
+    per-day index state, drop verdicts). Resolving a batch is ONE native
+    call; everything downstream indexes these arrays.
+
+    Drop verdicts are sticky per id (0 ok, 1 malformed key, 2 dropped by
+    transform/relabel, 3 over cardinality budget at creation) — repeat rows
+    of a dropped series are filtered with one mask, never re-judged."""
+
+    __slots__ = ("keymap", "tsids", "acc", "proj", "grp", "job", "inst",
+                 "mid", "drop", "last_date", "_cap", "lock", "retired")
+
+    #: distinct raw keys per tenant space before the whole space is rebuilt
+    #: — same bound (and rationale) as the legacy raw TSID cache clear at
+    #: 1<<21 entries (add_rows): high-churn keys must not leak memory
+    MAX_KEYS = 1 << 21
+
+    def __init__(self):
+        from .. import native
+        self.keymap = native.KeyMap()
+        # per-space lock: same-tenant columnar writers serialize HERE,
+        # not on the storage-wide lock (cross-tenant ingest is parallel);
+        # `retired` marks a rotated-out space whose key map is closed —
+        # holders must re-fetch (pending chunks only read the numpy
+        # columns, which stay alive)
+        self.lock = make_lock("storage._ColumnarSpace.lock")
+        self.retired = False
+        self.tsids: list = []
+        self._cap = 0
+        z = np.zeros(0, np.uint64)
+        self.acc = z
+        self.proj = z.copy()
+        self.grp = z.copy()
+        self.job = z.copy()
+        self.inst = z.copy()
+        self.mid = z.copy()
+        self.drop = np.zeros(0, np.uint8)
+        self.last_date = np.zeros(0, np.int64)
+
+    def _grow(self, need: int) -> None:
+        """Amortized-doubling growth of the per-id columns (append_ids runs
+        per new-series batch; O(total) reallocation there would make churny
+        workloads quadratic)."""
+        if need <= self._cap:
+            return
+        ncap = max(1024, self._cap * 2, need)
+        for f in ("acc", "proj", "grp", "job", "inst", "mid", "drop",
+                  "last_date"):
+            old = getattr(self, f)
+            new = np.empty(ncap, old.dtype)
+            new[:len(self.tsids)] = old[:len(self.tsids)]
+            setattr(self, f, new)
+        self._cap = ncap
+
+    def append_ids(self, tsids: list, drops: list) -> None:
+        """Registers len(tsids) new ids (tsids[i] is None when drops[i]!=0)."""
+        k = len(tsids)
+        n = len(self.tsids)
+        self._grow(n + k)
+        for j, (t, d) in enumerate(zip(tsids, drops)):
+            i = n + j
+            if t is not None:
+                self.acc[i] = t.account_id
+                self.proj[i] = t.project_id
+                self.grp[i] = t.metric_group_id
+                self.job[i] = t.job_id
+                self.inst[i] = t.instance_id
+                self.mid[i] = t.metric_id
+            else:
+                self.acc[i] = self.proj[i] = self.grp[i] = 0
+                self.job[i] = self.inst[i] = self.mid[i] = 0
+            self.drop[i] = d
+            self.last_date[i] = -(1 << 62)
+        self.tsids.extend(tsids)
+
+    def set_tsid(self, i: int, tsid) -> None:
+        """Re-admits a previously dropped id (cardinality retry)."""
+        self.tsids[i] = tsid
+        self.acc[i] = tsid.account_id
+        self.proj[i] = tsid.project_id
+        self.grp[i] = tsid.metric_group_id
+        self.job[i] = tsid.job_id
+        self.inst[i] = tsid.instance_id
+        self.mid[i] = tsid.metric_id
+        self.drop[i] = 0
+        self.last_date[i] = -(1 << 62)
+
+    def close(self):
+        # every caller holds self.lock via acquire/release bracketing the
+        # static pass cannot see (_acquire_cspace returns with it HELD,
+        # reset_columnar_spaces takes `with sp.lock`)
+        km, self.keymap = self.keymap, None  # vmt: disable=VMT015
+        if km is not None:
+            km.close()
 
 
 def _phase_lap(phase: str, t0: float) -> float:
@@ -207,6 +305,9 @@ class Storage:
         # Two-generation rotation (workingsetcache analog) instead of a
         # multi-million-entry clear() on overflow.
         self._tsid_cache_raw = WorkingSetCache(1 << 21, "storage.tsid_raw")
+        # per-tenant columnar id spaces (native key map + per-id numpy
+        # state), lazily created by add_rows_columnar
+        self._cspaces: dict[tuple, "_ColumnarSpace"] = {}
         # striped registration shards: the per-day cache is split by
         # hash(metric_id) % VM_INGEST_SHARDS, each slice with its own
         # lock (VM_INGEST_SHARDS=1 restores the single-stripe layout)
@@ -302,6 +403,10 @@ class Storage:
         self.idb.flush()
         self.table.close()
         self.idb.close()
+        with self._lock:
+            spaces, self._cspaces = self._cspaces, {}
+        for sp in spaces.values():
+            sp.close()
         fcntl.flock(self._flock_f, fcntl.LOCK_UN)
         self._flock_f.close()
 
@@ -444,9 +549,10 @@ class Storage:
             self._tsid_cache[ck] = tsid
             return tsid
 
-    #: raw `name{labels}` BYTES keys (the native parser's fast path) come
-    #: with the ingestion layer's parsers; add_rows takes label sets here
-    supports_raw_keys = False
+    #: add_rows accepts raw `name{labels}` BYTES keys (native parser fast
+    #: path); ClusterStorage does NOT — it must decompose labels to shard
+    #: and marshal the RPC payload, so the HTTP layer gates on this.
+    supports_raw_keys = True
 
     def add_rows(self, rows, tenant=(0, 0)) -> int:
         """rows: iterable of (MetricName | dict | list[(k,v)], ts_ms, value).
@@ -513,9 +619,12 @@ class Storage:
                 elif isinstance(labels, dict):
                     mn = MetricName.from_dict(labels)
                 elif isinstance(labels, bytes):
-                    raise TypeError(
-                        "raw series keys need the ingestion layer's "
-                        "parsers; pass a MetricName, dict or label list")
+                    from ..ingest.parsers import labels_from_series_key
+                    try:
+                        mn = MetricName.from_labels(
+                            labels_from_series_key(labels))
+                    except ValueError:
+                        continue  # malformed key: skip row, keep batch
                 else:
                     mn = MetricName.from_labels(labels)
                 tsid = self._resolve_tsid(mn, mn.marshal(), tenant,
@@ -609,6 +718,264 @@ class Storage:
                     shard.day_cache.add(dk)
 
         self._fan_stripes(by_shard, run_stripe, len(regs))
+
+    #: add_rows_columnar accepts native.ColumnarRows batches; ClusterStorage
+    #: does not (it must decompose labels to shard), so HTTP gates on this.
+    supports_columnar = True
+
+    def add_rows_columnar(self, cr, tenant=(0, 0), transform=None,
+                          drop_stats: dict | None = None) -> int:
+        """Columnar ingest batch (native.ColumnarRows): resolves every raw
+        series key to a dense id with ONE native hash-map call, then runs
+        filtering/day-index bookkeeping as numpy masking. Per-row Python
+        exists only for NEW series and day rollovers.
+
+        `transform(labels) -> labels | None` runs ONCE per new series (None
+        = drop); the verdict is cached under the raw key, which is how
+        relabeling composes with the fast path (relabel rules are pure
+        functions of the label set). Callers must reset the columnar spaces
+        when the transform config changes (reset_columnar_spaces).
+
+        `drop_stats`: optional dict, incremented per dropped ROW by reason
+        ("malformed" / "transform" / "cardinality" / "limiter").
+        """
+        if self._readonly:
+            raise RuntimeError("storage is read-only")
+        t0 = time.perf_counter()
+        sp = self._acquire_cspace(tenant)  # returns with sp.lock HELD
+        try:
+            ids, n_new = sp.keymap.resolve(cr.keybuf, cr.key_off, cr.key_len)
+            if n_new:
+                self._register_columnar_ids(sp, cr, ids, tenant, transform)
+            drop = sp.drop[ids]
+            if (drop == 3).any():
+                # cardinality rejections are transient (limiter windows
+                # rotate hourly/daily): re-judge once per id per batch,
+                # matching the legacy path's per-batch retry
+                retried = set()
+                for r in np.flatnonzero(drop == 3):
+                    i = int(ids[r])
+                    if i in retried:
+                        continue
+                    retried.add(i)
+                    key = bytes(memoryview(cr.keybuf)[
+                        int(cr.key_off[r]):
+                        int(cr.key_off[r]) + int(cr.key_len[r])])
+                    tsid, verdict = self._judge_key(key, tenant, transform)
+                    if tsid is not None:
+                        sp.set_tsid(i, tsid)
+                drop = sp.drop[ids]
+            tss, vals = cr.tss, cr.values
+            sel = None  # surviving-row indices into cr (None = all)
+            if drop.any():
+                if drop_stats is not None:
+                    for code, name in ((1, "malformed"), (2, "transform"),
+                                       (3, "cardinality")):
+                        c = int((drop == code).sum())
+                        if c:
+                            drop_stats[name] = drop_stats.get(name, 0) + c
+                keep = drop == 0
+                sel = np.flatnonzero(keep)
+                ids = ids[keep]
+                tss = tss[keep]
+                vals = vals[keep]
+            if ids.size and (self.hourly_limiter is not None or
+                             self.daily_limiter is not None):
+                # one limiter probe per DISTINCT series per batch preserves
+                # the limiters' distinct-count semantics at columnar cost
+                uniq = np.unique(ids)
+                bad = [i for i in uniq
+                       if not self._cardinality_ok(int(sp.mid[i]))]
+                if bad:
+                    keep = ~np.isin(ids, bad)
+                    if drop_stats is not None:
+                        c = int(ids.size - keep.sum())
+                        drop_stats["limiter"] = drop_stats.get(
+                            "limiter", 0) + c
+                    sel = (np.flatnonzero(keep) if sel is None
+                           else sel[keep])
+                    ids = ids[keep]
+                    tss = tss[keep]
+                    vals = vals[keep]
+            if ids.size == 0:
+                return 0
+            dates = tss // 86_400_000
+            roll = np.flatnonzero(sp.last_date[ids] != dates)
+            if roll.size:
+                # touch each distinct (id, date) pair ONCE: a fresh
+                # series' first batch used to walk every ROW here (the
+                # memo only updates after the first row, but the Python
+                # loop still visited all of them)
+                d_clip = np.clip(dates[roll], -(1 << 20), (1 << 20) - 1)
+                key = (ids[roll].astype(np.int64) * (1 << 21) +
+                       d_clip + (1 << 20))
+                _, first = np.unique(key, return_index=True)
+                roll = roll[first]
+            t0 = _ingest_lap("resolve", t0)
+            if roll.size:
+                self._register_columnar_days(sp, cr, ids, dates, sel, roll,
+                                             transform)
+            t0 = _ingest_lap("register", t0)
+        finally:
+            sp.lock.release()
+        oldest = int(tss.min())
+        from ..query.rollup_result_cache import GLOBAL, OFFSET_MS
+        if oldest < fasttime.unix_ms() - OFFSET_MS:
+            GLOBAL.reset()
+        self.table.add_rows_columnar(sp, ids, tss, vals)
+        _ingest_lap("append", t0)
+        n = int(ids.size)
+        _INGEST_ROWS.inc(n)
+        with self._lock:
+            self.rows_added += n
+            self.data_version += 1
+            log = self._append_log
+            if log.maxlen is not None and len(log) == log.maxlen:
+                self._append_log_floor = log[0][0]
+            log.append((self.data_version, oldest))
+        return n
+
+    def _acquire_cspace(self, tenant) -> "_ColumnarSpace":
+        """The tenant's columnar id space with its lock HELD (caller
+        releases): same-tenant columnar writers serialize here instead
+        of on the storage-wide lock.  Spaces whose native key map
+        outgrew MAX_KEYS are retired under their lock (the raw-cache
+        rotation analog) and replaced with a fresh one; in-flight
+        PendingChunks keep the retired space's numpy columns alive."""
+        while True:
+            with self._lock:
+                sp = self._cspaces.get(tenant)
+                if sp is None:
+                    sp = self._cspaces[tenant] = _ColumnarSpace()
+            sp.lock.acquire()
+            if sp.retired:
+                sp.lock.release()
+                continue  # lost the race with a rotation: re-fetch
+            if len(sp.keymap) < sp.MAX_KEYS:
+                return sp
+            # bound churny key spaces (raw-cache clear analog)
+            sp.retired = True
+            sp.close()
+            with self._lock:
+                if self._cspaces.get(tenant) is sp:
+                    del self._cspaces[tenant]
+            sp.lock.release()
+
+    def _register_columnar_days(self, sp, cr, ids, dates, sel, roll,
+                                transform) -> None:
+        """Columnar per-day registration for the distinct (id, date)
+        rollovers in `roll`, striped by hash(metric_id) % N.  Runs with
+        sp.lock held — the per-id `last_date` memo is batch-exclusive —
+        and fans stripes across the shared pool for large rollover sets
+        (first batch of a high-cardinality scrape)."""
+        nsh = len(self._shards)
+        by_shard: dict[int, list] = {}
+        for r in roll:
+            by_shard.setdefault(
+                int(sp.mid[int(ids[r])]) % nsh, []).append(int(r))
+
+        def run_stripe(si, rs):
+            with self._shard_locked(si) as shard:
+                for r in rs:
+                    i = int(ids[r])
+                    d = int(dates[r])
+                    if sp.last_date[i] == d:
+                        continue
+                    mid = int(sp.mid[i])
+                    if (mid, d) not in shard.day_cache:
+                        mn = self.idb.get_metric_name_by_id(mid)
+                        if mn is None:
+                            # index name cache miss: rebuild from this
+                            # batch's raw key (+ transform, for
+                            # relabeled series)
+                            mn = self._rebuild_mn_from_row(cr, sel, r,
+                                                           transform)
+                        if mn is not None:
+                            self.idb.create_per_day_indexes(
+                                mn, sp.tsids[i], d)
+                        shard.day_cache.add((mid, d))
+                    sp.last_date[i] = d
+
+        self._fan_stripes(by_shard, run_stripe, int(roll.size))
+
+    def _rebuild_mn_from_row(self, cr, sel, r, transform):
+        """MetricName from row r's raw series key (sel maps surviving
+        rows back to cr rows); None on malformed/transform-dropped."""
+        from ..ingest.parsers import labels_from_series_key
+        rr = int(sel[r]) if sel is not None else int(r)
+        try:
+            labels = labels_from_series_key(bytes(
+                memoryview(cr.keybuf)[
+                    int(cr.key_off[rr]):
+                    int(cr.key_off[rr]) + int(cr.key_len[rr])]))
+            if transform is not None:
+                labels = transform(labels)
+            if labels:
+                return MetricName.from_labels(labels)
+        except ValueError:
+            pass
+        return None
+
+    def _judge_key(self, key: bytes, tenant, transform):
+        """Raw key -> (tsid | None, verdict): materialize labels, run the
+        transform, resolve the TSID. Verdicts: 0 ok, 1 malformed, 2 dropped
+        by transform, 3 over the cardinality budget (re-triable)."""
+        from ..ingest.parsers import labels_from_series_key
+        try:
+            labels = labels_from_series_key(key)
+        except ValueError:
+            return None, 1
+        if transform is not None:
+            labels = transform(labels)
+            if labels is None:
+                return None, 2
+        mn = MetricName.from_labels(labels)
+        tsid = self._resolve_tsid(mn, mn.marshal(), tenant, limited=True)
+        if tsid is None:
+            return None, 3
+        return tsid, 0
+
+    def _register_columnar_ids(self, sp, cr, ids, tenant, transform) -> None:
+        """Slow path for first-seen raw keys: materialize labels, run the
+        transform, resolve TSIDs, create indexes. Ids arrive in
+        first-occurrence order, so one ascending pass assigns them all."""
+        old = len(sp.tsids)
+        mv = memoryview(cr.keybuf)
+        new_tsids: list = []
+        drops: list = []
+        mask = ids >= old
+        if not mask.any():
+            return
+        # touch only the FIRST row of each new id, not every row of the
+        # (typically sample-dense) first batch: ids are assigned in
+        # first-occurrence order, so ascending unique ids == registration
+        # order (a 1440-sample first batch used to cost 1440 iterations
+        # per new series here)
+        rows = np.flatnonzero(mask)
+        uniq, first = np.unique(ids[rows], return_index=True)
+        for i, r in zip(uniq, rows[first]):
+            if int(i) != old + len(new_tsids):
+                continue  # defensive: gap means a concurrent registration
+            key = bytes(mv[int(cr.key_off[r]):
+                           int(cr.key_off[r]) + int(cr.key_len[r])])
+            tsid, verdict = self._judge_key(key, tenant, transform)
+            new_tsids.append(tsid)
+            drops.append(verdict)
+        sp.append_ids(new_tsids, drops)
+
+    def reset_columnar_spaces(self) -> None:
+        """Invalidate all cached raw-key -> TSID verdicts (call after the
+        ingest transform config — relabel rules, series limits — changes).
+        In-flight PendingChunks keep the old space objects alive; spaces
+        are retired under their own lock so a concurrent columnar writer
+        either finishes its batch first or re-fetches a fresh space."""
+        with self._lock:
+            spaces = list(self._cspaces.values())
+            self._cspaces = {}
+        for sp in spaces:
+            with sp.lock:
+                sp.retired = True
+                sp.close()
 
     def min_appended_since(self, version: int):
         """Minimum timestamp inserted after data_version `version`, or None
