@@ -163,11 +163,12 @@ each printing one JSON line:
               /api/v1/watch snapshot over 256 series written through
               /api/v1/import equal to its poll; /metrics' device counters
               moved and /api/v1/status/top_queries listing the panels
-  full_width  BASELINE config 2: 100,000 counters x 24 h at 15 s, 32
-              series per instance, step 15 s, window 5 m, as one cold
-              query with its own launch counts (its 24 h of series are
-              handed to the engine from memory; the ingest phase writes
-              the first of those hours to a store); K1 and K2
+  full_width  BASELINE config 2: 100,000 counters at 15 s, 32 series
+              per instance, step 15 s, window 5 m, its history cut from
+              24 h to FULL_HOURS (a "cut" line), as one cold query with
+              its own launch counts (its hours of series are handed to
+              the engine from memory; the ingest phase writes the first
+              of those hours to a store); K1 and K2
               are checked
               against their plain versions in row chunks (K1's device ms
               on the query's planes recorded), and K2's count,
@@ -230,8 +231,11 @@ each printing one JSON line:
   mesh        the multi-device paths on 8 logical shards of this card
               (every shard on cuda:0): (a) the dashboard through
               CUDAEngine(mesh=make_mesh(8, 1)): the cold query (K1 per
-              shard, B13 sharded_rollup_aggregate) and the six refreshes
-              (K3 per shard, K4 at the resume), every aggregate held
+              shard, B13 sharded_rollup_aggregate) and the first
+              MESH_DASH_REFRESHES of the dashboard's six refreshes (a
+              "cut" line; K3 per shard, K4 at the resume), the replayed
+              scrapes written through add_rows_columnar, every aggregate
+              held
               against the unsharded engine (count, group, min and max bit
               for bit, sum and avg at rtol 1e-12, stddev and stdvar at the
               tests' allowances) and each served result against its own
@@ -245,13 +249,43 @@ each printing one JSON line:
               tile's columns, against B5 at 1e-9, each call one launch
               per phase; (d) B14:
               16 standing queries in 2 buckets of 8 on an 8-way stream
-              mesh, against the same streams on an unsharded fleet, bit
-              for bit; (e) B12 decode_and_rollup on the dashboard's and
+              mesh through one steady interval and a 30-minute resume
+              (a cut from two steady intervals), against the same streams
+              on an unsharded fleet, bit for bit; (e) B12 decode_and_rollup on the dashboard's and
               the full width's delta planes, against K1 -> B5 bit for bit
               and against its plain version, timed beside K1 -> B5.  (a)
               and (d) read a second Storage opened on a copy of the
               dashboard's store directory, taken before its refreshes,
               fed the same refresh scrapes
+  cluster     the port's cluster on the card's host: three vmstorage
+              processes (``python -m victoriametrics_tpu_torch.apps.
+              vmstorage``, each its own data directory and ports on
+              127.0.0.1), vminsert at -replicationFactor=2 and vmselect at
+              the same factor with -search.tpuBackend in this process (the
+              attach must give it the CUDA engine); the first
+              CLUSTER_HOURS of the full width's 100,000 counters (a "cut"
+              line) through vminsert's ClusterStorage.add_rows_columnar
+              from three concurrent writers, each owning a third of the
+              instances, 40 scrapes a call (the registering round's
+              seconds, later rounds' rows/s), one more scrape through
+              vminsert's /api/v1/write; the nodes' flush through
+              /internal/force_flush, each node's rows and bytes on disk,
+              every series on exactly two nodes (seriesCount_v1 and
+              searchMetricNames_v1 on each).  Through vmselect's
+              /api/v1/query_range: the cold sum by (instance)(rate[5m])
+              over the hour at step 15 s (K1 + K2; equal at rtol 1e-12 to
+              the same query on the ingest phase's store on the card and
+              to vmselect's host evaluator), count, min and max by
+              instance bit for bit against the store (K2 on the tile the
+              sum decoded when the fetched columns match it); the refresh
+              one step on (the reference's route over a cluster: the
+              rollup result cache computes the new step from a fetch of
+              its window, K1 + K2, no K3; rtol 1e-12 against the host);
+              one node SIGKILLed (the same answer, isPartial false); two
+              down (isPartial true, and 503 from a vmselect with
+              -search.denyPartialResponse); the last node's SIGTERM (exit
+              0, "shutdown complete").  Each query's round trip, engine
+              split and the server's cost split are recorded
   uploads     (inside kernels and full_width) both host->device paths of
               the tile cache, pinned-staged and direct, timed on a
               refresh's new columns and on cold delta planes
@@ -274,9 +308,11 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -406,15 +442,43 @@ MESH_SHARDS = 8
 #: (every series kept) from the 6 h planned, printed as a "cut" line.
 #: Written through add_rows_columnar, closed and read back, each hour of
 #: 100,000 series costs 20-40 s of host time: at 6 h the script ran past
-#: its 1200 s on the card's host, and at 3 h it took 943-1128 s
-STORE_HOURS = 2
+#: its 1200 s on the card's host, and at 3 h it took 943-1128 s; cut to
+#: 1 h when the cluster phase came (its own ~4 minutes)
+STORE_HOURS = 1
+#: the cluster phase: three vmstorage processes with every series on two of
+#: them (the reference's cluster documentation's layout for surviving one
+#: node's loss), the first hour of the full width written through vminsert
+#: by three concurrent writers, each owning the instances i % 3 == k (a
+#: scraper's share of the targets).  Its vminsert and vmselect take a
+#: 120 s RPC timeout (a backfill call that registers a third of the
+#: series outlasts the 10 s default, and a timed-out write would reroute)
+#: and vmselect a 300 s query budget (a cold query fetches 24 M samples
+#: from the nodes)
+CLUSTER_NODES, CLUSTER_RF, CLUSTER_AGENTS = 3, 2, 3
+CLUSTER_HOURS = 1
+CLUSTER_START_S = 180
+CLUSTER_FLAGS = ("-rpc.timeout=120",)
+CLUSTER_SELECT_FLAGS = ("-search.maxQueryDuration=300s",)
+CLUSTER_FEED_SEED = 17
 #: the ingest phase: scrapes of the dashboard's 8192 series each insert
 #: route's measured body carries (after one body that registers them),
 #: and the full width's metric name on its store
 INGEST_SCRAPES = 4
 FULL_SELECTOR = "fw_requests_total"
 B15_MESH, B15_STEP, B15_HALO = (2, 4), 60_000, 32
-MESH_FLEET_INTERVALS = [(4, 60_000)] * 2 + [(120, 1_800_000)]
+#: depth cuts of the mesh phase's dashboard and fleet parts (each printed
+#: as a "cut" line), made when the cluster phase came: the first
+#: MESH_DASH_REFRESHES of the dashboard's six refreshes (the one-scrape
+#: refreshes' K3 and the resume's K4 kept), and one steady fleet interval
+#: of the planned two before the resume (B10 and B11 kept)
+MESH_DASH_REFRESHES = 4
+MESH_FLEET_INTERVALS = [(4, 60_000)] + [(120, 1_800_000)]
+MESH_FLEET_PLANNED = 3
+#: hours of the full width's history (the full_width phase, the host
+#: codec's full-width part, the mesh's B15 and B12 on its planes), a
+#: depth cut from BASELINE config 2's 24 h (a "cut" line) made when the
+#: cluster phase came; series, groups, step and window are never cut
+FULL_HOURS = 6.0
 # the quantile probabilities every B8 check runs
 PHIS = (-0.5, 0.0, 0.25, 0.5, 0.9, 1.0, 1.5)
 # funcs whose kernel and plain version do the same operations with no sum
@@ -2332,6 +2396,17 @@ def evaluator_check(dev, store, grid) -> tuple[dict, object]:
     return res, engine
 
 
+def trace_messages(trace: dict) -> list[str]:
+    """Every span's message of a trace's dict form (what a query over HTTP
+    returns with trace=1)."""
+    todo, msgs = [trace], []
+    while todo:
+        d = todo.pop()
+        msgs.append(d.get("message", ""))
+        todo.extend(d.get("children", ()))
+    return msgs
+
+
 _ROUTE_MSGS = (
     (re.compile(r"fused tail kernel \+ D2H: \[\d+, (\d+)\] tail, (\d+) "
                 r"columns reused"), "ring tail"),
@@ -2346,11 +2421,7 @@ def roll_route(tracer) -> dict:
     ring's tail (the new columns computed, the rest reused), a pure shift
     (every column reused), a full grid on the advanced tile, or a rebuild
     (the reason the advance declined)."""
-    todo, msgs = [tracer.to_dict()], []
-    while todo:
-        d = todo.pop()
-        msgs.append(d.get("message", ""))
-        todo.extend(d.get("children", ()))
+    msgs = trace_messages(tracer.to_dict())
     found = {}
     for rx, route in _ROUTE_MSGS:
         for m in msgs:
@@ -4439,10 +4510,10 @@ class Aside:
 
 
 def mesh_dashboard(dev, replay, aside) -> dict:
-    """(a): the dashboard's cold query and six refreshes through an
-    engine on MESH_SHARDS logical shards, against an unsharded engine on
-    the same replayed store (whose sum equals phase_dashboard's results bit
-    for bit) and against cold rebuilds.  Returns the part's result and the
+    """(a): the dashboard's cold query and its first MESH_DASH_REFRESHES
+    refreshes through an engine on MESH_SHARDS logical shards, against an
+    unsharded engine on the same replayed store (whose sum equals
+    phase_dashboard's results bit for bit) and against cold rebuilds.  Returns the part's result and the
     state (d) and (e) continue from."""
     store = replay["store"]
     start, end = dashboard_grid()
@@ -4506,9 +4577,12 @@ def mesh_dashboard(dev, replay, aside) -> dict:
                               structural=store.structural_version) is None:
             raise AssertionError("mesh: the rolling window was not filed")
     refresh_ms, worst_cold, worst_q = [], 0.0, 0.0
-    for i, ((k, adv), batch) in enumerate(zip(DASH_REFRESHES,
-                                              replay["batches"])):
-        ingest(store, replay["labels"], *batch)
+    keys = series_keys(replay["labels"])
+    for i, ((k, adv), batch) in enumerate(zip(
+            DASH_REFRESHES[:MESH_DASH_REFRESHES], replay["batches"])):
+        # the replayed batches through the columnar path (the store equal
+        # to the dashboard phase's is checked below, refresh by refresh)
+        ingest_columnar(store, keys, *batch)
         start, end = start + adv, end + adv
         fetch_lo = start - WINDOW - LOOKBACK_DELTA
         cfg = RollupConfig(start, end, DASH_STEP, WINDOW)
@@ -4564,7 +4638,8 @@ def mesh_dashboard(dev, replay, aside) -> dict:
             "served_vs_cold_max_abs_err": worst_cold,
             "quantile_max_abs_err_vs_unsharded": worst_q}, {
         "mesh": mesh, "engine": meng, "flat": flat, "end": end,
-        "store": store, "labels": replay["labels"], "feed": replay["feed"],
+        "store": store, "labels": replay["labels"], "keys": keys,
+        "feed": replay["feed"],
         "gids": gids, "group_keys": group_keys, "planes": planes[0],
         "cfg": cfg}
 
@@ -4619,7 +4694,8 @@ def mesh_fleet(dev, st, aside) -> dict:
     for i, (k, adv) in enumerate(MESH_FLEET_INTERVALS):
         if i:
             now += adv
-        ingest(store, st["labels"], *st["feed"].next(k, now - adv))
+        ingest_columnar(store, st["keys"],
+                        *st["feed"].next(k, now - adv))
         before = kernels.LAUNCHES.get("cached_fleet_rollup_aggregate", 0)
         t0 = time.perf_counter()
         n = planes[True].run(apis[True], now)
@@ -4793,6 +4869,11 @@ def phase_mesh(dev, replay, fw, fw_store) -> dict:
     """The mesh phase, (a)-(e), every shard on `dev`.  Its launch counts
     leave out the unsharded comparisons and the cold rebuilds."""
     t_phase = time.perf_counter()
+    print(json.dumps({"cut": {
+        "mesh_dashboard_refreshes": MESH_DASH_REFRESHES,
+        "planned_refreshes": len(DASH_REFRESHES),
+        "mesh_fleet_intervals": len(MESH_FLEET_INTERVALS),
+        "planned_intervals": MESH_FLEET_PLANNED}}), flush=True)
     aside = Aside()
     kernels.reset_launches()
     walls = {}
@@ -4830,11 +4911,487 @@ def phase_mesh(dev, replay, fw, fw_store) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The cluster: vmstorage x 3, vminsert and vmselect over the reference's RPC.
+# ---------------------------------------------------------------------------
+
+class StorageNodeProc:
+    """One ``python -m victoriametrics_tpu_torch.apps.vmstorage`` process on
+    127.0.0.1 with its own data directory and ports (read from its start
+    line); it never touches the card."""
+
+    _STARTED = re.compile(rb"vmstorage started: data=.* insert=(\d+) "
+                          rb"select=(\d+) http=(\d+)")
+
+    def __init__(self, root: str, i: int):
+        self.name = f"vmstorage-{i}"
+        self.path = os.path.join(root, self.name)
+        self.log_path = self.path + ".log"
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+               "PYTHONPATH": os.pathsep.join(
+                   p for p in (here, os.environ.get("PYTHONPATH")) if p)}
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "victoriametrics_tpu_torch.apps."
+                 "vmstorage", f"-storageDataPath={self.path}",
+                 "-vminsertAddr=127.0.0.1:0", "-vmselectAddr=127.0.0.1:0",
+                 "-httpListenAddr=127.0.0.1:0"],
+                stdout=log, stderr=subprocess.STDOUT, cwd=here, env=env)
+        self.ports = None
+
+    def log(self) -> bytes:
+        with open(self.log_path, "rb") as f:
+            return f.read()
+
+    def wait_started(self, timeout: float) -> None:
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end:
+            hit = self._STARTED.search(self.log())
+            if hit:
+                self.ports = tuple(int(x) for x in hit.groups())
+                return
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        raise AssertionError(f"{self.name} did not start (exit "
+                             f"{self.proc.poll()}): {self.log()[-2000:]!r}")
+
+    @property
+    def spec(self) -> str:
+        return f"127.0.0.1:{self.ports[0]}:{self.ports[1]}"
+
+    def get(self, path: str) -> bytes:
+        code, body, _ = HttpClient(self.ports[2]).get(path)
+        if code != 200:
+            raise AssertionError(f"{self.name} {path}: {code} {body[:300]}")
+        return body
+
+    def stop(self, sig: int, timeout: float = 300) -> int:
+        self.proc.send_signal(sig)
+        return self.proc.wait(timeout)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def cluster_hour(fw) -> dict:
+    """The first CLUSTER_HOURS of the full width's series (copies: the
+    full width's 24 h are freed before the cluster phase)."""
+    n = min(int(CLUSTER_HOURS * 3_600_000 // SCRAPE), fw["N"])
+    S = fw["ts"].shape[0]
+    return {"labels": full_width_labels(S, S // FULL_PER_GROUP),
+            "ts": fw["ts"][:, :n].copy(), "vals": fw["vals"][:, :n].copy()}
+
+
+def cluster_write(cluster, hour) -> dict:
+    """The hour through vminsert's ClusterStorage.add_rows_columnar from
+    CLUSTER_AGENTS concurrent writers, each owning the instances
+    i % CLUSTER_AGENTS == k, SCRAPES_PER_CALL whole scrapes a call (one
+    native.ColumnarRows over its series' raw keys): the first round
+    registers every series on its two nodes."""
+    from concurrent.futures import ThreadPoolExecutor
+    labels, ts, vals = hour["labels"], hour["ts"], hour["vals"]
+    S, N = ts.shape
+    G = S // FULL_PER_GROUP
+    agents = []
+    for k in range(CLUSTER_AGENTS):
+        idx = np.flatnonzero(np.arange(S) % G % CLUSTER_AGENTS == k)
+        agents.append((series_keys([labels[i] for i in idx]), ts[idx],
+                       vals[idx]))
+
+    def call(agent, j0):
+        (keybuf, offs, lens), t, v = agent
+        n = min(SCRAPES_PER_CALL, N - j0)
+        cr = native.ColumnarRows(
+            keybuf, np.tile(offs, n), np.tile(lens, n),
+            np.ascontiguousarray(t[:, j0:j0 + n].T).ravel(),
+            np.ascontiguousarray(v[:, j0:j0 + n].T).ravel())
+        if cluster.add_rows_columnar(cr, tenant=TENANT) != len(cr):
+            raise AssertionError("cluster: vminsert dropped rows")
+        return len(cr)
+
+    sent0, rounds = cluster.rows_sent, []
+    with ThreadPoolExecutor(CLUSTER_AGENTS) as pool:
+        for j0 in range(0, N, SCRAPES_PER_CALL):
+            t0 = time.perf_counter()
+            rows = sum(pool.map(lambda a: call(a, j0), agents))
+            rounds.append((rows, time.perf_counter() - t0))
+    n_rows = S * N
+    if cluster.rows_sent - sent0 != CLUSTER_RF * n_rows or cluster.reroutes:
+        raise AssertionError(f"cluster: {cluster.rows_sent - sent0} row "
+                             f"writes for {n_rows} rows at RF "
+                             f"{CLUSTER_RF}, {cluster.reroutes} reroutes")
+    later = rounds[1:]
+    return {"rows": n_rows, "row_writes": CLUSTER_RF * n_rows,
+            "agents": CLUSTER_AGENTS, "scrapes_per_call": SCRAPES_PER_CALL,
+            "rounds": len(rounds), "registering_round_s": rounds[0][1],
+            "later_rows_per_s": sum(r for r, _ in later) /
+            max(sum(t for _, t in later), 1e-9),
+            "add_s": sum(t for _, t in rounds),
+            "rows_per_s": n_rows / sum(t for _, t in rounds)}
+
+
+def cluster_nodes_rf(nodes, procs, labels, lo: int, hi: int) -> dict:
+    """Every series on exactly CLUSTER_RF nodes, read from the nodes
+    themselves (seriesCount_v1 and searchMetricNames_v1 on each); each
+    node's rows (its /metrics after the flush) and bytes on disk."""
+    want = {MetricName.from_dict(lb).marshal() for lb in labels}
+    held = collections.Counter()
+    per_node = []
+    filters = [TagFilter(b"", FULL_SELECTOR.encode())]
+    for n, p in zip(nodes, procs):
+        names = {mn.marshal() for mn in
+                 n.search_metric_names(filters, lo, hi, TENANT)}
+        count = n.series_count(TENANT)
+        if count != len(names):
+            raise AssertionError(f"cluster {p.name}: series_count {count}, "
+                                 f"{len(names)} names")
+        held.update(names)
+        m = metric_sums(p.get("/metrics").decode(),
+                        ("vm_rows ", "vm_timeseries_total "))
+        per_node.append({"node": p.name, "series": count,
+                         "rows": int(m["vm_rows "]),
+                         "timeseries_total": int(m["vm_timeseries_total "]),
+                         "disk_bytes": disk_bytes(p.path)})
+    if set(held) != want or set(held.values()) != {CLUSTER_RF}:
+        raise AssertionError(
+            f"cluster: series held {collections.Counter(held.values())} "
+            f"times, {len(set(held) ^ want)} names off")
+    return {"series_each_on": CLUSTER_RF, "nodes": per_node}
+
+
+def cluster_request(c, q: str, start: int, end: int, step: int, **kw):
+    """One query_range through vmselect: (body, round trip ms, launches,
+    the engine's split of the request, the server's cost split)."""
+    snap, before = split_snapshot(), dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    body, ms = c.json("/api/v1/query_range", query=q, start=start / 1e3,
+                      end=end / 1e3, step=step / 1e3, **kw)
+    split = split_ms(snap, split_snapshot(), time.perf_counter() - t0)
+    return (body, ms, launched_since(before), split,
+            c.server_cost(q, start, end))
+
+
+def cluster_route(what: str, launches: dict, cold: bool) -> str:
+    """The fused route over the fetched columns: K1 + K2 when they are new
+    to the card (`cold` requires it), else K2 on the tile that holds them
+    (a ClusterStorage has no data_version, so the engine keys its tiles by
+    the fetched content's fingerprint: a query over columns equal to an
+    earlier query's decodes nothing).  Never K3."""
+    if launches.get("rollup_aggregate_tile", 0) < 1 or launches.get(
+            "append_tile") or (cold and not launches.get("decode_tiles")):
+        raise AssertionError(f"{what}: launched {launches}, not "
+                             f"{'K1 + K2' if cold else 'K2'}")
+    return "K1 + K2" if launches.get("decode_tiles") else \
+        "K2 on the resident tile (content fingerprint hit)"
+
+
+def not_partial(what: str, body: dict) -> None:
+    if body.get("isPartial"):
+        raise AssertionError(f"{what}: isPartial")
+
+
+CLUSTER_SUM = f"sum by (instance)(rate({FULL_SELECTOR}[5m]))"
+
+
+def cluster_queries(c, api, single, dev, grid, aside) -> tuple[dict, dict]:
+    """(1) the cold sum through vmselect against the single-node store on
+    the card and vmselect's host evaluator at rtol 1e-12; count, min and
+    max by instance against the single-node store bit for bit.  Returns
+    the records and the sum's answer."""
+    start, end, step = grid
+    grid_s = np.arange(start, end + 1, step) / 1e3
+    engine = ce.CUDAEngine(device=dev)
+    out = {}
+    for aggr in ("sum", "count", "min", "max"):
+        q = CLUSTER_SUM.replace("sum", aggr, 1)
+        body, ms, launches, split, cost = cluster_request(c, q, start, end,
+                                                          step)
+        not_partial(f"cluster cold {aggr}", body)
+        got = body_result(body)
+        t0 = time.perf_counter()
+        with aside():
+            rows = exec_query(EvalConfig(
+                start=start, end=end, step=step, storage=single,
+                lookback_delta=LOOKBACK_DELTA, max_series=MAX_SERIES,
+                tpu=engine, disable_cache=True), q)
+        single_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"round_trip_ms": ms, "body_bytes": c.last["body_bytes"],
+               "route": cluster_route(f"cluster cold {aggr}", launches,
+                                   aggr == "sum"),
+               "launches": launches, "split": split, "cost": cost,
+               "single_store_card_ms": single_ms}
+        if aggr == "sum":
+            rec["vs_single_store_max_abs_err"] = keyed_close(
+                "cluster sum vs the single-node store", got,
+                served_result(rows, grid_s), 1e-12, 0.0)
+            ec = api._ec(start, end, step)
+            ec.tpu, ec.disable_cache = None, True
+            t0 = time.perf_counter()
+            host = exec_query(ec, q)
+            rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["vs_host_max_abs_err"] = keyed_close(
+                "cluster sum vs vmselect's host evaluator", got,
+                served_result(host, grid_s), 1e-12, 0.0)
+            rec["groups"] = len(got)
+            answer = got
+        else:
+            same_strings(f"cluster {aggr} vs the single-node store", got,
+                         served_result(rows, grid_s))
+            rec["vs_single_store"] = "bitwise"
+        out[aggr] = rec
+    engine.cache().invalidate()
+    return out, answer
+
+
+def cluster_refresh(c, api, grid, cold) -> tuple[dict, dict]:
+    """(2) the sum with its end advanced one step after the scrape written
+    over HTTP, on the reference's route over a cluster: a ClusterStorage
+    has no data_version, so the cold query filed no rolling window and the
+    server answers from the rollup result cache, computing only the new
+    step from a fresh fetch of its window (K1 + K2 on that tail, no K3).
+    Its earlier steps must be the cold answer's, as strings; the whole is
+    held against a full evaluation with one node down (phase_cluster)."""
+    start, end, step = grid
+    body, ms, launches, split, cost = cluster_request(
+        c, CLUSTER_SUM, start, end, step, trace="1")
+    not_partial("cluster refresh", body)
+    route = cluster_route("cluster refresh", launches, True)
+    msgs = trace_messages(body["trace"])
+    hit = [m for m in msgs if m.startswith("rollup cache: partial hit")]
+    fetched = [m for m in msgs if m.startswith("fetch ")]
+    if len(hit) != 1 or len(fetched) != 1 or any(
+            m.startswith(("device window resident", "not advanceable"))
+            for m in msgs):
+        raise AssertionError(f"cluster refresh: not the result cache's "
+                             f"tail: {msgs}")
+    got = body_result(body)
+    same_strings("cluster refresh's earlier steps vs the cold answer",
+                 {k: [p for p in v if float(p[0]) * 1e3 < end]
+                  for k, v in got.items()}, cold)
+    if not all(float(v[-1][0]) * 1e3 == end for v in got.values()):
+        raise AssertionError("cluster refresh: no value at the new step")
+    return {"round_trip_ms": ms, "route": route, "launches": launches,
+            "server_route": hit[0], "tail_fetch": fetched[0],
+            "engine_roll_decline": api.tpu.last_roll_decline,
+            "split": split, "cost": cost,
+            "earlier_steps_vs_cold": "bitwise"}, got
+
+
+def phase_cluster(dev, hour, stores: Stores) -> dict:
+    """The port's cluster: three vmstorage processes, vminsert at RF 2
+    and vmselect with -search.tpuBackend in this process.  The hour goes
+    in through vminsert's ClusterStorage, one more scrape through its
+    /api/v1/write; each node's share is checked; the queries go through
+    vmselect over HTTP, then with one node killed and with two down.  Its
+    launch counts leave out the single-node store's comparisons."""
+    from victoriametrics_tpu_torch.apps import vminsert, vmselect
+    from victoriametrics_tpu_torch.parallel import rpc
+    from victoriametrics_tpu_torch.utils import profiler
+    t_phase = time.perf_counter()
+    labels, ts, vals = hour["labels"], hour["ts"], hour["vals"]
+    S, N = ts.shape
+    print(json.dumps({"cut": {"cluster_hours": CLUSTER_HOURS,
+                              "store_hours": STORE_HOURS,
+                              "planned_hours": 6}}), flush=True)
+    aside = Aside()
+    rrc.GLOBAL.reset()
+    slow0 = os.environ.get("VM_SLOW_QUERY_MS")
+    os.environ["VM_SLOW_QUERY_MS"] = "0.001"
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    procs, servers, clusters, walls = [], [], [], {}
+    single = None
+
+    def done(part: str, t0: float, rec=None) -> None:
+        """A part's wall, printed with its record as the phase goes (a
+        part that fails later leaves the earlier ones in the output)."""
+        walls[part] = time.perf_counter() - t0
+        print(json.dumps({"cluster_part": part, "wall_s": walls[part],
+                          "record": rec}), flush=True)
+
+    try:
+        t0 = time.perf_counter()
+        procs = [StorageNodeProc(root, i) for i in range(CLUSTER_NODES)]
+        for p in procs:
+            p.wait_started(CLUSTER_START_S)
+        done("start_nodes", t0)
+        specs = [f"-storageNode={p.spec}" for p in procs]
+        ins, ins_srv, ins_api, _ = vminsert.build(vminsert.parse_flags(
+            specs + [f"-replicationFactor={CLUSTER_RF}",
+                     "-httpListenAddr=127.0.0.1:0", *CLUSTER_FLAGS]))
+        ins_srv.start()
+        clusters.append(ins)
+        servers.append(ins_srv)
+        t0 = time.perf_counter()
+        sel_flags = specs + [f"-replicationFactor={CLUSTER_RF}",
+                             "-httpListenAddr=127.0.0.1:0", *CLUSTER_FLAGS,
+                             *CLUSTER_SELECT_FLAGS]
+        sel, sel_srv, api, _ = vmselect.build(vmselect.parse_flags(
+            sel_flags + ["-search.tpuBackend"]))
+        sel_srv.start()
+        clusters.append(sel)
+        servers.append(sel_srv)
+        # the attach (probe, engine, warm-up) runs while the hour goes in
+        t1 = time.perf_counter()
+        write = cluster_write(ins, hour)
+        done("write", t1)
+        api.attach_thread.join(HTTP_ATTACH_S)
+        attach_s = time.perf_counter() - t0
+        if not isinstance(api.tpu, ce.CUDAEngine):
+            probe = getattr(api, "probe_result", None)
+            raise AssertionError(
+                "cluster: vmselect -search.tpuBackend attached no engine "
+                f"(probe: {None if probe is None else probe.error})")
+        ci, cs = HttpClient(ins_srv.port), HttpClient(sel_srv.port)
+        # one more scrape, over vminsert's remote-write route, 7.5 s after
+        # the hour's last
+        t_scrape = time.perf_counter()
+        feed = Feed(CLUSTER_FEED_SEED, vals[:, -1])
+        t_last = T_START + (N - 1) * SCRAPE
+        ts1, vals1 = feed.next(1, t_last)
+        t0 = time.perf_counter()
+        body = write_request(labels, ts1, vals1)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        sent0 = ins.rows_sent
+        code, resp, write_ms = ci.post("/api/v1/write", body,
+                                       {"Content-Encoding": "snappy"})
+        if code != 204 or ins.rows_sent - sent0 != CLUSTER_RF * S or \
+                ins.reroutes or ins_api.columnar_drop_stats:
+            raise AssertionError(f"cluster remote write: {code} "
+                                 f"{resp[:300]}, {ins.rows_sent - sent0} "
+                                 f"row writes, {ins.reroutes} reroutes")
+        write["http_scrape"] = {"rows": S, "body_bytes": len(body),
+                                "build_ms": build_ms, "write_ms": write_ms,
+                                "rows_per_s": S / write_ms * 1e3}
+        # the nodes' close: each flushes its in-memory rows to parts
+        t0 = time.perf_counter()
+        flush = {}
+
+        def flush_one(p):
+            t = time.perf_counter()
+            p.get("/internal/force_flush")
+            flush[p.name] = time.perf_counter() - t
+        threads = [threading.Thread(target=flush_one, args=(p,))
+                   for p in procs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        write["flush_s"] = {**flush, "all": time.perf_counter() - t0}
+        done("scrape_and_flush", t_scrape, write)
+        t0 = time.perf_counter()
+        rf = cluster_nodes_rf(sel.nodes, procs, labels, T_START - DAY,
+                              T_START + DAY)
+        rf["check_s"] = time.perf_counter() - t0
+        done("placement", t0, rf)
+        # the queries
+        kernels.reset_launches()
+        # the grid on the step's phase (the server aligns it so), ending
+        # before the ingest phase's store's second hour, if it has one
+        step = FULL_STEP
+        start = T_START - T_START % step
+        end = T_START + N * SCRAPE - SCRAPE
+        end -= end % step
+        single = stores.open("full_width")
+        t0 = time.perf_counter()
+        cold, cold_sum = cluster_queries(cs, api, single, dev,
+                                         (start, end, step), aside)
+        done("cold", t0, cold)
+        t0 = time.perf_counter()
+        refresh, served = cluster_refresh(cs, api, (start, end + step, step),
+                                          cold_sum)
+        done("refresh", t0, refresh)
+        # (3) one node killed: RF 2 covers it, the answer is whole
+        procs[0].kill()
+        t0 = time.perf_counter()
+        body, ms, launches, split, cost = cluster_request(
+            cs, CLUSTER_SUM, start, end + step, step, nocache="1")
+        not_partial("cluster with one node killed", body)
+        got = body_result(body)
+        one_down = {
+            "killed": procs[0].name, "round_trip_ms": ms,
+            "route": cluster_route("cluster one node killed", launches,
+                                   False),
+            "launches": launches, "split": split, "cost": cost,
+            "vs_refresh_max_abs_err": keyed_close(
+                "cluster one node killed vs the refresh", got, served,
+                1e-12, 0.0)}
+        try:
+            same_strings("cluster one node killed vs the refresh", got,
+                         served)
+            one_down["vs_refresh"] = "bitwise"
+        except AssertionError:
+            one_down["vs_refresh"] = "within rtol 1e-12"
+        done("one_down", t0, one_down)
+        # (4) two down: one instance's series, partial; denied on a
+        # vmselect built with -search.denyPartialResponse
+        rc = procs[1].stop(signal.SIGTERM)
+        q1 = f'rate({FULL_SELECTOR}{{instance="fw-7"}}[5m])'
+        body, ms = cs.json("/api/v1/query_range", query=q1,
+                           start=start / 1e3, end=(end + step) / 1e3,
+                           step=step / 1e3)
+        if body.get("isPartial") is not True:
+            raise AssertionError("cluster two down: isPartial is not true")
+        deny, deny_srv, _, _ = vmselect.build(vmselect.parse_flags(
+            sel_flags + ["-search.denyPartialResponse"]))
+        deny_srv.start()
+        clusters.append(deny)
+        servers.append(deny_srv)
+        code, resp, deny_ms = HttpClient(deny_srv.port).get(
+            "/api/v1/query_range", query=q1, start=start / 1e3,
+            end=(end + step) / 1e3, step=step / 1e3)
+        err = json.loads(resp)
+        if code != 503 or err.get("errorType") != "unavailable":
+            raise AssertionError(f"cluster deny partial: {code} {resp[:300]}")
+        two_down = {"stopped": procs[1].name, "exit_code": rc,
+                    "partial_series": len(body["data"]["result"]),
+                    "round_trip_ms": ms, "deny_status": code,
+                    "deny_error_type": err["errorType"],
+                    "deny_round_trip_ms": deny_ms}
+        launches = {k: kernels.LAUNCHES.get(k, 0) - aside.n.get(k, 0)
+                    for k in SOURCES}
+        # (5) the surviving node's shutdown
+        rc = procs[2].stop(signal.SIGTERM)
+        if rc != 0 or b"shutdown complete" not in procs[2].log():
+            raise AssertionError(f"cluster {procs[2].name}: exit {rc}, "
+                                 f"{procs[2].log()[-500:]!r}")
+    finally:
+        for srv in servers:
+            srv.stop()
+        for cl in clusters:
+            cl.close()
+        for p in procs:
+            p.kill()
+        if single is not None:
+            stores.close(single)
+        profiler.PROFILER.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        if slow0 is None:
+            os.environ.pop("VM_SLOW_QUERY_MS", None)
+        else:
+            os.environ["VM_SLOW_QUERY_MS"] = slow0
+    res = {"phase": "cluster", "ok": True, "nodes": CLUSTER_NODES,
+           "rf": CLUSTER_RF, "series": S, "samples_per_series": N,
+           "hours": CLUSTER_HOURS, "frame_codec": rpc.frame_codec(),
+           "flags": list(CLUSTER_FLAGS + CLUSTER_SELECT_FLAGS),
+           "attach": {**api.attach_timing, "attach_s": attach_s},
+           "write": write, "placement": rf, "cold": cold,
+           "refresh": refresh, "one_down": one_down, "two_down": two_down,
+           "shutdown": {"node": procs[2].name, "exit_code": 0},
+           "wall_s": time.perf_counter() - t_phase, "part_wall_s": walls,
+           "launches": launches}
+    emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of every workload")
-    ap.add_argument("--full-hours", type=float, default=24.0,
+    ap.add_argument("--full-hours", type=float, default=FULL_HOURS,
                     help="hours of history in the full_width phase (cut "
                     "only this, never series, groups, step or window)")
     args = ap.parse_args(argv)
@@ -4873,17 +5430,22 @@ def main(argv=None) -> int:
         _, fw = phase_full_width(rng, dev, args.full_hours)
         phase_host_codec(rng, replay, fw)
         _, fw_store = phase_ingest(rng, stores, fw)
+        hour = cluster_hour(fw)
         mesh = phase_mesh(dev, replay, fw, fw_store)
         del replay, fw, fw_store
+        cl = phase_cluster(dev, hour, stores)
+        del hour
     finally:
         stores.close_all()
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on
     # the mesh phase's; the http phase's launches (its path through the
-    # server: K1-B10) are added to them
+    # server: K1-B10) and the cluster phase's (K1 and K2 through vmselect)
+    # are added to them
     launches = {**dash["launches"], **fl["launches"],
                 **{k: mesh["launches"][k] for k in MESH_KERNELS}}
-    for name, n in http["launches"].items():
-        launches[name] = launches.get(name, 0) + n
+    for phase in (http, cl):
+        for name, n in phase["launches"].items():
+            launches[name] = launches.get(name, 0) + n
     for name in SOURCES:
         if launches.get(name, 0) < 1:
             raise AssertionError(f"{name} never launched on its path")

@@ -1,0 +1,180 @@
+"""The port's cluster apps, ``victoriametrics_tpu_torch.apps.vmstorage``,
+``vminsert`` and ``vmselect``:
+
+- as processes (``python -m ...``) in interpreters where importing
+  ``jax``, ``jaxlib``, ``xxhash`` or the JAX package fails: three storage
+  nodes, a vminsert at ``-replicationFactor=2`` and a vmselect at the
+  same factor with ``-search.tpuBackend`` on a machine without a CUDA
+  device (its probe fails, the failure is logged at error level, the
+  host path answers).  Rows written through vminsert come back from
+  vmselect, each series on two nodes; the health routes answer; a killed
+  node leaves the answer whole; SIGTERM ends every process with exit 0
+  and "shutdown complete", and none of the blocked modules was loaded;
+- their flags: the reference's names and defaults, the environment
+  variables (``VM_<FLAG>`` on vmstorage, ``VM_STORAGENODE`` on the
+  routers), and a router without ``-storageNode`` refusing to start.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+import urllib.request
+
+import pytest
+
+from tests.apptest_helpers import Client, free_ports
+from tests.test_torch_vmsingle import SITECUSTOMIZE
+from victoriametrics_tpu_torch.apps import vminsert, vmselect, vmstorage
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class App:
+    """One port app in a subprocess whose interpreter blocks the JAX
+    package and its dependencies; its output collected in a file."""
+
+    def __init__(self, site, tmp_path, module, flags, http_port, name):
+        self.name, self.port = name, http_port
+        self.log_path = tmp_path / f"{name}.log"
+        env = dict(os.environ,
+                   PYTHONPATH=os.pathsep.join([str(site), REPO]))
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 f"victoriametrics_tpu_torch.apps.{module}", *flags],
+                cwd=str(tmp_path), env=env, stdout=log,
+                stderr=subprocess.STDOUT)
+
+    def log(self) -> str:
+        return self.log_path.read_text()
+
+    def wait_ready(self, timeout=60):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{self.port}/health", timeout=1):
+                    return
+            except OSError:
+                if self.proc.poll() is not None:
+                    raise RuntimeError(f"{self.name} died:\n{self.log()}")
+                time.sleep(0.1)
+        raise TimeoutError(f"{self.name} did not become ready")
+
+    def terminate(self) -> int:
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=60)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def test_cluster_processes_serve_and_stop_without_jax(tmp_path):
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    ports = free_ports(11)
+    apps = []
+    try:
+        specs = []
+        for i in range(3):
+            h, ip, sp = ports[3 * i:3 * i + 3]
+            apps.append(App(site, tmp_path, "vmstorage", [
+                f"-storageDataPath={tmp_path / f'st{i}'}",
+                f"-httpListenAddr=127.0.0.1:{h}",
+                f"-vminsertAddr=127.0.0.1:{ip}",
+                f"-vmselectAddr=127.0.0.1:{sp}"], h, f"vmstorage-{i}"))
+            specs.append(f"-storageNode=127.0.0.1:{ip}:{sp}")
+        ih, sh = ports[9:]
+        apps.append(App(site, tmp_path, "vminsert", specs + [
+            "-replicationFactor=2", f"-httpListenAddr=127.0.0.1:{ih}"],
+            ih, "vminsert"))
+        apps.append(App(site, tmp_path, "vmselect", specs + [
+            "-replicationFactor=2", "-search.tpuBackend",
+            f"-httpListenAddr=127.0.0.1:{sh}"], sh, "vmselect"))
+        for a in apps:
+            a.wait_ready()
+        storages, vi, vs = apps[:3], Client(ih), Client(sh)
+        now = int(time.time() * 1000)
+        body = "".join(f'capp_m{{i="{i}"}} {i * 1.5} {now - 60_000}\n'
+                       for i in range(24))
+        assert vi.post("/api/v1/import/prometheus", body.encode())[0] == 204
+        for a in storages:
+            Client(a.port).force_flush()
+        # RF 2: every series on two of the three nodes
+        held = []
+        for a in storages:
+            code, text = Client(a.port).get("/metrics")
+            assert code == 200
+            held += [float(ln.split()[-1]) for ln in text.decode().split(
+                "\n") if ln.startswith("vm_timeseries_total")]
+        assert sum(held) == 48 and all(h > 0 for h in held), held
+        res = vs.query("sum(capp_m)", now / 1e3)
+        assert res["data"]["result"][0]["value"][1] == "414"
+        assert res["isPartial"] is False
+        code, body = Client(storages[0].port).get("/api/v1/status/health")
+        assert code == 200 and json.loads(body)["role"] == "vmstorage"
+        code, body = vs.get("/api/v1/status/health")
+        h = json.loads(body)
+        assert code == 200 and h["role"] == "vmselect"
+        assert len(h["nodes"]) == 3
+        # the attach found no card: logged at error level, host path kept
+        deadline = time.time() + 60
+        while "cuda backend requested but unavailable" not in \
+                apps[4].log() and time.time() < deadline:
+            time.sleep(0.2)
+        assert "ERROR" in apps[4].log()
+        assert "cuda backend requested but unavailable" in apps[4].log()
+        storages[1].kill()
+        res = vs.query("sum(capp_m)", now / 1e3)
+        assert res["data"]["result"][0]["value"][1] == "414"
+        assert res["isPartial"] is False
+        for a in apps[4:] + apps[3:4] + [storages[0], storages[2]]:
+            rc = a.terminate()
+            text = a.log()
+            assert rc == 0, text[-3000:]
+            assert "shutdown complete" in text, text[-3000:]
+            assert "LEAKED []" in text, text[-3000:]
+    finally:
+        for a in apps:
+            a.kill()
+
+
+def test_vmstorage_flags_and_environment(monkeypatch):
+    a = vmstorage.parse_flags([])
+    assert (a.storageDataPath, a.httpListenAddr, a.vminsertAddr,
+            a.vmselectAddr, a.retentionPeriod, a.dedup_interval,
+            a.self_scrape_interval) == (
+        "vmstorage-data", ":8482", ":8400", ":8401", "13m", "0s", "")
+    monkeypatch.setenv("VM_RETENTIONPERIOD", "2y")
+    monkeypatch.setenv("VM_DEDUP.MINSCRAPEINTERVAL", "1m")
+    monkeypatch.setenv("VM_DEDUP_INTERVAL", "30s")
+    a = vmstorage.parse_flags(["-retentionPeriod=1y"])
+    assert a.retentionPeriod == "2y" and a.dedup_interval == "30s"
+
+
+@pytest.mark.parametrize("app", [vminsert, vmselect])
+def test_router_flags_and_environment(app, monkeypatch):
+    a = app.parse_flags(["-storageNode=h:1:2", "-storageNode=h:3:4"])
+    assert a.storageNode == ["h:1:2", "h:3:4"]
+    assert a.rpc_timeout == 10.0 and a.native_addr == ""
+    assert a.self_scrape_interval == ""
+    if app is vminsert:
+        assert (a.httpListenAddr, a.replicationFactor,
+                a.max_ingestion_rate) == (":8480", 1, 0)
+    else:
+        assert (a.httpListenAddr, a.replication_factor, a.tpu,
+                a.deny_partial, a.max_series, a.max_query_duration) == (
+            ":8481", 1, False, False, 300_000, "30s")
+    monkeypatch.setenv("VM_STORAGENODE", "e:5:6,e:7:8")
+    assert app.parse_flags(["-storageNode=h:1:2"]).storageNode == \
+        ["e:5:6", "e:7:8"]
+    monkeypatch.delenv("VM_STORAGENODE")
+    with pytest.raises(SystemExit) as ei:
+        app.build(app.parse_flags(["-httpListenAddr=127.0.0.1:0"]))
+    assert "-storageNode is required" in str(ei.value.code)

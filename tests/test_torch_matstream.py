@@ -10,9 +10,8 @@ the reference's same sequence.
   cold ``disable_cache`` evaluation), per refresh, with live ingest.
 - FLEET GUARD: storage reads per interval are O(distinct expressions) —
   ``samples_scanned`` per advance stays FLAT as subscribers go 1 -> 10,
-  and one search per interval whatever the subscriber count (on the
-  reference through a 2-node cluster; the port has no cluster yet, so it
-  counts its single store's searches).
+  and one search per interval whatever the subscriber count (through a
+  2-node cluster of each package).
 - BACKPRESSURE: a slow subscriber's queue is bounded; overflow drops
   the backlog and resyncs from one snapshot.
 - DECLINES: partial intervals and evaluation errors are never
@@ -605,59 +604,27 @@ class TestRuleEngine:
             profiler.PROFILER.stop()  # build() started it
 
 
-class _CountingStorage:
-    """A single store counting its searches as a cluster counts its
-    fan-outs (``search_fanouts``): one per search_series/search_columns
-    call from outside (a search_series that reads through search_columns
-    counts once)."""
-
-    def __init__(self, inner):
-        self._inner = inner
-        self.search_fanouts = 0
-        self._depth = 0
-
-    def _counted(self, name, *a, **kw):
-        self.search_fanouts += self._depth == 0
-        self._depth += 1
-        try:
-            return getattr(self._inner, name)(*a, **kw)
-        finally:
-            self._depth -= 1
-
-    def search_series(self, *a, **kw):
-        return self._counted("search_series", *a, **kw)
-
-    def search_columns(self, *a, **kw):
-        return self._counted("search_columns", *a, **kw)
-
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
-
-
 def _cluster(pkg, tmp_path):
-    """(storage to serve, its backing stores, closers): on the reference
-    a real 2-node cluster over RPC; on the port, which has no cluster
-    yet, one store whose searches are counted."""
-    if pkg.name == "port":
-        st = pkg.Storage(str(tmp_path / "n0"))
-        return _CountingStorage(st), [st], [st.close]
-    from victoriametrics_tpu.parallel.cluster_api import (
-        ClusterStorage, StorageNodeClient, make_storage_handlers)
-    from victoriametrics_tpu.parallel.rpc import (HELLO_INSERT, HELLO_SELECT,
-                                                  RPCServer)
+    """(storage to serve, its backing stores, closers): a real 2-node
+    cluster over RPC of the package."""
+    import importlib
+    ca = importlib.import_module(pkg.Storage.__module__.replace(
+        "storage.storage", "parallel.cluster_api"))
+    rpc = importlib.import_module(pkg.Storage.__module__.replace(
+        "storage.storage", "parallel.rpc"))
     stores, servers, nodes = [], [], []
     for k in range(2):
         st = pkg.Storage(str(tmp_path / f"n{k}"))
         stores.append(st)
-        h = make_storage_handlers(st)
-        isrv = RPCServer("127.0.0.1", 0, HELLO_INSERT, h)
-        ssrv = RPCServer("127.0.0.1", 0, HELLO_SELECT, h)
+        h = ca.make_storage_handlers(st)
+        isrv = rpc.RPCServer("127.0.0.1", 0, rpc.HELLO_INSERT, h)
+        ssrv = rpc.RPCServer("127.0.0.1", 0, rpc.HELLO_SELECT, h)
         isrv.start()
         ssrv.start()
         servers += [isrv, ssrv]
-        nodes.append(StorageNodeClient("127.0.0.1", isrv.port,
-                                       ssrv.port, name=f"n{k}"))
-    cluster = ClusterStorage(nodes)
+        nodes.append(ca.StorageNodeClient("127.0.0.1", isrv.port,
+                                          ssrv.port, name=f"n{k}"))
+    cluster = ca.ClusterStorage(nodes)
     closers = [srv.stop for srv in servers] + [cluster.close] + \
         [st.close for st in stores]
     return cluster, stores, closers
@@ -666,9 +633,8 @@ def _cluster(pkg, tmp_path):
 class TestClusterFanOnce:
     def test_vmselect_fans_storage_once_per_interval(self, pkg, tmp_path):
         """N subscribers of one expression cost ONE search per interval —
-        the vmselect half of the O(distinct expressions) contract (a real
-        2-node cluster on the reference, the counted single store on the
-        port)."""
+        the vmselect half of the O(distinct expressions) contract, on a
+        real 2-node cluster of each package."""
         cluster, stores, closers = _cluster(pkg, tmp_path)
         try:
             now = int(time.time() * 1000)

@@ -5,8 +5,9 @@ vmsingle``:
   ``jax``, ``jaxlib``, ``xxhash`` or the JAX package fails: it ingests and
   answers over HTTP, shuts down cleanly on SIGTERM (exit 0), and none of
   those modules was loaded;
-- every flag that asks for a part the port does not have yet makes it
-  exit non-zero with an error naming that part and ROADMAP.md §A item 11;
+- every flag that asks for a part the port does not have yet (``-rule``)
+  makes it exit non-zero with an error naming that part and ROADMAP.md §A
+  item 11; ``-selfScrapeInterval`` and ``-pushmetrics.url`` start theirs;
 - the flags of the ingestion layer (``-streamAggr.config``, and the
   Graphite, Influx and OpenTSDB listeners) start the server and serve what
   they ingest; the reference's ``TestIngestServersAndGate`` cases
@@ -105,9 +106,6 @@ def test_process_serves_and_stops_without_jax(tmp_path):
 
 @pytest.mark.parametrize("flag,part", [
     ("-rule=rules.yml", "server-side rules"),
-    ("-selfScrapeInterval=15s", "self-scrape"),
-    ("-pushmetrics.url=http://127.0.0.1:1/api/v1/import/prometheus",
-     "pushmetrics"),
 ])
 def test_unported_flags_exit_naming_the_part(tmp_path, flag, part):
     args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
@@ -118,6 +116,34 @@ def test_unported_flags_exit_naming_the_part(tmp_path, flag, part):
     assert part in msg and "§A item 11" in msg, msg
     assert flag.split("=")[0] in msg
     assert not (tmp_path / "d").exists()  # nothing opened
+
+
+@pytest.mark.parametrize("flag", [
+    "-selfScrapeInterval=15s",
+    "-pushmetrics.url=http://127.0.0.1:1/api/v1/import/prometheus",
+])
+def test_self_monitoring_flags_start(tmp_path, flag):
+    """-selfScrapeInterval and -pushmetrics.url start their parts (the
+    self-scraper into the server's own store, the pusher's ticker), which
+    stop before the store closes."""
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={tmp_path}/d", "-httpListenAddr=127.0.0.1:0",
+        flag]))
+    try:
+        if flag.startswith("-selfScrapeInterval"):
+            assert api.selfscraper is not None and api.pusher is None
+            assert api.selfscraper.interval_s == 15.0
+        else:
+            assert api.selfscraper is None
+            assert api.pusher is not None and api.pusher.urls == [
+                flag.split("=", 1)[1]]
+    finally:
+        if api.selfscraper is not None:
+            api.selfscraper.stop()
+        if api.pusher is not None:
+            api.pusher.stop()
+        storage.close()
+        profiler.PROFILER.stop()
 
 
 AGG_YML = """- match: '{__name__="agg_in"}'
@@ -291,7 +317,7 @@ def test_unported_flag_exit_code_of_the_process(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmsingle",
          f"-storageDataPath={tmp_path / 'd'}", "-httpListenAddr=127.0.0.1:0",
-         "-selfScrapeInterval=1"],
+         "-rule=rules.yml"],
         cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO),
         capture_output=True, text=True, timeout=120)
     assert out.returncode != 0

@@ -19,9 +19,15 @@ JAX package so each counterpart is easy to find:
              table, partition, part, block, columnar
   native/    the host codec (codec.cpp, built by g++ on first use), xxh64
   models/    device tile cache, upload seam, QueryPipeline
-  query/     cuda_engine: cold and rolling fused queries; fleet
-  utils/     self-metrics registry and the storage's helpers (fs, work
-             pool, working-set cache, deadlines, logger)
+  query/     cuda_engine: cold and rolling fused queries; fleet; the
+             evaluator; sloplane (SLOs, incidents, health)
+  parallel/  the device mesh; the cluster: RPC, consistent hashing, ring
+             filter, ClusterStorage (vminsert/vmselect) and the storage
+             node's handlers
+  apps/      vmsingle, vmstorage, vminsert, vmselect
+  utils/     self-metrics registry, self-scrape, pushmetrics and the
+             storage's helpers (fs, work pool, working-set cache,
+             deadlines, logger)
   devtools/  the fault injector and the lock factories the storage uses
   convert.py load the JAX engine's resident state into the port
 """

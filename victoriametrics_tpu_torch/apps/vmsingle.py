@@ -15,11 +15,13 @@ reference's flag names.  ``-search.tpuBackend`` attaches the CUDA engine
 rows (``ingest/streamaggr.py``; reloaded on SIGHUP, flushed before the
 store closes) and ``-graphiteListenAddr``, ``-influxListenAddr`` and
 ``-opentsdbListenAddr`` start the TCP/UDP line listeners
-(``ingest/ingestserver.py``).  Flags that ask for a part the port does
-not have yet (``UNPORTED_FLAGS``: server-side rules, self-scrape,
-pushmetrics) make ``build`` exit with an error naming it; the Graphite
-query API is not registered.  Those parts wait for ROADMAP.md section A,
-item 11.
+(``ingest/ingestserver.py``).  ``-selfScrapeInterval`` scrapes the
+process's own registry into its store (``utils/selfscrape.py``, the SLO
+plane's burn-rate evals riding each tick) and ``-pushmetrics.url`` pushes
+``/metrics`` (``utils/pushmetrics.py``).  A flag that asks for a part the
+port does not have yet (``UNPORTED_FLAGS``: server-side rules) makes
+``build`` exit with an error naming it; the Graphite query API is not
+registered.  Those parts wait for ROADMAP.md section A, item 11.
 """
 
 from __future__ import annotations
@@ -179,10 +181,6 @@ def _attach_cuda_engine(api, enabled: bool):
 #: flags that ask for a part the port does not have yet (dest, flag, part)
 UNPORTED_FLAGS = (
     ("rule", "-rule", "server-side rules (apps/vmalert.py)"),
-    ("self_scrape_interval", "-selfScrapeInterval",
-     "self-scrape (utils/selfscrape.py)"),
-    ("pushmetrics_urls", "-pushmetrics.url",
-     "pushmetrics (utils/pushmetrics.py)"),
 )
 
 
@@ -259,6 +257,22 @@ def build(args):
                                 api._add_rows)
             isrv.start()
             api.ingest_servers.append(isrv)
+    # self-monitoring plane: own registry -> own storage as real series;
+    # the SLO engine's burn-rate evals ride each scrape tick
+    from ..utils import selfscrape
+    api.selfscraper = selfscrape.maybe_start(
+        storage.add_rows, "vmsingle", int(port),
+        flag_value=args.self_scrape_interval, extra=api.app_metrics,
+        on_tick=lambda now_ms: api.init_sloplane().maybe_eval(now_ms))
+    api.pusher = None
+    if args.pushmetrics_urls:
+        from ..utils.pushmetrics import MetricsPusher
+        api.pusher = MetricsPusher(
+            args.pushmetrics_urls,
+            lambda: api.h_metrics(None).body.decode(),
+            interval_s=_dur_ms(args.pushmetrics_interval) / 1e3,
+            extra_labels=args.pushmetrics_extra)
+        api.pusher.start()
     return storage, srv, api
 
 
@@ -311,6 +325,12 @@ def main(argv=None):
         srv.stop()
         for isrv in _api.ingest_servers:
             isrv.stop()
+        if _api.pusher is not None:
+            _api.pusher.stop()
+        if _api.selfscraper is not None:
+            # before storage.close(): a late scrape must not write into
+            # a closed storage
+            _api.selfscraper.stop()
         if _api.stream_aggr is not None:
             # final window flush BEFORE storage closes (streamaggr MustStop
             # ordering): dropping the open window on every restart would

@@ -15,10 +15,9 @@ parse natively into ``native.ColumnarRows`` for
 ``Storage.add_rows_columnar`` (relabeling and series limits as a cached
 per-series transform), the Prometheus text otherwise into raw-key rows,
 and every other body through ``_add_rows``, where the stream aggregation
-hook (``ingest/streamaggr.py``) sits.  Left out until the slice that
-brings it (ROADMAP.md §A item 11): the SLO plane's routes
-(``/api/v1/status/health``, ``/slo``, ``/incidents``:
-``query/sloplane.py``), which are not registered.
+hook (``ingest/streamaggr.py``) sits.  The SLO plane's routes
+(``/api/v1/status/health``, ``/slo``, ``/incidents``) serve
+``query/sloplane.py``.
 """
 
 from __future__ import annotations
@@ -181,6 +180,9 @@ class PrometheusAPI:
         self.metadata: dict[str, dict] = {}
         self.tenant_rows: dict[str, int] = {}
         self.name_usage: dict[str, list] = {}  # name -> [count, last_ts]
+        # SLO plane (query/sloplane): lazily built — the engine only
+        # spends cycles when pumped (self-scrape on_tick or ?pump=1)
+        self.sloplane = None
         self._role = "vmsingle"
 
     # the columnar ingest path caches relabel/series-limit VERDICTS per raw
@@ -218,6 +220,7 @@ class PrometheusAPI:
         self.srv = srv
         self._role = {"all": "vmsingle", "insert": "vminsert",
                       "select": "vmselect"}.get(mode, mode)
+        srv.route("/api/v1/status/health", self.h_health)
         if mode in ("all", "insert"):
             self._register_insert(srv)
             srv.route("/insert/", self._mt_dispatch)
@@ -279,6 +282,8 @@ class PrometheusAPI:
         r("/api/v1/status/quarantine", self.h_quarantine)
         r("/api/v1/status/usage", self.h_usage)
         r("/api/v1/status/profile", self.h_profile)
+        r("/api/v1/status/slo", self.h_slo)
+        r("/api/v1/status/incidents", self.h_incidents)
         r("/metric-relabel-debug", self.h_relabel_debug)
         r("/prettify-query", self.h_prettify_query)
         r("/expand-with-exprs", self.h_prettify_query)  # WITH folding is
@@ -1530,6 +1535,57 @@ class PrometheusAPI:
             return Response.json(cap["trace"])
         return Response.json({"status": "ok",
                               "data": flightrec.RECORDER.list()})
+
+    # -- SLO plane / health ------------------------------------------------
+
+    def init_sloplane(self):
+        """Get-or-create the SLO engine (idempotent).  Lazy so a
+        process that never enables self-scrape nor touches the SLO
+        endpoints pays nothing."""
+        if self.sloplane is None:
+            from ..query.sloplane import SLOEngine
+            self.sloplane = SLOEngine(self, role=self._role)
+        return self.sloplane
+
+    def h_slo(self, req: Request) -> Response:
+        """Burn-rate dashboard (/api/v1/status/slo): every objective's
+        per-window burn rates, remaining error budget, firing pairs and
+        open incident id.  ``?pump=1`` forces an eval round first (the
+        deterministic seam tests and operators poke instead of waiting
+        out the interval)."""
+        eng = self.init_sloplane()
+        if req.arg("pump") == "1":
+            eng.maybe_eval(force=True)
+        return Response.json(eng.status())
+
+    def h_incidents(self, req: Request) -> Response:
+        """The incident ring (/api/v1/status/incidents).  No args:
+        newest-first summaries.  ``?id=N``: the full frozen record —
+        burn state, flight-capture id, profiler snapshot, top queries,
+        tenant cost and the health verdict at breach time."""
+        eng = self.init_sloplane()
+        inc_id = req.arg("id")
+        if inc_id:
+            try:
+                rec = eng.incidents.get(int(inc_id))
+            except ValueError:
+                return Response.error(f"bad incident id {inc_id!r}")
+            if rec is None:
+                return Response.error(
+                    f"no incident with id {inc_id} (bounded ring; it "
+                    f"may have aged out)", 404, "not_found")
+            return Response.json({"status": "success", "data": rec})
+        return Response.json({"status": "success",
+                              "data": eng.incidents.list()})
+
+    def h_health(self, req: Request) -> Response:
+        """The health roll-up (/api/v1/status/health): one verdict
+        ``ok|degraded|critical`` with machine-readable reasons.  On a
+        vmselect this fans health_v1 across the storage nodes and
+        merges liveness/ring state; the verdict names the nodes."""
+        from ..query import sloplane
+        return Response.json(sloplane.health_for_api(
+            self, engine=self.sloplane, role=self._role))
 
     def _track_usage(self, rows):
         now = fasttime.unix_timestamp()

@@ -211,10 +211,18 @@ def _configure(lib):
     lib.vm_keymap_size.argtypes = [i64]
     lib.vm_keymap_resolve.restype = i64
     lib.vm_keymap_resolve.argtypes = [i64, p8, pi64, pi64, i64, pi64]
-    lib.vm_xxh64.restype = ctypes.c_uint64
-    lib.vm_xxh64.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint64]
-    lib.vm_xxh32.restype = ctypes.c_uint32
-    lib.vm_xxh32.argtypes = [ctypes.c_void_p, i64, ctypes.c_uint32]
+    # the hashes through a handle that keeps the GIL: a key's hash takes
+    # well under a microsecond, and releasing and retaking the GIL around
+    # it costs tens of microseconds a call when threads contend (a
+    # router's writers placing every series)
+    held = ctypes.PyDLL(lib._name)
+    for name, ret in (("vm_xxh64", ctypes.c_uint64),
+                      ("vm_xxh32", ctypes.c_uint32)):
+        for handle in (lib, held):
+            fn = getattr(handle, name)
+            fn.restype = ret
+            fn.argtypes = [ctypes.c_void_p, i64, ret]
+    lib.held_xxh64, lib.held_xxh32 = held.vm_xxh64, held.vm_xxh32
     return lib
 
 
@@ -255,14 +263,14 @@ def xxh64(data, seed: int = 0) -> int:
     """XXH64 digest of `data` as an unsigned int: the value of
     ``xxhash.xxh64_intdigest(data, seed)``."""
     ptr, n, _keep = _hash_args(data)  # _keep holds the buffer
-    return int(_required().vm_xxh64(ptr, n, seed))
+    return int(_required().held_xxh64(ptr, n, seed))
 
 
 def xxh32(data, seed: int = 0) -> int:
     """XXH32 digest of `data` as an unsigned int: the value of
     ``xxhash.xxh32_intdigest(data, seed)``."""
     ptr, n, _keep = _hash_args(data)  # _keep holds the buffer
-    return int(_required().vm_xxh32(ptr, n, seed))
+    return int(_required().held_xxh32(ptr, n, seed))
 
 
 def has_zstd() -> bool:
