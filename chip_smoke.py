@@ -118,12 +118,13 @@ each printing one JSON line:
               and a cold exec_query with disable_cache
   fleet       fleet-batched serving on the dashboard's Storage (each
               interval's scrapes through add_rows) and resident selector:
-              128 standing queries, each given only as query text that the
+              64 standing queries (a "cut" line: 128 planned, with
+              increase and irate), each given only as query text that the
               fleet parses (its window filed under the key the fleet's
               own analysis derives; the phase fails when that is not the
-              resident selector's) ({rate, increase, irate,
-              max_over_time} x the 8 aggregates x {by instance, no
-              grouping} x two grids) adopted into 16 buckets (the
+              resident selector's) ({rate, max_over_time} x the 8
+              aggregates x {by instance, no grouping} x two grids)
+              adopted into 8 buckets (the
               dashboard's sum by (instance) on grid A filed by a cold
               exec_query, the others by register_window), then six
               intervals through FleetPlane.run (one B9 launch per bucket,
@@ -134,9 +135,10 @@ each printing one JSON line:
               the run: a fleet.take hit each (no launch, no store fetch),
               its rows the plane's result table's bit for bit
   http        the port's vmsingle (apps.vmsingle build(parse_flags(...))
-              with -search.tpuBackend, on a copy of the dashboard's store
+              with no backend flag, on a copy of the dashboard's store
               directory taken with the replay's) over localhost TCP: the
-              attach (probe subprocess, CUDAEngine, warm-up) must give the
+              default attach (probe subprocess, CUDAEngine, warm-up, all
+              before build returns) must give the
               server the engine; the nine panels over GET
               /api/v1/query_range on the dashboard's grid, each launching
               its route's kernels, equal as strings to exec_query on the
@@ -163,6 +165,38 @@ each printing one JSON line:
               /api/v1/watch snapshot over 256 series written through
               /api/v1/import equal to its poll; /metrics' device counters
               moved and /api/v1/status/top_queries listing the panels
+  satellites  the port's vmsingle reopened on the http phase's store,
+              started as a user starts it (no backend flag: build waits
+              for the card's attach, and fails without it) with -rule (a
+              JSON rule file: instance:m:rate5m = sum by
+              (instance)(rate(m[5m])), the same expression recorded again,
+              and an alert on it with for: 1m at the median instance's
+              rate) and -graphiteListenAddr: (a) the group's loop stopped,
+              three instants pinned to the data's clock (the last scrape,
+              one and two steps on, a scrape of every series through
+              /api/v1/write before each later one): 3 rules, 2
+              evaluations an instant (instant_evals +2, instant_reuse +1),
+              each evaluation launching K2 on the card and the first also
+              K1, the shared rule nothing; the rows within rtol 1e-12 of
+              the host evaluator; the alert pending, then firing;
+              /api/v1/query reading back 256 series, ALERTS and
+              ALERTS_FOR_STATE in the store, /api/v1/rules; (b) the
+              standalone vmalert (apps.vmalert) polling the server over
+              HTTP, writing to it and notifying an Alertmanager stub of
+              this process: its rows the server-side group's bit for bit,
+              the stub receiving the firing alerts; (c) vmagent
+              (apps.vmagent) scraping a Prometheus-text target of this
+              process (the next two scrapes of the 8192 series) and
+              remote-writing through its persistent queue and a relay of
+              this process, the relay stopped for the second scrape (the
+              block queued, then delivered): every row in the store by
+              name and value; (d) Graphite: three /render requests
+              (sumSeries and perSecond of one instance's seriesByTag,
+              groupByTags by instance over all 8192 series) over the last
+              hour at 60 s, each equal to a numpy version of the render's
+              last-value-in-bucket rule on the written values;
+              /metrics/find, /tags, and a plaintext line through the
+              listener rendered back
   full_width  BASELINE config 2: 100,000 counters at 15 s, 32 series
               per instance, step 15 s, window 5 m, its history cut from
               24 h to FULL_HOURS (a "cut" line), as one cold query with
@@ -208,7 +242,8 @@ each printing one JSON line:
               snappy decoder and each columnar parser (remote write,
               Prometheus text, Influx lines) must return the whole batch
               of the phase's own bodies; (b) the port's vmsingle on a
-              store of the phase's own: the dashboard's 8192 series as a
+              store of the phase's own (-search.tpuBackend=false: it
+              answers no query): the dashboard's 8192 series as a
               snappy remote-write body to /api/v1/write, Prometheus text
               to /api/v1/import/prometheus and Influx lines to
               /influx/write, each under its own metric name, first one
@@ -261,8 +296,9 @@ each printing one JSON line:
               processes (``python -m victoriametrics_tpu_torch.apps.
               vmstorage``, each its own data directory and ports on
               127.0.0.1), vminsert at -replicationFactor=2 and vmselect at
-              the same factor with -search.tpuBackend in this process (the
-              attach must give it the CUDA engine); the first
+              the same factor in this process, started with no backend
+              flag (its build waits for the card's attach, on a thread
+              while the hour goes in); the first
               CLUSTER_HOURS of the full width's 100,000 counters (a "cut"
               line) through vminsert's ClusterStorage.add_rows_columnar
               from three concurrent writers, each owning a third of the
@@ -275,15 +311,19 @@ each printing one JSON line:
               /api/v1/query_range: the cold sum by (instance)(rate[5m])
               over the hour at step 15 s (K1 + K2; equal at rtol 1e-12 to
               the same query on the ingest phase's store on the card and
-              to vmselect's host evaluator), count, min and max by
-              instance bit for bit against the store (K2 on the tile the
-              sum decoded when the fetched columns match it); the refresh
+              to vmselect's host evaluator), count by instance bit for bit
+              against the store (K2 on the tile the sum decoded when the
+              fetched columns match it; min and max are a "cut" line); the
+              refresh
               one step on (the reference's route over a cluster: the
               rollup result cache computes the new step from a fetch of
               its window, K1 + K2, no K3; rtol 1e-12 against the host);
-              one node SIGKILLed (the same answer, isPartial false); two
-              down (isPartial true, and 503 from a vmselect with
-              -search.denyPartialResponse); the last node's SIGTERM (exit
+              Graphite's /render through vmselect (one instance's series
+              summed over the hour) equal as bytes to the same request
+              to the single store; one node SIGKILLed (the same answer,
+              isPartial false); two down (isPartial true, and 503 from a
+              vmselect with -search.denyPartialResponse, served on the
+              host: it answers no query); the last node's SIGTERM (exit
               0, "shutdown complete").  Each query's round trip, engine
               split and the server's cost split are recorded
   uploads     (inside kernels and full_width) both host->device paths of
@@ -379,6 +419,10 @@ SCRAPES_PER_CALL = 40
 # two grids would share one member: B's panels group with `without`, the
 # same groups written as expressions of their own
 FLEET_FUNCS = ("rate", "increase", "irate", "max_over_time")
+#: the fleet phase's standing queries' funcs: 64 queries in 8 buckets, a
+#: depth cut (a "cut" line) from FLEET_FUNCS' 128 in 16 made when the
+#: satellites phase came (adoption is about 1 s a stream)
+FLEET_STANDING_FUNCS = ("rate", "max_over_time")
 FLEET_GRIDS = {
     "A": (354 * 60_000, 60_000, ((("instance",), False), ((), False))),
     "B": (3_600_000, SCRAPE, ((("id",), True), (("instance", "id"), True)))}
@@ -804,12 +848,17 @@ class Feed:
     def __init__(self, seed: int, last: np.ndarray):
         self.rng = np.random.default_rng(seed)
         self.last = last.copy()
+        #: every (ts, vals) made, when a list (the satellites phase's
+        #: Graphite check rebuilds the store's last hour from it)
+        self.history = None
 
     def next(self, k: int, after_ms: int):
         ts, incr = counters(self.rng, self.last.size, k,
                             after_ms + SCRAPE // 2)
         vals = self.last[:, None] + incr
         self.last = vals[:, -1].copy()
+        if self.history is not None:
+            self.history.append((ts, vals))
         return ts, vals
 
 
@@ -2514,8 +2563,11 @@ def build_store(rng, stores: Stores) -> dict:
     t0 = time.perf_counter()
     shutil.copytree(stores.path("dashboard"), stores.path("replay"))
     copy_s = time.perf_counter() - t0
-    # the http phase's server opens its own copy (not through Stores)
+    # the http phase's server opens its own copy (not through Stores),
+    # which the satellites phase's server reopens
     shutil.copytree(stores.path("dashboard"), stores.path("http"))
+    http_feed = copy.deepcopy(feed)
+    http_feed.history = []
     t0 = time.perf_counter()
     store, replay = stores.open("dashboard"), stores.open("replay")
     open_s = time.perf_counter() - t0
@@ -2540,8 +2592,9 @@ def build_store(rng, stores: Stores) -> dict:
             "seeded": (ts[order], vals[order]), "names": names,
             "batches": batches,
             "feed": feed, "http": {"path": stores.path("http"),
-                                   "labels": labels,
-                                   "feed": copy.deepcopy(feed)},
+                                   "labels": labels, "feed": http_feed,
+                                   "tail": (ts[:, -SAT_TAIL:],
+                                            vals[:, -SAT_TAIL:])},
             "info": {
                 "anchor_ms": T_START, "series": S, "rows": n_rows,
                 "write_path": "add_rows_columnar",
@@ -2830,13 +2883,14 @@ def fleet_text(aggr: str, func: str, grouping, without: bool) -> str:
         f"({','.join(grouping)})({func}({SELECTOR}[5m]))"
 
 
-def fleet_queries() -> list[tuple]:
-    """The fleet phase's 128 standing queries: (text, step, duration,
-    grid, grouping index, func, aggregate), {rate, increase, irate,
-    max_over_time} x the 8 aggregates x each grid's two groupings."""
+def fleet_queries(funcs=FLEET_FUNCS) -> list[tuple]:
+    """The fleet's standing queries: (text, step, duration, grid,
+    grouping index, func, aggregate), `funcs` x the 8 aggregates x each
+    grid's two groupings: 128 for FLEET_FUNCS, the phase's 64 for
+    FLEET_STANDING_FUNCS."""
     out = []
     for grid, (dur, step, groupings) in FLEET_GRIDS.items():
-        for func in FLEET_FUNCS:
+        for func in funcs:
             for aggr in dr.FLEET_AGGR_CODES:
                 for gi, (grouping, without) in enumerate(groupings):
                     out.append((fleet_text(aggr, func, grouping, without),
@@ -2982,12 +3036,16 @@ def fleet_events(plane, buckets, now, next_cutoff) -> dict:
 
 def phase_fleet(rng, dev, state) -> dict:
     """Fleet-batched serving on the dashboard's store and resident
-    selector: 128 standing queries adopted into 16 buckets, six intervals
+    selector: 64 standing queries adopted into 8 buckets, six intervals
     through FleetPlane.run, each stream held against the per-stream path
     on the selector's own rolling tile (grid A's streams first: their fetch
     bound is the oldest, so the per-stream advance never slides the tile
     past it)."""
     store, engine = state["store"], state["engine"]
+    print(json.dumps({"cut": {"fleet_standing_queries": len(
+        fleet_queries(FLEET_STANDING_FUNCS)),
+        "planned": len(fleet_queries()), "funcs": FLEET_STANDING_FUNCS,
+        "planned_funcs": FLEET_FUNCS}}), flush=True)
     _, tkey = dashboard_keys()
     rt = engine.window_cache().get(tkey)
     S, G = DASH_SERIES, DASH_GROUPS
@@ -2999,7 +3057,8 @@ def phase_fleet(rng, dev, state) -> dict:
                (np.zeros(S, np.int32), [group_key(())],
                 dr.group_layout(np.zeros(S, np.int32), 1, dev)))
     queries = [(StandingQuery(q, step, dur), *rest)
-               for q, step, dur, *rest in fleet_queries()]
+               for q, step, dur, *rest in
+               fleet_queries(FLEET_STANDING_FUNCS)]
     api = FleetAPI(store, engine, [st for st, *_ in queries])
     plane = engine.fleet()
     now = -(-(state["end"] + FLEET_INTERVALS[0][1]) // 60_000) * 60_000
@@ -3160,7 +3219,8 @@ def phase_fleet(rng, dev, state) -> dict:
 # The http phase: the port's vmsingle over localhost TCP.
 # ---------------------------------------------------------------------------
 
-#: seconds the -search.tpuBackend attach (probe, engine, warm-up) may take
+#: seconds the cluster phase waits for vmselect's build, whose attach
+#: (probe, engine, warm-up) it overlaps with the hour's writes
 HTTP_ATTACH_S = 600
 #: the standing queries of the http phase's fleet: rate by instance under
 #: every aggregate, one bucket, a 30-minute window on the dashboard's step
@@ -3533,6 +3593,7 @@ def http_fleet(c, api, st, end: int, aside) -> dict:
         for sub in subs:
             sub.close()
     return {"streams": len(texts), "window_ms": HTTP_STREAM_DUR,
+            "data_end_ms": end,
             "snapshot_ms": snapshot_ms, "intervals": intervals,
             "vs_host_max_abs_err": worst,
             "adoptions": plane.adoptions}
@@ -3594,8 +3655,8 @@ def http_watch(c) -> dict:
 
 def phase_http(dev, st, dash) -> dict:
     """The port's vmsingle on a copy of the dashboard's store, started as
-    a user starts it (apps.vmsingle build(parse_flags(...)) with
-    -search.tpuBackend) and driven over localhost TCP: the attach must
+    a user starts it (apps.vmsingle build(parse_flags(...)) with no
+    backend flag) and driven over localhost TCP: the default attach must
     give the server the CUDA engine; the nine panels, the repeat, two
     refreshes through the write API, two instant queries, eight standing
     queries through the server's registry and an SSE watch; then
@@ -3611,17 +3672,14 @@ def phase_http(dev, st, dash) -> dict:
     os.environ["VM_SLOW_QUERY_MS"] = "0.001"
     t0 = time.perf_counter()
     storage, srv, api = vmsingle.build(vmsingle.parse_flags([
-        f"-storageDataPath={st['path']}", "-httpListenAddr=127.0.0.1:0",
-        "-search.tpuBackend"]))
+        f"-storageDataPath={st['path']}", "-httpListenAddr=127.0.0.1:0"]))
+    attach_s = time.perf_counter() - t0
     srv.start()
     try:
-        api.attach_thread.join(HTTP_ATTACH_S)
-        attach_s = time.perf_counter() - t0
-        probe = getattr(api, "probe_result", None)
+        probe = api.probe_result
         if api.tpu is None:
-            raise AssertionError(
-                "http: -search.tpuBackend attached no engine (probe: "
-                f"{None if probe is None else probe.error})")
+            raise AssertionError("http: the default backend attached no "
+                                 "engine")
         attach = {**api.attach_timing, "attach_s": attach_s,
                   "probe_platform": probe.platform, "probe_devices": probe.n,
                   "probe_name": probe.name}
@@ -3655,6 +3713,16 @@ def phase_http(dev, st, dash) -> dict:
                                                  aside)
         instants = http_instants(c, api, end, aside)
         fl = http_fleet(c, api, st, end, aside)
+        # the satellites phase's data: SAT_PREROLL more minutes, so that
+        # the 5-minute windows of its instants (and the sample before
+        # each) hold neither the refreshes' one-scrape minutes nor the
+        # jump where this copy's feed resumes after the dashboard's
+        # refreshes; its alert threshold at the first instant
+        st["end"] = fl["data_end_ms"]
+        for _ in range(SAT_PREROLL):
+            sat_scrape(c, st, st["end"])
+            st["end"] += DASH_STEP
+        st["threshold"] = sat_threshold(api.storage, st["end"])
         watch = http_watch(c)
         text1 = c.get("/metrics")[1].decode()
         m0, m1 = (metric_sums(t, HTTP_DEVICE_METRICS) for t in (text0, text1))
@@ -3682,6 +3750,572 @@ def phase_http(dev, st, dash) -> dict:
            "repeat": repeat, "refreshes": refreshes, "instants": instants,
            "fleet": fl, "watch": watch,
            "metrics_moved": {n: m1[n] - m0[n] for n in HTTP_DEVICE_METRICS},
+           "wall_s": time.perf_counter() - t_phase, "launches": launches}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The satellites phase: rules, vmalert, vmagent and Graphite on vmsingle.
+# ---------------------------------------------------------------------------
+
+#: the seeded columns the Graphite check keeps of the dashboard's history
+#: (the last hour and more: 260 scrapes)
+SAT_TAIL = 260
+#: the scrape minutes the http phase writes ahead of the satellites
+#: phase's first instant
+SAT_PREROLL = 3
+#: the rule group: the bench headline recorded twice (the two share one
+#: evaluation an instant) and an alert on it; the group's own loop is
+#: stopped and the group evaluated on the data's clock
+SAT_EXPR = PANEL_TEXTS["sum_by_instance"]
+SAT_ALERT = "RequestRateHigh"
+SAT_INSTANCE = "host-7"
+SAT_RENDERS = {
+    "sum_one_instance": f"sumSeries(seriesByTag('name={SELECTOR}',"
+                        f"'instance={SAT_INSTANCE}'))",
+    "group_by_instance": f"groupByTags(seriesByTag('name={SELECTOR}'),"
+                         "'sum','instance')",
+    "per_second_one_instance": f"perSecond(seriesByTag('name={SELECTOR}',"
+                               f"'instance={SAT_INSTANCE}'))",
+}
+#: the vmagent target's metric (vmagent sets job and instance itself, so
+#: the served series keep their instance in `src`)
+AGENT_METRIC = "agent_requests_total"
+
+
+def sat_rules(threshold: float) -> dict:
+    return {"groups": [{"name": "satellites", "interval": "1h", "rules": [
+        {"record": "instance:m:rate5m", "expr": SAT_EXPR},
+        {"record": "instance:m:rate5m:again", "expr": SAT_EXPR},
+        {"alert": SAT_ALERT, "expr": f"{SAT_EXPR} > {threshold}",
+         "for": "1m", "labels": {"severity": "page"}}]}]}
+
+
+def sat_scrape(c, st, after: int) -> None:
+    """One scrape of every series through /api/v1/write, a minute after
+    `after`'s: the counters' increase over a minute (four 15 s
+    increments), so that their rates hold at one scrape a minute."""
+    ts, vals = st["feed"].next(4, after)
+    ts, vals = ts[:, -1:], vals[:, -1:]
+    st["feed"].history[-1] = (ts, vals)
+    code, resp, _ = c.post("/api/v1/write", write_request(
+        st["labels"], ts, vals), {"Content-Encoding": "snappy"})
+    if code != 204:
+        raise AssertionError(f"satellites write: {code} {resp[:300]}")
+
+
+def sat_threshold(storage, t_ms: int) -> float:
+    """The median instance's SAT_EXPR at t_ms on the host evaluator, so
+    that about half the instances cross it at the first instant."""
+    rows = exec_query(EvalConfig(
+        start=t_ms, end=t_ms, step=WINDOW, storage=storage,
+        lookback_delta=LOOKBACK_DELTA, max_series=MAX_SERIES,
+        disable_cache=True), SAT_EXPR)
+    return round(float(np.median([r.values[-1] for r in rows])), 3)
+
+
+def rows_key(labels: dict) -> str:
+    return json.dumps({k: v for k, v in labels.items() if k != "__name__"},
+                      sort_keys=True)
+
+
+def sat_rules_server(c, api, st, instants) -> dict:
+    """(a) the server-side group: three instants, a scrape through
+    /api/v1/write before the second and the third; each evaluation's
+    launches, the rows against the host evaluator, the alert's states,
+    the read-back and /api/v1/rules."""
+    from victoriametrics_tpu_torch.query.format_value import fmt_value
+    (g,) = api.rule_groups
+    ms = api.matstreams
+    calls, written = [], []
+    real_query, real_write = g.ds.query, g.rw.write
+
+    def query(expr, ts=None):
+        before, e0 = dict(kernels.LAUNCHES), ms.instant_evals
+        t0 = time.perf_counter()
+        out = real_query(expr, ts)
+        calls.append({"expr": expr, "ms": (time.perf_counter() - t0) * 1e3,
+                      "evaluated": ms.instant_evals - e0,
+                      "launches": launched_since(before)})
+        return out
+    g.ds.query = query
+    g.rw.write = lambda rows: written.append(rows) or real_write(rows)
+    states, evals = [], []
+    try:
+        for k, t in enumerate(instants):
+            if k:
+                sat_scrape(c, st, instants[k - 1])
+            e0, r0, n0 = ms.instant_evals, ms.instant_reuse, len(calls)
+            t0 = time.perf_counter()
+            g.eval_once(t / 1e3, notify=False)
+            wall = (time.perf_counter() - t0) * 1e3
+            mine = calls[n0:]
+            if (ms.instant_evals - e0, ms.instant_reuse - r0) != (2, 1) or \
+                    [x["evaluated"] for x in mine] != [1, 0, 1]:
+                raise AssertionError(
+                    f"satellites instant {k}: {ms.instant_evals - e0} "
+                    f"evaluations, {ms.instant_reuse - r0} reused, {mine}")
+            for x in mine:
+                if x["evaluated"] and not x["launches"].get(
+                        "rollup_aggregate_tile"):
+                    raise AssertionError(f"satellites instant {k}: "
+                                         f"{x['expr']!r} launched "
+                                         f"{x['launches']}, no K2")
+                if not x["evaluated"] and x["launches"]:
+                    raise AssertionError(f"satellites instant {k}: the "
+                                         f"shared rule launched {x}")
+            if k == 0 and not mine[0]["launches"].get("decode_tiles"):
+                raise AssertionError(f"satellites cold instant: no K1 "
+                                     f"({mine[0]['launches']})")
+            states.append({s["labels"]["instance"]: s["state"]
+                           for s in g.rules[2]._active.values()})
+            evals.append({"instant_ms": t, "wall_ms": wall,
+                          "routes": [{"evaluated": x["evaluated"],
+                                      "launches": x["launches"],
+                                      "ms": x["ms"]} for x in mine]})
+    finally:
+        g.ds.query, g.rw.write = real_query, real_write
+    # the alert: inactive before the first instant, pending at it,
+    # firing from the second for the instances still above
+    counts = [collections.Counter(x.values()) for x in states]
+    if set(counts[0]) != {"pending"} or not counts[1]["firing"] or \
+            not counts[2]["firing"]:
+        raise AssertionError(f"satellites alert states {counts}")
+    # the rows recorded against the host evaluator's at each instant:
+    # within the evaluator check's rtol 1e-12 for sums (K2 adds a group's
+    # members in its own order, so the last bits may differ), and how
+    # many are equal bit for bit; at the first instant, why (sat_sum_order)
+    host_ms, worst, exact, order = [], 0.0, 0, None
+    for t, rows in zip(instants, written):
+        ec = api._ec(t, t, WINDOW)
+        ec.tpu, ec.disable_cache = None, True
+        t0 = time.perf_counter()
+        host = {rows_key(r.metric_name.to_dict()):
+                float(fmt_value(r.values[-1]))
+                for r in exec_query(ec, SAT_EXPR)
+                if not np.isnan(r.values[-1])}
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        for name in ("instance:m:rate5m", "instance:m:rate5m:again"):
+            rec = {rows_key(lb): v for lb, ts_, v in rows
+                   if lb["__name__"] == name and ts_ == t}
+            if order is None:
+                order = sat_sum_order(api, t, host, rec)
+            if sorted(rec) != sorted(host) or len(rec) != DASH_GROUPS:
+                raise AssertionError(f"satellites {name} at {t}: "
+                                     f"{len(rec)} rows, not the host's")
+            got = np.array([rec[k] for k in sorted(host)])
+            want = np.array([host[k] for k in sorted(host)])
+            worst = max(worst, assert_close(f"satellites {name} at {t}",
+                                            got, want, 1e-12, 0.0))
+            exact += int(np.count_nonzero(got == want))
+    t_last = instants[-1]
+    back, _ = c.json("/api/v1/query", query="instance:m:rate5m",
+                     time=t_last / 1e3)
+    alerts, _ = c.json("/api/v1/query", time=t_last / 1e3,
+                       query=f'ALERTS{{alertname="{SAT_ALERT}",'
+                             'alertstate="firing"}')
+    for_state, _ = c.json("/api/v1/query", time=t_last / 1e3,
+                          query=f'ALERTS_FOR_STATE{{alertname="{SAT_ALERT}"}}')
+    rules, _ = c.json("/api/v1/rules")
+    (grp,) = rules["data"]["groups"]
+    # a series of an earlier instant is still inside the lookback
+    firing = {i for x in states[1:] for i, v in x.items() if v == "firing"}
+    active = {i for x in states for i in x}
+    if len(back["data"]["result"]) != DASH_GROUPS or \
+            {r["metric"]["instance"] for r in alerts["data"]["result"]} != \
+            firing or {r["metric"]["instance"] for r in
+                       for_state["data"]["result"]} != active or \
+            grp["name"] != "satellites" or \
+            [r["name"] for r in grp["rules"]] != [
+                "instance:m:rate5m", "instance:m:rate5m:again", SAT_ALERT] \
+            or grp["rules"][2]["state"] != "firing":
+        raise AssertionError(
+            f"satellites: read-back {len(back['data']['result'])}, ALERTS "
+            f"{len(alerts['data']['result'])}, ALERTS_FOR_STATE "
+            f"{len(for_state['data']['result'])} ({counts}), rules "
+            f"{grp}")
+    return {"instants": evals, "alert_states": [dict(x) for x in counts],
+            "host_ms": host_ms, "rows_vs_host_max_abs_err": worst,
+            "rows_bitwise_equal_host": exact,
+            "rows_checked": 2 * DASH_GROUPS * len(instants),
+            "sum_order": order,
+            "read_back_series": len(back["data"]["result"]),
+            "alerts_firing": len(alerts["data"]["result"]),
+            "alerts_for_state": len(for_state["data"]["result"]),
+            "rules_listed": len(grp["rules"]), "written": written}
+
+
+def sat_sum_order(api, t: int, host: dict, card: dict) -> dict:
+    """Why the card's rows part from the host's in their last bits, read
+    at `t`: the host evaluator's per-series rate(...) rows summed per
+    instance in their order (a) with numpy's pairwise sum, which the host
+    evaluator's sum uses, and (b) one after another, as K2 adds a group's
+    members; and SAT_EXPR through the engine's route on the host
+    (CUDAEngine(device="cpu"): the same tiles, K1's and K2's plain
+    versions, their calls counted here).  Counts the rows that are equal
+    bit for bit; it checks nothing (the rows' check is the caller's)."""
+    from victoriametrics_tpu_torch.query.format_value import fmt_value
+    from victoriametrics_tpu_torch.query.metricsql.parser import parse
+    ec = api._ec(t, t, WINDOW)
+    ec.tpu, ec.disable_cache = None, True
+    members = collections.defaultdict(list)
+    for r in exec_query(ec, str(parse(SAT_EXPR).args[0])):
+        members[rows_key({"instance": r.metric_name.to_dict()[
+            "instance"]})].append(r.values[-1])
+    pairwise = {k: float(fmt_value(np.nansum(np.array(v)[:, None],
+                                             axis=0)[0]))
+                for k, v in members.items()}
+    in_turn = {}
+    for k, v in members.items():
+        acc = 0.0
+        for x in v:
+            acc += x
+        in_turn[k] = float(fmt_value(acc))
+    calls = collections.Counter()
+    real = {(dd, "decode_tiles_plain"): dd.decode_tiles_plain,
+            (dr, "rollup_aggregate_tile_plain"):
+                dr.rollup_aggregate_tile_plain}
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+    for (mod, name), fn in real.items():
+        setattr(mod, name, counted(name, fn))
+    try:
+        ec.tpu = ce.CUDAEngine(device="cpu")
+        t0 = time.perf_counter()
+        plain = {rows_key(r.metric_name.to_dict()):
+                 float(fmt_value(r.values[-1]))
+                 for r in exec_query(ec, SAT_EXPR)
+                 if not np.isnan(r.values[-1])}
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+    def same(a, b):
+        return sum(a.get(k) == v for k, v in b.items())
+    return {"instant_ms": t, "rows": len(host),
+            "host_eq_pairwise": same(host, pairwise),
+            "host_eq_in_turn": same(host, in_turn),
+            "plain_route_eq_in_turn": same(plain, in_turn),
+            "plain_route_eq_host": same(plain, host),
+            "card_eq_in_turn": same(card, in_turn),
+            "card_eq_plain_route": same(card, plain),
+            "plain_route_calls": dict(calls), "plain_route_ms": ms}
+
+
+def sat_vmalert(port: int, rules_path: str, instants, server) -> dict:
+    """(b) the standalone vmalert: -datasource.url and -remoteWrite.url at
+    the server, -notifier.url at an Alertmanager stub of this process;
+    the same group at the same instants, its rows equal the server-side
+    group's, the stub receiving the firing alerts."""
+    from victoriametrics_tpu_torch.apps import vmalert
+    from victoriametrics_tpu_torch.httpapi.server import HTTPServer, Response
+    received = []
+
+    def h(req):
+        received.append(json.loads(req.body))
+        return Response.json({})
+    am = HTTPServer("127.0.0.1", 0)
+    am.route("/api/v2/alerts", h)
+    am.start()
+    base = f"http://127.0.0.1:{port}"
+    groups, srv = vmalert.build(vmalert.parse_flags([
+        f"-rule={rules_path}", f"-datasource.url={base}",
+        f"-notifier.url=http://127.0.0.1:{am.port}",
+        f"-remoteWrite.url={base}", "-httpListenAddr=127.0.0.1:0"]))
+    (g,) = groups
+    written = []
+    real_write = g.rw.write
+    g.rw.write = lambda rows: written.append(rows) or real_write(rows)
+    walls = []
+    try:
+        for t in instants:
+            t0 = time.perf_counter()
+            g.eval_once(t / 1e3)
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        srv.stop()
+        am.stop()
+    if len(written) != len(instants) or any(
+            sorted(map(json.dumps, a)) != sorted(map(json.dumps, b))
+            for a, b in zip(written, server)):
+        raise AssertionError("satellites vmalert: its rows are not the "
+                             "server-side group's")
+    firing = [len(batch) for batch in received]
+    want = [sum(1 for lb, _, v in rows if lb["__name__"] == "ALERTS" and
+                lb["alertstate"] == "firing") for rows in server]
+    if firing != [n for n in want if n] or not all(
+            a["labels"]["alertname"] == SAT_ALERT and
+            a["labels"]["severity"] == "page"
+            for batch in received for a in batch):
+        raise AssertionError(f"satellites notifier: {firing} vs {want}")
+    return {"eval_ms": walls, "rows_vs_server": "equal",
+            "notifications": firing}
+
+
+def sat_vmagent(tmp: str, st, api, base: str, after: int) -> dict:
+    """(c) vmagent: a Prometheus-text target of this process serves the
+    next scrape of the 8192 series (as AGENT_METRIC); vmagent scrapes it
+    twice and remote-writes through its persistent queue and a relay of
+    this process to the server; the relay is stopped for the second
+    scrape, whose block waits in the sender and arrives once the relay is
+    back.  Every row arrives, equal by name and value."""
+    import urllib.request
+    from victoriametrics_tpu_torch.apps import vmagent
+    from victoriametrics_tpu_torch.httpapi.server import HTTPServer, Response
+    feed = copy.deepcopy(st["feed"])
+    feed.history = None
+    scrapes = [feed.next(1, after), feed.next(1, after + SCRAPE)]
+    page = {}
+
+    def exposition(ts, vals):
+        return "".join(
+            f'{AGENT_METRIC}{{src="{lb["instance"]}",id="{lb["id"]}"}} '
+            f'{v!r} {t}\n' for lb, t, v in zip(st["labels"], ts[:, 0].tolist(),
+                                               vals[:, 0].tolist()))
+    target = HTTPServer("127.0.0.1", 0)
+    target.route("/metrics", lambda req: Response.text(page["text"]))
+    target.start()
+
+    def relay_write(req):
+        r = urllib.request.Request(base + "/api/v1/write", data=req.body,
+                                   method="POST")
+        with urllib.request.urlopen(r, timeout=120) as resp:
+            return Response(resp.status, b"")
+    relay = HTTPServer("127.0.0.1", 0)
+    relay.route("/api/v1/write", relay_write)
+    relay.start()
+    relay_port = relay.port
+    cfg = os.path.join(tmp, "scrape.json")
+    with open(cfg, "w") as f:
+        json.dump({"scrape_configs": [{
+            "job_name": "satellites", "scrape_interval": "1h",
+            "static_configs": [{"targets": [f"127.0.0.1:{target.port}"]}]}]},
+            f)
+    agent, asrv = vmagent.build(vmagent.parse_flags([
+        f"-promscrape.config={cfg}",
+        f"-remoteWrite.url=http://127.0.0.1:{relay_port}/api/v1/write",
+        f"-remoteWrite.tmpDataPath={os.path.join(tmp, 'queue')}",
+        "-httpListenAddr=127.0.0.1:0"]))
+    (ctx,) = agent.rw_ctxs
+    (scraper,) = agent.targets.values()
+    puts = []
+    real_put = ctx.queue.put
+    ctx.queue.put = lambda block: puts.append(len(block)) or real_put(block)
+    filters = [TagFilter(b"", AGENT_METRIC.encode())]
+
+    def stored():
+        return {sd.metric_name.to_dict()["id"]: (sd.timestamps, sd.values)
+                for sd in api.storage.search_series(
+                    filters, after - DAY, after + DAY, tenant=TENANT)}
+
+    def wait(cond, what, limit=60.0):
+        deadline = time.perf_counter() + limit
+        while not cond():
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"satellites vmagent: {what}")
+            time.sleep(0.05)
+    out = {}
+    try:
+        ctx.start()
+        t0 = time.perf_counter()
+        page["text"] = exposition(*scrapes[0])
+        scraper._scrape_once()
+        wait(lambda: ctx.sent_rows >= 1 and not ctx._pending and
+             ctx.queue.pending == 0, "the first scrape was not sent")
+        out["first_scrape_ms"] = (time.perf_counter() - t0) * 1e3
+        # the remote goes away: the second scrape's block is queued and
+        # its sends fail until the relay listens again on its port
+        relay.stop()
+        errors0, sent0, puts0 = ctx.send_errors, ctx.sent_rows, len(puts)
+        page["text"] = exposition(*scrapes[1])
+        scraper._scrape_once()
+        wait(lambda: ctx.send_errors > errors0, "no send failed while the "
+             "remote was down")
+        if ctx.sent_rows != sent0 or len(puts) <= puts0:
+            raise AssertionError("satellites vmagent: the block was not "
+                                 "queued")
+        out["queued_while_down"] = {"blocks": len(puts) - puts0,
+                                    "bytes": sum(puts[puts0:]),
+                                    "send_errors": ctx.send_errors - errors0}
+        t0 = time.perf_counter()
+        relay = HTTPServer("127.0.0.1", relay_port)
+        relay.route("/api/v1/write", relay_write)
+        relay.start()
+        wait(lambda: ctx.sent_rows > sent0, "the queued block was not "
+             "delivered")
+        out["delivered_after_restart_ms"] = (time.perf_counter() - t0) * 1e3
+        api.storage.force_flush()
+        got = stored()
+        for lb, t1, v1, t2, v2 in zip(st["labels"], *[
+                a[:, 0] for sc in scrapes for a in sc]):
+            ts_, vs_ = got.get(lb["id"], (np.zeros(0), np.zeros(0)))
+            if ts_.tolist() != [t1, t2] or vs_.tolist() != [v1, v2]:
+                raise AssertionError(f"satellites vmagent: series "
+                                     f"{lb['id']}: {ts_}, {vs_}")
+        if len(got) != len(st["labels"]):
+            raise AssertionError(f"satellites vmagent: {len(got)} series")
+        status = agent.target_status()
+        out.update(rows=2 * len(got), series=len(got),
+                   target_health=status[0]["health"],
+                   blocks_sent=ctx.sent_rows, rows_vs_served="equal")
+    finally:
+        agent.stop()
+        asrv.stop()
+        relay.stop()
+        target.stop()
+    return out
+
+
+def graphite_last_in_bucket(ts, vals, grid, step) -> np.ndarray:
+    """The render's consolidation, in numpy on the written values: at each
+    grid point the last sample at or before it, if newer than one step."""
+    out = np.full((ts.shape[0], grid.size), np.nan)
+    for i in range(ts.shape[0]):
+        idx = np.searchsorted(ts[i], grid, side="right") - 1
+        ok = idx >= 0
+        j = np.clip(idx, 0, None)
+        ok &= grid - ts[i][j] < step
+        out[i, ok] = vals[i][j][ok]
+    return out
+
+
+def sat_graphite(c, st, api, t_last: int) -> dict:
+    """(d) Graphite on vmsingle: the three SAT_RENDERS over the last hour
+    at the default 60 s step against graphite_last_in_bucket on the
+    seeded and fed values; /metrics/find and /tags; one plaintext line
+    through -graphiteListenAddr rendered back."""
+    step = 60_000
+    frm, until = t_last - 3_600_000, t_last
+    grid = np.arange(frm - frm % step, until + 1, step, dtype=np.int64)
+    ts = np.concatenate([st["tail"][0]] + [t for t, _ in
+                                           st["feed"].history], axis=1)
+    vals = np.concatenate([st["tail"][1]] + [v for _, v in
+                                             st["feed"].history], axis=1)
+    want = graphite_last_in_bucket(ts, vals, grid, step)
+    inst = np.array([lb["instance"] for lb in st["labels"]])
+    ids = [lb["id"] for lb in st["labels"]]
+    one = inst == SAT_INSTANCE
+    with np.errstate(all="ignore"):
+        d = np.diff(want[one], prepend=np.nan, axis=1)
+        per_second = np.where(d >= 0, d / (step / 1e3), np.nan)
+    want_bodies = {
+        "sum_one_instance": {None: np.nansum(want[one], axis=0)},
+        "group_by_instance": {i: np.nansum(want[inst == i], axis=0)
+                              for i in np.unique(inst)},
+        "per_second_one_instance": dict(zip(np.array(ids)[one].tolist(),
+                                            per_second))}
+    out = {}
+    for name, target in SAT_RENDERS.items():
+        body, ms = c.json("/render", target=target, **{
+            "from": str(frm // 1000), "until": str(until // 1000)})
+        got = {}
+        for s in body:
+            key = {"sum_one_instance": None,
+                   "group_by_instance": s["tags"].get("instance"),
+                   "per_second_one_instance": s["tags"].get("id")}[name]
+            if [p[1] * 1000 for p in s["datapoints"]] != grid.tolist():
+                raise AssertionError(f"satellites render {name}: grid")
+            got[key] = np.array([np.nan if p[0] is None else p[0]
+                                 for p in s["datapoints"]])
+        w = want_bodies[name]
+        if sorted(map(str, got)) != sorted(map(str, w)) or not all(
+                np.array_equal(got[k], np.where(np.isnan(w[k]), np.nan,
+                                                w[k]), equal_nan=True)
+                for k in w):
+            raise AssertionError(f"satellites render {name}: not the numpy "
+                                 f"version")
+        out[name] = {"round_trip_ms": ms, "series": len(body),
+                     "body_bytes": c.last["body_bytes"], "vs_numpy": "equal"}
+    found, _ = c.json("/metrics/find", query="*")
+    tags, _ = c.json("/tags")
+    if SELECTOR not in {n["text"] for n in found} or \
+            not {"instance", "id"} <= {t["tag"] for t in tags}:
+        raise AssertionError("satellites: /metrics/find or /tags")
+    # a plaintext line through the Graphite listener, rendered back
+    (listener,) = [s for s in api.ingest_servers if s.proto == "graphite"]
+    import socket
+    with socket.create_connection(("127.0.0.1", listener.port), 10) as sk:
+        sk.sendall(f"satellites.graphite.line 1.5 {t_last // 1000}\n"
+                   .encode())
+    deadline = time.perf_counter() + 30
+    while True:
+        body, _ = c.json("/render", target="satellites.graphite.line", **{
+            "from": str((t_last - 600_000) // 1000),
+            "until": str(t_last // 1000)})
+        if body and 1.5 in [p[0] for p in body[0]["datapoints"]]:
+            break
+        if time.perf_counter() > deadline:
+            raise AssertionError("satellites: the Graphite line was not "
+                                 "rendered back")
+        time.sleep(0.1)
+    out["find_nodes"] = len(found)
+    out["tags"] = len(tags)
+    out["listener_line"] = "rendered back"
+    return out
+
+
+def phase_satellites(st) -> dict:
+    """The port's vmsingle on the http phase's store, started as a user
+    starts it (no backend flag: the card by default) with -rule and
+    -graphiteListenAddr: (a) server-side rules on the card, (b) the
+    standalone vmalert against it, (c) vmagent through its queue, (d)
+    Graphite.  Its launch counts are the server's, vmalert's queries
+    included."""
+    from victoriametrics_tpu_torch.apps import vmsingle
+    from victoriametrics_tpu_torch.utils import profiler
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_satellites_")
+    rrc.GLOBAL.reset()
+    threshold = st["threshold"]
+    rules_path = os.path.join(tmp, "rules.json")
+    with open(rules_path, "w") as f:
+        json.dump(sat_rules(threshold), f)
+    t0 = time.perf_counter()
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={st['path']}", "-httpListenAddr=127.0.0.1:0",
+        f"-rule={rules_path}", "-graphiteListenAddr=127.0.0.1:0"]))
+    attach_s = time.perf_counter() - t0
+    for g in api.rule_groups:
+        g.stop()  # evaluated below on the data's clock
+    srv.start()
+    parts = {}
+    try:
+        if not isinstance(api.tpu, ce.CUDAEngine):
+            raise AssertionError("satellites: the default backend attached "
+                                 f"{api.tpu!r}")
+        c = HttpClient(srv.port)
+        kernels.reset_launches()
+        instants = [st["end"] + k * DASH_STEP for k in range(3)]
+        t0 = time.perf_counter()
+        rules = sat_rules_server(c, api, st, instants)
+        parts["rules_s"] = time.perf_counter() - t0
+        server_rows = rules.pop("written")
+        t0 = time.perf_counter()
+        alert = sat_vmalert(srv.port, rules_path, instants, server_rows)
+        parts["vmalert_s"] = time.perf_counter() - t0
+        launches = {k: kernels.LAUNCHES.get(k, 0) for k in SOURCES}
+        t0 = time.perf_counter()
+        graphite = sat_graphite(c, st, api, instants[-1])
+        parts["graphite_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        agent = sat_vmagent(tmp, st, api, c.base, instants[-1] + DASH_STEP)
+        parts["vmagent_s"] = time.perf_counter() - t0
+    finally:
+        vmsingle.shutdown(srv, storage, api)
+        profiler.PROFILER.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "satellites", "ok": True,
+           "attach": {**getattr(api, "attach_timing", {}),
+                      "attach_s": attach_s, "flag": "default",
+                      "device": str(api.tpu.device)},
+           "threshold": threshold, "rules": rules, "vmalert": alert,
+           "vmagent": agent, "graphite": graphite, "part_s": parts,
            "wall_s": time.perf_counter() - t_phase, "launches": launches}
     emit(res)
     return res
@@ -4333,9 +4967,11 @@ def ingest_routes(stores: Stores, labels, ts, vals) -> dict:
     S = ts.shape[0]
     first = route_bodies(labels, ts[:, :1], vals[:, :1])
     bodies = route_bodies(labels, ts[:, 1:], vals[:, 1:])
+    # it answers no query through the engine: the host backend spares it
+    # the card's attach (about 9 s)
     storage, srv, api = vmsingle.build(vmsingle.parse_flags([
         f"-storageDataPath={stores.path('ingest_http')}",
-        "-httpListenAddr=127.0.0.1:0"]))
+        "-httpListenAddr=127.0.0.1:0", "-search.tpuBackend=false"]))
     srv.start()
     out = {}
     try:
@@ -5095,18 +5731,26 @@ def not_partial(what: str, body: dict) -> None:
 
 
 CLUSTER_SUM = f"sum by (instance)(rate({FULL_SELECTOR}[5m]))"
+#: the aggregates of the cold queries through vmselect: min and max (8-11
+#: s a round trip) are a depth cut (a "cut" line) made when the
+#: satellites phase came
+CLUSTER_AGGRS = ("sum", "count")
+CLUSTER_PLANNED_AGGRS = ("sum", "count", "min", "max")
+#: the cluster phase's Graphite render: one instance's series summed
+CLUSTER_RENDER = (f"sumSeries(seriesByTag('name={FULL_SELECTOR}',"
+                  "'instance=fw-7'))")
 
 
 def cluster_queries(c, api, single, dev, grid, aside) -> tuple[dict, dict]:
     """(1) the cold sum through vmselect against the single-node store on
-    the card and vmselect's host evaluator at rtol 1e-12; count, min and
-    max by instance against the single-node store bit for bit.  Returns
-    the records and the sum's answer."""
+    the card and vmselect's host evaluator at rtol 1e-12; the other
+    CLUSTER_AGGRS by instance against the single-node store bit for bit.
+    Returns the records and the sum's answer."""
     start, end, step = grid
     grid_s = np.arange(start, end + 1, step) / 1e3
     engine = ce.CUDAEngine(device=dev)
     out = {}
-    for aggr in ("sum", "count", "min", "max"):
+    for aggr in CLUSTER_AGGRS:
         q = CLUSTER_SUM.replace("sum", aggr, 1)
         body, ms, launches, split, cost = cluster_request(c, q, start, end,
                                                           step)
@@ -5181,6 +5825,38 @@ def cluster_refresh(c, api, grid, cold) -> tuple[dict, dict]:
             "earlier_steps_vs_cold": "bitwise"}, got
 
 
+def cluster_render(c, single, ts) -> dict:
+    """Graphite's /render through vmselect (GraphiteAPI over the
+    ClusterStorage): one instance's series summed over the cluster's hour
+    at the default 60 s step, ending before the scrape written over HTTP,
+    equal as strings to the same request to the single-node store (its
+    own GraphiteAPI on a listener of this process)."""
+    from victoriametrics_tpu_torch.httpapi.graphite_api import GraphiteAPI
+    from victoriametrics_tpu_torch.httpapi.server import HTTPServer
+    until = (int(ts.max()) // 60_000) * 60_000 - 60_000
+    params = {"target": CLUSTER_RENDER, "from": str(T_START // 1000),
+              "until": str(until // 1000)}
+    srv = HTTPServer("127.0.0.1", 0)
+    GraphiteAPI(single).register(srv)
+    srv.start()
+    try:
+        code, got, ms = c.get("/render", **params)
+        code1, want, single_ms = HttpClient(srv.port).get("/render",
+                                                          **params)
+    finally:
+        srv.stop()
+    if code != 200 or code1 != 200 or got != want:
+        raise AssertionError(f"cluster render: {code} {got[:200]} vs "
+                             f"{code1} {want[:200]}")
+    (body,) = json.loads(got)
+    points = [p for p in body["datapoints"] if p[0] is not None]
+    if len(points) < 50:
+        raise AssertionError(f"cluster render: {len(points)} points")
+    return {"target": CLUSTER_RENDER, "round_trip_ms": ms,
+            "single_store_ms": single_ms, "body_bytes": len(got),
+            "points": len(points), "vs_single_store": "same bytes"}
+
+
 def phase_cluster(dev, hour, stores: Stores) -> dict:
     """The port's cluster: three vmstorage processes, vminsert at RF 2
     and vmselect with -search.tpuBackend in this process.  The hour goes
@@ -5197,6 +5873,9 @@ def phase_cluster(dev, hour, stores: Stores) -> dict:
     print(json.dumps({"cut": {"cluster_hours": CLUSTER_HOURS,
                               "store_hours": STORE_HOURS,
                               "planned_hours": 6}}), flush=True)
+    print(json.dumps({"cut": {"cluster_aggrs": CLUSTER_AGGRS,
+                              "planned_aggrs": CLUSTER_PLANNED_AGGRS}}),
+          flush=True)
     aside = Aside()
     rrc.GLOBAL.reset()
     slow0 = os.environ.get("VM_SLOW_QUERY_MS")
@@ -5229,22 +5908,38 @@ def phase_cluster(dev, hour, stores: Stores) -> dict:
         sel_flags = specs + [f"-replicationFactor={CLUSTER_RF}",
                              "-httpListenAddr=127.0.0.1:0", *CLUSTER_FLAGS,
                              *CLUSTER_SELECT_FLAGS]
-        sel, sel_srv, api, _ = vmselect.build(vmselect.parse_flags(
-            sel_flags + ["-search.tpuBackend"]))
+        # vmselect starts as a user starts it (the card by default); its
+        # build waits for the attach (probe, engine, warm-up), so it runs
+        # on a thread while the hour goes in
+        built = {}
+
+        def build_select():
+            try:
+                built["sel"] = vmselect.build(vmselect.parse_flags(
+                    sel_flags))
+                built["s"] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001 - raised below
+                built["error"] = e
+        builder = threading.Thread(target=build_select,
+                                   name="vmselect-build")
+        builder.start()
+        t1 = time.perf_counter()
+        try:
+            write = cluster_write(ins, hour)
+        finally:
+            builder.join(HTTP_ATTACH_S)
+        done("write", t1)
+        if "sel" not in built:
+            raise AssertionError(f"cluster: vmselect did not start: "
+                                 f"{built.get('error')!r}")
+        sel, sel_srv, api, _ = built["sel"]
         sel_srv.start()
         clusters.append(sel)
         servers.append(sel_srv)
-        # the attach (probe, engine, warm-up) runs while the hour goes in
-        t1 = time.perf_counter()
-        write = cluster_write(ins, hour)
-        done("write", t1)
-        api.attach_thread.join(HTTP_ATTACH_S)
-        attach_s = time.perf_counter() - t0
+        attach_s = built["s"]
         if not isinstance(api.tpu, ce.CUDAEngine):
-            probe = getattr(api, "probe_result", None)
-            raise AssertionError(
-                "cluster: vmselect -search.tpuBackend attached no engine "
-                f"(probe: {None if probe is None else probe.error})")
+            raise AssertionError("cluster: vmselect's default backend "
+                                 f"attached {api.tpu!r}")
         ci, cs = HttpClient(ins_srv.port), HttpClient(sel_srv.port)
         # one more scrape, over vminsert's remote-write route, 7.5 s after
         # the hour's last
@@ -5304,6 +5999,9 @@ def phase_cluster(dev, hour, stores: Stores) -> dict:
         refresh, served = cluster_refresh(cs, api, (start, end + step, step),
                                           cold_sum)
         done("refresh", t0, refresh)
+        t0 = time.perf_counter()
+        render = cluster_render(cs, single, ts)
+        done("graphite_render", t0, render)
         # (3) one node killed: RF 2 covers it, the answer is whole
         procs[0].kill()
         t0 = time.perf_counter()
@@ -5335,8 +6033,11 @@ def phase_cluster(dev, hour, stores: Stores) -> dict:
                            step=step / 1e3)
         if body.get("isPartial") is not True:
             raise AssertionError("cluster two down: isPartial is not true")
+        # the denial answers no query through the engine: the host
+        # backend spares it the card's attach (about 9 s)
         deny, deny_srv, _, _ = vmselect.build(vmselect.parse_flags(
-            sel_flags + ["-search.denyPartialResponse"]))
+            sel_flags + ["-search.denyPartialResponse",
+                         "-search.tpuBackend=false"]))
         deny_srv.start()
         clusters.append(deny)
         servers.append(deny_srv)
@@ -5379,7 +6080,8 @@ def phase_cluster(dev, hour, stores: Stores) -> dict:
            "flags": list(CLUSTER_FLAGS + CLUSTER_SELECT_FLAGS),
            "attach": {**api.attach_timing, "attach_s": attach_s},
            "write": write, "placement": rf, "cold": cold,
-           "refresh": refresh, "one_down": one_down, "two_down": two_down,
+           "refresh": refresh, "graphite_render": render,
+           "one_down": one_down, "two_down": two_down,
            "shutdown": {"node": procs[2].name, "exit_code": 0},
            "wall_s": time.perf_counter() - t_phase, "part_wall_s": walls,
            "launches": launches}
@@ -5423,6 +6125,7 @@ def main(argv=None) -> int:
         fl = phase_fleet(rng, dev, dash_state)
         del dash_state
         http = phase_http(dev, http_state, dash)
+        sat = phase_satellites(http_state)
         del http_state
         for name in FLEET_KERNELS:
             kres[name] = {**fl["kernels"][name], "max_abs_err": max(
@@ -5439,11 +6142,12 @@ def main(argv=None) -> int:
         stores.close_all()
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on
     # the mesh phase's; the http phase's launches (its path through the
-    # server: K1-B10) and the cluster phase's (K1 and K2 through vmselect)
-    # are added to them
+    # server: K1-B10), the satellites phase's (its rules and vmalert's
+    # queries through the server: K1, K2) and the cluster phase's (K1 and
+    # K2 through vmselect) are added to them
     launches = {**dash["launches"], **fl["launches"],
                 **{k: mesh["launches"][k] for k in MESH_KERNELS}}
-    for phase in (http, cl):
+    for phase in (http, sat, cl):
         for name, n in phase["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name in SOURCES:

@@ -30,6 +30,7 @@ out of tier 1, as the reference keeps them; the apps as processes are in
 
 import collections
 import json
+import socket
 import threading
 import time
 import types
@@ -348,6 +349,11 @@ class TestRPCFailureHandling:
         client = node.client()
         client.write_rows([(b"m", T0, 1.0)])
         node.stop()
+        # the dead node's select port stays bound, not listening: a
+        # server of another test process cannot take it and answer
+        held = socket.socket()
+        held.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        held.bind(("127.0.0.1", node.select_srv.port))
         errs, done = [], []
 
         def caller():
@@ -367,6 +373,7 @@ class TestRPCFailureHandling:
         assert len(done) == 3, "callers deadlocked on the connection lock"
         assert len(errs) == 3
         client.close()
+        held.close()
 
     def test_stale_connection_retries_after_node_restart(self, pkg,
                                                          tmp_path):

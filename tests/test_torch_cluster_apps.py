@@ -4,9 +4,11 @@
 - as processes (``python -m ...``) in interpreters where importing
   ``jax``, ``jaxlib``, ``xxhash`` or the JAX package fails: three storage
   nodes, a vminsert at ``-replicationFactor=2`` and a vmselect at the
-  same factor with ``-search.tpuBackend`` on a machine without a CUDA
-  device (its probe fails, the failure is logged at error level, the
-  host path answers).  Rows written through vminsert come back from
+  same factor with ``-search.tpuBackend=false`` (the host path answers:
+  no card on the CPU), while a second vmselect started with the default
+  backend on this machine without a CUDA device exits non-zero naming
+  the probe's error and never answers.  Rows written through vminsert
+  come back from
   vmselect, each series on two nodes; the health routes answer; a killed
   node leaves the answer whole; SIGTERM ends every process with exit 0
   and "shutdown complete", and none of the blocked modules was loaded;
@@ -78,8 +80,8 @@ def test_cluster_processes_serve_and_stop_without_jax(tmp_path):
     site = tmp_path / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
-    ports = free_ports(11)
-    apps = []
+    ports = free_ports(12)
+    apps, carded = [], None
     try:
         specs = []
         for i in range(3):
@@ -90,15 +92,24 @@ def test_cluster_processes_serve_and_stop_without_jax(tmp_path):
                 f"-vminsertAddr=127.0.0.1:{ip}",
                 f"-vmselectAddr=127.0.0.1:{sp}"], h, f"vmstorage-{i}"))
             specs.append(f"-storageNode=127.0.0.1:{ip}:{sp}")
-        ih, sh = ports[9:]
+        ih, sh, dh = ports[9:]
         apps.append(App(site, tmp_path, "vminsert", specs + [
             "-replicationFactor=2", f"-httpListenAddr=127.0.0.1:{ih}"],
             ih, "vminsert"))
         apps.append(App(site, tmp_path, "vmselect", specs + [
-            "-replicationFactor=2", "-search.tpuBackend",
+            "-replicationFactor=2", "-search.tpuBackend=false",
             f"-httpListenAddr=127.0.0.1:{sh}"], sh, "vmselect"))
+        # the default backend: no card here, so startup must fail
+        carded = App(site, tmp_path, "vmselect", specs + [
+            f"-httpListenAddr=127.0.0.1:{dh}"], dh, "vmselect-card")
         for a in apps:
             a.wait_ready()
+        assert carded.proc.wait(timeout=120) != 0, carded.log()[-3000:]
+        assert "ERROR" in carded.log()
+        assert "cuda backend requested but unavailable" in carded.log()
+        assert "no CUDA device" in carded.log()
+        assert "vmselect started" not in carded.log()
+        assert "LEAKED []" in carded.log(), carded.log()[-3000:]
         storages, vi, vs = apps[:3], Client(ih), Client(sh)
         now = int(time.time() * 1000)
         body = "".join(f'capp_m{{i="{i}"}} {i * 1.5} {now - 60_000}\n'
@@ -123,13 +134,8 @@ def test_cluster_processes_serve_and_stop_without_jax(tmp_path):
         h = json.loads(body)
         assert code == 200 and h["role"] == "vmselect"
         assert len(h["nodes"]) == 3
-        # the attach found no card: logged at error level, host path kept
-        deadline = time.time() + 60
-        while "cuda backend requested but unavailable" not in \
-                apps[4].log() and time.time() < deadline:
-            time.sleep(0.2)
-        assert "ERROR" in apps[4].log()
-        assert "cuda backend requested but unavailable" in apps[4].log()
+        # the host backend asked for: no probe, no attach
+        assert "cuda backend requested" not in apps[4].log()
         storages[1].kill()
         res = vs.query("sum(capp_m)", now / 1e3)
         assert res["data"]["result"][0]["value"][1] == "414"
@@ -141,7 +147,7 @@ def test_cluster_processes_serve_and_stop_without_jax(tmp_path):
             assert "shutdown complete" in text, text[-3000:]
             assert "LEAKED []" in text, text[-3000:]
     finally:
-        for a in apps:
+        for a in apps + [carded] * (carded is not None):
             a.kill()
 
 
@@ -170,7 +176,7 @@ def test_router_flags_and_environment(app, monkeypatch):
     else:
         assert (a.httpListenAddr, a.replication_factor, a.tpu,
                 a.deny_partial, a.max_series, a.max_query_duration) == (
-            ":8481", 1, False, False, 300_000, "30s")
+            ":8481", 1, True, False, 300_000, "30s")
     monkeypatch.setenv("VM_STORAGENODE", "e:5:6,e:7:8")
     assert app.parse_flags(["-storageNode=h:1:2"]).storageNode == \
         ["e:5:6", "e:7:8"]

@@ -92,7 +92,9 @@ class HttpPair:
     def __init__(self, tmp_path, flags=()):
         self.ref = Side(ref_vmsingle, tmp_path / "ref", flags)
         try:
-            self.port = Side(port_vmsingle, tmp_path / "port", flags)
+            # the port serves on the host here: no card on the CPU
+            self.port = Side(port_vmsingle, tmp_path / "port",
+                             ("-search.tpuBackend=false", *flags))
         except BaseException:
             self.ref.close()
             raise

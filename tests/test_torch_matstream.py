@@ -20,8 +20,8 @@ the reference's same sequence.
 - Shared instants: rules evaluated through the registry's
   ``instant_vector`` (what the reference's vmalert ``EngineDatasource``
   calls) give the rows of the HTTP poll, shared expressions evaluated
-  once.  Server-side rules (``-rule``) are hosted by the reference's
-  vmsingle; the port's refuses the flag, naming the part it lacks.
+  once.  Server-side rules (``-rule``) are hosted by both packages'
+  vmsingle, their results written into its store.
 """
 
 import collections
@@ -565,21 +565,17 @@ class TestRuleEngine:
         assert api.matstreams.instant_evals - evals0 == 2
 
     def test_vmsingle_hosts_server_side_rules(self, pkg, tmp_path):
-        """vmsingle -rule: on the reference, recording rules evaluate
-        in-process through the engine and land in the local storage; the
-        port does not host rules yet and refuses the flag loudly."""
+        """vmsingle -rule: recording rules evaluate in-process through
+        the engine and land in the local storage, on both packages (the
+        port on the host evaluator here: no card on the CPU)."""
         rule = tmp_path / "rules.yml"
         rule.write_text(json.dumps({
             "groups": [{"name": "g", "interval": "30s", "rules": [
                 {"record": "r:ms_sum", "expr": "sum(ms_rule_m)"}]}]}))
+        host = ["-search.tpuBackend=false"] if pkg.name == "port" else []
         args = pkg.vmsingle.parse_flags([f"-storageDataPath={tmp_path}/data",
                                          "-httpListenAddr=127.0.0.1:0",
-                                         f"-rule={rule}"])
-        if pkg.name == "port":
-            with pytest.raises(SystemExit, match="§A item 11"):
-                pkg.vmsingle.build(args)
-            assert not (tmp_path / "data").exists()
-            return
+                                         f"-rule={rule}", *host])
         storage, srv, api = pkg.vmsingle.build(args)
         try:
             assert len(api.rule_groups) == 1
@@ -600,7 +596,10 @@ class TestRuleEngine:
                 g.stop()
             srv.stop()
             storage.close()
-            from victoriametrics_tpu.utils import profiler
+            if pkg.name == "port":
+                from victoriametrics_tpu_torch.utils import profiler
+            else:
+                from victoriametrics_tpu.utils import profiler
             profiler.PROFILER.stop()  # build() started it
 
 

@@ -2,6 +2,8 @@
 ``xxhash`` (the machine with the card has none; the native codec carries
 xxh64/xxh32): every module of victoriametrics_tpu_torch, and chip_smoke.py,
 load in a process where importing jax, the JAX package or xxhash fails.
+The rule-file, scrape-config and vmalert_tool paths load JSON configs
+where PyYAML is blocked too (the card's machine has no PyYAML).
 Importing them builds nothing: no compiler process starts and no file is
 written under the package's ``_build/`` (the native codec and the CUDA
 kernels build on first use).  The evaluator and the columnar ingest run
@@ -110,6 +112,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "utils.buildinfo", "query.querystats", "query.matstream",
         "httpapi.server", "httpapi.prometheus_api",
         "apps.vmsingle")} <= set(mods)
+    assert {f"victoriametrics_tpu_torch.{m}" for m in (
+        "ingest.persistentqueue", "ingest.discovery", "apps.vmagent",
+        "apps.vmalert", "apps.vmalert_tool", "httpapi.graphite_api",
+        "httpapi.graphite_funcs", "utils.configfile")} <= set(mods)
     assert len(mods) >= 92
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
@@ -238,3 +244,70 @@ def test_columnar_ingest_runs_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "INGESTED 35 7 35 2.0" in out.stdout, out.stdout
+
+
+CONFIG_PROBE = r"""
+import json, sys
+for m in ("jax", "jaxlib", "xxhash", "victoriametrics_tpu", "yaml"):
+    sys.modules[m] = None
+from victoriametrics_tpu_torch.apps import vmagent, vmalert, vmalert_tool
+from victoriametrics_tpu_torch.ingest import relabel, streamaggr
+from victoriametrics_tpu_torch.utils import configfile
+d = sys.argv[1]
+groups, srv = vmalert.build(vmalert.parse_flags([
+    f"-rule={d}/rules.json", "-httpListenAddr=127.0.0.1:0"]))
+srv.stop()
+agent, asrv = vmagent.build(vmagent.parse_flags([
+    f"-promscrape.config={d}/scrape.json",
+    f"-remoteWrite.tmpDataPath={d}/q", "-httpListenAddr=127.0.0.1:0"]))
+asrv.stop()
+targets = sorted(t.url for t in agent.targets.values())
+agent.stop()
+fails = vmalert_tool.run_test_file(f"{d}/t.json")
+rc = relabel.parse_relabel_configs('[{"action": "drop"}]')
+sa = streamaggr.load_from_text(
+    '[{"interval": "1m", "outputs": ["count_samples"]}]', lambda rows: None)
+sa.stop()
+try:
+    configfile.loads("a: [1", "bad.yml")
+    named = False
+except ValueError as e:  # configfile.ConfigError: a reload keeps the old
+    named = "PyYAML" in str(e) and "bad.yml" in str(e)
+try:
+    with configfile.exit_on_error():  # at startup it ends the program
+        configfile.loads("a: [1", "bad.yml")
+except SystemExit as e:
+    named = named and "PyYAML" in str(e.code) and "bad.yml" in str(e.code)
+print("CONFIGS", json.dumps([[r.name for r in g.rules] for g in groups]),
+      json.dumps(targets), json.dumps(fails), rc is not None, named,
+      "yaml" in sys.modules and sys.modules["yaml"] is not None)
+"""
+
+
+def test_json_configs_load_without_pyyaml(tmp_path):
+    """With PyYAML (and jax, the JAX package, xxhash) blocked, vmalert's
+    rule files, vmagent's scrape config, vmalert_tool's test and rule
+    files, relabeling and stream aggregation load from JSON through
+    ``utils/configfile``; a file that is not JSON raises a ValueError
+    naming PyYAML and the file, which ends the program at startup."""
+    import json
+    (tmp_path / "rules.json").write_text(json.dumps({"groups": [{
+        "name": "g", "rules": [{"record": "r", "expr": "sum(m)"},
+                               {"alert": "A", "expr": "m > 1"}]}]}))
+    (tmp_path / "scrape.json").write_text(json.dumps({"scrape_configs": [{
+        "job_name": "j",
+        "static_configs": [{"targets": ["127.0.0.1:9"]}]}]}))
+    (tmp_path / "t.json").write_text(json.dumps({
+        "rule_files": ["rules.json"],
+        "tests": [{"interval": "1m",
+                   "input_series": [{"series": "m", "values": "0+1x5"}],
+                   "metricsql_expr_test": [{
+                       "expr": "m", "eval_time": "3m",
+                       "exp_samples": [{"value": 3}]}]}]}))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", CONFIG_PROBE,
+                          str(tmp_path)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'CONFIGS [["r", "A"]] ["http://127.0.0.1:9/metrics"] [] ' \
+        'True True False' in out.stdout, out.stdout + out.stderr[-2000:]

@@ -448,9 +448,11 @@ def scraping_vmsingle(pkg, tmp_path):
     (port, api)."""
     from tests.apptest_helpers import free_ports
     port = free_ports(1)[0]
+    host = ["-search.tpuBackend=false"] if pkg.name == "port" else []
     storage, srv, api = pkg.vmsingle.build(pkg.vmsingle.parse_flags([
         f"-storageDataPath={tmp_path / 'data'}",
-        f"-httpListenAddr=127.0.0.1:{port}", "-selfScrapeInterval=0.2"]))
+        f"-httpListenAddr=127.0.0.1:{port}", "-selfScrapeInterval=0.2",
+        *host]))
     srv.start()
     try:
         yield srv.port, api

@@ -5,16 +5,20 @@ vmsingle``:
   ``jax``, ``jaxlib``, ``xxhash`` or the JAX package fails: it ingests and
   answers over HTTP, shuts down cleanly on SIGTERM (exit 0), and none of
   those modules was loaded;
-- every flag that asks for a part the port does not have yet (``-rule``)
-  makes it exit non-zero with an error naming that part and ROADMAP.md §A
-  item 11; ``-selfScrapeInterval`` and ``-pushmetrics.url`` start theirs;
+- ``-rule`` arms server-side rule groups (``api.rule_groups``, their rows
+  written into the store, ``/api/v1/rules``) and the Graphite query API
+  answers beside the Prometheus one; ``-selfScrapeInterval`` and
+  ``-pushmetrics.url`` start theirs;
 - the flags of the ingestion layer (``-streamAggr.config``, and the
   Graphite, Influx and OpenTSDB listeners) start the server and serve what
   they ingest; the reference's ``TestIngestServersAndGate`` cases
   (``tests/test_vmsingle_http.py``) run on the port's vmsingle;
-- ``-search.tpuBackend`` on a machine without a CUDA device: the attach
-  thread's probe fails, the failure is logged at error level, ``api.tpu``
-  stays None and the host path answers."""
+- ``-search.tpuBackend`` is on by default: on a machine without a CUDA
+  device the probe fails, the failure is logged at error level and
+  startup ends non-zero naming it (in process: ``build`` raises
+  SystemExit, nothing is served); ``-search.tpuBackend=false`` serves on
+  the host.  Every other case here passes ``=false``: there is no card
+  on the CPU."""
 
 import json
 import logging
@@ -33,6 +37,8 @@ from victoriametrics_tpu_torch.apps import vmsingle
 from victoriametrics_tpu_torch.utils import profiler
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the flag every case but the attach's passes: no card on the CPU
+HOST = "-search.tpuBackend=false"
 BLOCKED = ("jax", "jaxlib", "xxhash", "victoriametrics_tpu")
 
 #: a sitecustomize that blocks the modules before anything imports and
@@ -78,7 +84,7 @@ def test_process_serves_and_stops_without_jax(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmsingle",
          f"-storageDataPath={tmp_path / 'data'}",
-         f"-httpListenAddr=127.0.0.1:{port}"],
+         f"-httpListenAddr=127.0.0.1:{port}", HOST],
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT)
     try:
@@ -104,20 +110,6 @@ def test_process_serves_and_stops_without_jax(tmp_path):
     assert "LEAKED []" in text, text[-3000:]
 
 
-@pytest.mark.parametrize("flag,part", [
-    ("-rule=rules.yml", "server-side rules"),
-])
-def test_unported_flags_exit_naming_the_part(tmp_path, flag, part):
-    args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
-                                 "-httpListenAddr=127.0.0.1:0", flag])
-    with pytest.raises(SystemExit) as ei:
-        vmsingle.build(args)
-    msg = str(ei.value.code)
-    assert part in msg and "§A item 11" in msg, msg
-    assert flag.split("=")[0] in msg
-    assert not (tmp_path / "d").exists()  # nothing opened
-
-
 @pytest.mark.parametrize("flag", [
     "-selfScrapeInterval=15s",
     "-pushmetrics.url=http://127.0.0.1:1/api/v1/import/prometheus",
@@ -127,7 +119,7 @@ def test_self_monitoring_flags_start(tmp_path, flag):
     self-scraper into the server's own store, the pusher's ticker), which
     stop before the store closes."""
     storage, srv, api = vmsingle.build(vmsingle.parse_flags([
-        f"-storageDataPath={tmp_path}/d", "-httpListenAddr=127.0.0.1:0",
+        f"-storageDataPath={tmp_path}/d", "-httpListenAddr=127.0.0.1:0", HOST,
         flag]))
     try:
         if flag.startswith("-selfScrapeInterval"):
@@ -182,7 +174,7 @@ def test_ported_ingest_flags_start_and_serve(tmp_path, flag):
         (tmp_path / "agg.yml").write_text(AGG_YML)
         value = str(tmp_path / "agg.yml")
     args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
-                                 "-httpListenAddr=127.0.0.1:0",
+                                 "-httpListenAddr=127.0.0.1:0", HOST,
                                  f"{flag}={value}"])
     storage, srv, api = vmsingle.build(args)
     srv.start()
@@ -232,7 +224,7 @@ class TestIngestServersAndGate:
 
     def test_tcp_udp_line_protocols(self, tmp_path):
         args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
-                                     "-httpListenAddr=127.0.0.1:0",
+                                     "-httpListenAddr=127.0.0.1:0", HOST,
                                      "-graphiteListenAddr=127.0.0.1:0",
                                      "-opentsdbListenAddr=127.0.0.1:0"])
         storage, srv, api = vmsingle.build(args)
@@ -273,7 +265,7 @@ class TestIngestServersAndGate:
         from victoriametrics_tpu_torch.httpapi.prometheus_api import \
             ConcurrencyGate
         args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
-                                     "-httpListenAddr=127.0.0.1:0"])
+                                     "-httpListenAddr=127.0.0.1:0", HOST])
         storage, srv, api = vmsingle.build(args)
         api.gate = ConcurrencyGate(max_concurrent=1, max_queue_duration_s=0.2)
         srv.start()
@@ -293,7 +285,7 @@ class TestIngestServersAndGate:
 
     def test_relative_time_param(self, tmp_path):
         args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
-                                     "-httpListenAddr=127.0.0.1:0"])
+                                     "-httpListenAddr=127.0.0.1:0", HOST])
         storage, srv, api = vmsingle.build(args)
         srv.start()
         try:
@@ -313,38 +305,126 @@ class TestIngestServersAndGate:
             profiler.PROFILER.stop()
 
 
-def test_unported_flag_exit_code_of_the_process(tmp_path):
-    out = subprocess.run(
+RULES = {"groups": [{"name": "g", "interval": "1h", "rules": [
+    {"record": "job:rule_m:sum", "expr": "sum by (job)(rule_m)"},
+    {"record": "job:rule_m:sum2", "expr": "sum by (job)(rule_m)"},
+    {"alert": "RuleHigh", "expr": "sum by (job)(rule_m) > 5", "for": "1m",
+     "labels": {"severity": "page"}}]}]}
+
+
+def test_rule_flag_arms_groups_and_writes_rows(tmp_path):
+    """-rule (a JSON rule file): the group is armed, its two recording
+    rules share one evaluation an instant through the registry, the rows
+    and ALERTS land in the store, the alert goes pending then firing after
+    its `for`, and /api/v1/rules lists the group."""
+    (tmp_path / "rules.json").write_text(json.dumps(RULES))
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={tmp_path}/d", "-httpListenAddr=127.0.0.1:0",
+        HOST, f"-rule={tmp_path / 'rules.json'}"]))
+    srv.start()
+    try:
+        (g,) = api.rule_groups
+        g.stop()  # evaluated below on the data's clock
+        assert [r.name for r in g.rules] == [
+            "job:rule_m:sum", "job:rule_m:sum2", "RuleHigh"]
+        now = int(time.time() * 1000) // 60_000 * 60_000
+        storage.add_rows([({"__name__": "rule_m", "job": j, "i": str(i)},
+                           now - 30_000 + k * 60_000, float(i + k))
+                          for j in ("a", "b") for i in range(4)
+                          for k in range(3)])
+        ms = api.matstreams
+        states = []
+        for k in range(3):
+            e0, r0 = ms.instant_evals, ms.instant_reuse
+            g.eval_once(now / 1e3 + k * 60, notify=False)
+            assert (ms.instant_evals - e0, ms.instant_reuse - r0) == (2, 1)
+            states.append(sorted(s["state"]
+                                 for s in g.rules[2]._active.values()))
+        assert states == [["pending", "pending"], ["firing", "firing"],
+                          ["firing", "firing"]]
+        storage.force_flush()
+        c = Client(srv.port)
+        t = now / 1e3 + 120
+        res = c.query("job:rule_m:sum", t)["data"]["result"]
+        assert sorted((r["metric"]["job"], r["value"][1]) for r in res) == [
+            ("a", "14"), ("b", "14")]
+        assert c.query("job:rule_m:sum2", t)["data"]["result"]
+        res = c.query('ALERTS{alertname="RuleHigh"}', t)["data"]["result"]
+        # the pending series of the first instant is still in the lookback
+        assert {r["metric"]["alertstate"] for r in res} == {"pending",
+                                                            "firing"}
+        assert c.query("ALERTS_FOR_STATE", t)["data"]["result"]
+        code, body = c.get("/api/v1/rules")
+        (grp,) = json.loads(body)["data"]["groups"]
+        assert code == 200 and grp["name"] == "g"
+        assert grp["rules"][2]["state"] == "firing"
+    finally:
+        vmsingle.shutdown(srv, storage, api)
+        profiler.PROFILER.stop()
+
+
+def test_default_backend_without_a_card_exits_naming_the_probe(tmp_path):
+    """Started as a user starts it (no backend flag) on a machine without
+    a CUDA device, the process exits non-zero naming the probe's error
+    and never answers on its port."""
+    port = free_ports(1)[0]
+    proc = subprocess.Popen(
         [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmsingle",
-         f"-storageDataPath={tmp_path / 'd'}", "-httpListenAddr=127.0.0.1:0",
-         "-rule=rules.yml"],
+         f"-storageDataPath={tmp_path / 'd'}",
+         f"-httpListenAddr=127.0.0.1:{port}"],
         cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=REPO),
-        capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    assert "§A item 11" in out.stderr, out.stderr[-2000:]
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    answered = False
+    try:
+        while proc.poll() is None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/health", timeout=1):
+                    answered = True
+            except OSError:
+                time.sleep(0.05)
+        out = proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode != 0 and not answered, out[-3000:]
+    assert "cuda backend requested but unavailable" in out, out[-3000:]
+    assert "no CUDA device" in out
+    assert "vmsingle started" not in out
 
 
 def test_cuda_backend_without_a_card_logs_and_serves_host(tmp_path,
                                                           caplog):
+    """The default backend on a machine without a card: the probe's
+    failure is logged at error level, build raises SystemExit naming it
+    and closes what it opened, and nothing listens on the port; with
+    -search.tpuBackend=false the same store is served on the host."""
     from victoriametrics_tpu_torch.utils import logger
     errors0 = logger.message_counters().get("error", 0)
+    port = free_ports(1)[0]
     args = vmsingle.parse_flags([f"-storageDataPath={tmp_path}/d",
-                                 "-httpListenAddr=127.0.0.1:0",
-                                 "-search.tpuBackend"])
-    storage, srv, api = vmsingle.build(args)
+                                 f"-httpListenAddr=127.0.0.1:{port}"])
+    assert args.tpu is True
+    with caplog.at_level(logging.INFO, logger="vmtpu"):
+        with pytest.raises(SystemExit) as ei:
+            vmsingle.build(args)
+    msg = str(ei.value.code)
+    assert "cuda backend requested but unavailable" in msg, msg
+    assert "no CUDA device" in msg
+    errs = [r for r in caplog.records if r.levelno == logging.ERROR]
+    assert any("cuda backend requested but unavailable" in r.getMessage()
+               for r in errs), [r.getMessage() for r in caplog.records]
+    assert logger.message_counters().get("error", 0) > errors0
+    with pytest.raises(OSError):
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={tmp_path}/d", f"-httpListenAddr=127.0.0.1:{port}",
+        HOST]))
     srv.start()
     try:
-        with caplog.at_level(logging.INFO, logger="vmtpu"):
-            api.attach_thread.join(timeout=120)
-        assert not api.attach_thread.is_alive()
-        assert api.tpu is None
-        assert api.probe_result.error is not None
-        assert "no CUDA device" in api.probe_result.error
-        assert api.attach_timing["probe_s"] > 0
-        errs = [r for r in caplog.records if r.levelno == logging.ERROR]
-        assert any("cuda backend requested but unavailable" in r.getMessage()
-                   for r in errs), [r.getMessage() for r in caplog.records]
-        assert logger.message_counters().get("error", 0) > errors0
+        # the host backend asked for: no probe ran, no engine attached
+        assert api.tpu is None and not hasattr(api, "probe_result")
         c = Client(srv.port)
         now = int(time.time() * 1000)
         rows = "".join(f'host_m{{i="{i}"}} {i} {now - 30_000}\n'
@@ -353,11 +433,70 @@ def test_cuda_backend_without_a_card_logs_and_serves_host(tmp_path,
         res = c.query("sum(host_m)", now / 1e3)
         assert res["data"]["result"][0]["value"][1] == "10"
         code, body = c.get("/flags")
-        assert code == 200 and b"tpu=True" in body
+        assert code == 200 and b"tpu=False" in body
     finally:
         srv.stop()
         storage.close()
         profiler.PROFILER.stop()
+
+
+def _hang(*_a, **_k):
+    import threading
+    threading.Event().wait(30)
+
+
+def _boom(*_a, **_k):
+    raise RuntimeError("nvcc exited 1")
+
+
+@pytest.mark.parametrize("patch, expect", [
+    (("CUDAEngine", _hang), "cuda engine build hung past"),
+    (("warmup", _hang), "cuda warm-up hung past"),
+    (("CUDAEngine", _boom),
+     "cuda engine build failed: RuntimeError: nvcc exited 1"),
+    (("warmup", _boom), "cuda warm-up failed: RuntimeError: nvcc exited 1")],
+    ids=["build-hangs", "warmup-hangs", "build-fails", "warmup-fails"])
+def test_attach_stage_that_hangs_or_fails_ends_startup(
+        tmp_path, monkeypatch, caplog, patch, expect):
+    """After a probe that succeeds, an engine build or a warm-up that
+    hangs past the probe's deadline (``VM_TPU_PROBE_TIMEOUT_S``) or
+    raises ends startup: build raises SystemExit naming the stage, logs
+    it at error level (a hang with the stage's stack), closes what it
+    opened and serves nothing."""
+    from victoriametrics_tpu_torch.query import cuda_engine
+    from victoriametrics_tpu_torch.utils import device_probe
+    monkeypatch.setattr(device_probe, "probe_backend",
+                        lambda timeout: device_probe.ProbeResult(
+                            "cuda", 1, None, name="stub"))
+    monkeypatch.setattr(cuda_engine, "auto_mesh", lambda: None)
+    monkeypatch.setattr(cuda_engine, "CUDAEngine",
+                        lambda **k: object())
+    monkeypatch.setattr(cuda_engine, "warmup", lambda engine: 0)
+    monkeypatch.setattr(cuda_engine, *patch)
+    monkeypatch.setenv("VM_TPU_PROBE_TIMEOUT_S", "0.5")
+    port = free_ports(1)[0]
+    with caplog.at_level(logging.INFO, logger="vmtpu"):
+        t0 = time.time()
+        with pytest.raises(SystemExit) as ei:
+            vmsingle.build(vmsingle.parse_flags([
+                f"-storageDataPath={tmp_path}/d",
+                f"-httpListenAddr=127.0.0.1:{port}"]))
+    assert time.time() - t0 < 20
+    msg = str(ei.value.code)
+    assert msg.startswith(expect), msg
+    errs = "\n".join(r.getMessage() for r in caplog.records
+                     if r.levelno == logging.ERROR)
+    assert expect in errs, errs
+    if "hung" in expect:
+        assert f"in {patch[1].__name__}" in errs, errs
+    with pytest.raises(OSError):
+        socket.create_connection(("127.0.0.1", port), timeout=1).close()
+    # nothing was left serving: the same directory builds on the host
+    storage, srv, api = vmsingle.build(vmsingle.parse_flags([
+        f"-storageDataPath={tmp_path}/d", "-httpListenAddr=127.0.0.1:0",
+        HOST]))
+    vmsingle.shutdown(srv, storage, api)
+    profiler.PROFILER.stop()
 
 
 def test_probe_timeout_is_reported_with_the_stack(monkeypatch):

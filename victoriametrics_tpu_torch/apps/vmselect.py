@@ -4,14 +4,15 @@ partial-result tracking (isPartial) and -search.denyPartialResponse.
 
 Run: python -m victoriametrics_tpu_torch.apps.vmselect
 -storageNode=HOST:INSERT_PORT:SELECT_PORT,... [-replicationFactor=N]
-[-search.tpuBackend] -httpListenAddr=:8481
+[-search.tpuBackend=false] -httpListenAddr=:8481
 
 The port's copy of ``victoriametrics_tpu/apps/vmselect.py``, with the
 reference's flags, environment variables, routes and shutdown order.
-``-search.tpuBackend`` attaches the CUDA engine through vmsingle's
-``_attach_cuda_engine``; ``api.attach_thread`` is its thread.  The
-Graphite query API (the reference's ``GraphiteAPI``) is not registered:
-it waits for Graphite's slice (ROADMAP.md section A, item 11).
+``-search.tpuBackend`` (on unless given ``=false``) attaches the CUDA
+engine through vmsingle's ``_attach_cuda_engine`` before ``build``
+returns, and a failed attach ends startup with an error naming the
+cause.  The Graphite query API
+(``httpapi/graphite_api.py``) is registered over the ``ClusterStorage``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import threading
 
 from ..utils import logger
 from .vminsert import make_nodes
+from .vmsingle import parse_bool
 
 
 def parse_flags(argv=None):
@@ -40,7 +42,10 @@ def parse_flags(argv=None):
                         "match vminsert): with RF=N, up to N-1 failed "
                         "nodes keep results complete (replica-covered) "
                         "instead of partial")
-    p.add_argument("-search.tpuBackend", dest="tpu", action="store_true")
+    p.add_argument("-search.tpuBackend", dest="tpu", nargs="?", const=True,
+                   default=True, type=parse_bool,
+                   help="route supported rollups to the CUDA engine "
+                        "(default true; =false serves on the host)")
     p.add_argument("-search.maxUniqueTimeseries", dest="max_series",
                    type=int, default=300_000)
     p.add_argument("-search.maxSamplesPerQuery", dest="max_samples_per_query",
@@ -84,10 +89,18 @@ def build(args):
         max_samples_per_query=args.max_samples_per_query,
         max_memory_per_query=args.max_memory_per_query,
         max_query_duration_ms=_dur_ms(args.max_query_duration))
-    api.attach_thread = _attach_cuda_engine(api, args.tpu)
     api.register(srv, mode="select")
     from ..parallel.cluster_api import register_cluster_admin
     register_cluster_admin(srv, cluster)
+    from ..httpapi.graphite_api import GraphiteAPI
+    GraphiteAPI(cluster).register(srv)
+    try:
+        # the card attaches before anything is served
+        _attach_cuda_engine(api, args.tpu)
+    except BaseException:
+        srv.stop()
+        cluster.close()
+        raise
     from ..utils import profiler
     profiler.ensure_started()
     # self-monitoring plane: own registry -> cluster write path (sharded
@@ -111,7 +124,11 @@ def main(argv=None):
     faulthandler.register(signal.SIGUSR1)
     args = parse_flags(argv)
     logger.set_level(args.loggerLevel)
-    cluster, srv, _api, native_srv = build(args)
+    try:
+        cluster, srv, _api, native_srv = build(args)
+    except SystemExit as e:
+        logger.errorf("vmselect: startup failed: %s", e.code)
+        raise
     srv.start()
     logger.infof("vmselect started: nodes=%d http=%d", len(cluster.nodes),
                  srv.port)

@@ -6,22 +6,28 @@ Flags follow the reference's conventions (-storageDataPath,
 also settable via env var VM_<FLAGNAME> (lib/envflag analog).
 
 Run: python -m victoriametrics_tpu_torch.apps.vmsingle -storageDataPath=DIR
-[-search.tpuBackend]
+[-search.tpuBackend=false]
 
 The port's copy of ``victoriametrics_tpu/apps/vmsingle.py``, with the
-reference's flag names.  ``-search.tpuBackend`` attaches the CUDA engine
-(``query/cuda_engine.py``) after a bounded probe of the card
-(``_attach_cuda_engine``).  ``-streamAggr.config`` aggregates ingested
+reference's flag names.  ``-search.tpuBackend`` (on unless given
+``=false``) attaches the CUDA engine (``query/cuda_engine.py``) after a
+bounded probe of the card (``_attach_cuda_engine``); ``build`` waits for
+the attach, and a failed one ends startup with an error naming its cause,
+so no query is answered on the host once the card was asked for.
+``-search.tpuBackend=false`` serves every query on the host evaluator.
+``-rule`` evaluates vmalert-format rule groups in the server
+(``apps/vmalert.EngineDatasource`` over the registry's
+``instant_vector``, ``LocalWriter`` into the store, ``/api/v1/rules``),
+and the Graphite query API (``httpapi/graphite_api.py``) is registered
+beside the Prometheus one.  ``-streamAggr.config`` aggregates ingested
 rows (``ingest/streamaggr.py``; reloaded on SIGHUP, flushed before the
 store closes) and ``-graphiteListenAddr``, ``-influxListenAddr`` and
 ``-opentsdbListenAddr`` start the TCP/UDP line listeners
 (``ingest/ingestserver.py``).  ``-selfScrapeInterval`` scrapes the
 process's own registry into its store (``utils/selfscrape.py``, the SLO
 plane's burn-rate evals riding each tick) and ``-pushmetrics.url`` pushes
-``/metrics`` (``utils/pushmetrics.py``).  A flag that asks for a part the
-port does not have yet (``UNPORTED_FLAGS``: server-side rules) makes
-``build`` exit with an error naming it; the Graphite query API is not
-registered.  Those parts wait for ROADMAP.md section A, item 11.
+``/metrics`` (``utils/pushmetrics.py``).  Config files load through
+``utils/configfile`` (PyYAML where it is installed, else JSON).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import signal
 import sys
 import time
 
-from ..utils import logger
+from ..utils import configfile, logger
 
 
 def parse_flags(argv=None):
@@ -57,8 +63,10 @@ def parse_flags(argv=None):
                    default="30s")
     p.add_argument("-search.maxStalenessInterval", dest="lookback",
                    default="5m")
-    p.add_argument("-search.tpuBackend", dest="tpu", action="store_true",
-                   help="route supported rollups to the CUDA engine")
+    p.add_argument("-search.tpuBackend", dest="tpu", nargs="?", const=True,
+                   default=True, type=parse_bool,
+                   help="route supported rollups to the CUDA engine "
+                        "(default true; =false serves on the host)")
     p.add_argument("-graphiteListenAddr", dest="graphite_addr", default="")
     p.add_argument("-influxListenAddr", dest="influx_addr", default="")
     p.add_argument("-opentsdbListenAddr", dest="opentsdb_addr", default="")
@@ -115,6 +123,17 @@ def parse_flags(argv=None):
     return args
 
 
+def parse_bool(s: str) -> bool:
+    """A boolean flag's value as the reference's flag package reads it
+    (``-flag``, ``-flag=true``, ``-flag=false``, ``1``/``0``)."""
+    v = str(s).strip().lower()
+    if v in ("1", "t", "true", "yes", "on"):
+        return True
+    if v in ("0", "f", "false", "no", "off"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {s!r}")
+
+
 def _dur_ms(s: str, months_ok=False) -> int:
     from ..query.metricsql.parser import parse_duration_ms
     s = s.strip()
@@ -125,78 +144,75 @@ def _dur_ms(s: str, months_ok=False) -> int:
     return int(ms)
 
 
-def _attach_cuda_engine(api, enabled: bool):
-    """-search.tpuBackend startup: probe the card with a hard deadline in a
-    subprocess BEFORE any in-process CUDA init (a hung device init must degrade
-    the server to the host path, not wedge startup).  The probe, the
-    engine build and the kernels' warm-up (their nvcc build on first use,
-    then one launch each) all run on a daemon thread: the HTTP listener
-    comes up at once serving the host path, and `api.tpu` is attached the
-    moment the card is proven healthy.  A failed probe, build or warm-up
-    is logged at error level (with the hung probe's last stack) and the
-    server goes on serving the host path.  Returns the thread (None when
-    not enabled), so a caller can join it; `api.attach_timing` holds the
-    probe's, the engine's and the warm-up's seconds."""
+def _attach_cuda_engine(api, enabled: bool) -> None:
+    """-search.tpuBackend startup, before anything is served: probe the
+    card with a hard deadline in a subprocess BEFORE any in-process CUDA
+    init, then build the engine and warm its kernels up (their nvcc
+    build on first use, then one launch each) within the same deadline
+    (``VM_TPU_PROBE_TIMEOUT_S``, default 600 s).  The build runs on a helper
+    thread joined at once, only so that a hang there can be timed out
+    and its stack logged: a hung device init must end startup with an
+    error, not wedge it.  A failed probe, build or warm-up is logged at
+    error level and raises SystemExit naming the stage and its cause;
+    ``api.tpu`` stays None and nothing falls back to the host.  On
+    success ``api.tpu`` is the engine, ``api.probe_result`` the probe's
+    result and ``api.attach_timing`` the probe's, the engine's and the
+    warm-up's seconds."""
     if not enabled:
-        return None
+        return
     import threading
+    import traceback
 
     from ..utils.device_probe import probe_backend
 
-    def _provision():
-        timeout = float(os.environ.get("VM_TPU_PROBE_TIMEOUT_S", "600"))
-        res = probe_backend(timeout)
-        api.probe_result = res
-        api.attach_timing = {"probe_s": res.elapsed_s}
-        if res.error is not None:
-            logger.errorf("cuda backend requested but unavailable (%s); "
-                          "serving on the host path", res.error)
-            if res.stack:
-                logger.errorf("hung probe's last stack:\n%s", res.stack)
-            return
-        logger.infof("accelerator probe: %d %s device(s) (%s)", res.n,
-                     res.platform, res.name)
+    def fail(msg, stack=""):
+        logger.errorf("%s", msg)
+        if stack:
+            logger.errorf("its last stack:\n%s", stack)
+        raise SystemExit(msg)
+
+    timeout = float(os.environ.get("VM_TPU_PROBE_TIMEOUT_S", "600"))
+    res = probe_backend(timeout)
+    api.probe_result = res
+    api.attach_timing = {"probe_s": res.elapsed_s}
+    if res.error is not None:
+        fail(f"cuda backend requested but unavailable: {res.error}",
+             res.stack)
+    logger.infof("accelerator probe: %d %s device(s) (%s)", res.n,
+                 res.platform, res.name)
+    state = {"stage": "engine build"}
+
+    def _build():
         try:
             from ..query import cuda_engine
             t0 = time.perf_counter()
             engine = cuda_engine.CUDAEngine(mesh=cuda_engine.auto_mesh())
             t1 = time.perf_counter()
+            state["stage"] = "warm-up"
             # build and launch the hot kernels BEFORE exposing the engine
             cuda_engine.warmup(engine)
             api.attach_timing.update(engine_s=t1 - t0,
                                      warmup_s=time.perf_counter() - t1)
-        except Exception as e:  # noqa: BLE001 - any failure keeps the host
-            logger.errorf("cuda engine build or warm-up failed (%s: %s); "
-                          "serving on the host path", type(e).__name__, e)
-            return
-        api.tpu = engine
-        logger.infof("cuda engine attached (%s)", engine.device)
+            state["engine"] = engine
+        except BaseException as e:  # noqa: BLE001 - reported below
+            state["error"] = e
 
-    t = threading.Thread(target=_provision, daemon=True,
-                         name="cuda-provision")
+    t = threading.Thread(target=_build, daemon=True, name="cuda-attach")
     t.start()
-    return t
-
-
-#: flags that ask for a part the port does not have yet (dest, flag, part)
-UNPORTED_FLAGS = (
-    ("rule", "-rule", "server-side rules (apps/vmalert.py)"),
-)
-
-
-def check_unported(args) -> None:
-    """Exit with an error naming the part when a flag asks for one the
-    port does not have yet: a flag is never silently ignored."""
-    for dest, flag, part in UNPORTED_FLAGS:
-        v = getattr(args, dest, None)
-        if v and v not in ("0", "0s"):
-            raise SystemExit(
-                f"vmsingle: {flag} needs {part}, which the port does not "
-                f"have yet (ROADMAP.md §A item 11)")
+    t.join(timeout)
+    if t.is_alive():
+        frame = sys._current_frames().get(t.ident)
+        fail(f"cuda {state['stage']} hung past {timeout:g} s "
+             f"(VM_TPU_PROBE_TIMEOUT_S)",
+             "".join(traceback.format_stack(frame)) if frame else "")
+    if "error" in state:
+        e = state["error"]
+        fail(f"cuda {state['stage']} failed: {type(e).__name__}: {e}")
+    api.tpu = state["engine"]
+    logger.infof("cuda engine attached (%s)", api.tpu.device)
 
 
 def build(args):
-    check_unported(args)
     from ..httpapi.prometheus_api import PrometheusAPI
     from ..httpapi.server import HTTPServer
     from ..storage.storage import Storage
@@ -241,12 +257,23 @@ def build(args):
                         max_query_duration_ms=_dur_ms(
                             args.max_query_duration),
                         rate_limiter=rate_limiter)
-    api.attach_thread = _attach_cuda_engine(api, args.tpu)
     api.flags_map = {k: v for k, v in vars(args).items()}
     api.register(srv)
-    from ..utils import profiler
-    profiler.ensure_started()
-    api.ingest_servers = []
+    from ..httpapi.graphite_api import GraphiteAPI
+    GraphiteAPI(storage).register(srv)
+    api.ingest_servers, api.selfscraper, api.pusher = [], None, None
+    api.rule_groups = []
+    try:
+        # the card attaches before anything is served or evaluated: no
+        # query is answered on the host once the card was asked for
+        _attach_cuda_engine(api, args.tpu)
+        from ..utils import profiler
+        profiler.ensure_started()
+        if args.rule:
+            _arm_rules(args, srv, api)
+    except BaseException:
+        shutdown(srv, storage, api)
+        raise
     for proto, addr in (("graphite", args.graphite_addr),
                         ("influx", args.influx_addr),
                         ("opentsdb", args.opentsdb_addr)):
@@ -264,7 +291,6 @@ def build(args):
         storage.add_rows, "vmsingle", int(port),
         flag_value=args.self_scrape_interval, extra=api.app_metrics,
         on_tick=lambda now_ms: api.init_sloplane().maybe_eval(now_ms))
-    api.pusher = None
     if args.pushmetrics_urls:
         from ..utils.pushmetrics import MetricsPusher
         api.pusher = MetricsPusher(
@@ -276,6 +302,51 @@ def build(args):
     return storage, srv, api
 
 
+def _arm_rules(args, srv, api) -> None:
+    """-rule: server-side recording and alerting rules (the reference
+    evaluates them in vmalert against vmselect; here they run in process
+    through the shared materialized-stream registry, so rules sharing an
+    expression pay one evaluation per instant, on the card when it is
+    attached), their results written into the local store, and
+    /api/v1/rules."""
+    from ..httpapi.server import Response
+    from . import vmalert
+    ds = vmalert.EngineDatasource(api)
+    rw = vmalert.LocalWriter(api)
+    for path in args.rule:
+        cfg = configfile.load(path) or {}
+        for g in cfg.get("groups", []):
+            api.rule_groups.append(vmalert.Group(
+                g, ds, [], rw, vmalert._dur_s(args.eval_interval, 60.0)))
+    for g in api.rule_groups:
+        g.start()
+    srv.route("/api/v1/rules", lambda req: Response.json(
+        {"status": "success",
+         "data": {"groups": [g.api_dict() for g in api.rule_groups]}}))
+    logger.infof("vmsingle: %d server-side rule group(s) armed",
+                 len(api.rule_groups))
+
+
+def shutdown(srv, storage, api) -> None:
+    """Stop what ``build`` started, then close the store: the rule
+    groups, the listener, the line listeners, the pusher, the
+    self-scraper (a late scrape must not write into a closed store) and
+    the stream aggregator's final window (streamaggr MustStop ordering:
+    dropping the open window on every restart would lose data)."""
+    for g in getattr(api, "rule_groups", []):
+        g.stop()
+    srv.stop()
+    for isrv in getattr(api, "ingest_servers", []):
+        isrv.stop()
+    if getattr(api, "pusher", None) is not None:
+        api.pusher.stop()
+    if getattr(api, "selfscraper", None) is not None:
+        api.selfscraper.stop()
+    if api.stream_aggr is not None:
+        api.stream_aggr.stop(final_flush=True)
+    storage.close()
+
+
 def main(argv=None):
     import threading
     import faulthandler
@@ -283,7 +354,12 @@ def main(argv=None):
 
     args = parse_flags(argv)
     logger.set_level(args.loggerLevel)
-    storage, srv, _api = build(args)
+    try:
+        with configfile.exit_on_error():
+            storage, srv, _api = build(args)
+    except SystemExit as e:
+        logger.errorf("vmsingle: startup failed: %s", e.code)
+        raise
     logger.infof("vmsingle started: data=%s listen=%s",
                  args.storageDataPath, args.httpListenAddr)
 
@@ -322,22 +398,7 @@ def main(argv=None):
             pass
     finally:
         logger.infof("vmsingle: shutting down")
-        srv.stop()
-        for isrv in _api.ingest_servers:
-            isrv.stop()
-        if _api.pusher is not None:
-            _api.pusher.stop()
-        if _api.selfscraper is not None:
-            # before storage.close(): a late scrape must not write into
-            # a closed storage
-            _api.selfscraper.stop()
-        if _api.stream_aggr is not None:
-            # final window flush BEFORE storage closes (streamaggr MustStop
-            # ordering): dropping the open window on every restart would
-            # lose data, and a late flusher tick must not write into a
-            # closed storage
-            _api.stream_aggr.stop(final_flush=True)
-        storage.close()
+        shutdown(srv, storage, _api)
         logger.infof("vmsingle: shutdown complete")
 
 

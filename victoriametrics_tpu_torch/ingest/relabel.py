@@ -228,6 +228,7 @@ class ParsedConfigs:
 
 def parse_relabel_configs(yaml_text_or_list) -> ParsedConfigs:
     if isinstance(yaml_text_or_list, str):
-        import yaml
-        yaml_text_or_list = yaml.safe_load(yaml_text_or_list) or []
+        from ..utils import configfile
+        yaml_text_or_list = configfile.loads(yaml_text_or_list,
+                                             "relabel config") or []
     return ParsedConfigs(yaml_text_or_list)

@@ -289,8 +289,8 @@ class Deduplicator:
 def load_from_text(yaml_text: str, push_fn) -> "StreamAggregators":
     """Parse a YAML aggregation config (list of aggregator entries) — the
     streamaggr.LoadFromData entry point used by vmsingle/vminsert/vmagent."""
-    import yaml
-    cfgs = yaml.safe_load(yaml_text) or []
+    from ..utils import configfile
+    cfgs = configfile.loads(yaml_text, "streamaggr config") or []
     if not isinstance(cfgs, list):
         raise ValueError("streamaggr config must be a YAML list of "
                          "aggregator entries")
