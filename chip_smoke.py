@@ -196,7 +196,33 @@ each printing one JSON line:
               hour at 60 s, each equal to a numpy version of the render's
               last-value-in-bucket rule on the written values;
               /metrics/find, /tags, and a plaintext line through the
-              listener rendered back
+              listener rendered back; the server goes on serving for:
+  operations  vmauth, vmbackup/vmrestore and vmctl around that server S,
+              each app a process (python -m ...apps.<app>) as users run
+              them: (a) vmauth with a JSON -auth.config (a basic-auth
+              user, a bearer token, a JWT user with an HS256 secret and a
+              required claim) routing /api/v1/query_range and
+              /api/v1/query to S: the dashboard's sum panel through each
+              user equal as strings to the direct request, at the
+              direct request's launches (also with nocache=1: K2 each);
+              a wrong password and a JWT with the wrong claim 401; (b)
+              vmbackup of S through its /snapshot/create to fs:// (the
+              8192 series and all S holds), a second run of the same
+              snapshot uploading nothing, main_restore into a new
+              directory and vmsingle D started there with the default
+              backend (the phase's one attach): D's cold sum panel (K1 +
+              K2) equal as strings to S's nocache=1 answer, 8192 series on
+              both; (c) one more steady scrape of the 8192 series written
+              to S, vmctl vm-native from S to D filtered from that scrape
+              (exactly 8192 rows): the sum panel on a grid ending at it on
+              D, through D's window (K3 + K2) at rtol 1e-12 of S's
+              nocache=1 answer and with nocache=1 (K1 + K2) equal as
+              strings; (d) one Prometheus TSDB block written by the
+              port's promtsdb (the 256 series of host-0..host-7 renamed
+              tsdb_requests_total, the seeded history's last hour: 61,440
+              samples), vmctl verify-block ok, vmctl prometheus-tsdb into
+              D: its sum by instance of rate on D (K1 + K2) within rtol
+              1e-12 of S's over the same series and hour
   full_width  BASELINE config 2: 100,000 counters at 15 s, 32 series
               per instance, step 15 s, window 5 m, its history cut from
               24 h to FULL_HOURS (a "cut" line), as one cold query with
@@ -3233,10 +3259,11 @@ WATCH_SERIES, WATCH_SELECTOR = 256, "watch_requests_total"
 
 class HttpClient:
     """GET and POST against the server on localhost: (status, body, round
-    trip ms)."""
+    trip ms); the last response's headers in ``headers``."""
 
     def __init__(self, port: int):
         self.base = f"http://127.0.0.1:{port}"
+        self.headers = None
 
     def _do(self, req) -> tuple[int, bytes, float]:
         import urllib.error
@@ -3244,9 +3271,9 @@ class HttpClient:
         t0 = time.perf_counter()
         try:
             with urllib.request.urlopen(req, timeout=600) as r:
-                body, code = r.read(), r.status
+                body, code, self.headers = r.read(), r.status, r.headers
         except urllib.error.HTTPError as e:
-            body, code = e.read(), e.code
+            body, code, self.headers = e.read(), e.code, e.headers
         return code, body, (time.perf_counter() - t0) * 1e3
 
     def url(self, path: str, **params) -> str:
@@ -3254,8 +3281,11 @@ class HttpClient:
         return self.base + path + ("?" + urllib.parse.urlencode(params)
                                    if params else "")
 
-    def get(self, path: str, **params) -> tuple[int, bytes, float]:
-        return self._do(self.url(path, **params))
+    def get(self, path: str, headers=None, **params
+            ) -> tuple[int, bytes, float]:
+        import urllib.request
+        return self._do(urllib.request.Request(self.url(path, **params),
+                                               headers=headers or {}))
 
     def post(self, path: str, body: bytes, headers=None
              ) -> tuple[int, bytes, float]:
@@ -4266,7 +4296,8 @@ def phase_satellites(st) -> dict:
     -graphiteListenAddr: (a) server-side rules on the card, (b) the
     standalone vmalert against it, (c) vmagent through its queue, (d)
     Graphite.  Its launch counts are the server's, vmalert's queries
-    included."""
+    included.  The server goes on serving in ``st["served"]`` for the
+    operations phase, which stops it (a failure here stops it at once)."""
     from victoriametrics_tpu_torch.apps import vmsingle
     from victoriametrics_tpu_torch.utils import profiler
     t_phase = time.perf_counter()
@@ -4284,7 +4315,7 @@ def phase_satellites(st) -> dict:
     for g in api.rule_groups:
         g.stop()  # evaluated below on the data's clock
     srv.start()
-    parts = {}
+    parts, handed = {}, False
     try:
         if not isinstance(api.tpu, ce.CUDAEngine):
             raise AssertionError("satellites: the default backend attached "
@@ -4306,9 +4337,13 @@ def phase_satellites(st) -> dict:
         t0 = time.perf_counter()
         agent = sat_vmagent(tmp, st, api, c.base, instants[-1] + DASH_STEP)
         parts["vmagent_s"] = time.perf_counter() - t0
+        # the operations phase runs next against this server, and stops it
+        st["served"], st["last_instant"] = (storage, srv, api), instants[-1]
+        handed = True
     finally:
-        vmsingle.shutdown(srv, storage, api)
-        profiler.PROFILER.stop()
+        if not handed:
+            vmsingle.shutdown(srv, storage, api)
+            profiler.PROFILER.stop()
         shutil.rmtree(tmp, ignore_errors=True)
     res = {"phase": "satellites", "ok": True,
            "attach": {**getattr(api, "attach_timing", {}),
@@ -4316,6 +4351,449 @@ def phase_satellites(st) -> dict:
                       "device": str(api.tpu.device)},
            "threshold": threshold, "rules": rules, "vmalert": alert,
            "vmagent": agent, "graphite": graphite, "part_s": parts,
+           "wall_s": time.perf_counter() - t_phase, "launches": launches}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The operations phase: vmauth, vmbackup/vmrestore and vmctl around vmsingle.
+# ---------------------------------------------------------------------------
+
+#: the vmauth users: basic auth, a bearer token, and a JWT (HS256) user
+#: whose token must carry OPS_CLAIM; each routes the query API to S
+OPS_USER, OPS_PASSWORD, OPS_TOKEN = "dashboards", "ops-pw", "ops-token"
+OPS_JWT_SECRET, OPS_CLAIM = "ops-jwt-secret", {"team": "dashboards"}
+#: the TSDB block vmctl migrates: the dashboard's series of these
+#: instances (32 each), renamed, over the last hour of the seeded history
+OPS_TSDB_INSTANCES = [f"host-{i}" for i in range(8)]
+OPS_TSDB_METRIC = "tsdb_requests_total"
+OPS_TSDB_SAMPLES = 240
+OPS_SUM = PANEL_TEXTS["sum_by_instance"]
+OPS_TSDB_SUM = f"sum by (instance)(rate({OPS_TSDB_METRIC}[5m]))"
+OPS_TSDB_WANT = ("sum by (instance)(rate(" + SELECTOR +
+                 '{instance=~"host-[0-7]"}[5m]))')
+
+
+def app_env() -> dict:
+    """The environment of an app process: this checkout on PYTHONPATH,
+    no card (the apps around vmsingle never touch one)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+            "PYTHONPATH": os.pathsep.join(
+                p for p in (here, os.environ.get("PYTHONPATH")) if p)}
+
+
+def run_app(module: str, *flags, timeout: float = 600) -> dict:
+    """``python -m victoriametrics_tpu_torch.apps.<module>`` run to its
+    end: its output and wall seconds; a non-zero exit raises."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", f"victoriametrics_tpu_torch.apps.{module}",
+         *flags], env=app_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {flags[:1]}: exit {out.returncode}: "
+                             f"{out.stdout[-2000:]}")
+    return {"output": out.stdout, "wall_s": time.perf_counter() - t0}
+
+
+def logged(what: str, pattern: str, text: str) -> tuple[int, ...]:
+    """The integers of `pattern`'s first match in an app's log."""
+    hit = re.search(pattern, text)
+    if hit is None:
+        raise AssertionError(f"{what}: no {pattern!r} in {text[-2000:]!r}")
+    return tuple(int(x) for x in hit.groups())
+
+
+class AuthProc:
+    """vmauth as a process (``python -m victoriametrics_tpu_torch.apps.
+    vmauth``) with a JSON -auth.config, on a port read from its start
+    line."""
+
+    def __init__(self, cfg_path: str, log_path: str):
+        self.log_path = log_path
+        with open(log_path, "wb") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmauth",
+                 f"-auth.config={cfg_path}", "-httpListenAddr=127.0.0.1:0"],
+                stdout=log, stderr=subprocess.STDOUT, env=app_env(),
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        t_end = time.monotonic() + 120
+        while True:
+            with open(log_path) as f:
+                text = f.read()
+            hit = re.search(r"vmauth started: http=(\d+)", text)
+            if hit:
+                self.port = int(hit.group(1))
+                return
+            if self.proc.poll() is not None or time.monotonic() > t_end:
+                self.stop()
+                raise AssertionError(f"vmauth did not start: {text[-2000:]}")
+            time.sleep(0.05)
+
+    def stop(self) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                return self.proc.wait(60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+        return self.proc.wait()
+
+
+def hs256_token(secret: str, claims: dict) -> str:
+    """A JWT (HS256) over `claims`."""
+    import base64
+    import hashlib
+    import hmac
+
+    def b64(b: bytes) -> str:
+        return base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+    head = b64(json.dumps({"alg": "HS256", "typ": "JWT"}).encode())
+    body = b64(json.dumps(claims).encode())
+    sig = hmac.new(secret.encode(), f"{head}.{body}".encode(),
+                   hashlib.sha256).digest()
+    return f"{head}.{body}.{b64(sig)}"
+
+
+def auth_header(auth: str | None) -> dict | None:
+    return {"Authorization": auth} if auth else None
+
+
+def ops_range(what: str, c: HttpClient, q: str, grid, auth=None, **kw):
+    """A query_range over `grid` (start, end, step ms) that must answer
+    200, `auth` as its Authorization header: its keyed result, launches
+    and round trip ms."""
+    before = dict(kernels.LAUNCHES)
+    code, body, ms = c.get("/api/v1/query_range", auth_header(auth), query=q,
+                           start=grid[0] / 1e3, end=grid[1] / 1e3,
+                           step=grid[2] / 1e3, **kw)
+    if code != 200:
+        raise AssertionError(f"{what}: {code} {body[:300]}")
+    return body_result(json.loads(body)), launched_since(before), ms
+
+
+def require_route(what: str, launches: dict, cold: bool) -> None:
+    """K2 launched, and K1 too when the query is cold."""
+    if not launches.get("rollup_aggregate_tile") or (
+            cold and not launches.get("decode_tiles")):
+        raise AssertionError(f"{what}: launched {launches}")
+
+
+def ops_vmauth(tmp: str, s: HttpClient, grid) -> dict:
+    """(a) vmauth in front of S: the dashboard's sum panel through each of
+    its three users equal as strings to the request sent to S directly,
+    and with nocache=1 at the same launches; a wrong password, a JWT whose
+    claim is wrong and an empty basic credential answer 401."""
+    import base64
+    route = [{"src_paths": ["/api/v1/query_range", "/api/v1/query"],
+              "url_prefix": s.base}]
+    cfg = os.path.join(tmp, "auth.json")
+    with open(cfg, "w") as f:
+        json.dump({"users": [
+            {"username": OPS_USER, "password": OPS_PASSWORD, "url_map": route},
+            {"bearer_token": OPS_TOKEN, "url_map": route},
+            {"name": "jwt", "jwt_secrets": [OPS_JWT_SECRET],
+             "jwt_required_claims": OPS_CLAIM, "url_map": route}]}, f)
+    basic = "Basic " + base64.b64encode(
+        f"{OPS_USER}:{OPS_PASSWORD}".encode()).decode()
+    users = {"basic": basic, "bearer": f"Bearer {OPS_TOKEN}",
+             "jwt": "Bearer " + hs256_token(OPS_JWT_SECRET, OPS_CLAIM)}
+    t0 = time.perf_counter()
+    proxy = AuthProc(cfg, os.path.join(tmp, "vmauth.log"))
+    out = {"start_s": time.perf_counter() - t0}
+    try:
+        p = HttpClient(proxy.port)
+        # the panel as the dashboard sends it: directly, through each user,
+        # directly again (after the first, from S's result cache: no
+        # launch); then with nocache=1 (no result cache, no resident
+        # window: K2 on the engine's tile, K1 too where the tile is not
+        # cached) through vmauth and directly, the pair whose launches
+        # must match
+        first, first_l, first_ms = ops_range("ops direct", s, OPS_SUM, grid)
+        proxied = {}
+        for name, auth in users.items():
+            got, launches, ms = ops_range(f"ops vmauth {name}", p, OPS_SUM,
+                                          grid, auth)
+            same_strings(f"ops vmauth {name}", got, first)
+            proxied[name] = {"round_trip_ms": ms, "launches": launches}
+        direct, direct_l, direct_ms = ops_range("ops direct", s, OPS_SUM,
+                                                grid)
+        same_strings("ops direct again", direct, first)
+        cold = {}
+        for name, c, auth in (("vmauth", p, users["basic"]),
+                              ("direct", s, None)):
+            got, launches, ms = ops_range(f"ops nocache {name}", c, OPS_SUM,
+                                          grid, auth, nocache=1)
+            require_route(f"ops nocache {name}", launches, cold=False)
+            same_strings(f"ops nocache {name}", got, first)
+            cold[name] = {"round_trip_ms": ms, "launches": launches}
+        if cold["vmauth"]["launches"] != cold["direct"]["launches"]:
+            raise AssertionError(f"ops vmauth nocache: launched "
+                                 f"{cold['vmauth']['launches']}, directly "
+                                 f"{cold['direct']['launches']}")
+        wrong = "Basic " + base64.b64encode(
+            f"{OPS_USER}:wrong".encode()).decode()
+        claim = "Bearer " + hs256_token(OPS_JWT_SECRET, {"team": "other"})
+        # ":" base64-encoded: no user of this config has an empty
+        # username, so it names none
+        empty = "Basic " + base64.b64encode(b":").decode()
+        denied = {}
+        for name, auth in (("wrong_password", wrong), ("jwt_claim", claim),
+                           ("empty_basic", empty)):
+            code, _, _ = p.get("/api/v1/query_range", auth_header(auth),
+                               query=OPS_SUM)
+            if code != 401 or p.headers.get("WWW-Authenticate") != \
+                    'Basic realm="vmauth"':
+                raise AssertionError(f"ops vmauth {name}: {code}")
+            denied[name] = code
+    finally:
+        rc = proxy.stop()
+    if rc != 0:
+        raise AssertionError(f"vmauth exited {rc}")
+    return {**out, "first": {"round_trip_ms": first_ms, "launches": first_l},
+            "proxied": proxied,
+            "direct": {"round_trip_ms": direct_ms, "launches": direct_l},
+            "nocache": cold, "series": len(direct), "equal": "strings",
+            "denied": denied, "exit": rc}
+
+
+def tree_bytes(path: str) -> tuple[int, int]:
+    """(files, bytes) under a directory."""
+    n = size = 0
+    for dp, _, fns in os.walk(path):
+        for fn in fns:
+            n += 1
+            size += os.path.getsize(os.path.join(dp, fn))
+    return n, size
+
+
+def series_count(c: HttpClient, what: str) -> int:
+    code, body, _ = c.get("/api/v1/series", **{"match[]": SELECTOR,
+                                               "start": (T_START - DAY) / 1e3,
+                                               "end": time.time()})
+    if code != 200:
+        raise AssertionError(f"{what} /api/v1/series: {code} {body[:300]}")
+    return len(json.loads(body)["data"])
+
+
+def ops_backup(tmp: str, s_path: str, s: HttpClient) -> tuple[dict, str]:
+    """(b) vmbackup of S through its /snapshot/create to fs://, twice (the
+    second uploads nothing), main_restore into a new directory: the counts,
+    bytes and seconds, and the restored path."""
+    from victoriametrics_tpu_torch.apps import vmbackup
+    dst = os.path.join(tmp, "backup")
+    flags = [f"-storageDataPath={s_path}", f"-dst=fs://{dst}"]
+    first = run_app("vmbackup", f"-snapshot.createURL={s.base}", *flags)
+    up, skip, deleted = logged("vmbackup", r"backup: uploaded=(\d+) "
+                               r"skipped=(\d+) deleted=(\d+)",
+                               first["output"])
+    code, body, _ = s.get("/snapshot/list")
+    (snap,) = json.loads(body)["snapshots"]
+    again = run_app("vmbackup", f"-snapshotName={snap}", *flags)
+    up2, skip2, deleted2 = logged("vmbackup again", r"backup: uploaded="
+                                  r"(\d+) skipped=(\d+) deleted=(\d+)",
+                                  again["output"])
+    if up == 0 or skip or (up2, skip2, deleted2) != (0, up, 0):
+        raise AssertionError(f"ops vmbackup: {up}/{skip} then {up2}/{skip2}"
+                             f"/{deleted2}")
+    files, size = tree_bytes(dst)
+    restored = os.path.join(tmp, "restored")
+    t0 = time.perf_counter()
+    vmbackup.main_restore([f"-src=fs://{dst}",
+                           f"-storageDataPath={restored}"])
+    restore_s = time.perf_counter() - t0
+    if tree_bytes(restored) != (files, size):
+        raise AssertionError("ops vmrestore: other files than the backup's")
+    return {"snapshot": snap, "backup_s": first["wall_s"],
+            "uploaded": up, "backup_files": files, "backup_bytes": size,
+            "again_s": again["wall_s"], "again_uploaded": up2,
+            "again_skipped": skip2, "restore_s": restore_s}, restored
+
+
+def ops_restored(s: HttpClient, d: HttpClient, grid) -> dict:
+    """(b) D's cold sum panel (K1 + K2) equal as strings to S's nocache=1
+    answer; 8192 series on both."""
+    got, launches, ms = ops_range("ops restored D", d, OPS_SUM, grid)
+    require_route("ops restored D", launches, cold=True)
+    want, s_launches, s_ms = ops_range("ops S nocache", s, OPS_SUM, grid,
+                                       nocache=1)
+    same_strings("ops restored D vs S", got, want)
+    counts = {"S": series_count(s, "S"), "D": series_count(d, "D")}
+    if counts != {"S": DASH_SERIES, "D": DASH_SERIES}:
+        raise AssertionError(f"ops series: {counts}")
+    return {"round_trip_ms": ms, "launches": launches, "s_round_trip_ms":
+            s_ms, "s_launches": s_launches, "series": counts,
+            "groups": len(got), "equal": "strings"}
+
+
+def ops_native(st, s: HttpClient, d: HttpClient, d_api, after: int,
+               span: int) -> dict:
+    """(c) one steady scrape of the 8192 series written to S after the
+    snapshot, copied to D by vmctl vm-native filtered from that scrape:
+    8192 series, and exactly their 8192 samples inserted into D (D's
+    vm_rows_inserted_total; the whole history would be 1441 a series);
+    then the sum panel over a window ending at that scrape on D (the card)
+    against S's nocache=1 answer."""
+    sat_scrape(s, st, after)
+    ts = st["feed"].history[-1][0]
+    t_from = int(ts.min())
+    inserted0 = d_api.rows_inserted
+    run = run_app("vmctl", "vm-native", f"--vm-native-src-addr={s.base}",
+                  f"--vm-native-dst-addr={d.base}",
+                  "--vm-native-filter-match={__name__=\"%s\"}" % SELECTOR,
+                  f"--vm-native-filter-time-start={t_from / 1e3}")
+    (rows,) = logged("vmctl vm-native", r"migrated (\d+) series chunks",
+                     run["output"])
+    samples = d_api.rows_inserted - inserted0
+    if rows != DASH_SERIES or samples != DASH_SERIES:
+        raise AssertionError(f"ops vm-native: {rows} series, {samples} "
+                             "samples inserted")
+    code, body, _ = d.get("/internal/force_flush")
+    if code != 200:
+        raise AssertionError(f"ops D force_flush: {code}")
+    end = int(ts.max()) + DASH_STEP - int(ts.max()) % DASH_STEP
+    grid = (end - span, end, DASH_STEP)
+    # as the dashboard asks: D's resident window from (b) takes the new
+    # scrape (K3 appends it, K2), at rtol 1e-12 of S's cold answer; with
+    # nocache=1 D takes S's route (K1 + K2 on the migrated columns), and
+    # the two answers are the same strings
+    got, launches, ms = ops_range("ops migrated D", d, OPS_SUM, grid)
+    require_route("ops migrated D", launches, cold=False)
+    cold, cold_l, cold_ms = ops_range("ops migrated D nocache", d, OPS_SUM,
+                                      grid, nocache=1)
+    require_route("ops migrated D nocache", cold_l, cold=True)
+    want, s_launches, s_ms = ops_range("ops S nocache", s, OPS_SUM, grid,
+                                       nocache=1)
+    require_route("ops S nocache", s_launches, cold=True)
+    same_strings("ops migrated D vs S", cold, want)
+    err = keyed_close("ops migrated D (its window) vs S", got, want, 1e-12,
+                      0.0)
+    return {"vmctl_s": run["wall_s"], "rows": rows, "samples": samples,
+            "from_ms": t_from,
+            "grid": list(grid), "round_trip_ms": ms, "launches": launches,
+            "max_abs_err": err, "rtol": 1e-12,
+            "nocache": {"round_trip_ms": cold_ms, "launches": cold_l,
+                        "equal": "strings"},
+            "s_round_trip_ms": s_ms, "s_launches": s_launches}
+
+
+def ops_tsdb(tmp: str, st, s: HttpClient, d: HttpClient) -> dict:
+    """(d) the dashboard's series of host-0..host-7 (32 each) over the
+    last hour of the seeded history, renamed, written as one Prometheus
+    TSDB block by the port's promtsdb.write_block; vmctl verify-block
+    passes it and vmctl prometheus-tsdb migrates it into D; the sum by
+    instance of its rate on D (the card) within rtol 1e-12 of S's over the
+    same series and hour."""
+    from victoriametrics_tpu_torch.utils import promtsdb
+    ts, vals = (a[:, -OPS_TSDB_SAMPLES:] for a in st["tail"])
+    keep = [i for i, lb in enumerate(st["labels"])
+            if lb["instance"] in OPS_TSDB_INSTANCES]
+    series = [({**st["labels"][i], "__name__": OPS_TSDB_METRIC}, ts[i],
+               vals[i]) for i in keep]
+    blk = os.path.join(tmp, "tsdb", "01OPSBLOCK")
+    t0 = time.perf_counter()
+    promtsdb.write_block(blk, series)
+    write_s = time.perf_counter() - t0
+    verify = run_app("vmctl", "verify-block", f"--block-path={blk}")
+    rep = json.loads(verify["output"][verify["output"].index("{"):
+                                      verify["output"].rindex("}") + 1])
+    n_samples = len(keep) * OPS_TSDB_SAMPLES
+    if not rep["ok"] or rep["samples"] != n_samples:
+        raise AssertionError(f"ops verify-block: {rep}")
+    run = run_app("vmctl", "prometheus-tsdb",
+                  f"--tsdb-path={os.path.dirname(blk)}",
+                  f"--dst-addr={d.base}")
+    (migrated,) = logged("vmctl prometheus-tsdb", r"migrated (\d+) samples",
+                         run["output"])
+    if migrated != n_samples:
+        raise AssertionError(f"ops prometheus-tsdb: {migrated} samples")
+    code, _, _ = d.get("/internal/force_flush")
+    if code != 200:
+        raise AssertionError(f"ops D force_flush: {code}")
+    # windows inside the hour, with the sample before each inside it too
+    lo = int(ts[keep, 0].max()) + 2 * WINDOW
+    hi = int(ts[keep, -1].min())
+    grid = (lo + DASH_STEP - lo % DASH_STEP, hi - hi % DASH_STEP, DASH_STEP)
+    got, launches, ms = ops_range("ops tsdb D", d, OPS_TSDB_SUM, grid)
+    require_route("ops tsdb D", launches, cold=True)
+    want, s_launches, s_ms = ops_range("ops tsdb S", s, OPS_TSDB_WANT, grid,
+                                       nocache=1)
+    err = keyed_close("ops tsdb D vs S", got, want, 1e-12, 0.0)
+    return {"series": len(keep), "samples": n_samples, "write_block_s":
+            write_s, "block_bytes": tree_bytes(blk)[1],
+            "verify_s": verify["wall_s"], "vmctl_s": run["wall_s"],
+            "migrated": migrated, "grid": list(grid), "groups": len(got),
+            "round_trip_ms": ms, "launches": launches,
+            "s_round_trip_ms": s_ms, "s_launches": s_launches,
+            "max_abs_err": err, "rtol": 1e-12}
+
+
+def phase_operations(st) -> dict:
+    """vmauth, vmbackup/vmrestore and vmctl around the satellites phase's
+    vmsingle S (still serving, on the card): (a) the sum panel through
+    vmauth; (b) S backed up twice through its /snapshot/create, restored
+    with main_restore, and vmsingle D started on the restored directory
+    with the default backend (the phase's one attach), D's cold sum panel
+    against S's; (c) a scrape written to S after the snapshot, copied to D
+    by vmctl vm-native, the sum over it on D against S's; (d) a TSDB block
+    of 256 dashboard series, verified and migrated by vmctl into D, its
+    sum by instance on D against S's.  The apps run as processes, as users
+    run them.  Its launch counts are S's and D's, D's attach included
+    (its warm-up launches K1 once, K2 and B5 three times each)."""
+    from victoriametrics_tpu_torch.apps import vmsingle
+    from victoriametrics_tpu_torch.utils import profiler
+    t_phase = time.perf_counter()
+    storage, srv, api = st.pop("served")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_operations_")
+    parts, d_server = {}, None
+    try:
+        s = HttpClient(srv.port)
+        start, end = dashboard_grid()
+        start -= start % DASH_STEP
+        end = start + -(-(end - start) // DASH_STEP) * DASH_STEP
+        grid = (start, end, DASH_STEP)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        auth = ops_vmauth(tmp, s, grid)
+        parts["vmauth_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        backup, restored = ops_backup(tmp, st["path"], s)
+        parts["backup_restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d_server = vmsingle.build(vmsingle.parse_flags([
+            f"-storageDataPath={restored}", "-httpListenAddr=127.0.0.1:0"]))
+        attach_s = time.perf_counter() - t0
+        d_storage, d_srv, d_api = d_server
+        if not isinstance(d_api.tpu, ce.CUDAEngine):
+            raise AssertionError("operations: D's default backend attached "
+                                 f"{d_api.tpu!r}")
+        d_srv.start()
+        d = HttpClient(d_srv.port)
+        attach = {**d_api.attach_timing, "attach_s": attach_s,
+                  "flag": "default", "device": str(d_api.tpu.device)}
+        t0 = time.perf_counter()
+        backup["restored_query"] = ops_restored(s, d, grid)
+        parts["restored_query_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native = ops_native(st, s, d, d_api, st["last_instant"],
+                            end - start)
+        parts["vm_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tsdb = ops_tsdb(tmp, st, s, d)
+        parts["prometheus_tsdb_s"] = time.perf_counter() - t0
+        launches = {k: kernels.LAUNCHES.get(k, 0) for k in SOURCES}
+    finally:
+        if d_server is not None:
+            vmsingle.shutdown(d_server[1], d_server[0], d_server[2])
+        vmsingle.shutdown(srv, storage, api)
+        profiler.PROFILER.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"phase": "operations", "ok": True, "attach": attach,
+           "vmauth": auth, "backup": backup, "vm_native": native,
+           "prometheus_tsdb": tsdb, "part_s": parts,
            "wall_s": time.perf_counter() - t_phase, "launches": launches}
     emit(res)
     return res
@@ -5563,17 +6041,14 @@ class StorageNodeProc:
         self.name = f"vmstorage-{i}"
         self.path = os.path.join(root, self.name)
         self.log_path = self.path + ".log"
-        here = os.path.dirname(os.path.abspath(__file__))
-        env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
-               "PYTHONPATH": os.pathsep.join(
-                   p for p in (here, os.environ.get("PYTHONPATH")) if p)}
         with open(self.log_path, "wb") as log:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "victoriametrics_tpu_torch.apps."
                  "vmstorage", f"-storageDataPath={self.path}",
                  "-vminsertAddr=127.0.0.1:0", "-vmselectAddr=127.0.0.1:0",
                  "-httpListenAddr=127.0.0.1:0"],
-                stdout=log, stderr=subprocess.STDOUT, cwd=here, env=env)
+                stdout=log, stderr=subprocess.STDOUT, env=app_env(),
+                cwd=os.path.dirname(os.path.abspath(__file__)))
         self.ports = None
 
     def log(self) -> bytes:
@@ -6126,6 +6601,7 @@ def main(argv=None) -> int:
         del dash_state
         http = phase_http(dev, http_state, dash)
         sat = phase_satellites(http_state)
+        ops = phase_operations(http_state)
         del http_state
         for name in FLEET_KERNELS:
             kres[name] = {**fl["kernels"][name], "max_abs_err": max(
@@ -6143,11 +6619,12 @@ def main(argv=None) -> int:
     # B1-B8 count on the dashboard path, B9-B11 on the fleet's, B12-B15 on
     # the mesh phase's; the http phase's launches (its path through the
     # server: K1-B10), the satellites phase's (its rules and vmalert's
-    # queries through the server: K1, K2) and the cluster phase's (K1 and
-    # K2 through vmselect) are added to them
+    # queries through the server: K1, K2), the operations phase's (the
+    # proxied, restored and migrated queries: K1, K2) and the cluster
+    # phase's (K1 and K2 through vmselect) are added to them
     launches = {**dash["launches"], **fl["launches"],
                 **{k: mesh["launches"][k] for k in MESH_KERNELS}}
-    for phase in (http, sat, cl):
+    for phase in (http, sat, ops, cl):
         for name, n in phase["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name in SOURCES:

@@ -14,15 +14,20 @@
   and "shutdown complete", and none of the blocked modules was loaded;
 - their flags: the reference's names and defaults, the environment
   variables (``VM_<FLAG>`` on vmstorage, ``VM_STORAGENODE`` on the
-  routers), and a router without ``-storageNode`` refusing to start.
+  routers), and a router without ``-storageNode`` refusing to start;
+- vmauth round-robining two vmselects over the three nodes, and
+  vmbackup/vmrestore of one node through its ``/snapshot/create``.
 """
 
+import base64
 import json
 import os
 import signal
 import subprocess
 import sys
+import threading
 import time
+import urllib.parse
 import urllib.request
 
 import pytest
@@ -184,3 +189,100 @@ def test_router_flags_and_environment(app, monkeypatch):
     with pytest.raises(SystemExit) as ei:
         app.build(app.parse_flags(["-httpListenAddr=127.0.0.1:0"]))
     assert "-storageNode is required" in str(ei.value.code)
+
+
+def test_vmauth_balances_two_vmselects_and_vmbackup_backs_up_a_node(
+        tmp_path):
+    """The reference's documented cluster layout, in process on the CPU:
+    three vmstorage nodes, two vmselects over them (-search.tpuBackend=
+    false) and vmauth in front with a url_prefix list of both: requests
+    alternate between the two (round robin), each answer equal to the
+    other's and to a vmselect's own; then vmbackup backs up one node
+    through its /snapshot/create and vmrestore brings its series back."""
+    from victoriametrics_tpu_torch.apps import vmauth, vmbackup
+    from victoriametrics_tpu_torch.parallel.cluster_api import (
+        ClusterStorage, StorageNodeClient)
+    from victoriametrics_tpu_torch.storage.storage import Storage
+    from victoriametrics_tpu_torch.utils import profiler
+    nodes, selects, srvs = [], [], []
+    try:
+        for i in range(3):
+            node = vmstorage.build(vmstorage.parse_flags([
+                f"-storageDataPath={tmp_path / f'st{i}'}",
+                "-httpListenAddr=127.0.0.1:0", "-vminsertAddr=127.0.0.1:0",
+                "-vmselectAddr=127.0.0.1:0"]))
+            for s in node[1:4]:
+                s.start()
+            nodes.append(node)
+        specs = [f"-storageNode=127.0.0.1:{n[1].port}:{n[2].port}"
+                 for n in nodes]
+        writer = ClusterStorage([StorageNodeClient("127.0.0.1", n[1].port,
+                                                   n[2].port) for n in nodes])
+        now = int(time.time() * 1000) - 600_000
+        writer.add_rows([({"__name__": "lb_m", "i": str(i)},
+                          now + j * 15_000, float(i * 10 + j))
+                         for i in range(30) for j in range(20)])
+        writer.close()
+        for n in nodes:
+            n[0].force_flush()
+        for _ in range(2):
+            cluster, srv, _api, _native = vmselect.build(vmselect.parse_flags(
+                specs + ["-search.tpuBackend=false",
+                         "-httpListenAddr=127.0.0.1:0"]))
+            srv.start()
+            selects.append((cluster, srv))
+        cfg = tmp_path / "auth.json"
+        cfg.write_text(json.dumps({"users": [{
+            "username": "lb", "password": "pw",
+            "url_prefix": [f"http://127.0.0.1:{s.port}"
+                           for _, s in selects]}]}))
+        auth, proxy = vmauth.build(vmauth.parse_flags(
+            [f"-auth.config={cfg}", "-httpListenAddr=127.0.0.1:0"]))
+        proxy.start()
+        srvs.append(proxy)
+        q = {"query": "sum by (i)(rate(lb_m[1m]))", "start": now / 1e3,
+             "end": (now + 19 * 15_000) / 1e3, "step": 15}
+        req_url = f"http://127.0.0.1:{proxy.port}/api/v1/query_range?" + \
+            urllib.parse.urlencode(q)
+        answers, served = [], []
+        for _ in range(4):
+            before = [s.request_count for _, s in selects]
+            req = urllib.request.Request(req_url)
+            req.add_header("Authorization", "Basic " +
+                           base64.b64encode(b"lb:pw").decode())
+            with urllib.request.urlopen(req, timeout=60) as r:
+                answers.append(json.loads(r.read())["data"])
+            served.append([s.request_count - b
+                           for (_, s), b in zip(selects, before)])
+        assert served == [[1, 0], [0, 1], [1, 0], [0, 1]]
+        direct = Client(selects[0][1].port).query_range(**q)["data"]
+        assert all(a == direct for a in answers)
+        assert len(direct["result"]) == 30
+        # vmbackup of node 0 through its own /snapshot/create
+        vmbackup.main_backup([f"-storageDataPath={tmp_path / 'st0'}",
+                              "-snapshot.createURL=http://127.0.0.1:"
+                              f"{nodes[0][3].port}",
+                              f"-dst=fs://{tmp_path / 'bkp0'}"])
+        assert len(nodes[0][0].list_snapshots()) == 1
+        vmbackup.main_restore([f"-src=fs://{tmp_path / 'bkp0'}",
+                               f"-storageDataPath={tmp_path / 'r0'}"])
+        held = nodes[0][0].series_count()
+        restored = Storage(str(tmp_path / "r0"))
+        try:
+            assert held > 0 and restored.series_count() == held
+        finally:
+            restored.close()
+    finally:
+        stops = [s.stop for s in srvs]
+        for cluster, srv in selects:
+            stops += [srv.stop, cluster.close]
+        for n in nodes:
+            stops += [n[1].stop, n[2].stop, n[3].stop]
+        ths = [threading.Thread(target=fn) for fn in stops]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        for n in nodes:
+            n[0].close()
+        profiler.PROFILER.stop()

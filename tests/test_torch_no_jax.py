@@ -2,8 +2,8 @@
 ``xxhash`` (the machine with the card has none; the native codec carries
 xxh64/xxh32): every module of victoriametrics_tpu_torch, and chip_smoke.py,
 load in a process where importing jax, the JAX package or xxhash fails.
-The rule-file, scrape-config and vmalert_tool paths load JSON configs
-where PyYAML is blocked too (the card's machine has no PyYAML).
+The rule-file, scrape-config, vmalert_tool and vmauth paths load JSON
+configs where PyYAML is blocked too (the card's machine has no PyYAML).
 Importing them builds nothing: no compiler process starts and no file is
 written under the package's ``_build/`` (the native codec and the CUDA
 kernels build on first use).  The evaluator and the columnar ingest run
@@ -116,7 +116,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "ingest.persistentqueue", "ingest.discovery", "apps.vmagent",
         "apps.vmalert", "apps.vmalert_tool", "httpapi.graphite_api",
         "httpapi.graphite_funcs", "utils.configfile")} <= set(mods)
-    assert len(mods) >= 92
+    assert {f"victoriametrics_tpu_torch.{m}" for m in (
+        "utils.jwt", "apps.vmauth", "apps.vmbackup", "utils.promtsdb",
+        "apps.vmctl")} <= set(mods)
+    assert len(mods) >= 97
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
@@ -311,3 +314,54 @@ def test_json_configs_load_without_pyyaml(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert 'CONFIGS [["r", "A"]] ["http://127.0.0.1:9/metrics"] [] ' \
         'True True False' in out.stdout, out.stdout + out.stderr[-2000:]
+
+
+AUTH_PROBE = r"""
+import json, sys
+for m in ("jax", "jaxlib", "xxhash", "victoriametrics_tpu", "yaml"):
+    sys.modules[m] = None
+from victoriametrics_tpu_torch.apps import vmauth, vmbackup, vmctl
+from victoriametrics_tpu_torch.utils import jwt, promtsdb
+d = sys.argv[1]
+auth, srv = vmauth.build(vmauth.parse_flags([
+    f"-auth.config={d}/auth.json", "-httpListenAddr=127.0.0.1:0"]))
+srv.stop()
+users = [u.name for u in auth.users]
+unauth = auth.unauthorized_user.route("/x", "")
+try:
+    vmauth.main([f"-auth.config={d}/auth.yml", "-httpListenAddr=127.0.0.1:0"])
+    named = False
+except SystemExit as e:
+    named = "PyYAML" in str(e.code) and "auth.yml" in str(e.code)
+print("AUTH", json.dumps(users), unauth, named,
+      "yaml" in sys.modules and sys.modules["yaml"] is not None)
+"""
+
+
+def test_vmauth_config_loads_without_pyyaml(tmp_path):
+    """With PyYAML (and jax, the JAX package, xxhash) blocked, vmauth,
+    vmbackup, vmctl, jwt and promtsdb import, and vmauth's -auth.config
+    loads from JSON (the reference's schema: users with basic
+    auth, a bearer token, JWT secrets and claims, url_map, an
+    unauthorized_user); a file that is not JSON ends startup naming
+    PyYAML and the file."""
+    import json
+    (tmp_path / "auth.json").write_text(json.dumps({
+        "users": [
+            {"username": "u", "password": "p", "url_map": [
+                {"src_paths": ["/api/v1/.*"],
+                 "url_prefix": ["http://a1", "http://a2"]}]},
+            {"bearer_token": "t", "url_prefix": "http://b"},
+            {"name": "jwt", "url_prefix": "http://c",
+             "jwt_secrets": ["s"], "jwt_required_claims": {"team": "dev"},
+             "max_concurrent_requests": 2}],
+        "unauthorized_user": {"url_prefix": "http://open"}}))
+    (tmp_path / "auth.yml").write_text(
+        "users:\n- username: u\n  password: p\n  url_prefix: http://a\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", AUTH_PROBE, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert 'AUTH ["u", "bearer", "jwt"] http://open True False' in \
+        out.stdout, out.stdout + out.stderr[-2000:]

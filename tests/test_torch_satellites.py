@@ -2,7 +2,9 @@
 queue, vmagent (scrape -> persistent queue -> remote write), every
 service-discovery provider against fake API servers, vmalert (alerting
 and recording rules, notifier, remote write, replay, state restore, the
-alerting clock) and vmalert_tool.
+alerting clock), vmalert_tool, vmauth with JWT (HS256/384/512 and RS256
+on a seeded key), vmbackup/vmrestore (fs, and S3, GCS and Azure Blob
+fakes) and vmctl (vm-native, remote read, file imports).
 
 Every case of ``tests/test_satellites.py`` for these parts, and the
 vmalert cases of ``tests/test_deterministic_time.py``, is written once and
@@ -16,12 +18,13 @@ Then the port's vmsingle ``-rule``: the group armed from a JSON rule
 file, its rows in the store, and the EngineDatasource == HTTP poll
 contract with the port's ``CUDAEngine(device="cpu", min_series=4)``
 attached (the kernels' plain versions, whose calls are counted), and the
-three apps as processes with jax, the JAX package, xxhash and PyYAML
+apps as processes with jax, the JAX package, xxhash and PyYAML
 blocked, configured with JSON files.
 """
 
 import json
 import os
+import re
 import signal
 import socket
 import struct
@@ -30,6 +33,7 @@ import sys
 import threading
 import time
 import types
+import urllib.parse
 import urllib.request
 
 import numpy as np
@@ -46,30 +50,40 @@ T0 = (int(time.time() * 1000) - 2 * DAY) // DAY * DAY
 def _package(name: str):
     if name == "ref":
         from victoriametrics_tpu.apps import (vmagent, vmalert,
-                                              vmalert_tool, vmsingle)
+                                              vmalert_tool, vmauth,
+                                              vmbackup, vmctl, vmsingle)
         from victoriametrics_tpu.httpapi.server import HTTPServer, Response
         from victoriametrics_tpu.ingest import (discovery, persistentqueue,
                                                 remote_write)
         from victoriametrics_tpu.ops import decimal as dec
-        from victoriametrics_tpu.utils import profiler
+        from victoriametrics_tpu.storage.storage import Storage
+        from victoriametrics_tpu.storage.tag_filters import filters_from_dict
+        from victoriametrics_tpu.utils import jwt, profiler
         host = []
     else:
         from victoriametrics_tpu_torch.apps import (vmagent, vmalert,
-                                                    vmalert_tool, vmsingle)
+                                                    vmalert_tool, vmauth,
+                                                    vmbackup, vmctl,
+                                                    vmsingle)
         from victoriametrics_tpu_torch.httpapi.server import (HTTPServer,
                                                               Response)
         from victoriametrics_tpu_torch.ingest import (discovery,
                                                       persistentqueue,
                                                       remote_write)
         from victoriametrics_tpu_torch.ops import decimal as dec
-        from victoriametrics_tpu_torch.utils import profiler
+        from victoriametrics_tpu_torch.storage.storage import Storage
+        from victoriametrics_tpu_torch.storage.tag_filters import \
+            filters_from_dict
+        from victoriametrics_tpu_torch.utils import jwt, profiler
         host = ["-search.tpuBackend=false"]  # no card on the CPU
     return types.SimpleNamespace(
         name=name, vmagent=vmagent, vmalert=vmalert,
         vmalert_tool=vmalert_tool, vmsingle=vmsingle, HTTPServer=HTTPServer,
         Response=Response, discovery=discovery,
         PersistentQueue=persistentqueue.PersistentQueue,
-        remote_write=remote_write, dec=dec, profiler=profiler, host=host)
+        remote_write=remote_write, dec=dec, profiler=profiler, host=host,
+        vmauth=vmauth, vmbackup=vmbackup, vmctl=vmctl, jwt=jwt,
+        Storage=Storage, filters_from_dict=filters_from_dict)
 
 
 REF, PORT = _package("ref"), _package("port")
@@ -940,6 +954,675 @@ def test_vmalert_tool_unittest_pass_and_fail(pkg, tmp_path):
     both(_tool_unittest, pkg, tmp_path)
 
 
+# -- vmauth and JWT ----------------------------------------------------------
+
+#: a fixed clock for the tokens' exp/nbf claims
+JWT_NOW = 1_800_000_000.0
+
+
+def _b64u(b: bytes) -> str:
+    import base64
+    return base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+
+
+def _hs_token(secret, claims, alg="HS256"):
+    import hashlib
+    import hmac
+    digest = {"HS256": hashlib.sha256, "HS384": hashlib.sha384,
+              "HS512": hashlib.sha512}[alg]
+    h = _b64u(json.dumps({"alg": alg, "typ": "JWT"}).encode())
+    p = _b64u(json.dumps(claims).encode())
+    sig = hmac.new(secret.encode(), f"{h}.{p}".encode(), digest).digest()
+    return f"{h}.{p}.{_b64u(sig)}"
+
+
+def _rsa_key(seed: int, bits: int = 1024):
+    """A seeded RSA key (n, e, d): two probable primes (Fermat on twelve
+    bases), e = 65537."""
+    import math
+    import random
+    rnd = random.Random(seed)
+
+    def prime():
+        while True:
+            c = rnd.getrandbits(bits // 2) | (3 << (bits // 2 - 2)) | 1
+            if all(pow(a, c - 1, c) == 1
+                   for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37)):
+                return c
+    e = 65537
+    while True:
+        p, q = prime(), prime()
+        phi = (p - 1) * (q - 1)
+        if p != q and math.gcd(e, phi) == 1:
+            return p * q, e, pow(e, -1, phi)
+
+
+def _der(tag: int, body: bytes) -> bytes:
+    n = len(body)
+    if n < 128:
+        return bytes([tag, n]) + body
+    ln = n.to_bytes((n.bit_length() + 7) // 8, "big")
+    return bytes([tag, 0x80 | len(ln)]) + ln + body
+
+
+def _rsa_pems(n: int, e: int) -> tuple[str, str]:
+    """(SPKI "PUBLIC KEY", PKCS#1 "RSA PUBLIC KEY") PEMs of (n, e)."""
+    import base64
+
+    def der_int(x):
+        return _der(0x02, x.to_bytes(x.bit_length() // 8 + 1, "big"))
+
+    def pem(kind, der):
+        body = base64.b64encode(der).decode()
+        lines = [body[i:i + 64] for i in range(0, len(body), 64)]
+        return "\n".join([f"-----BEGIN {kind}-----", *lines,
+                          f"-----END {kind}-----"])
+    pkcs1 = _der(0x30, der_int(n) + der_int(e))
+    alg = _der(0x30, _der(0x06, bytes.fromhex("2a864886f70d010101")) +
+               _der(0x05, b""))
+    spki = _der(0x30, alg + _der(0x03, b"\x00" + pkcs1))
+    return pem("PUBLIC KEY", spki), pem("RSA PUBLIC KEY", pkcs1)
+
+
+def _rs_token(key, claims):
+    """An RS256 token (RSASSA-PKCS1-v1_5 over SHA-256) signed with key's d."""
+    import hashlib
+    n, _, d = key
+    k = (n.bit_length() + 7) // 8
+    h = _b64u(json.dumps({"alg": "RS256", "typ": "JWT"}).encode())
+    p = _b64u(json.dumps(claims).encode())
+    info = bytes.fromhex("3031300d060960864801650304020105000420") + \
+        hashlib.sha256(f"{h}.{p}".encode()).digest()
+    em = b"\x00\x01" + b"\xff" * (k - 3 - len(info)) + b"\x00" + info
+    sig = pow(int.from_bytes(em, "big"), d, n).to_bytes(k, "big")
+    return f"{h}.{p}.{_b64u(sig)}"
+
+
+def _outcome(fn):
+    """fn()'s claims, or the JWTError's text."""
+    try:
+        return fn()
+    except ValueError as e:
+        return f"{type(e).__name__}: {e}"
+
+
+def _jwt_hs(P, tmp):
+    verify = P.jwt.verify
+    tok = _hs_token("s3cret", {"sub": "u1", "exp": JWT_NOW + 60})
+    out = [_outcome(lambda: verify(tok, secrets=["wrong", "s3cret"],
+                                   now=JWT_NOW)),
+           _outcome(lambda: verify(tok, secrets=["nope"], now=JWT_NOW)),
+           _outcome(lambda: verify(tok, secrets=["s3cret"],
+                                   now=JWT_NOW + 61))]
+    assert out[0]["sub"] == "u1"
+    assert "signature" in out[1] and "expired" in out[2]
+    for alg in ("HS384", "HS512"):
+        t = _hs_token("k", {"sub": alg}, alg)
+        out.append(_outcome(lambda: verify(t, secrets=["k"])))
+        assert out[-1] == {"sub": alg}
+    early = _hs_token("k", {"nbf": JWT_NOW + 10})
+    out.append(_outcome(lambda: verify(early, secrets=["k"], now=JWT_NOW)))
+    assert "not yet valid" in out[-1]
+    bad_exp = _hs_token("k", {"exp": "soon"})
+    for t in (bad_exp, "a.b", tok[:-4] + "!!!!",
+              _b64u(b'{"alg": "none"}') + "." + _b64u(b"{}") + ".",
+              _b64u(b"[1]") + "." + _b64u(b"{}") + "."):
+        out.append(_outcome(lambda: verify(t, secrets=["k"], now=JWT_NOW)))
+        assert out[-1].startswith("JWTError"), out[-1]
+    # the wall clock, as the reference's case checks it
+    live = _hs_token("s3cret", {"exp": time.time() + 60})
+    out.append(sorted(verify(live, secrets=["s3cret"])))
+    return out
+
+
+def _jwt_rs256(P, tmp):
+    key = _rsa_key(5)
+    spki, pkcs1 = _rsa_pems(*key[:2])
+    other, _ = _rsa_pems(*_rsa_key(6)[:2])
+    tok = _rs_token(key, {"sub": "rs", "team": "dev"})
+    h, p, s = tok.split(".")
+    forged = f"{h}.{_b64u(json.dumps({'sub': 'rs', 'team': 'ops'}).encode())}.{s}"
+    verify = P.jwt.verify
+    out = [_outcome(lambda: verify(tok, public_keys=[spki])),
+           _outcome(lambda: verify(tok, public_keys=[pkcs1])),
+           _outcome(lambda: verify(tok, public_keys=[other, spki])),
+           _outcome(lambda: verify(tok, public_keys=[other])),
+           _outcome(lambda: verify(forged, public_keys=[spki])),
+           _outcome(lambda: verify(tok, secrets=["s"])),
+           P.jwt._parse_rsa_public_pem(spki) ==
+           P.jwt._parse_rsa_public_pem(pkcs1) == key[:2]]
+    assert out[0] == out[1] == out[2] == {"sub": "rs", "team": "dev"}
+    assert all("signature" in o for o in out[3:6]) and out[6] is True
+    return out
+
+
+def _jwt_vmauth_user(P, tmp):
+    key = _rsa_key(5)
+    spki, _ = _rsa_pems(*key[:2])
+    auth = P.vmauth.AuthConfig({"users": [
+        {"name": "jwty", "url_prefix": "http://b1",
+         "jwt_secrets": ["topsecret"],
+         "jwt_required_claims": {"team": "dev"}},
+        {"name": "rsa", "url_prefix": "http://b2",
+         "jwt_public_keys": [spki]}]})
+    tokens = [_hs_token("topsecret", {"team": "dev"}),
+              _hs_token("topsecret", {"team": "ops"}),
+              _hs_token("other", {"team": "dev"}),
+              _rs_token(key, {"team": "ops"}),
+              "not.a.jwt"]
+    got = []
+    for t in tokens:
+        u = auth.find_user({"Authorization": f"Bearer {t}"})
+        got.append(None if u is None else u.name)
+    assert got == ["jwty", None, None, "rsa", None]
+    return got
+
+
+def _vmauth_find_user(P, tmp):
+    """AuthConfig alone: basic auth, bearer tokens, the unauthorized_user
+    fallback, src_paths/src_hosts routing and each url_prefix list's round
+    robin."""
+    import base64
+    auth = P.vmauth.AuthConfig({
+        "users": [
+            {"username": "u1", "password": "p1", "url_map": [
+                {"src_paths": ["/api/v1/query.*"],
+                 "src_hosts": ["vm\\.example\\.com"],
+                 "url_prefix": ["http://a1/", "http://a2"]},
+                {"src_paths": ["/api/v1/write"],
+                 "url_prefix": "http://w1"}]},
+            {"bearer_token": "tok2",
+             "url_prefix": ["http://b1", "http://b2", "http://b3"]}],
+        "unauthorized_user": {"url_prefix": "http://open"}})
+
+    def basic(s):
+        return {"Authorization": "Basic " + base64.b64encode(s).decode()}
+    def name(headers):
+        u = auth.find_user(headers)
+        return None if u is None else u.name
+    u1 = auth.find_user(basic(b"u1:p1"))
+    # an empty basic credential: the reference names the user with no
+    # username (the bearer user here); the port names no one
+    assert name(basic(b":")) == (None if P is PORT else "bearer")
+    out = [u1.name, name(basic(b"u1:bad")),
+           name({"Authorization": "Bearer tok2"}),
+           name({"Authorization": "Bearer tok3"}), name({}),
+           auth.unauthorized_user.route("/anything", "")]
+    out += [u1.route("/api/v1/query_range", "vm.example.com")
+            for _ in range(3)]
+    out += [u1.route("/api/v1/query", "other.host"),
+            u1.route("/api/v1/write", "x"), u1.route("/metrics", "x")]
+    bearer = auth.find_user({"Authorization": "Bearer tok2"})
+    out += [bearer.route("/p", "") for _ in range(4)]
+    assert out == ["u1", None, "bearer", None, None, "http://open",
+                   "http://a1", "http://a2", "http://a1", None, "http://w1",
+                   None, "http://b1", "http://b2", "http://b3", "http://b1"]
+    return out
+
+
+def _vmauth_proxy(P, tmp):
+    """vmauth's proxy in front of vmsingle, configured with a JSON file:
+    401 with WWW-Authenticate without credentials or with a wrong
+    password, basic auth and a bearer token routed through, 400 for a path
+    no url_map entry takes, the JWT user's claim held, 502 from a backend
+    that is down; the query answered as the server answers it.  An empty
+    basic credential gets the port's 401 (the reference lets it in as the
+    bearer user), and is left out of the result the two compare."""
+    import base64
+    import urllib.error
+    single = Single(P, tmp / "data")
+    single.storage.add_rows([({"__name__": "am", "i": str(i)}, T0, 3.0 + i)
+                             for i in range(3)])
+    down = free_ports(1)[0]
+    cfg = tmp / "auth.json"
+    cfg.write_text(json.dumps({"users": [
+        {"username": "u1", "password": "p1",
+         "url_map": [{"src_paths": ["/api/v1/.*"],
+                      "url_prefix": single.base}]},
+        {"bearer_token": "tok2", "url_prefix": single.base},
+        {"name": "jwty", "url_prefix": single.base,
+         "jwt_secrets": ["topsecret"],
+         "jwt_required_claims": {"team": "dev"}},
+        {"username": "gone", "password": "x",
+         "url_prefix": f"http://127.0.0.1:{down}"}]}))
+    auth, srv = P.vmauth.build(P.vmauth.parse_flags(
+        [f"-auth.config={cfg}", "-httpListenAddr=127.0.0.1:0"]))
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    q = "/api/v1/query?" + urllib.parse.urlencode(
+        {"query": "sum(am)", "time": T0 / 1e3})
+
+    def call(path, header=None):
+        req = urllib.request.Request(base + path)
+        if header:
+            req.add_header("Authorization", header)
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, json.loads(r.read())["data"], None
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode(), e.headers.get(
+                "WWW-Authenticate")
+
+    def basic(s):
+        return "Basic " + base64.b64encode(s).decode()
+    try:
+        out = {"none": call(q), "wrong_password": call(q, basic(b"u1:no")),
+               "basic": call(q, basic(b"u1:p1")),
+               "bearer": call(q, "Bearer tok2"),
+               "no_route": call("/other", basic(b"u1:p1")),
+               "jwt": call(q, "Bearer " + _hs_token("topsecret",
+                                                    {"team": "dev"})),
+               "jwt_claim": call(q, "Bearer " + _hs_token("topsecret",
+                                                          {"team": "ops"})),
+               "down": call(q, basic(b"gone:x"))}
+        empty = call(q, basic(b":"))
+        direct = single.client.query("sum(am)", T0 / 1e3)["data"]
+        requests = {u.name: u.requests for u in auth.users}
+    finally:
+        srv.stop()
+        single.close()
+    assert [out[k][0] for k in out] == [401, 401, 200, 200, 400, 200, 401,
+                                        502]
+    assert out["none"][2] == 'Basic realm="vmauth"'
+    for k in ("basic", "bearer", "jwt"):
+        assert out[k][1] == direct, k
+    assert out["down"][1].startswith("backend error")
+    if P is PORT:
+        assert empty[0] == 401 and empty[2] == 'Basic realm="vmauth"'
+    else:
+        assert empty[:2] == (200, direct)
+    # a request without a route counts against no user
+    assert requests == {"u1": 1, "bearer": 1 if P is PORT else 2,
+                        "jwty": 1, "gone": 1}
+    return {k: v[:2] if v[0] != 502 else v[0] for k, v in out.items()}
+
+
+@pytest.mark.parametrize("case", [_jwt_hs, _jwt_rs256, _jwt_vmauth_user,
+                                  _vmauth_find_user, _vmauth_proxy],
+                         ids=["jwt_hs", "jwt_rs256", "jwt_vmauth_user",
+                              "find_user", "proxy"])
+def test_vmauth(pkg, tmp_path, case):
+    both(case, pkg, tmp_path)
+
+
+# -- vmbackup / vmrestore ----------------------------------------------------
+
+def _snapshot_of(single, name: str, n: int) -> str:
+    """`n` series of `name` in the server's store, flushed, snapshotted:
+    the snapshot's directory."""
+    single.storage.add_rows([({"__name__": name, "i": str(i)},
+                              T0 + i * 1000, float(i)) for i in range(n)])
+    single.storage.force_flush()
+    snap = single.storage.create_snapshot()
+    return os.path.join(single.storage.snapshots_dir(), snap)
+
+
+def _backup_round(P, tmp, single, snap_dir, remote, name, n) -> dict:
+    """Back up twice (the second uploads nothing), restore into a new
+    directory, open it: the stats and the restored series count."""
+    st = P.vmbackup.backup(snap_dir, remote)
+    assert st["uploaded"] > 0
+    st2 = P.vmbackup.backup(snap_dir, remote)
+    assert st2["uploaded"] == 0 and st2["skipped"] == st["uploaded"]
+    dst = str(tmp / "restored")
+    rs = P.vmbackup.restore(remote, dst)
+    rs2 = P.vmbackup.restore(remote, dst)  # every file already there
+    assert rs2 == {"downloaded": 0, "skipped": rs["downloaded"],
+                   "removed": 0}
+    s2 = P.Storage(dst)
+    try:
+        res = s2.search_series(P.filters_from_dict({"__name__": name}),
+                               T0 - 1000, T0 + 100_000)
+        got = sorted((r.metric_name.to_dict()["i"], r.values.tolist())
+                     for r in res)
+    finally:
+        s2.close()
+    assert len(got) == n
+    return {"backup": st, "again": st2, "restore": rs, "series": got}
+
+
+def _backup_fs(P, tmp):
+    single = Single(P, tmp / "data")
+    try:
+        snap_dir = _snapshot_of(single, "bm", 50)
+        remote = P.vmbackup.open_remote(f"fs://{tmp / 'bkp'}")
+        assert isinstance(remote, P.vmbackup.FsRemote)
+        out = _backup_round(P, tmp, single, snap_dir, remote, "bm", 50)
+        # a file gone from the snapshot is deleted from the backup
+        gone = sorted(remote.list_files())[0]
+        os.unlink(os.path.join(snap_dir, gone))
+        st3 = P.vmbackup.backup(snap_dir, remote)
+        assert st3["deleted"] == 1 and gone not in remote.list_files()
+        out["after_delete"] = st3
+    finally:
+        single.close()
+    return out
+
+
+def _fake_s3(P, objects):
+    """A minimal in-process S3: PUT/GET/DELETE objects and ListObjectsV2,
+    like the reference's custom-endpoint tests."""
+    import urllib.parse
+
+    def handler(req):
+        path = urllib.parse.unquote(req.path.lstrip("/"))
+        if req.method == "PUT":
+            objects[path] = req.body
+            return P.Response(200, b"")
+        if req.method == "DELETE":
+            objects.pop(path, None)
+            return P.Response(204, b"")
+        if req.method == "GET" and req.arg("list-type") == "2":
+            bucket = path.split("?")[0]
+            prefix = req.arg("prefix", "")
+            # real S3 keys exclude the bucket name
+            items = "".join(
+                f"<Contents><Key>{k[len(bucket) + 1:]}</Key>"
+                f"<Size>{len(v)}</Size></Contents>"
+                for k, v in objects.items()
+                if k.startswith(bucket + "/" + prefix))
+            xml = (f"<ListBucketResult>{items}"
+                   f"<IsTruncated>false</IsTruncated></ListBucketResult>")
+            return P.Response(200, xml.encode(), "application/xml")
+        if req.method == "GET":
+            if path in objects:
+                return P.Response(200, objects[path],
+                                  "application/octet-stream")
+            return P.Response(404, b"not found")
+        return P.Response(400, b"")
+    return handler
+
+
+def _backup_s3(P, tmp):
+    objects: dict[str, bytes] = {}
+    fake = _serve(P, {"/": _fake_s3(P, objects)})
+    single = Single(P, tmp / "data")
+    try:
+        snap_dir = _snapshot_of(single, "s3m", 30)
+        remote = P.vmbackup.S3Remote(
+            "bkt", "backups/daily", endpoint=f"http://127.0.0.1:{fake.port}",
+            access_key="AK", secret_key="SK")
+        out = _backup_round(P, tmp, single, snap_dir, remote, "s3m", 30)
+        assert all(k.startswith("bkt/backups/daily/") for k in objects)
+    finally:
+        single.close()
+        fake.stop()
+    return out
+
+
+def _fake_gcs(P, objects, seen_auth):
+    """An in-process GCS JSON API (fake-gcs-server analog): object list
+    paginated two at a time, media upload, download and delete."""
+    import urllib.parse
+
+    def handler(req):
+        seen_auth.append(req.headers.get("authorization", ""))
+        path = req.path
+        if req.method == "POST" and path.startswith("/upload/"):
+            name = urllib.parse.unquote(req.arg("name"))
+            objects[name] = req.body
+            return P.Response(200, json.dumps(
+                {"name": name, "size": str(len(req.body))}).encode())
+        if req.method == "GET" and path == "/storage/v1/b/bkt/o":
+            prefix = req.arg("prefix", "")
+            keys = sorted(k for k in objects if k.startswith(prefix))
+            start = int(req.arg("pageToken") or 0)
+            page = keys[start:start + 2]
+            resp = {"items": [{"name": k, "size": str(len(objects[k]))}
+                              for k in page]}
+            if start + 2 < len(keys):
+                resp["nextPageToken"] = str(start + 2)
+            return P.Response(200, json.dumps(resp).encode())
+        if path.startswith("/storage/v1/b/bkt/o/"):
+            name = urllib.parse.unquote(path[len("/storage/v1/b/bkt/o/"):])
+            if req.method == "DELETE":
+                return (P.Response(204, b"") if objects.pop(name, None)
+                        is not None else P.Response(404, b""))
+            if req.method == "GET" and name in objects:
+                return P.Response(200, objects[name],
+                                  "application/octet-stream")
+            return P.Response(404, b"not found")
+        return P.Response(400, b"bad request")
+    return handler
+
+
+def _backup_gcs(P, tmp):
+    objects: dict[str, bytes] = {}
+    seen_auth: list[str] = []
+    fake = _serve(P, {"/": _fake_gcs(P, objects, seen_auth)})
+    single = Single(P, tmp / "data")
+    try:
+        snap_dir = _snapshot_of(single, "gm", 20)
+        remote = P.vmbackup.open_remote(
+            "gs://bkt/backups/g1", endpoint=f"http://127.0.0.1:{fake.port}",
+            token="tok123")
+        assert isinstance(remote, P.vmbackup.GcsRemote)
+        out = _backup_round(P, tmp, single, snap_dir, remote, "gm", 20)
+        assert seen_auth and set(seen_auth) == {"Bearer tok123"}
+    finally:
+        single.close()
+        fake.stop()
+    return out
+
+
+def _fake_azurite(P, objects, bad_sigs, account, acct_key):
+    """An in-process Azure Blob service that verifies SharedKey signatures
+    (x-ms-date canonicalization + HMAC-SHA256 over the account key), with
+    container listing paginated by marker."""
+    import base64
+    import hashlib
+    import hmac
+    import urllib.parse
+
+    def check_sig(req, query):
+        auth = req.headers.get("authorization", "")
+        if not auth.startswith(f"SharedKey {account}:"):
+            bad_sigs.append(("missing", auth))
+            return
+        xms = {k: v for k, v in req.headers.items()
+               if k.lower().startswith("x-ms-")}
+        canon_h = "".join(f"{k.lower()}:{v}\n"
+                          for k, v in sorted(xms.items()))
+        canon_r = f"/{account}{req.path}"
+        if query:
+            params = urllib.parse.parse_qs(query, keep_blank_values=True)
+            for k in sorted(params):
+                canon_r += f"\n{k.lower()}:{','.join(params[k])}"
+        cl = str(len(req.body)) if req.body else ""
+        ct = req.headers.get("content-type", "")
+        to_sign = (f"{req.method}\n\n\n{cl}\n\n{ct}\n\n\n\n\n\n\n"
+                   f"{canon_h}{canon_r}")
+        want = base64.b64encode(hmac.new(
+            base64.b64decode(acct_key), to_sign.encode(),
+            hashlib.sha256).digest()).decode()
+        if auth != f"SharedKey {account}:{want}":
+            bad_sigs.append((to_sign, auth))
+
+    def handler(req):
+        check_sig(req, urllib.parse.urlparse(req.handler.path).query)
+        path = urllib.parse.unquote(req.path.lstrip("/"))
+        if req.method == "GET" and req.arg("comp") == "list":
+            prefix = req.arg("prefix", "")
+            keys = sorted(k for k in objects if k.startswith(prefix))
+            start = int(req.arg("marker") or 0)
+            page = keys[start:start + 2]
+            blobs = "".join(
+                f"<Blob><Name>{k}</Name><Properties>"
+                f"<Content-Length>{len(objects[k])}</Content-Length>"
+                f"</Properties></Blob>" for k in page)
+            nm = (f"<NextMarker>{start + 2}</NextMarker>"
+                  if start + 2 < len(keys) else "<NextMarker/>")
+            xml = (f"<EnumerationResults><Blobs>{blobs}</Blobs>{nm}"
+                   f"</EnumerationResults>")
+            return P.Response(200, xml.encode(), "application/xml")
+        key = path.split("/", 1)[1] if "/" in path else ""
+        if req.method == "PUT":
+            objects[key] = req.body
+            return P.Response(201, b"")
+        if req.method == "DELETE":
+            return (P.Response(202, b"") if objects.pop(key, None)
+                    is not None else P.Response(404, b""))
+        if req.method == "GET":
+            if key in objects:
+                return P.Response(200, objects[key],
+                                  "application/octet-stream")
+            return P.Response(404, b"not found")
+        return P.Response(400, b"")
+    return handler
+
+
+def _backup_azblob(P, tmp):
+    import base64
+    account, acct_key = "devacct", base64.b64encode(b"secret-key").decode()
+    objects: dict[str, bytes] = {}
+    bad_sigs: list = []
+    fake = _serve(P, {"/": _fake_azurite(P, objects, bad_sigs, account,
+                                         acct_key)})
+    single = Single(P, tmp / "data")
+    try:
+        snap_dir = _snapshot_of(single, "azm", 15)
+        remote = P.vmbackup.open_remote(
+            "azblob://cont/backups/a1",
+            endpoint=f"http://127.0.0.1:{fake.port}", account=account,
+            key=acct_key)
+        assert isinstance(remote, P.vmbackup.AzblobRemote)
+        out = _backup_round(P, tmp, single, snap_dir, remote, "azm", 15)
+        assert not bad_sigs, bad_sigs[0]
+    finally:
+        single.close()
+        fake.stop()
+    return out
+
+
+def _backup_via_http_snapshot(P, tmp):
+    """main_backup with -snapshot.createURL (the server snapshots itself),
+    then main_restore, then a vmsingle on the restored directory answering
+    the query the source answers."""
+    single = Single(P, tmp / "data")
+    try:
+        single.storage.add_rows([({"__name__": "hm", "i": str(i)},
+                                  T0 + j * 15_000, float(i * 100 + j))
+                                 for i in range(8) for j in range(20)])
+        P.vmbackup.main_backup([f"-storageDataPath={tmp / 'data'}",
+                                f"-snapshot.createURL={single.base}",
+                                f"-dst=fs://{tmp / 'bkp'}"])
+        (snap,) = single.storage.list_snapshots()
+        P.vmbackup.main_restore([f"-src=fs://{tmp / 'bkp'}",
+                                 f"-storageDataPath={tmp / 'restored'}"])
+        want = single.client.query_range("sum(rate(hm[1m]))", T0 / 1e3,
+                                         (T0 + 19 * 15_000) / 1e3, 15)
+    finally:
+        single.close()
+    restored = Single(P, tmp / "restored")
+    try:
+        got = restored.client.query_range("sum(rate(hm[1m]))", T0 / 1e3,
+                                          (T0 + 19 * 15_000) / 1e3, 15)
+    finally:
+        restored.close()
+    assert got["data"] == want["data"] and want["data"]["result"]
+    with pytest.raises(SystemExit):
+        P.vmbackup.main_backup([f"-storageDataPath={tmp / 'data'}",
+                                f"-dst=fs://{tmp / 'bkp'}"])
+    with pytest.raises(ValueError, match="unsupported backup destination"):
+        P.vmbackup.open_remote("ftp://x/y")
+    return {"snapshot_format": len(snap.split("-")), "data": got["data"]}
+
+
+@pytest.mark.parametrize("case", [_backup_fs, _backup_s3, _backup_gcs,
+                                  _backup_azblob, _backup_via_http_snapshot],
+                         ids=["fs", "s3", "gcs", "azblob", "http_snapshot"])
+def test_vmbackup(pkg, tmp_path, case):
+    both(case, pkg, tmp_path)
+
+
+# -- vmctl -------------------------------------------------------------------
+
+def _vmctl_native(P, tmp):
+    """vm_native: every series, then only what the source took after the
+    first copy (the time filter), nothing copied twice."""
+    src = Single(P, tmp / "src")
+    dst = Single(P, tmp / "dst")
+    try:
+        src.storage.add_rows([({"__name__": "mig", "i": str(i)}, T0,
+                               float(i)) for i in range(20)])
+        n = P.vmctl.vm_native(src.base, dst.base, "mig")
+        assert n == 20
+        res = dst.client.query("count(mig)", T0 / 1e3 + 10)
+        assert res["data"]["result"][0]["value"][1] == "20"
+        src.storage.add_rows([({"__name__": "mig", "i": str(i)},
+                               T0 + 60_000, float(i + 1)) for i in range(5)])
+        n2 = P.vmctl.vm_native(src.base, dst.base, '{__name__="mig"}',
+                               start=str((T0 + 30_000) / 1e3))
+        dst.storage.force_flush()
+        t = (T0 + 60_000) / 1e3
+        late = [dst.client.query(q, t)["data"]["result"][0]["value"][1]
+                for q in ("sum(count_over_time(mig[2m]))",
+                          'sum(mig{i=~"[0-4]"})')]
+    finally:
+        src.close()
+        dst.close()
+    assert n2 == 5 and late == ["25", "15"]
+    return [n, n2, res["data"], late]
+
+
+def _vmctl_remote_read(P, tmp):
+    src = Single(P, tmp / "src")
+    dst = Single(P, tmp / "dst")
+    try:
+        src.storage.add_rows([({"__name__": "rrm", "i": str(i)},
+                               T0 + j * 15_000, float(i * 10 + j))
+                              for i in range(5) for j in range(20)])
+        n = P.vmctl.remote_read(src.base, dst.base, '{__name__="rrm"}',
+                                T0, T0 + 20 * 15_000)
+        assert n == 100
+        r = dst.client.query("count(rrm)", (T0 + 19 * 15_000) / 1e3)
+        assert r["data"]["result"][0]["value"][1] == "5"
+        n2 = P.vmctl.remote_read(src.base, dst.base, "rrm",
+                                 T0, T0 + 20 * 15_000, chunk_rows=7)
+        with pytest.raises(ValueError, match="cannot parse matchers"):
+            P.vmctl.remote_read(src.base, dst.base, "{bad}", T0, T0 + 1)
+        dst.storage.force_flush()
+        s = dst.client.query("sum(rrm)", (T0 + 19 * 15_000) / 1e3)
+    finally:
+        src.close()
+        dst.close()
+    return [n, n2, r["data"], s["data"]]
+
+
+def _vmctl_import_files(P, tmp):
+    """import_file's three formats (Prometheus text, Influx lines,
+    OpenTSDB telnet puts) into vmsingle."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    (tmp / "p.txt").write_text("".join(
+        f'pf_m{{i="{i}"}} {i}.5 {T0 + i}\n' for i in range(12)) + "\n")
+    (tmp / "i.txt").write_text("".join(
+        f"if_m,i={i} v={i * 2} {(T0 + i) * 1_000_000}\n" for i in range(9)))
+    (tmp / "o.txt").write_text("".join(
+        f"put of_m {(T0 + i) // 1000} {i * 3} i={i}\n" for i in range(7)))
+    dst = Single(P, tmp / "dst")
+    try:
+        n = [P.vmctl.import_file(str(tmp / "p.txt"), dst.base, "prometheus",
+                                 chunk_lines=5),
+             P.vmctl.import_file(str(tmp / "i.txt"), dst.base, "influx"),
+             P.vmctl.import_file(str(tmp / "o.txt"), dst.base, "opentsdb")]
+        dst.storage.force_flush()
+        t = (T0 + 60_000) / 1e3
+        got = [dst.client.query(q, t)["data"]["result"][0]["value"][1]
+               for q in ("sum(pf_m)", "count(pf_m)", "sum(if_m_v)",
+                         "sum(of_m)", "count(of_m)")]
+    finally:
+        dst.close()
+    assert n == [12, 9, 7] and got == ["72", "12", "72", "63", "7"]
+    return [n, got]
+
+
+@pytest.mark.parametrize("case", [_vmctl_native, _vmctl_remote_read,
+                                  _vmctl_import_files],
+                         ids=["vm_native", "remote_read", "import_files"])
+def test_vmctl(pkg, tmp_path, case):
+    both(case, pkg, tmp_path)
+
+
 # -- the port's vmsingle -rule -----------------------------------------------
 
 RULES = {"groups": [{"name": "srv", "interval": "1h", "rules": [
@@ -1120,11 +1803,13 @@ def _wait_health(proc, port, log, timeout=60):
 
 
 def test_apps_run_as_processes_without_jax_or_yaml(tmp_path):
-    """vmalert, vmagent and vmalert_tool as processes (``python -m``) in an
-    interpreter where jax, the JAX package, xxhash and PyYAML are
-    blocked, each configured with a JSON file: vmagent scrapes an
-    exporter into a vmsingle, vmalert records from it, the tool passes
-    its test file; SIGTERM ends the servers with exit 0."""
+    """vmalert, vmagent, vmalert_tool, vmauth, vmbackup and vmctl as
+    processes (``python -m``) in an interpreter where jax, the JAX
+    package, xxhash and PyYAML are blocked, each configured with a JSON
+    file: vmagent scrapes an exporter into a vmsingle, vmalert records
+    from it, the tool passes its test file, vmauth proxies a query,
+    vmbackup backs the server up and vmctl migrates; SIGTERM ends the
+    servers with exit 0."""
     site = tmp_path / "site"
     site.mkdir()
     (site / "sitecustomize.py").write_text(SITECUSTOMIZE)
@@ -1200,6 +1885,103 @@ def test_apps_run_as_processes_without_jax_or_yaml(tmp_path):
         timeout=120)
     assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
     assert "LEAKED []" in out.stdout
+    _operations_as_processes(tmp_path, env)
+
+
+def _run_app(env, cwd, module, *flags):
+    """One app run to its end (``python -m``): its exit code and output."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"victoriametrics_tpu_torch.apps.{module}",
+         *flags], cwd=str(cwd), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=120)
+    return out.returncode, out.stdout
+
+
+def _operations_as_processes(tmp_path, env):
+    """vmauth (a JSON -auth.config) in front of a vmsingle, vmbackup
+    through the server's /snapshot/create (twice: the second uploads
+    nothing), vmctl vm-native into a second vmsingle, and vmctl
+    verify-block and prometheus-tsdb on a block written by the port's
+    promtsdb; each process with jax, the JAX package, xxhash and PyYAML
+    blocked."""
+    import base64
+
+    from victoriametrics_tpu_torch.utils import promtsdb
+    src, dst = Single(PORT, tmp_path / "ops_src"), Single(PORT,
+                                                          tmp_path / "ops_dst")
+    auth_port = free_ports(1)[0]
+    (tmp_path / "auth.json").write_text(json.dumps({"users": [
+        {"username": "ops", "password": "pw", "url_prefix": src.base}]}))
+    log = tmp_path / "vmauth.log"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "victoriametrics_tpu_torch.apps.vmauth",
+         f"-auth.config={tmp_path / 'auth.json'}",
+         f"-httpListenAddr=127.0.0.1:{auth_port}"],
+        cwd=str(tmp_path), env=env, stdout=open(log, "wb"),
+        stderr=subprocess.STDOUT)
+    try:
+        src.storage.add_rows([({"__name__": "ops_m", "i": str(i)},
+                               T0 + j * 15_000, float(i * 100 + j))
+                              for i in range(6) for j in range(20)])
+        _wait_health(proc, auth_port, log)
+        q = {"query": "sum(rate(ops_m[1m]))", "start": T0 / 1e3,
+             "end": (T0 + 19 * 15_000) / 1e3, "step": 15}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{auth_port}/api/v1/query_range?" +
+            urllib.parse.urlencode(q))
+        req.add_header("Authorization",
+                       "Basic " + base64.b64encode(b"ops:pw").decode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            proxied = json.loads(r.read())["data"]
+        direct = src.client.query_range(**q)["data"]
+        assert proxied == direct and direct["result"]
+        flags = [f"-storageDataPath={tmp_path / 'ops_src'}",
+                 f"-dst=fs://{tmp_path / 'bkp'}"]
+        rc, text = _run_app(env, tmp_path, "vmbackup",
+                            f"-snapshot.createURL={src.base}", *flags)
+        assert rc == 0 and "LEAKED []" in text, text[-3000:]
+        first = re.search(r"backup: uploaded=(\d+) skipped=0", text)
+        assert first and int(first.group(1)) > 0, text[-3000:]
+        (snap,) = src.storage.list_snapshots()
+        rc, text = _run_app(env, tmp_path, "vmbackup",
+                            f"-snapshotName={snap}", *flags)
+        assert rc == 0 and "LEAKED []" in text, text[-3000:]
+        assert f"backup: uploaded=0 skipped={first.group(1)} deleted=0" \
+            in text, text[-3000:]
+        rc, text = _run_app(env, tmp_path, "vmctl", "vm-native",
+                            f"--vm-native-src-addr={src.base}",
+                            f"--vm-native-dst-addr={dst.base}",
+                            '--vm-native-filter-match={__name__="ops_m"}')
+        assert rc == 0 and "LEAKED []" in text, text[-3000:]
+        assert "migrated 6 series chunks" in text, text[-3000:]
+        ts = T0 + np.arange(20, dtype=np.int64) * 15_000
+        promtsdb.write_block(str(tmp_path / "tsdb" / "01BLOCK"), [
+            ({"__name__": "tsdb_m", "i": str(i)}, ts, ts * 0.0 + i)
+            for i in range(4)])
+        rc, text = _run_app(env, tmp_path, "vmctl", "verify-block",
+                            f"--block-path={tmp_path / 'tsdb' / '01BLOCK'}")
+        assert rc == 0 and '"ok": true' in text and "LEAKED []" in text, \
+            text[-3000:]
+        rc, text = _run_app(env, tmp_path, "vmctl", "prometheus-tsdb",
+                            f"--tsdb-path={tmp_path / 'tsdb'}",
+                            f"--dst-addr={dst.base}")
+        assert rc == 0 and "migrated 80 samples" in text and \
+            "LEAKED []" in text, text[-3000:]
+        dst.storage.force_flush()
+        assert dst.client.query_range(**q)["data"] == direct
+        t = (T0 + 19 * 15_000) / 1e3
+        assert dst.client.query("sum(tsdb_m)", t)["data"]["result"][0][
+            "value"][1] == "6"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, log.read_text()[-3000:]
+        assert "vmauth started" in log.read_text() and \
+            "LEAKED []" in log.read_text(), log.read_text()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        src.close()
+        dst.close()
 
 
 def _wait_log(log, text, count=1, timeout=30):
