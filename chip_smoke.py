@@ -9,6 +9,22 @@ each printing one JSON line:
   build       compile csrc/*.cu with nvcc for sm_90a, one process per
               source, all started together, then native/codec.cpp with
               g++ (the host codec the cold upload converts with)
+  tooling     (a) devtools/compile_cache_smoke on the tree just built:
+              two cold processes, each loading every kernel library and
+              the native one and launching K3 once, neither starting the
+              compiler; (b) the port's vmsingle as a process with the
+              default backend (the card) under VMT_LOCKTRACE=warn and
+              VMT_RACETRACE=1 on a fresh directory: 1024 dashboard-shaped
+              counters x 1 h at 15 s over /api/v1/write, then for about
+              10 s (on until K1's, K2's and K3's counters moved) 4
+              clients alternating the sum panel with nocache=1 and its
+              plain repeat on a window slid to the newest scrape, a writer
+              (one scrape each 250 ms) and /internal/force_flush each 2 s;
+              every answer whole; from /metrics no lock-order cycle and no
+              race report (their counters at 0) and K1's, K2's and K3's
+              device counters moved; the sum panel after the writers stop
+              within rtol 1e-12 of the host evaluator's one-by-one group
+              sum on the same store, read after the server's SIGTERM
   kernels     K1 decode_tiles (also at its edge rows: n of 1, 2 and odd
               widths, each d2 width, planes wider than n - 2 or at an
               offset from a 16-byte word, count-0 rows, wrapping tails,
@@ -6564,6 +6580,340 @@ def phase_cluster(dev, hour, stores: Stores) -> dict:
     return res
 
 
+#: the tooling phase's server: 1024 dashboard-shaped counters x 1 h at
+#: 15 s written over remote write, then four clients, a writer and a
+#: flusher at once for TOOL_ACTIVITY_S under both tracers
+TOOL_SERIES, TOOL_SAMPLES, TOOL_SEED = 1024, 240, 23
+TOOL_ACTIVITY_S, TOOL_CLIENTS = 10.0, 4
+#: the activities run on past TOOL_ACTIVITY_S until K1's, K2's and K3's
+#: counters have each moved, at most this long
+TOOL_ACTIVITY_MAX_S = 60.0
+TOOL_SCRAPE_S, TOOL_FLUSH_S = 0.25, 2.0
+#: the sum panel's window, slid to the newest scrape's step
+TOOL_WINDOW = 45 * 60_000
+TOOL_ENV = {"VMT_LOCKTRACE": "warn", "VMT_RACETRACE": "1"}
+TOOL_TRACER_METRICS = ("vm_locktrace_cycles_total",
+                       "vm_locktrace_hold_warnings_total",
+                       "vm_race_reports_total")
+TOOL_KERNELS = {"decode_tiles": HTTP_DEVICE_METRICS[0],
+                "rollup_aggregate_tile": HTTP_DEVICE_METRICS[1],
+                "append_tile": HTTP_DEVICE_METRICS[2]}
+
+
+def tool_build_cache() -> dict:
+    """(a) ``devtools/compile_cache_smoke`` on the tree the build phase
+    built: two cold processes, each loading every kernel library and the
+    native one and launching K3 once; neither may start the compiler."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m",
+         "victoriametrics_tpu_torch.devtools.compile_cache_smoke"],
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            x for x in (here, os.environ.get("PYTHONPATH")) if x)},
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0 or "SKIP" in p.stdout:
+        raise AssertionError(f"tooling build cache: exit {p.returncode}: "
+                             f"{p.stdout[-3000:]}")
+    rep = json.loads(p.stdout.strip().splitlines()[-1])
+    children = rep["children"]
+    for i, ch in enumerate(children):
+        if ch["builds"] or ch["kernel_libs"] != len(kernels.SOURCES) or \
+                not ch["native"] or ch["launches"] != 1:
+            raise AssertionError(f"tooling build cache: child {i} on the "
+                                 f"built tree: {ch}")
+    return {"ok": rep["ok"], "children": [
+        {"builds": ch["builds"], "kernel_libs": ch["kernel_libs"],
+         "native": ch["native"], "launches": ch["launches"],
+         "wall_s": ch["wall_s"], "process_s": ch["process_s"]}
+        for ch in children], "wall_s": wall}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class TracedServer:
+    """``python -m victoriametrics_tpu_torch.apps.vmsingle`` with the
+    default backend (the card attached) under ``TOOL_ENV``, on a fresh
+    data directory; ready once /health answers (after the attach)."""
+
+    def __init__(self, root: str, timeout: float):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.path = os.path.join(root, "data")
+        self.log_path = os.path.join(root, "vmsingle.log")
+        self.port = free_port()
+        env = {**os.environ, **TOOL_ENV, "PYTHONPATH": os.pathsep.join(
+            x for x in (here, os.environ.get("PYTHONPATH")) if x)}
+        t0 = time.perf_counter()
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "victoriametrics_tpu_torch.apps."
+                 "vmsingle", f"-storageDataPath={self.path}",
+                 f"-httpListenAddr=127.0.0.1:{self.port}"],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here)
+        self.c = HttpClient(self.port)
+        t_end = time.monotonic() + timeout
+        while time.monotonic() < t_end and self.proc.poll() is None:
+            try:
+                if self.c.get("/health")[0] == 200:
+                    self.start_s = time.perf_counter() - t0
+                    return
+            except OSError:
+                pass
+            time.sleep(0.2)
+        self.kill()
+        raise AssertionError(f"tooling: vmsingle did not start (exit "
+                             f"{self.proc.poll()}): {self.log()[-3000:]!r}")
+
+    def log(self) -> bytes:
+        with open(self.log_path, "rb") as f:
+            return f.read()
+
+    def metrics(self) -> dict[str, float]:
+        code, body, _ = self.c.get("/metrics")
+        if code != 200:
+            raise AssertionError(f"tooling /metrics: {code}")
+        text = body.decode()
+        names = (*TOOL_TRACER_METRICS, *TOOL_KERNELS.values())
+        missing = [n for n in TOOL_TRACER_METRICS
+                   if f"\n{n} " not in "\n" + text]
+        if missing:
+            raise AssertionError(f"tooling: the server exports no {missing}:"
+                                 " the tracers are off")
+        return metric_sums(text, names)
+
+    def stop(self) -> int:
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(300)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def tool_host_sum(store: Storage, grid) -> dict:
+    """The port's host evaluator on `store`: each series' rate over the
+    grid, summed per instance one member after another in the
+    evaluator's order (the sum K2 computes), keyed and formatted as the
+    server serves it."""
+    from victoriametrics_tpu_torch.query.format_value import fmt_value
+    start, end, step = grid
+    ec = EvalConfig(start=start, end=end, step=step, storage=store,
+                    lookback_delta=LOOKBACK_DELTA, tpu=None,
+                    disable_cache=True)
+    acc = {}
+    for r in exec_query(ec, f"rate({SELECTOR}[5m])"):
+        k = json.dumps({"instance": r.metric_name.to_dict()["instance"]},
+                       sort_keys=True)
+        a = acc.setdefault(k, np.full(r.values.size, np.nan))
+        live = ~np.isnan(r.values)
+        a[live] = np.where(np.isnan(a[live]), r.values[live],
+                           a[live] + r.values[live])
+    grid_s = np.arange(start, end + 1, step) / 1e3
+    return {k: [[float(t), fmt_value(v)] for t, v in zip(grid_s, a)
+                if not np.isnan(v)] for k, a in acc.items()}
+
+
+def tool_activities(c: HttpClient, feed, labels, state, moved) -> dict:
+    """TOOL_CLIENTS clients alternating the sum panel with nocache=1 and
+    its plain repeat on the window slid to the newest scrape, a writer
+    posting one scrape of every series each TOOL_SCRAPE_S and a thread
+    calling /internal/force_flush each TOOL_FLUSH_S, together for
+    TOOL_ACTIVITY_S and then until moved() (at most TOOL_ACTIVITY_MAX_S).
+    Every answer must be whole (200 or 204, not partial); the counts and
+    round trips are returned."""
+    q = PANEL_TEXTS["sum_by_instance"]
+    stop = threading.Event()
+    lock = threading.Lock()
+    failures, counts = [], collections.Counter()
+    trips = collections.defaultdict(list)
+
+    def fail(what: str) -> None:
+        with lock:
+            failures.append(what)
+        stop.set()
+
+    def client(i: int) -> None:
+        while not stop.is_set():
+            with lock:
+                end = state["end"]
+            start = end - TOOL_WINDOW
+            for kind, extra in (("nocache", {"nocache": "1"}),
+                                ("repeat", {})):
+                code, body, ms = c.get("/api/v1/query_range", query=q,
+                                       start=start / 1e3, end=end / 1e3,
+                                       step=DASH_STEP / 1e3, **extra)
+                if code != 200:
+                    return fail(f"client {i} {kind}: {code} {body[:300]}")
+                res = json.loads(body)
+                if res.get("isPartial") or \
+                        len(res["data"]["result"]) != DASH_GROUPS:
+                    return fail(f"client {i} {kind}: partial or "
+                                f"{len(res['data']['result'])} series")
+                with lock:
+                    counts[kind] += 1
+                    trips[kind].append(ms)
+
+    def writer() -> None:
+        while not stop.wait(TOOL_SCRAPE_S):
+            with lock:
+                after = state["last"]
+            ts, vals = feed.next(1, after)
+            body = write_request(labels, ts, vals)
+            code, resp, ms = c.post("/api/v1/write", body,
+                                    {"Content-Encoding": "snappy"})
+            if code != 204:
+                return fail(f"writer: {code} {resp[:300]}")
+            with lock:
+                state["last"] = after + SCRAPE
+                state["end"] = state["last"] - state["last"] % DASH_STEP
+                counts["scrapes"] += 1
+                trips["write"].append(ms)
+
+    def flusher() -> None:
+        while not stop.wait(TOOL_FLUSH_S):
+            code, resp, ms = c.get("/internal/force_flush")
+            if code != 200:
+                return fail(f"flusher: {code} {resp[:300]}")
+            with lock:
+                counts["flushes"] += 1
+                trips["flush"].append(ms)
+
+    threads = [threading.Thread(target=client, args=(i,), name=f"client{i}")
+               for i in range(TOOL_CLIENTS)]
+    threads += [threading.Thread(target=writer, name="writer"),
+                threading.Thread(target=flusher, name="flusher")]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    stop.wait(TOOL_ACTIVITY_S)
+    while not stop.is_set() and \
+            time.perf_counter() - t0 < TOOL_ACTIVITY_MAX_S and not moved():
+        stop.wait(1.0)
+    stop.set()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "counts": dict(counts), "round_trip_ms": {
+        k: {"median": float(np.median(v)), "max": float(np.max(v))}
+        for k, v in trips.items()}}
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"tooling: an activity thread is wedged: {rec}")
+    if failures:
+        raise AssertionError(f"tooling: {failures[:4]}; {rec}")
+    if not (counts["nocache"] and counts["repeat"] and counts["scrapes"]
+            and counts["flushes"]):
+        raise AssertionError(f"tooling: an activity did not run: {rec}")
+    return rec
+
+
+def phase_tooling() -> dict:
+    """(a) the build-cache smoke on the built tree; (b) the port's
+    vmsingle as a process with the default backend under
+    VMT_LOCKTRACE=warn and VMT_RACETRACE=1 on a fresh directory: 1024
+    dashboard-shaped counters x 1 h at 15 s over /api/v1/write, then the
+    activities (tool_activities); from /metrics no lock-order cycle and
+    no race report, and K1's, K2's and K3's device counters moved; the
+    sum panel after the writers stop within rtol 1e-12 of the host
+    evaluator's one-by-one group sum on the same store (read after the
+    server's SIGTERM, exit 0).  A race or a cycle prints the server's
+    report (both stacks) and fails the phase."""
+    t_phase = time.perf_counter()
+    cache = tool_build_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tooling_")
+    server = None
+    try:
+        server = TracedServer(root, HTTP_ATTACH_S)
+        c = server.c
+        labels = dash_labels(TOOL_SERIES)
+        rng = np.random.default_rng(TOOL_SEED)
+        t0_ms = T_START - T_START % DASH_STEP
+        ts, vals = counters(rng, TOOL_SERIES, TOOL_SAMPLES, t0_ms)
+        t0 = time.perf_counter()
+        for lo in range(0, TOOL_SAMPLES, SCRAPES_PER_CALL):
+            body = write_request(labels, ts[:, lo:lo + SCRAPES_PER_CALL],
+                                 vals[:, lo:lo + SCRAPES_PER_CALL])
+            code, resp, _ = c.post("/api/v1/write", body,
+                                   {"Content-Encoding": "snappy"})
+            if code != 204:
+                raise AssertionError(f"tooling write: {code} {resp[:300]}")
+        write_s = time.perf_counter() - t0
+        last = t0_ms + (TOOL_SAMPLES - 1) * SCRAPE
+        state = {"last": last, "end": last - last % DASH_STEP}
+        before = server.metrics()
+
+        def moved() -> bool:
+            now = server.metrics()
+            return all(now[m] > before[m] for m in TOOL_KERNELS.values())
+        act = tool_activities(c, Feed(TOOL_SEED + 1, vals[:, -1]), labels,
+                              state, moved)
+        after = server.metrics()
+        tracer = {n: after[n] for n in TOOL_TRACER_METRICS}
+        if tracer["vm_locktrace_cycles_total"] or \
+                tracer["vm_race_reports_total"]:
+            text = server.log().decode(errors="replace")
+            reports = [blk for blk in re.split(r"\n(?=\S)", text)
+                       if "RaceWarning" in blk or "LockOrder" in blk]
+            raise AssertionError(f"tooling: tracers report {tracer}:\n" +
+                                 "\n".join(reports[:4])[-6000:])
+        calls = {k: after[m] - before[m] for k, m in TOOL_KERNELS.items()}
+        if not all(calls.values()):
+            raise AssertionError(f"tooling: device counters {calls}: K1, "
+                                 f"K2 and K3 must each move; {act}")
+        # the sum panel once the writers stopped, then the host evaluator
+        # on the same store once the server has closed it
+        end = state["end"]
+        grid = (end - TOOL_WINDOW, end, DASH_STEP)
+        got, ms = c.json("/api/v1/query_range",
+                         query=PANEL_TEXTS["sum_by_instance"],
+                         start=grid[0] / 1e3, end=end / 1e3,
+                         step=DASH_STEP / 1e3)
+        if got.get("isPartial"):
+            raise AssertionError("tooling final panel: partial")
+        got = body_result(got)
+        t0 = time.perf_counter()
+        rc = server.stop()
+        stop_s = time.perf_counter() - t0
+        if rc != 0 or b"shutdown complete" not in server.log():
+            raise AssertionError(f"tooling: vmsingle exit {rc}: "
+                                 f"{server.log()[-2000:]!r}")
+        store = Storage(server.path)
+        try:
+            t0 = time.perf_counter()
+            host = tool_host_sum(store, grid)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            store.close()
+        err = keyed_close("tooling sum panel vs the host's one-by-one sum",
+                          got, host, 1e-12, 0.0)
+        bitwise = sum([v for _, v in got[k]] == [v for _, v in host[k]]
+                      for k in host)
+    finally:
+        if server is not None:
+            server.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    res = {"phase": "tooling", "ok": True, "build_cache": cache,
+           "server": {"env": TOOL_ENV, "backend": "default (card)",
+                      "start_s": server.start_s, "series": TOOL_SERIES,
+                      "samples_per_series": TOOL_SAMPLES,
+                      "write_s": write_s, "stop_s": stop_s},
+           "activities": act, "tracers": tracer, "device_calls": calls,
+           "final_panel": {"round_trip_ms": ms, "series": len(got),
+                           "vs_host_in_turn_max_abs_err": err,
+                           "rtol": 1e-12, "series_bitwise_equal": bitwise,
+                           "host_ms": host_ms},
+           "wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6590,6 +6940,7 @@ def main(argv=None) -> int:
           "load_seconds": time.perf_counter() - t0,
           "native_codec_seconds": native_s, "gpu": gpu,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    phase_tooling()
     rng = np.random.default_rng(args.seed)
     kres, fleet_err = phase_kernels(rng, dev)
     stores = Stores()

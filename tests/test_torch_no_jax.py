@@ -119,7 +119,15 @@ def test_port_and_chip_smoke_import_without_jax():
     assert {f"victoriametrics_tpu_torch.{m}" for m in (
         "utils.jwt", "apps.vmauth", "apps.vmbackup", "utils.promtsdb",
         "apps.vmctl")} <= set(mods)
-    assert len(mods) >= 97
+    assert {f"victoriametrics_tpu_torch.devtools.{m}" for m in (
+        "lint", "rules_time", "rules_pyflaws", "rules_locks",
+        "rules_metrics", "rules_threads", "rules_torch", "callgraph",
+        "deadline_taint", "lockset", "errorflow", "wireschema", "sarif",
+        "locktrace", "racetrace", "sched", "faultinject",
+        "flight_overhead", "profile_overhead", "matstream_overhead",
+        "selfscrape_overhead", "downsample_smoke", "reshard_smoke",
+        "compile_cache_smoke")} <= set(mods)
+    assert len(mods) >= 118
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", PROBE, *mods], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)

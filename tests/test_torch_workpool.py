@@ -5,9 +5,9 @@ case of ``tests/test_workpool.py`` and the single-node cases of
 ``tests/test_tenant_gate.py`` (quota parsing, admission, the shed-load
 and deny-partial HTTP surfaces), written once and run against both
 packages (``pkg``).  Its cluster RPC cases are in
-``tests/test_torch_cluster.py``; its deterministic-scheduler stress
-becomes a real-thread stress
-(the port has no scheduler).  Beside them: the query tracer and cost
+``tests/test_torch_cluster.py``; its deterministic-scheduler stress is
+also run here as a real-thread stress (the scheduler's own cases, on both
+packages, are in ``tests/test_torch_tracers.py``).  Beside them: the query tracer and cost
 tracker seen inside pool tasks, and ``serving()`` holding merges back.
 The stores' data sits in the last two months (inside the retention)."""
 

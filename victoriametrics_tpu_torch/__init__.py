@@ -28,7 +28,9 @@ JAX package so each counterpart is easy to find:
   utils/     self-metrics registry, self-scrape, pushmetrics and the
              storage's helpers (fs, work pool, working-set cache,
              deadlines, logger)
-  devtools/  the fault injector and the lock factories the storage uses
+  devtools/  the lint (VMT006: host syncs in the kernel wrappers), the
+             call-graph passes, the wire-schema ratchet, the lock and
+             race tracers, the scheduler, the fault injector, smokes
   convert.py load the JAX engine's resident state into the port
 """
 

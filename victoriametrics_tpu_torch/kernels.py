@@ -249,8 +249,11 @@ def lib(name: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         h.vm_cuda_error_string.argtypes = [ctypes.c_int]
         h.vm_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = h
-        _loads += 1
+        # double-checked: the lock-free read above sees either no entry
+        # (and waits here) or the finished handle; _loads is a count the
+        # chip run reads after the fact
+        _libs[name] = h  # vmt: disable=VMT015
+        _loads += 1  # vmt: disable=VMT015
         return h
 
 

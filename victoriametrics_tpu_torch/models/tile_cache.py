@@ -27,13 +27,14 @@ from __future__ import annotations
 
 import collections
 import os
-import threading
 import time
 import weakref
 
 import numpy as np
 import torch
 
+from ..devtools.locktrace import make_lock
+from ..devtools.racetrace import traced_fields
 from ..utils import costacc as _costacc
 from ..utils import flightrec as _flightrec
 from ..utils import metrics as metricslib
@@ -170,7 +171,7 @@ class DeviceWindowCache:
 
     def __init__(self, cap: int = 256):
         self.cap = max(int(cap), 1)
-        self._lock = threading.Lock()
+        self._lock = make_lock("models.DeviceWindowCache._lock")
         self._entries: collections.OrderedDict = collections.OrderedDict()
 
     def get(self, key):
@@ -209,12 +210,13 @@ def tiles_nbytes(tiles) -> int:
                for t in tiles)
 
 
+@traced_fields("_entries", "_sizes", "_bytes")
 class TileCache:
     """LRU byte-bounded cache of device-resident tile tuples."""
 
     def __init__(self, capacity_bytes: int):
         self.capacity = capacity_bytes
-        self._lock = threading.Lock()
+        self._lock = make_lock("models.TileCache._lock")
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self._sizes: dict = {}
         self._bytes = 0

@@ -120,12 +120,15 @@ def _load():
         return _lib
     with _lock:
         if not _tried:
+            # double-checked: _lib is set before _tried, so the
+            # lock-free read above sees either _tried False (and waits
+            # here) or the finished verdict
             try:
-                _lib = _configure(ctypes.CDLL(str(build())))
+                _lib = _configure(ctypes.CDLL(str(build())))  # vmt: disable=VMT015
             except (OSError, RuntimeError, AttributeError,
                     subprocess.SubprocessError):
                 _lib = None
-            _tried = True
+            _tried = True  # vmt: disable=VMT015
     return _lib
 
 

@@ -566,7 +566,7 @@ def _scan_rows(h, func: str, ts, values, counts, cfg: RollupConfig,
     # scratch only for counter rows with a reset, a NaN or -0.0: on the
     # others the reset-corrected counter and its running maximum are the
     # values
-    n = int(n_irregular.item()) if counter else 0
+    n = int(n_irregular.item()) if counter else 0  # vmt: disable=VMT006 — the count sizes the scratch
     cv = torch.empty((n, N), dtype=torch.float64, device=dev)
     cmax = torch.empty((n, N), dtype=torch.float64, device=dev)
     if n and fleet is None:

@@ -43,7 +43,7 @@ def _use_native() -> bool:
     global _HAVE_NATIVE
     if _HAVE_NATIVE is None:
         # benign double-probe: racers compute the same verdict
-        _HAVE_NATIVE = _native.available()
+        _HAVE_NATIVE = _native.available()  # vmt: disable=VMT015
     return _HAVE_NATIVE
 
 

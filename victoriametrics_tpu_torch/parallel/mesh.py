@@ -482,7 +482,7 @@ def rollup_time_shards(func: str, cfg: RollupConfig, shards) -> None:
         D, desc, *rows, N, int(dr.MIN_TS_NONE), cfg.step,
         int(cfg.start >= cfg.end), int(counter), mpi, slots, n_irregular,
         dr._ptr(mean), stream), "time_sharded_rollup (row scan)")
-    n = int(ints[2 * R].item()) if counter else 0
+    n = int(ints[2 * R].item()) if counter else 0  # vmt: disable=VMT006 — the count sizes the scratch
     cvm = torch.empty((2, n, N), dtype=torch.float64, device=dev)
     if n:
         kernels.check(h, h.vm_time_shards_prep(

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..devtools.locktrace import make_rlock
 from ..models import tile_cache
 from ..ops import decimal as dec
 from ..ops import device_decode as dd
@@ -70,6 +71,7 @@ from ..ops.rollup_np import CORE_SUPPORTED, RollupConfig
 from ..parallel import mesh as meshlib
 from ..parallel.partition import AXIS_SERIES, host_rows, per_shard, shard_put
 from ..utils import costacc as _costacc
+from ..utils import fasttime
 from ..utils import flightrec as _flightrec
 from ..utils import metrics as metricslib
 from .rollup_funcs import ADJUSTABLE_WINDOW_FUNCS
@@ -84,7 +86,9 @@ def _kernel_histogram(kernel: str, phase: str):
     key = (kernel, phase)
     h = _kernel_hist_memo.get(key)
     if h is None:
-        h = _kernel_hist_memo[key] = metricslib.REGISTRY.histogram(
+        # benign double-create: REGISTRY.histogram dedups by name, so
+        # two racing fills store the same object
+        h = _kernel_hist_memo[key] = metricslib.REGISTRY.histogram(  # vmt: disable=VMT015
             metricslib.format_name("vm_tpu_kernel_duration_seconds",
                                    {"kernel": kernel, "phase": phase}))
     return h
@@ -410,7 +414,7 @@ def warmup(engine: CUDAEngine, funcs=("rate", "increase", "default_rollup"),
     launch raises."""
     from ..storage.storage import SeriesData
     S, N = max(int(engine.min_series), 64), 128
-    start = (int(time.time() * 1000) - N * 15_000) // 60_000 * 60_000
+    start = (fasttime.unix_ms() - N * 15_000) // 60_000 * 60_000
     rng = np.random.default_rng(7)
     series = []
     for i in range(S):
@@ -546,11 +550,17 @@ class RollingTile:
 
     The append writes the resident tensors in place and the compaction
     replaces them; anything else holding them (the exact-key TileCache
-    entry the tile was adopted from, `adopted_key`) is invalidated first."""
+    entry the tile was adopted from, `adopted_key`) is invalidated first.
+
+    `lock` serializes whoever advances or reads the tile and the grids
+    rolled on it (the evaluator's rolling shortcut from its advance to
+    its RingBlock's commit, the fleet's adoption): two refreshes of one
+    window at once would otherwise both append the same slice and both
+    shift the ring from the same state."""
 
     __slots__ = ("tiles", "base_ms", "n_cap", "lo_ms", "hi_ms", "version",
                  "structural", "counts_host", "row_of_raw", "n_samples",
-                 "adopted_key", "appends", "segments")
+                 "adopted_key", "appends", "segments", "lock")
 
     def __init__(self, tiles, base_ms, n_cap, lo_ms, hi_ms, version,
                  structural, counts_host, row_of_raw, n_samples,
@@ -570,6 +580,7 @@ class RollingTile:
         # (seg_lo, seg_hi, n) per build/append: sample accounting charges
         # only the segments a query's fetch range touches
         self.segments = [(lo_ms, hi_ms, n_samples)]
+        self.lock = make_rlock("cuda_engine.RollingTile.lock")
 
     def samples_in_range(self, fetch_lo: int) -> int:
         return sum(n for _, seg_hi, n in self.segments if seg_hi >= fetch_lo)

@@ -1188,80 +1188,83 @@ def _try_device_fused_aggr(ec: EvalConfig, ae: AggrFuncExpr
             filters = filters_from_metric_expr(rarg.expr, ec.storage)
             drop_stale = func not in ("default_rollup",
                                       "stale_samples_over_time")
-            qt = ec.tracer.new_child("tpu fused %s(%s) rolling", ae.name,
-                                     func)
-            if advance_rolling(ec.tpu, rt, ec.storage, filters, start,
-                               fetch_lo, end, ec.max_series, ec.tenant,
-                               drop_stale, tracer=qt):
-                ec.check_deadline()
-                ec.count_samples(rt.samples_in_range(fetch_lo))
-                cfg2 = RollupConfig(start=start, end=end, step=ec.step,
-                                    window=lookback)
-                def kernel(kcfg):
-                    # grid shift + fetch truncation are relative to the
-                    # KERNEL grid's start (the tail sub-grid rebases both)
-                    sh = kcfg.start - rt.base_ms
-                    mt = fetch_lo - kcfg.start
-                    if qx is not None:
-                        return run_quantile_on_tiles(
-                            ec.tpu, phi, func, rt.tiles, groups, kcfg, sh,
-                            mt)
-                    return run_fused_on_tiles(ec.tpu, ae.name, func,
-                                              rt.tiles, groups, kcfg, sh,
-                                              mt)
+            # one refresh of this tile at a time, from the append to the
+            # ring's commit (RollingTile.lock)
+            with rt.lock:
+                qt = ec.tracer.new_child("tpu fused %s(%s) rolling", ae.name,
+                                         func)
+                if advance_rolling(ec.tpu, rt, ec.storage, filters, start,
+                                   fetch_lo, end, ec.max_series, ec.tenant,
+                                   drop_stale, tracer=qt):
+                    ec.check_deadline()
+                    ec.count_samples(rt.samples_in_range(fetch_lo))
+                    cfg2 = RollupConfig(start=start, end=end, step=ec.step,
+                                        window=lookback)
+                    def kernel(kcfg):
+                        # grid shift + fetch truncation are relative to the
+                        # KERNEL grid's start (the tail sub-grid rebases both)
+                        sh = kcfg.start - rt.base_ms
+                        mt = fetch_lo - kcfg.start
+                        if qx is not None:
+                            return run_quantile_on_tiles(
+                                ec.tpu, phi, func, rt.tiles, groups, kcfg, sh,
+                                mt)
+                        return run_fused_on_tiles(ec.tpu, ae.name, func,
+                                                  rt.tiles, groups, kcfg, sh,
+                                                  mt)
 
-                # Incremental grid: an advanced window re-uses the previous
-                # [G, T] result for every column at or before the previous
-                # end — append-only ingest (watermark-guarded) cannot touch
-                # windows ending there, so only the columns past the
-                # previous end run on device (the rollupResultCache
-                # tail-merge contract, rollup_result_cache.go:283, done at
-                # the [G, T] level by a RingBlock: the ring-cache entry
-                # machinery with fixed group rows.  Like the reference
-                # cache, re-used columns keep the scrape-interval
-                # estimates they were computed under — the constant-shape
-                # sliding advance only; anything else recomputes fresh.)
-                n_new = rb.try_advance(start, end, ec.step, lookback) \
-                    if rb is not None else None
-                if n_new == 0:
-                    rows_out = rb.commit(start, end, None)
-                    qt.printf("pure shift: %d columns reused", rb.T)
-                elif n_new is not None:
-                    qk = qt.new_child("fused tail kernel + D2H")
-                    # the tail sub-grid must sit ON the eval grid's phase:
-                    # the grid's last column is start + (T-1)*step, which
-                    # is NOT `end` when (end - start) % step != 0 —
-                    # anchoring the sub-grid at `end` would compute
-                    # off-phase columns (a few-percent rate error that
-                    # used to hide inside the documented drift bound).
-                    # One extra leading column keeps start < end: a
-                    # single-column sub-grid would hit the instant-query
-                    # maxPrevInterval rule (rollup.go:719-728) and flip
-                    # prev gating
-                    grid_end = start + ((end - start) // ec.step) * ec.step
-                    tail = kernel(RollupConfig(
-                        start=grid_end - n_new * ec.step, end=grid_end,
-                        step=ec.step, window=lookback))[:, 1:]
-                    rows_out = rb.commit(start, end, tail)
-                    qk.donef("[%d, %d] tail, %d columns reused",
-                             len(group_keys), n_new, rb.T - n_new)
-                else:
-                    qk = qt.new_child("fused kernel + D2H")
-                    out = kernel(cfg2)
-                    qk.donef("[%d, %d] float64 out", len(group_keys),
-                             out.shape[1] if out.ndim > 1 else 0)
-                    if rb is not None:
-                        rb.reset(out, start, end, ec.step, lookback)
-                        rows_out = rb.rows()
+                    # Incremental grid: an advanced window re-uses the previous
+                    # [G, T] result for every column at or before the previous
+                    # end — append-only ingest (watermark-guarded) cannot touch
+                    # windows ending there, so only the columns past the
+                    # previous end run on device (the rollupResultCache
+                    # tail-merge contract, rollup_result_cache.go:283, done at
+                    # the [G, T] level by a RingBlock: the ring-cache entry
+                    # machinery with fixed group rows.  Like the reference
+                    # cache, re-used columns keep the scrape-interval estimates
+                    # they were computed under — the constant-shape sliding
+                    # advance only; anything else recomputes fresh.)
+                    n_new = rb.try_advance(start, end, ec.step, lookback) \
+                        if rb is not None else None
+                    if n_new == 0:
+                        rows_out = rb.commit(start, end, None)
+                        qt.printf("pure shift: %d columns reused", rb.T)
+                    elif n_new is not None:
+                        qk = qt.new_child("fused tail kernel + D2H")
+                        # the tail sub-grid must sit ON the eval grid's phase:
+                        # the grid's last column is start + (T-1)*step, which
+                        # is NOT `end` when (end - start) % step != 0 —
+                        # anchoring the sub-grid at `end` would compute
+                        # off-phase columns (a few-percent rate error that
+                        # used to hide inside the documented drift bound).
+                        # One extra leading column keeps start < end: a
+                        # single-column sub-grid would hit the instant-query
+                        # maxPrevInterval rule (rollup.go:719-728) and flip
+                        # prev gating
+                        grid_end = start + ((end - start) // ec.step) * ec.step
+                        tail = kernel(RollupConfig(
+                            start=grid_end - n_new * ec.step, end=grid_end,
+                            step=ec.step, window=lookback))[:, 1:]
+                        rows_out = rb.commit(start, end, tail)
+                        qk.donef("[%d, %d] tail, %d columns reused",
+                                 len(group_keys), n_new, rb.T - n_new)
                     else:
-                        rows_out = list(out)
-                qt.donef("advanced tile (%d appends), %d groups",
-                         rt.appends, len(group_keys))
-                count_window_hit()
-                wcache.invalidate(("roll-declines",) + roll_state_key)
-                return _emit(rows_out, group_keys)
-            qt.donef("not advanceable (%s); rebuilding",
-                     ec.tpu.last_roll_decline)
+                        qk = qt.new_child("fused kernel + D2H")
+                        out = kernel(cfg2)
+                        qk.donef("[%d, %d] float64 out", len(group_keys),
+                                 out.shape[1] if out.ndim > 1 else 0)
+                        if rb is not None:
+                            rb.reset(out, start, end, ec.step, lookback)
+                            rows_out = rb.rows()
+                        else:
+                            rows_out = list(out)
+                    qt.donef("advanced tile (%d appends), %d groups",
+                             rt.appends, len(group_keys))
+                    count_window_hit()
+                    wcache.invalidate(("roll-declines",) + roll_state_key)
+                    return _emit(rows_out, group_keys)
+                qt.donef("not advanceable (%s); rebuilding",
+                         ec.tpu.last_roll_decline)
             # feed the serving layer's churn backoff (device_window_ready)
             dk = ("roll-declines",) + roll_state_key
             dst = wcache.peek(dk) or {}

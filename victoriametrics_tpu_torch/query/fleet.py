@@ -412,22 +412,28 @@ class FleetPlane:
         S = len(rt.counts_host)
         start_g = end_q - st.duration - info["offset"]
         fetch_lo = start_g - info["lookback"] - info["lookback_delta"]
-        if rt.lo_ms > fetch_lo:
-            return None
-        tiles = rt.tiles
-        N = tile_shape(tiles)[1]
-        # a series-sharded tile's shards come back in row order
-        ts_full, vals_full = tile_cache.timed_transfer(
-            "device:download", S * N * 12,
-            lambda: (host_rows(tiles[0], S), host_rows(tiles[1], S)))
-        counts = np.asarray(rt.counts_host, dtype=np.int32).copy()
+        # the tile as one refresh left it (RollingTile.lock: a rolling
+        # query may be appending to it)
+        with rt.lock:
+            if rt.lo_ms > fetch_lo:
+                return None
+            tiles = rt.tiles
+            N = tile_shape(tiles)[1]
+            # a series-sharded tile's shards come back in row order
+            ts_full, vals_full = tile_cache.timed_transfer(
+                "device:download", S * N * 12,
+                lambda: (host_rows(tiles[0], S), host_rows(tiles[1], S)))
+            counts = np.asarray(rt.counts_host, dtype=np.int32).copy()
+            rt_base, rt_lo, rt_hi, rt_version = \
+                rt.base_ms, rt.lo_ms, rt.hi_ms, rt.version
+            row_of_raw, segments = dict(rt.row_of_raw), list(rt.segments)
         # crop to this stream's fetch bound and REBASE the origin there:
         # samples older than fetch_lo never contribute to this stream
         # again, and the crop bounds the bucket's columns at about the
         # window.  cutoff_rel may be negative (a cold tile's base is its
         # grid start, the lookback prefix sits below it): then nothing
         # drops and the rebase shifts every ts up
-        cutoff_rel = fetch_lo - rt.base_ms
+        cutoff_rel = fetch_lo - rt_base
         k = np.arange(ts_full.shape[1])[None, :]
         valid = k < counts[:, None]
         drop = ((ts_full < cutoff_rel) & valid).sum(axis=1).astype(np.int32)
@@ -462,14 +468,14 @@ class FleetPlane:
         m.group_keys = list(group_keys)
         m.gids = host_rows(groups.gids, S).astype(np.int32)
         m.base_ms = base_ms
-        m.lo_ms = max(rt.lo_ms, base_ms)
-        m.hi_ms = rt.hi_ms
-        m.version = rt.version
+        m.lo_ms = max(rt_lo, base_ms)
+        m.hi_ms = rt_hi
+        m.version = rt_version
         m.structural = rt.structural
         m.counts = counts.astype(np.int64)
-        m.row_of_raw = dict(rt.row_of_raw)
+        m.row_of_raw = row_of_raw
         m.segments = [(max(lo, base_ms), hi, nn)
-                      for lo, hi, nn in rt.segments if hi >= base_ms]
+                      for lo, hi, nn in segments if hi >= base_ms]
         key = (m.func, m.step, m.lookback, bucket_up(S),
                bucket_up(tile_capacity(n_need), 64), bucket_up(m.T),
                bucket_up(m.G))

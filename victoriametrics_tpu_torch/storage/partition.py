@@ -546,7 +546,7 @@ class Partition:
                 # true-internal-error class as a checksum mismatch: the
                 # anonymous 500/error frame is the contract (operator
                 # must inspect the partition, no client status helps)
-                listed = json.load(f)["parts"]
+                listed = json.load(f)["parts"]  # vmt: disable=VMT016
         for name in listed:
             p = os.path.join(self.path, name)
             try:

@@ -335,7 +335,8 @@ class MetricsRegistry:
                 out[f"{base}_sum{brace}{labels}"] = m.get_sum()
                 out[f"{base}_count{brace}{labels}"] = m.get_count()
             else:
-                out[name] = m.get()
+                # a metric's value read, not a queue's get
+                out[name] = m.get()  # vmt: disable=VMT012
         return out
 
     def write_prometheus(self, extra: dict | None = None,

@@ -18,7 +18,7 @@ Design constraints, in order:
   sequential loop.  ``VM_SEARCH_WORKERS=1`` disables the pool entirely
   (every ``run`` degenerates to an inline ``[fn() for fn in fns]``),
   restoring today's single-threaded execution exactly — the escape
-  hatch bisection relies on.
+  hatch the deterministic scheduler and bisection both rely on.
 - **No deadlocks under nesting.**  A task may itself call ``run`` (a
   cluster fanout task fetches from a local node whose table fans parts
   across the same pool).  Waiters therefore HELP: while its batch is
@@ -32,21 +32,24 @@ Design constraints, in order:
   (execute *happens-before* collect), and completion is signalled by
   one ``queue.Queue`` put (the final execute *happens-before* the
   waiter's wakeup).  No bare Events/Conditions anywhere on the seam.
+- **Deterministic-scheduler safety.**  A thread scheduled by
+  ``devtools.sched.DeterministicScheduler`` executes its batch INLINE:
+  pool workers are not turnstile participants, so handing them work
+  would reintroduce the wall-clock nondeterminism the scheduler exists
+  to remove (and a scheduled thread parked in ``done.get()`` would
+  stall the turnstile until ``step_timeout`` seizes it).
 
 Pool sizing: ``VM_SEARCH_WORKERS`` — unset/``0`` means ``cpu_count``,
 ``1`` disables parallelism, ``N>1`` pins the worker count.  The env var
-is re-read at every ``run``/``submit`` so tests can flip modes without
-restarting the process.
+is re-read at every ``run``/``submit`` so tests (and the deterministic
+scheduler harness) can flip modes without restarting the process.
 
 Self-metrics (the metrics registry): ``vm_workpool_tasks_total``,
 ``vm_workpool_queue_depth``, ``vm_workpool_workers``, and from the
 gate ``vm_search_concurrent_{current,limit}`` plus
 ``vm_search_requests_{queued,rejected}_total``.
 
-The port's copy of ``victoriametrics_tpu/utils/workpool.py``, whole but
-for the reference's deterministic scheduler (``devtools.sched``), which
-the port does not have: its inline-batch and spin-admission branches are
-left out.
+The port's copy of ``victoriametrics_tpu/utils/workpool.py``, whole.
 """
 
 from __future__ import annotations
@@ -149,6 +152,13 @@ def ingest_parallel_enabled() -> bool:
     return configured_shards() > 1 and POOL.parallel_enabled()
 
 
+def _sched_active() -> bool:
+    """True when the calling thread runs under the deterministic
+    scheduler (devtools.sched) — batches then execute inline."""
+    from ..devtools import racetrace
+    return getattr(racetrace._tls, "sched", None) is not None
+
+
 class _Batch:
     """One run()/submit() call's shared state: ordered result slots, a
     pending count, the first error, and a one-shot completion queue."""
@@ -196,7 +206,7 @@ class WorkPool:
 
     def parallel_enabled(self) -> bool:
         """True when run()/submit() would actually use worker threads."""
-        return self.workers() > 1
+        return self.workers() > 1 and not _sched_active()
 
     def _ensure_started(self, want: int) -> None:
         with self._lock:
@@ -318,7 +328,7 @@ class WorkPool:
         if n == 0:
             return []
         w = self.workers()
-        if n == 1 or w <= 1:
+        if n == 1 or w <= 1 or _sched_active():
             # inline degraded mode still EXECUTES the tasks: count them,
             # so vm_workpool_tasks_total means "tasks run through the
             # pool seam" on 1-core boxes too (was 0 there, which read as
@@ -340,7 +350,7 @@ class WorkPool:
         """Pipeline seam: run one task in the background (inline when
         the pool is disabled) and collect it later via Future.result()."""
         batch = _Batch(1)
-        if self.workers() <= 1:
+        if self.workers() <= 1 or _sched_active():
             _TASKS_TOTAL.inc()
             self._exec((fn, 0, batch, 0, None, None, None))
             return Future(self, batch)
@@ -487,6 +497,11 @@ class TenantGate:
     strict priority between classes, FIFO within one — and a waiter
     blocked only by its OWN tenant quota never holds back later waiters
     of other tenants (no head-of-line blocking across tenants).
+
+    Deterministic-scheduler safety: a thread running under
+    ``devtools.sched`` spins through the (traced) gate lock instead of
+    parking in a queue the turnstile cannot see, so the race-marked
+    stress replays deterministically.
 
     Self-metrics: the global ``vm_search_*`` family (unchanged names)
     plus per-tenant ``vm_tenant_search_requests_total``,
@@ -693,6 +708,20 @@ class TenantGate:
         """Wait for a grant until `deadline`; True = admitted.  On
         timeout the waiter deregisters itself — unless a grant raced
         the timeout, in which case the slot is kept."""
+        if _sched_active():
+            # deterministic-scheduler path: spin through the traced
+            # lock (each acquire is a turnstile point) instead of
+            # parking where the scheduler cannot see the dependency
+            while True:
+                with self._lock:
+                    if w.granted:
+                        return True
+                    self._grant_locked()
+                    if w.granted:
+                        return True
+                    if _time.monotonic() >= deadline:
+                        self._waiters.remove(w)
+                        return False
         while True:
             remaining = deadline - _time.monotonic()
             if remaining <= 0:
@@ -786,7 +815,8 @@ class MergeGate:
     a dashboard refresh is being served (the measured source of
     steady-state refresh-latency variance).  Bounded: merges always
     proceed after the budget, so ingest pressure cannot starve them;
-    counted by ``vm_merge_gate_yields_total``."""
+    counted by ``vm_merge_gate_yields_total``.  Skipped under the
+    deterministic scheduler (wall-clock waits would break replay)."""
 
     def __init__(self, limit: int | None = None):
         if limit is None:
@@ -823,7 +853,7 @@ class MergeGate:
             budget_ms = float(os.environ.get("VM_MERGE_YIELD_MS", "250"))
         except ValueError:
             budget_ms = 250.0
-        if budget_ms <= 0 or not serving_busy():
+        if budget_ms <= 0 or _sched_active() or not serving_busy():
             return
         self._yields.inc()
         t0 = _time.perf_counter()
